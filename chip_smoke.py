@@ -57,7 +57,23 @@ KERNELS = {
         source="vila_tpu_torch/csrc/decode_attn.cu + "
                "vila_tpu_torch/csrc/w4_gemv.cu",
         replaces="vila_tpu/ops/fused_decode.py:550 (_fused_layer_kernel)"),
+    "fused_o_gateup": dict(
+        route="cuda", source="vila_tpu_torch/csrc/w4_gemv.cu",
+        replaces="vila_tpu/ops/fused_decode.py:108 (_fused_o_gateup_kernel)"),
+    "fused_down_qkv": dict(
+        route="cuda", source="vila_tpu_torch/csrc/w4_gemv.cu",
+        replaces="vila_tpu/ops/fused_decode.py:212 (_fused_down_qkv_kernel)"),
+    "fused_layer_batched": dict(
+        route="cuda",
+        source="vila_tpu_torch/csrc/decode_attn.cu + "
+               "vila_tpu_torch/csrc/w4_gemv.cu",
+        replaces="vila_tpu/ops/fused_decode.py:1014 (_fused_layer_b_kernel)"),
 }
+# the kernels the serial (bs=1) path must launch
+E2E_KERNELS = ("w4_gemv", "w4_gemm", "fused_layer")
+# (max_batch, requests, new tokens) of each serve run: K6, then K4/K5
+SERVE_RUNS = ((8, 12, 32), (24, 24, 16))
+DEFAULT_PHASES = "build,kernels,e2e,serve,consistency,batched_consistency,http"
 
 
 def log(*a):
@@ -301,7 +317,7 @@ def phase_kernels(torch, seed, dev="cuda", dims=(3584, 18944, 128, 28, 4, 152064
         "down": (I, D, 5 << 20),
         "lm_head": (D, V, None),
     }
-    results = {"w4_gemv": [], "w4_gemm": [], "fused_layer": []}
+    results = {name: [] for name in KERNELS}
     slots = {}
     ok = True
     for name, (din, dout, budget) in shapes.items():
@@ -393,53 +409,187 @@ def phase_kernels(torch, seed, dev="cuda", dims=(3584, 18944, 128, 28, 4, 152064
         f"{err_q:.3e} (max {sc_q:.3e}) {'OK' if good else 'FAIL'}  kernel {t:.4f} ms  "
         f"plain {t_plain:.3f} ms  bound {b_ms:.4f} ms ({b_by})")
     if dev.type == "cuda":
-        results["fused_layer"][-1]["stages_ms"] = stages = _k3_stages(
+        results["fused_layer"][-1]["stages_ms"] = stages = _layer_stages(
             torch, quant, fused_decode, args, fill, flush)
         log("[kernels] fused_layer stages (ms): " + ", ".join(
             f"{k} {v:.4f}" for k, v in stages.items()))
+    layer_w = (w4_bytes(Hkv * 8 * hd, D) + w4_bytes(D, 2 * I) + w4_bytes(I, D)
+               + w4_bytes(D, (Hq + 2 * Hkv) * hd))
+    layer_macs = Hkv * 8 * hd * D + D * 2 * I + I * D + D * (Hq + 2 * Hkv) * hd
+    ok &= _check_k6(torch, quant, fused_decode, results, slots, qkv_slot, gpost, gin,
+                    gen, flush, dims, S, layer_w, layer_macs)
+    ok &= _check_k4_k5(torch, quant, fused_decode, results, slots, qkv_slot, gpost,
+                       gin, gen, flush, dims)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "kernels.json"), "w") as f:
         json.dump(results, f, indent=1)
     return ok, results
 
 
-def _k3_stages(torch, quant, fused_decode, args, fill, flush):
-    """Each of K3's five launches timed on its own (same inputs)."""
+def _check_k6(torch, quant, fused_decode, results, slots, qkv_slot, gpost, gin, gen,
+              flush, dims, S, layer_w, layer_macs, batches=(8, 16)):
+    """K6 at B = 8 and 16: staggered cursors in an S-row cache, one row at
+    S - 1 and one idle slot whose cursor lies past S (clamped)."""
+    D, I, hd, Hq, Hkv, V = dims
+    dev, bf16 = gpost.device, torch.bfloat16
+    kv_ld = Hkv * hd
+    ok = True
+    for B in batches:
+        fills = torch.randint(0, S - 1, (B,), generator=gen, device=dev).tolist()
+        fills[1], fills[2] = S - 1, S + 40  # full row; idle slot past the cache
+        kc = (0.5 * torch.randn((2, B, S, kv_ld), generator=gen, device=dev)).to(bf16)
+        vc = torch.randn((2, B, S, kv_ld), generator=gen, device=dev).to(bf16)
+        live = torch.tensor([min(f + 1, S) for f in fills], device=dev)
+        mask = torch.where(torch.arange(S, device=dev)[None] < live[:, None], 0.0, -1e30)
+        q32 = hd ** -0.5 * torch.randn((B, Hkv, 8, hd), generator=gen, device=dev)
+        q32[:, :, Hq // Hkv:] = 0.0
+        q32 = q32.reshape(B, Hkv * 8, hd).to(bf16)
+        h = torch.randn((B, D), generator=gen, device=dev).to(bf16)
+        args = (q32, mask.float(), h, 0, kc, vc, slots["o"], slots["gate_up"],
+                slots["down"], qkv_slot, gpost, gin)
+        kw = dict(hkv=Hkv, hd=hd, eps=1e-6, fill=fills, num_q_heads=Hq)
+        fn = lambda: fused_decode.fused_layer_batched(*args, **kw)  # noqa: E731
+        ref = lambda: fused_decode._fused_layer_batched_ref(*args, **kw)  # noqa: E731
+        (h_k, qkv_k), (h_r, qkv_r) = fn(), ref()
+        torch.cuda.synchronize()
+        err_h, sc_h = rel_err(torch, h_k, h_r)
+        err_q, sc_q = rel_err(torch, qkv_k, qkv_r)
+        good = (err_h <= 2e-2 * sc_h and err_q <= 2e-2 * sc_q
+                and bool(torch.isfinite(qkv_k.float()).all()))
+        ok &= good
+        t = time_ms(torch, fn, 30, flush)
+        t_plain = time_ms(torch, ref, 5, flush)
+        n_live = int(live.sum())
+        byts = (layer_w + 2 * n_live * kv_ld * 2 + n_live * 4 + q32.numel() * 2
+                + 2 * B * D * 2 + B * (Hq + 2 * Hkv) * hd * 2 + 3 * D * 2)
+        ops = 2 * 2 * B * layer_macs + 4 * n_live * Hq * hd
+        b_ms, b_by = bound(byts, ops, INT8_OPS)
+        results["fused_layer_batched"].append(dict(
+            shape=f"decode layer, B={B}, cache {S}, live rows {n_live}", m=B,
+            max_abs_err=max(err_h, err_q),
+            tol=f"2e-2 x max|ref| (h {2e-2 * sc_h:.3e}, qkv {2e-2 * sc_q:.3e})",
+            ok=good, ms=t, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
+        log(f"[kernels] fused_layer_batched B={B} h err {err_h:.3e} (max {sc_h:.3e}) "
+            f"qkv err {err_q:.3e} (max {sc_q:.3e}) {'OK' if good else 'FAIL'}  kernel "
+            f"{t:.4f} ms  plain {t_plain:.3f} ms  bound {b_ms:.4f} ms ({b_by})")
+        if dev.type == "cuda":
+            results["fused_layer_batched"][-1]["stages_ms"] = stages = _layer_stages(
+                torch, quant, fused_decode, args, fills, flush)
+            log(f"[kernels] fused_layer_batched B={B} stages (ms): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in stages.items()))
+    return ok
+
+
+def _check_k4_k5(torch, quant, fused_decode, results, slots, qkv_slot, gpost, gin,
+                 gen, flush, dims, rows=(24, 32)):
+    """K4 then K5 at M = 24 and 32 (the two-kernel route's 17..32); K5 is
+    fed K4's kernel outputs on both sides, so each is held on its own."""
+    D, I, hd, Hq, Hkv, V = dims
+    dev, bf16 = gpost.device, torch.bfloat16
+    o, gu, down = slots["o"], slots["gate_up"], slots["down"]
+    deq = lambda slot, l: quant.dequantize(  # noqa: E731
+        {"packed": slot["packed"][l], "scales": slot["scales"][l]})
+    ok = True
+    for m in rows:
+        attn = torch.randn((m, Hkv, 8, hd), generator=gen, device=dev)
+        attn[:, :, Hq // Hkv:] = 0.0
+        attn = attn.reshape(m, -1).to(bf16)
+        h = torch.randn((m, D), generator=gen, device=dev).to(bf16)
+        k4 = lambda: fused_decode.fused_o_gateup(attn, h, 0, o, gu, gpost)  # noqa: E731
+        k4_ref = lambda: fused_decode._fused_o_gateup_ref(attn, h, 0, o, gu, gpost)  # noqa: E731
+        (h1, g1), (h1_r, g1_r) = k4(), k4_ref()
+        k5 = lambda: fused_decode.fused_down_qkv(g1, h1, 0, down, qkv_slot, gin)  # noqa: E731
+        k5_ref = lambda: fused_decode._fused_down_qkv_ref(  # noqa: E731
+            g1, h1, 0, down, qkv_slot, gin)
+        (h2, q2), (h2_r, q2_r) = k5(), k5_ref()
+        torch.cuda.synchronize()
+        x1 = torch.randn((m, D), generator=gen, device=dev).to(bf16)
+        x2 = torch.randn((m, I), generator=gen, device=dev).to(bf16)
+        cases = {
+            "fused_o_gateup": ((h1, h1_r), (g1, g1_r), k4, k4_ref,
+                               lambda: (attn @ deq(o, 0), x1 @ deq(gu, 0)),
+                               ((Hkv * 8 * hd, D), (D, 2 * I))),
+            "fused_down_qkv": ((h2, h2_r), (q2, q2_r), k5, k5_ref,
+                               lambda: (x2 @ deq(down, 0), x1 @ deq(qkv_slot, 1)),
+                               ((I, D), (D, (Hq + 2 * Hkv) * hd))),
+        }
+        for name, (ha, oa, fn, ref, lib, mats) in cases.items():
+            err_h, sc_h = rel_err(torch, *ha)
+            err_o, sc_o = rel_err(torch, *oa)
+            good = (err_h <= 1e-2 * sc_h and err_o <= 1e-2 * sc_o
+                    and bool(torch.isfinite(oa[0].float()).all()))
+            ok &= good
+            t = time_ms(torch, fn, 30, flush)
+            t_plain = time_ms(torch, ref, 5, flush)
+            t_lib = time_ms(torch, lib, 5, flush)
+            byts = sum(w4_bytes(a, b) + m * a * 2 + m * b * 2 for a, b in mats) + 3 * m * D * 2
+            b_ms, b_by = bound(byts, sum(4 * m * a * b for a, b in mats), INT8_OPS)
+            results[name].append(dict(
+                shape="o + gate_up" if name == "fused_o_gateup" else "down + qkv", m=m, max_abs_err=max(err_h, err_o),
+                tol=f"1e-2 x max|ref| (h {1e-2 * sc_h:.3e}, out {1e-2 * sc_o:.3e})",
+                ok=good, ms=t, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=t_lib))
+            log(f"[kernels] {name} M={m} h err {err_h:.3e} (max {sc_h:.3e}) out err "
+                f"{err_o:.3e} (max {sc_o:.3e}) {'OK' if good else 'FAIL'}  kernel "
+                f"{t:.4f} ms  plain {t_plain:.3f} ms  dequant+matmul {t_lib:.3f} ms  "
+                f"bound {b_ms:.4f} ms ({b_by})")
+    return ok
+
+
+def _layer_stages(torch, quant, fused_decode, args, fill, flush):
+    """Each of K3's or K6's five launches timed on its own (same inputs):
+    K6 when q32 holds a batch (B, Hkv*8, hd) and `fill` one cursor per row."""
     q32, mask, h, _, kc, vc, o, gu, down, qkv, gpost, gin = args
     dev, bf16 = q32.device, torch.bfloat16
     hkv, hd = kc.shape[-1] // 128, 128
+    batched = q32.ndim == 3
+    m = q32.shape[0] if batched else 1
+    rows = h if batched else h[0:1]
     d = h.shape[1]
     e = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
-    x_att, h32, h32b = e((1, q32.numel()), bf16), e((1, d), torch.float32), e((1, d), torch.float32)
-    g_out, q_out = e((1, fused_decode._dout(gu)), bf16), e((1, fused_decode._dout(qkv)), bf16)
-    h_new = e((1, d), bf16)
+    x_att, h32, h32b = e((m, q32.numel() // m), bf16), e((m, d), torch.float32), e((m, d), torch.float32)
+    g_out, q_out = e((m, fused_decode._dout(gu)), bf16), e((m, fused_decode._dout(qkv)), bf16)
+    h_new = e((m, d), bf16)
+    if batched:
+        live = fused_decode._live_rows(fill, m, kc.shape[2])
+        attention = lambda: fused_decode._launch_attn_batched(  # noqa: E731
+            q32, kc, vc, mask, 0, live, hkv, hd, 7, x_att)
+    else:
+        attention = lambda: fused_decode._launch_attn(  # noqa: E731
+            q32, kc, vc, mask, 0, fill + 1, hkv, hd, 7, x_att)
     stages = {
-        "attention": lambda: fused_decode._launch_attn(
-            q32, kc, vc, mask, 0, fill + 1, hkv, hd, 7, x_att),
-        "o": lambda: quant.launch_gemv(x_att, o["packed"], o["scales"], 0, m=1,
-                                       res_bf16=h[0:1], out_f32=h32),
+        "attention": attention,
+        "o": lambda: quant.launch_gemv(x_att, o["packed"], o["scales"], 0, m=m,
+                                       res_bf16=rows, out_f32=h32),
         "gate_up": lambda: quant.launch_gemv(
-            h32, gu["packed"], gu["scales"], 0, m=1, prologue=quant.PRO_RMS,
+            h32, gu["packed"], gu["scales"], 0, m=m, prologue=quant.PRO_RMS,
             gamma=gpost[0].to(bf16), eps=1e-6, out_bf16=g_out),
         "down": lambda: quant.launch_gemv(
-            g_out, down["packed"], down["scales"], 0, m=1, prologue=quant.PRO_SILU,
+            g_out, down["packed"], down["scales"], 0, m=m, prologue=quant.PRO_SILU,
             res_f32=h32, out_f32=h32b, out_bf16=h_new),
         "qkv": lambda: quant.launch_gemv(
-            h32b, qkv["packed"], qkv["scales"], 1, m=1, prologue=quant.PRO_RMS,
+            h32b, qkv["packed"], qkv["scales"], 1, m=m, prologue=quant.PRO_RMS,
             gamma=gin[1].to(bf16), eps=1e-6, bias=qkv["bias"][1].to(bf16), out_bf16=q_out),
     }
     return {k: time_ms(torch, f, 30, flush) for k, f in stages.items()}
 
 
 def summarise(results, launches):
-    """One entry per kernel. K1 and K2 are summed over the calls the main
-    path makes per unit of work (K1: one decode step's layer-0 qkv and
-    lm_head at M=1; K2: one prefill layer's four projections at M=320);
-    K3 is one decode layer."""
+    """One entry per kernel, summed over the calls the main paths make per
+    unit of work: K1 one bs=1 decode step's layer-0 qkv and lm_head at M=1;
+    K2 one prefill layer's four projections at M=320; K3 one bs=1 decode
+    layer; K6 one decode layer at B=8 (the max_batch=8 server); K4 and K5
+    one layer's pair of GEMVs at M=24 (the max_batch=24 server).
+    `launches` maps each path run to its counts; a kernel's `launches` is
+    its sum over those runs."""
     picks = {
         "w4_gemv": lambda r: r["m"] == 1 and r["shape"] in ("qkv", "lm_head"),
         "w4_gemm": lambda r: r["m"] > 32,
         "fused_layer": lambda r: True,
+        "fused_o_gateup": lambda r: r["m"] == 24,
+        "fused_down_qkv": lambda r: r["m"] == 24,
+        "fused_layer_batched": lambda r: r["m"] == 8,
     }
     out = []
     for name, meta in KERNELS.items():
@@ -448,7 +598,9 @@ def summarise(results, launches):
             continue
         lib = [r["library_ms"] for r in rows]
         out.append(dict(
-            name=name, **meta, launches=launches.get(name, 0),
+            name=name, **meta,
+            launches=sum(c.get(name, 0) for c in launches.values()),
+            launches_by_path={path: c.get(name, 0) for path, c in launches.items()},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=sum(r["ms"] for r in rows),
             plain_ms=sum(r["plain_ms"] for r in rows),
@@ -461,30 +613,37 @@ def summarise(results, launches):
     return out
 
 
-def phase_e2e(torch, seed, layers, n_requests=3, new_tokens=32, device="cuda"):
+QUESTIONS = ["Describe the image in detail.", "What is in the picture?",
+             "How many objects are there?", "What colour dominates?"]
+
+
+def _images(seed, n):
     import numpy as np
 
-    from vila_tpu_torch.inference.generate import GenerationConfig, GenerationEngine
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (448, 448, 3), dtype=np.uint8) for _ in range(n)]
+
+
+def _no_launches():
     from vila_tpu_torch.ops import _build
 
-    cfg = nvila_8b_config(layers)
-    t0 = time.time()
-    params = synth_params(torch, cfg, seed, device)
-    torch.cuda.synchronize()
-    log(f"[e2e] NVILA-8B shape, {layers} LLM layers: weights synthesised in "
-        f"{time.time() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    tok = ByteTokenizer()
-    engine = GenerationEngine(params, cfg, tok, device=device)
-    rng = np.random.default_rng(seed)
-    images = [rng.integers(0, 256, (448, 448, 3), dtype=np.uint8) for _ in range(n_requests + 1)]
-    questions = ["Describe the image in detail.", "What is in the picture?",
-                 "How many objects are there?", "What colour dominates?"]
+    return {name: 0 for name in _build.LAUNCHES}
+
+
+def phase_e2e(torch, engine, seed, n_requests=3, new_tokens=32):
+    """The serial engine (bs=1: K2 prefill, K3 + K1 decode)."""
+    from vila_tpu_torch.inference.generate import GenerationConfig
+    from vila_tpu_torch.ops import _build
+
+    cfg, tok = engine.cfg, engine.tokenizer
+    layers = cfg.llm.num_hidden_layers
+    images = _images(seed, n_requests + 1)
     # no stop token: every request decodes exactly `new_tokens`
     gc = GenerationConfig(max_new_tokens=new_tokens, stop_token_ids=(-1,))
 
     def serve(i):
         t_start = time.perf_counter()
-        inputs = engine.prepare_inputs([images[i], questions[i]])
+        inputs = engine.prepare_inputs([images[i], QUESTIONS[i % len(QUESTIONS)]])
         ids, times = [], []
         for chunk in engine.stream_ids(inputs, gc):
             ids.extend(chunk)
@@ -509,27 +668,102 @@ def phase_e2e(torch, seed, layers, n_requests=3, new_tokens=32, device="cuda"):
             return False, reqs, dict(_build.LAUNCHES)
     launches = dict(_build.LAUNCHES)
     steps = sum(r["new_tokens"] - 1 for r in reqs)
-    want = {"w4_gemv": n_requests + 2 * steps, "w4_gemm": 4 * layers * n_requests,
-            "fused_layer": layers * steps}
+    # the bs=1 path launches none of the batched kernels (K4-K6)
+    want = dict(_no_launches(), w4_gemv=n_requests + 2 * steps,
+                w4_gemm=4 * layers * n_requests, fused_layer=layers * steps)
     log(f"[e2e] launches {launches}, expected {want}")
-    ok = all(launches[k] > 0 for k in KERNELS) and launches == want
+    ok = all(launches[k] > 0 for k in E2E_KERNELS) and launches == want
     return ok, reqs, launches
 
 
-def phase_consistency(torch, seed, layers=4, steps=8, device="cuda"):
+def phase_serve(torch, engine, seed, max_batch, n_requests, new_tokens, max_len=2048):
+    """`n_requests` image+question requests submitted at once to a
+    `ContinuousBatcher` with `max_batch` slots, greedy, `new_tokens` each
+    (no stop token). Every decode step runs the batched route for
+    max_batch rows: K6 for max_batch <= 16, K4/K5 above; the launches are
+    held exactly against the batcher's step count."""
+    import concurrent.futures as cf
+
+    from vila_tpu_torch.inference.generate import GenerationConfig
+    from vila_tpu_torch.ops import _build
+    from vila_tpu_torch.serving.batcher import ContinuousBatcher
+
+    cfg, tok = engine.cfg, engine.tokenizer
+    layers = cfg.llm.num_hidden_layers
+    tag = f"serve b{max_batch}"
+    images = _images(seed + max_batch, n_requests)
+    gc = GenerationConfig(max_new_tokens=new_tokens, stop_token_ids=(-1,))
+    batcher = ContinuousBatcher(engine, max_batch=max_batch, max_len=max_len)
+    try:
+        # warm-up request: the first batched step's allocations
+        batcher.generate_content([images[0], QUESTIONS[0]],
+                                 GenerationConfig(max_new_tokens=3, stop_token_ids=(-1,)))
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        steps0 = batcher.steps
+
+        def one(i):
+            t_submit = time.perf_counter()
+            ids, times = [], []
+            for chunk in batcher.stream_ids([images[i], QUESTIONS[i % len(QUESTIONS)]], gc):
+                ids.extend(chunk)
+                times.append(time.perf_counter())
+            return ids, t_submit, times
+
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(n_requests) as ex:
+            done = [f.result(timeout=600) for f in
+                    [ex.submit(one, i) for i in range(n_requests)]]
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        steps = batcher.steps - steps0
+        step_s = list(batcher.step_seconds)[-steps:] if steps else []
+    finally:
+        batcher.shutdown()
+    reqs = []
+    ok = True
+    for i, (ids, t_submit, times) in enumerate(done):
+        ttft = (times[0] - t_submit) * 1e3
+        dec = (len(ids) - 1) / (times[-1] - times[0])
+        reqs.append(dict(new_tokens=len(ids), ttft_ms=ttft, decode_tok_s=dec))
+        good = len(ids) == new_tokens and all(0 <= t < cfg.llm.vocab_size for t in ids)
+        ok &= good
+        log(f"[{tag}] request {i}: TTFT {ttft:.1f} ms, decode {dec:.1f} tok/s, "
+            f"{len(ids)} tokens{'' if good else ' FAIL'}")
+    total = sum(len(d[0]) for d in done)
+    route = ({"fused_layer_batched": layers * steps} if max_batch <= 16 else
+             {"fused_o_gateup": layers * steps, "fused_down_qkv": layers * steps})
+    want = dict(_no_launches(), w4_gemv=2 * steps + n_requests,
+                w4_gemm=4 * layers * n_requests, **route)
+    ok &= steps > 0 and launches == want
+    step_ms = sorted(1e3 * t for t in step_s)
+    summary = dict(
+        max_batch=max_batch, requests=n_requests, new_tokens=new_tokens, steps=steps,
+        wall_s=wall, aggregate_tok_s=total / wall, requests_detail=reqs,
+        ttft_ms_median=statistics.median(r["ttft_ms"] for r in reqs),
+        decode_tok_s_median=statistics.median(r["decode_tok_s"] for r in reqs),
+        step_ms_median=statistics.median(step_ms), step_ms_min=step_ms[0],
+    )
+    log(f"[{tag}] {n_requests} requests x {new_tokens} tokens on {max_batch} slots: "
+        f"{steps} steps in {wall:.2f} s, aggregate {total / wall:.1f} tok/s, TTFT "
+        f"median {summary['ttft_ms_median']:.1f} ms, decode median "
+        f"{summary['decode_tok_s_median']:.1f} tok/s per request, step wall median "
+        f"{summary['step_ms_median']:.2f} ms (min {step_ms[0]:.2f})")
+    log(f"[{tag}] launches {launches}, expected {want} -> {'OK' if ok else 'FAIL'}")
+    return ok, summary, launches
+
+
+def phase_consistency(torch, engine, llm_cpu, seed, steps=8):
     """Kernel decode path (K2 prefill, K3 + K1 decode) against a cache-free
     forward over prefix + generated tokens through the plain versions
     (CPU)."""
     import numpy as np
 
-    from vila_tpu_torch.inference.generate import GenerationEngine
     from vila_tpu_torch.models import qwen2, vlm
-    from vila_tpu_torch.utils.weights import to_torch_tree
 
-    cfg = nvila_8b_config(layers)
-    params = synth_params(torch, cfg, seed + 1, device)
-    tok = ByteTokenizer()
-    engine = GenerationEngine(params, cfg, tok, device=device)
+    device = engine.device
+    params, cfg = engine.params, engine.cfg
+    layers = cfg.llm.num_hidden_layers
     image = np.random.default_rng(seed + 1).integers(0, 256, (448, 448, 3), dtype=np.uint8)
     inputs = engine.prepare_inputs([image, "Describe the image."])
     llm, lcfg = params["llm"], cfg.llm
@@ -550,7 +784,6 @@ def phase_consistency(torch, seed, layers=4, steps=8, device="cuda"):
         step_logits.append(logits[0, -1].float())
     got = torch.stack(step_logits).cpu()
 
-    llm_cpu = to_torch_tree(llm, torch.device("cpu"))
     full = torch.cat([embeds.cpu(), qwen2.embed_tokens(
         llm_cpu, lcfg, torch.tensor([toks]))], dim=1)
     t0 = time.time()
@@ -570,20 +803,156 @@ def phase_consistency(torch, seed, layers=4, steps=8, device="cuda"):
                     tol_rel=tol, argmax_agree=agree, steps=steps + 1)
 
 
-def phase_profile(torch, seed, layers, new_tokens=17):
+def phase_batched_consistency(torch, engine, llm_cpu, seed, steps=8,
+                              batches=((3, ("fused_layer_batched",)),
+                                       (20, ("fused_o_gateup", "fused_down_qkv")))):
+    """The batched decode routes against the plain cache-free forward of
+    each row on the CPU: B = 3 rows through K6 and B = 20 through K4/K5,
+    each row a text prompt of its own length, prefilled (K2) into a bs=1
+    cache and copied into its batch slot by the batcher's own insert, then
+    `steps` greedy steps with per-row cursors. All rows of both batches
+    run through one packed plain forward (one segment per row)."""
+    from vila_tpu_torch.models import qwen2
+    from vila_tpu_torch.ops import _build
+    from vila_tpu_torch.serving.batcher import ContinuousBatcher
+
+    device, cfg = engine.device, engine.cfg
+    llm, lcfg = engine.params["llm"], cfg.llm
+    layers = lcfg.num_hidden_layers
+    rows, got, ok = [], [], True
+    for B, route in batches:
+        batcher = ContinuousBatcher(engine, max_batch=B, max_len=512)  # never started
+        first, n = [], []
+        for i in range(B):
+            inputs = engine.prepare_inputs(f"Row {i} of {B}: " + "more " * (1 + i))
+            prompt = [int(t) for t in inputs["input_ids"]]
+            _, cache1, tok, plen = batcher._prepare(_greedy_request(inputs))
+            batcher._insert(i, cache1)
+            first.append(tok)
+            n.append(plen)
+            rows.append(prompt)
+        del cache1
+        cache = batcher.cache
+        toks = torch.tensor(first, device=device)
+        pos = torch.tensor(n, dtype=torch.int32, device=device)
+        fed = [toks]
+        out = []
+        _build.reset_launches()
+        for j in range(steps):
+            logits, cache = qwen2.forward(llm, lcfg, input_ids=toks[:, None],
+                                          positions=(pos + j)[:, None], cache=cache)
+            out.append(logits[:, 0].float())
+            toks = logits[:, 0].argmax(-1)
+            fed.append(toks)
+        launches = dict(_build.LAUNCHES)
+        want = dict(_no_launches(), w4_gemv=2 * steps,
+                    **{k: layers * steps for k in route})
+        ok &= launches == want
+        log(f"[batched consistency] B={B}: launches {launches}, expected {want}")
+        fed = torch.stack(fed, 1).cpu()  # (B, steps + 1): first token + each step's
+        for i in range(B):
+            rows[-B + i] = rows[-B + i] + fed[i, :steps].tolist()
+        got.append((B, torch.stack(out, 1).cpu(), fed))
+        del batcher, cache
+
+    # one packed plain forward over every row: prompt + tokens fed
+    lens = [len(r) for r in rows]
+    ids = torch.tensor([[t for r in rows for t in r]])
+    seg = torch.tensor([[i + 1 for i, r in enumerate(rows) for _ in r]])
+    positions = torch.tensor([[p for ln in lens for p in range(ln)]], dtype=torch.int32)
+    t0 = time.time()
+    h, _ = qwen2.forward(llm_cpu, lcfg, input_ids=ids, positions=positions,
+                         segment_ids=seg, return_hidden=True)
+    ends = torch.tensor(lens).cumsum(0)
+    # logits after each fed token: positions len - steps .. len - 1 of a row
+    at = torch.cat([torch.arange(e - steps, e) for e in ends.tolist()])
+    want_all = qwen2.compute_logits(llm_cpu, lcfg, h[:, at])[0].float()
+    cpu_s = time.time() - t0
+    tol = 5e-2
+    summary = {}
+    r0 = 0
+    for B, got_b, fed in got:
+        want = want_all[r0 * steps:(r0 + B) * steps].reshape(B, steps, -1)
+        r0 += B
+        err = (got_b - want).abs().amax(-1)
+        scale = want.abs().amax(-1)
+        agree = int((got_b.argmax(-1) == want.argmax(-1)).sum())
+        good = bool(torch.isfinite(got_b).all()) and bool((err <= tol * scale).all())
+        ok &= good
+        summary[f"B{B}"] = dict(max_abs_err=float(err.max()), max_logit=float(scale.max()),
+                                tol_rel=tol, argmax_agree=agree, compared=B * steps)
+        log(f"[batched consistency] B={B}, {layers} layers, {steps} steps: max |dlogit| "
+            f"{float(err.max()):.4f}, max |logit| {float(scale.max()):.3f}, tolerance "
+            f"{tol} x max|logit|; argmax agrees on {agree}/{B * steps} "
+            f"-> {'OK' if good else 'FAIL'}")
+    log(f"[batched consistency] plain packed forward of {sum(lens)} tokens: "
+        f"{cpu_s:.1f} s on the CPU")
+    return ok, summary
+
+
+def _greedy_request(inputs):
+    """A greedy batcher request for `_prepare`, outside the scheduler."""
+    import queue
+
+    from vila_tpu_torch.inference.generate import GenerationConfig
+    from vila_tpu_torch.serving.batcher import _Request
+
+    return _Request(inputs=inputs, gen=GenerationConfig(max_new_tokens=1),
+                    out=queue.Queue(), stop_ids=frozenset())
+
+
+def phase_http(torch, engine, n_requests=4, new_tokens=16):
+    """The OpenAI-compatible server on 127.0.0.1 (a free port) over a
+    max_batch=8 batcher: `n_requests` concurrent text requests through the
+    port's client, one of them streamed (the client raises unless the
+    stream ends with [DONE]); each reply must be the batcher's own greedy
+    answer to the same prompt."""
+    import concurrent.futures as cf
+    import threading
+
+    from vila_tpu_torch.serving import client, server
+    from vila_tpu_torch.serving.batcher import ContinuousBatcher
+
+    prompts = [f"Say something about the number {i}." for i in range(n_requests)]
+    batcher = ContinuousBatcher(engine, max_batch=8, max_len=2048)
+    httpd = server.make_server(batcher, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        gc = server._gen_config({"max_tokens": new_tokens, "temperature": 0})
+        direct = [batcher.generate_content(server.parse_messages(
+            client.build_messages(p)), gc) for p in prompts]
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(n_requests) as ex:
+            futs = [ex.submit(lambda i: "".join(client.chat(
+                url, client.build_messages(prompts[i]), max_tokens=new_tokens,
+                temperature=0.0, stream=i == 0, timeout=300)), i)
+                for i in range(n_requests)]
+            got = [f.result(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.shutdown()
+        thread.join(timeout=30)
+    ok = [g.strip() == d for g, d in zip(got, direct)]
+    log(f"[http] {n_requests} concurrent requests (request 0 streamed) in "
+        f"{wall:.2f} s: replies equal the batcher's own greedy answers: {ok}; "
+        f"first reply {got[0][:40]!r}")
+    return all(ok) and not thread.is_alive(), dict(wall_s=wall, equal=ok)
+
+
+def phase_profile(torch, engine, seed, new_tokens=17):
     """Trace one request's decode with torch.profiler: device busy time per
     decode step against the host clock (the device's idle share), and the
     kernels by device time (table in chiprun_out/profile.txt)."""
-    import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
-    from vila_tpu_torch.inference.generate import GenerationConfig, GenerationEngine
+    from vila_tpu_torch.inference.generate import GenerationConfig
 
-    cfg = nvila_8b_config(layers)
-    engine = GenerationEngine(synth_params(torch, cfg, seed, "cuda"), cfg,
-                              ByteTokenizer(), device="cuda")
-    image = np.random.default_rng(seed).integers(0, 256, (448, 448, 3), dtype=np.uint8)
-    inputs = engine.prepare_inputs([image, "Describe the image."])
+    layers = engine.cfg.llm.num_hidden_layers
+    inputs = engine.prepare_inputs([_images(seed, 1)[0], "Describe the image."])
 
     def run(n):
         gc = GenerationConfig(max_new_tokens=n, stop_token_ids=(-1,))
@@ -622,8 +991,9 @@ def nvidia_smi_line():
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,e2e,consistency")
-    ap.add_argument("--layers", type=int, default=28, help="LLM depth for e2e")
+    ap.add_argument("--phases", default=DEFAULT_PHASES)
+    ap.add_argument("--layers", type=int, default=28,
+                    help="LLM depth for e2e, serve, http and profile")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -651,22 +1021,63 @@ def main(argv=None) -> int:
     ok = True
     report = {}
     results = {}
-    launches = {}
+    launches = {}  # path run -> launch counts
+    engines = {}
     t_all = time.time()
+
+    def engine(layers, seed):
+        """The engine over weights synthesised on the card, made once per
+        (depth, seed) and shared by the phases."""
+        if (layers, seed) not in engines:
+            from vila_tpu_torch.inference.generate import GenerationEngine
+
+            cfg = nvila_8b_config(layers)
+            t0 = time.time()
+            params = synth_params(torch, cfg, seed, "cuda")
+            torch.cuda.synchronize()
+            log(f"[weights] NVILA-8B shape, {layers} LLM layers: synthesised in "
+                f"{time.time() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} "
+                f"GiB on the card")
+            engines[(layers, seed)] = GenerationEngine(params, cfg, ByteTokenizer(),
+                                                       device="cuda")
+        return engines[(layers, seed)]
+
+    def llm_cpu():
+        if "cpu" not in engines:
+            from vila_tpu_torch.utils.weights import to_torch_tree
+
+            engines["cpu"] = to_torch_tree(engine(4, args.seed + 1).params["llm"],
+                                           torch.device("cpu"))
+        return engines["cpu"]
+
     if "build" in phases:
         report["build_s"] = phase_build()
     if "kernels" in phases:
         good, results = phase_kernels(torch, args.seed)
         ok &= good
     if "e2e" in phases:
-        good, reqs, launches = phase_e2e(torch, args.seed, args.layers)
-        report["requests"] = reqs
+        good, report["requests"], launches["e2e"] = phase_e2e(
+            torch, engine(args.layers, args.seed), args.seed)
         ok &= good
+    if "serve" in phases:
+        for max_batch, n_req, new_tokens in SERVE_RUNS:
+            good, report[f"serve_b{max_batch}"], launches[f"serve b{max_batch}"] = \
+                phase_serve(torch, engine(args.layers, args.seed), args.seed,
+                            max_batch, n_req, new_tokens)
+            ok &= good
     if "consistency" in phases:
-        good, report["consistency"] = phase_consistency(torch, args.seed)
+        good, report["consistency"] = phase_consistency(
+            torch, engine(4, args.seed + 1), llm_cpu(), args.seed)
+        ok &= good
+    if "batched_consistency" in phases:
+        good, report["batched_consistency"] = phase_batched_consistency(
+            torch, engine(4, args.seed + 1), llm_cpu(), args.seed)
+        ok &= good
+    if "http" in phases:
+        good, report["http"] = phase_http(torch, engine(args.layers, args.seed))
         ok &= good
     if "profile" in phases:  # not in the default run
-        report["profile"] = phase_profile(torch, args.seed, args.layers)
+        report["profile"] = phase_profile(torch, engine(args.layers, args.seed), args.seed)
     report["seconds"] = time.time() - t_all
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_report.json"), "w") as f:

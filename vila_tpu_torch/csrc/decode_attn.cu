@@ -1,24 +1,30 @@
 // Single-token GQA attention over the live prefix of a flat KV cache, for
-// Hopper (sm_90a): stage 1 of the port of the TPU decode megakernel
-// vila_tpu/ops/fused_decode.py:_fused_layer_kernel (attention part, with
-// its live-block KV skipping). The megakernel's other four stages are the
-// W4 GEMV variants of w4_gemv.cu.
+// Hopper (sm_90a): stage 1 of the ports of the TPU decode megakernels
+// vila_tpu/ops/fused_decode.py:_fused_layer_kernel (bs=1, entry
+// `decode_attn`) and :_fused_layer_b_kernel (1 < B <= 16, entry
+// `decode_attn_batched`), attention part with their live-block KV
+// skipping. The megakernels' other four stages are the W4 GEMV variants of
+// w4_gemv.cu.
 //
 // q arrives rope'd, pre-scaled by head_dim**-0.5 and group-padded to
-// (Hkv * P, hd); pad heads (p >= G) write zeros, matching the zero rows of
-// the GQA-padded o_proj (quant.pad_o_heads). Only rows [0, n_rows) of the
-// (S, Hkv*hd) cache layer are read (n_rows = fill + 1, as the TPU kernel
-// streams only the live blocks); the additive f32 mask is added to the
-// scores and the softmax and the PV sum run in f32.
+// (B, Hkv * P, hd); pad heads (p >= G) write zeros, matching the zero rows
+// of the GQA-padded o_proj (quant.pad_o_heads). Row b reads only rows
+// [0, n_rows[b]) of its (S, Hkv*hd) cache slab (n_rows = fill + 1 clamped
+// to S, as the TPU kernels stream only the live blocks); the additive f32
+// mask row is added to the scores and the softmax and the PV sum run in
+// f32.
 //
 // Bound on this card: bytes (2 * n_rows * Hkv * hd * 2 bytes of live KV per
-// layer, a few flops per byte). Design (split over the sequence, as
-// flash-decoding): block (g, s) takes kv head g and rows [32 s, 32 s + 32),
-// reads each K and V row once for all G query heads of the group (q held in
-// registers), and writes a partial (max, sum, PV) per head to a workspace;
-// the last block of a kv head to finish (an arrival counter) merges the
-// partials in split order, so the result is deterministic. At fill 1300
-// that is 41 x 4 blocks where one block per head walked all rows.
+// row and layer, a few flops per byte). Design (split over the sequence, as
+// flash-decoding): block (g, s, b) takes kv head g of batch row b and cache
+// rows [32 s, 32 s + 32), reads each K and V row once for all G query heads
+// of the group (q held in registers), and writes a partial (max, sum, PV)
+// per head to a workspace; the last block of a (row, kv head) to finish (an
+// arrival counter) merges the partials in split order, so the result is
+// deterministic. The grid is sized by the longest row: a block whose split
+// lies past its own row's live prefix returns at once, writing no partial
+// and taking no part in that row's arrival count. At fill 1300 that is
+// 41 x 4 blocks per row where one block per head walked all rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,20 +41,32 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask,
     __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
-    int* __restrict__ counters, int n_rows, int grp, int pad_grp, int hd,
-    int kv_ld, int nsplit) {
+    int* __restrict__ counters, const int* __restrict__ n_rows_b, int n_rows1,
+    int s_len, int hkv, int grp, int pad_grp, int hd, int kv_ld, int nsplit) {
   __shared__ float sc[kMaxGrp][kChunk];        // scores, then probabilities
   __shared__ float part[kThreads * kMaxGrp];   // PV partial sums over row sets
   __shared__ float s_m[kMaxGrp], s_l[kMaxGrp];
   __shared__ int s_last;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = blockIdx.x, split = blockIdx.y;
+  const int g = blockIdx.x, split = blockIdx.y, b = blockIdx.z;
+  // live rows of this batch row (clamped: an idle slot's cursor may lie
+  // past the cache) and its own split count
+  const int n_rows =
+      min(min(max(n_rows_b ? n_rows_b[b] : n_rows1, 1), s_len), nsplit * kChunk);
+  const int nsplit_b = (n_rows + kChunk - 1) / kChunk;
+  if (split >= nsplit_b) return;  // past this row's live prefix
   const int t0 = split * kChunk;
   const int rows = min(kChunk, n_rows - t0);
   const int per_lane = hd / 32;
-  const __nv_bfloat16* kh = k + (size_t)g * hd;
-  const __nv_bfloat16* vh = v + (size_t)g * hd;
+  const size_t q_row = (size_t)b * hkv * pad_grp * hd;
+  q += q_row;
+  out += q_row;
+  mask += (size_t)b * s_len;
+  ws += (size_t)b * hkv * pad_grp * nsplit * (hd + 2);
+  counters += b * hkv;
+  const __nv_bfloat16* kh = k + (size_t)b * s_len * kv_ld + (size_t)g * hd;
+  const __nv_bfloat16* vh = v + (size_t)b * s_len * kv_ld + (size_t)g * hd;
 
   // ---- scores: warp w takes rows w, w + 8, ...; q of the group in registers
   float qr[kMaxGrp][kMaxHdLane];
@@ -129,7 +147,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(
   }
   __threadfence();
   __syncthreads();
-  if (tid == 0) s_last = (atomicAdd(counters + g, 1) == nsplit - 1);
+  if (tid == 0) s_last = (atomicAdd(counters + g, 1) == nsplit_b - 1);
   __syncthreads();
   if (!s_last) return;
   __threadfence();
@@ -141,9 +159,9 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(
     if (j < grp) {
       const float* w = ws + (size_t)(g * pad_grp + j) * nsplit * stride;
       float mx = -3.4e38f;
-      for (int sp = 0; sp < nsplit; ++sp) mx = fmaxf(mx, __ldcg(w + sp * stride));
+      for (int sp = 0; sp < nsplit_b; ++sp) mx = fmaxf(mx, __ldcg(w + sp * stride));
       float l = 0.f, a = 0.f;
-      for (int sp = 0; sp < nsplit; ++sp) {
+      for (int sp = 0; sp < nsplit_b; ++sp) {
         const float e = expf(__ldcg(w + sp * stride) - mx);
         l += __ldcg(w + sp * stride + 1) * e;
         a += __ldcg(w + sp * stride + 2 + dd) * e;
@@ -157,23 +175,49 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). k/v point at the (S, kv_ld) slab
-// of the selected layer and batch row; ws holds (hkv * pad_grp, nsplit,
-// hd + 2) f32; counters hold hkv zeroed ints. Needs hd % 32 == 0,
-// hd <= 256, grp <= pad_grp <= 8 and nsplit == ceil(n_rows / 32).
-// Returns cudaGetLastError().
+// Plain C entry points (bound with ctypes); both return cudaGetLastError().
+//
+// decode_attn: one batch row. k/v point at the (S, kv_ld) slab of the
+// selected layer and batch row; ws holds (hkv * pad_grp, nsplit, hd + 2)
+// f32; counters hold hkv zeroed ints. Needs hd % 32 == 0, hd <= 256,
+// grp <= pad_grp <= 8, 0 < n_rows <= S and nsplit == ceil(n_rows / 32).
 extern "C" int decode_attn(const void* q, const void* k, const void* v,
                            const void* mask, void* out, void* ws, void* counters,
                            int hkv, int n_rows, int grp, int pad_grp, int hd,
                            int kv_ld, int nsplit, void* stream) {
-  if (hd % 32 || hd > 256 || pad_grp > kMaxGrp || grp > pad_grp ||
+  if (hd % 32 || hd > 256 || pad_grp > kMaxGrp || grp > pad_grp || n_rows < 1 ||
       nsplit != (n_rows + kChunk - 1) / kChunk)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(hkv, nsplit);
+  const dim3 grid(hkv, nsplit, 1);
   decode_attn_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(mask),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws),
-      static_cast<int*>(counters), n_rows, grp, pad_grp, hd, kv_ld, nsplit);
+      static_cast<int*>(counters), nullptr, n_rows, n_rows, hkv, grp, pad_grp, hd,
+      kv_ld, nsplit);
+  return (int)cudaGetLastError();
+}
+
+// decode_attn_batched: B batch rows of one layer. q is (B, hkv * pad_grp,
+// hd), mask (B, S) f32, out (B, hkv * pad_grp * hd); k/v point at the
+// (B, S, kv_ld) block of the selected layer; n_rows holds B ints on the
+// device (live rows per batch row, clamped to [1, S] here); ws holds
+// (B, hkv * pad_grp, nsplit, hd + 2) f32 and counters B * hkv zeroed ints;
+// nsplit is ceil(max live rows / 32), at most ceil(S / 32).
+extern "C" int decode_attn_batched(const void* q, const void* k, const void* v,
+                                   const void* mask, void* out, void* ws,
+                                   void* counters, const void* n_rows, int batch,
+                                   int hkv, int s_len, int grp, int pad_grp, int hd,
+                                   int kv_ld, int nsplit, void* stream) {
+  if (hd % 32 || hd > 256 || pad_grp > kMaxGrp || grp > pad_grp || batch < 1 ||
+      batch > 65535 || nsplit < 1 || nsplit > (s_len + kChunk - 1) / kChunk)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(hkv, nsplit, batch);
+  decode_attn_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(mask),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws),
+      static_cast<int*>(counters), static_cast<const int*>(n_rows), 0, s_len, hkv,
+      grp, pad_grp, hd, kv_ld, nsplit);
   return (int)cudaGetLastError();
 }

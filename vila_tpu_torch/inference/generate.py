@@ -25,7 +25,7 @@ from vila_tpu_torch.data import preprocess
 from vila_tpu_torch.data.tokenizer_utils import infer_stop_tokens, tokenize_conversation
 from vila_tpu_torch.media import Video
 from vila_tpu_torch.models import qwen2, vlm
-from vila_tpu_torch.utils.device import resolve_device
+from vila_tpu_torch.utils.device import host_to_device, resolve_device
 
 
 @dataclasses.dataclass
@@ -56,6 +56,18 @@ def _round_up(n: int, m: int) -> int:
 
 PROMPT_BUCKETS = (128, 192, 256, 288, 320, 384, 448, 512, 640, 768, 1024,
                   1536, 2048, 3072, 4096, 8192, 16384, 32768)
+
+
+def padded_prompt(inputs: Dict[str, Any], s_pad: int, device: torch.device):
+    """(ids (1, s_pad) int64, valid (1, s_pad) bool, media positions) of a
+    prepared prompt right-padded to its bucket, on `device` (asynchronous
+    copies: nothing waits for the work already queued on the card)."""
+    expanded = np.asarray(inputs["input_ids"])
+    ids = np.zeros((1, s_pad), np.int64)
+    ids[0, :expanded.shape[0]] = expanded
+    valid = np.arange(s_pad)[None] < expanded.shape[0]
+    return (host_to_device(ids, device), host_to_device(valid, device),
+            host_to_device(np.asarray(inputs["media_pos"], np.int64), device))
 
 
 def expand_media_tokens(
@@ -170,8 +182,7 @@ class GenerationEngine:
         if any(e["kind"] != "plain" for e in entries):
             raise NotImplementedError("only plain image entries are ported")
         tiles = np.concatenate([e["tiles"] for e in entries])
-        feats = vlm.encode_images(
-            self.params, self.cfg, torch.as_tensor(tiles, device=self.device))
+        feats = vlm.encode_images(self.params, self.cfg, host_to_device(tiles, self.device))
         return feats.reshape(-1, feats.shape[-1])
 
     # ------------------------------------------------------------------
@@ -186,7 +197,7 @@ class GenerationEngine:
         logits, cache = qwen2.forward(
             self.params["llm"], cfg.llm, inputs_embeds=embeds, token_valid=valid,
             cache=cache,
-            gather_position=torch.tensor([prompt_len - 1], device=self.device),
+            gather_position=host_to_device([prompt_len - 1], self.device),
         )
         # rewind the cursor from the padded to the real prompt length: pad
         # rows are invalid, and decode overwrites them
@@ -230,16 +241,11 @@ class GenerationEngine:
         prompt_len = int(expanded_ids.shape[0])
         s_pad = _bucket(prompt_len, PROMPT_BUCKETS)
         cache_len = min(self.max_cache_len, _round_up(s_pad + gc.max_new_tokens, 256))
-        ids = torch.zeros((1, s_pad), dtype=torch.long)
-        ids[0, :prompt_len] = torch.as_tensor(expanded_ids)
-        valid = torch.zeros((1, s_pad), dtype=torch.bool)
-        valid[0, :prompt_len] = True
-
+        ids, valid, media_pos = padded_prompt(inputs, s_pad, dev)
         media_embeds = self.encode_media(inputs["media"])
-        media_pos = torch.as_tensor(inputs["media_pos"], device=dev)
         cache = qwen2.init_cache(cfg.llm, batch=1, max_len=cache_len, device=dev)
-        logits, cache = self._prefill(ids.to(dev), valid.to(dev), media_embeds,
-                                      media_pos, cache, prompt_len)
+        logits, cache = self._prefill(ids, valid, media_embeds, media_pos, cache,
+                                      prompt_len)
         gen = torch.Generator(device=dev).manual_seed(gc.seed)
         tok = sample_token(logits, gen, gc.do_sample, gc.temperature, gc.top_p, gc.top_k)
         first = int(tok[0])
@@ -274,38 +280,91 @@ class GenerationEngine:
         out_ids = self.generate_ids(inputs, generation_config)
         return self.tokenizer.decode(out_ids, skip_special_tokens=True).strip()
 
+    def generate_content_stream(self, prompt: Union[str, List[Any]],
+                                generation_config: Optional[GenerationConfig] = None):
+        """Streaming variant: yields text deltas (server.py:251-280 parity)."""
+        inputs = self.prepare_inputs(prompt)
+        yield from stream_text_deltas(
+            self.tokenizer, self.stream_ids(inputs, generation_config))
+
+
+def stream_text_deltas(tokenizer, id_chunks):
+    """Turn a stream of token-id chunks into text deltas: re-decode the
+    full produced sequence each chunk (token boundaries do not align with
+    character boundaries) and emit only the new suffix. Shared by the serial
+    engine and the continuous batcher."""
+    produced: List[int] = []
+    prev = ""
+    for chunk in id_chunks:
+        produced.extend(chunk)
+        text = tokenizer.decode(produced, skip_special_tokens=True)
+        if len(text) > len(prev):
+            yield text[len(prev):]
+            prev = text
+
 
 # Width of the top-k slice used by filtered sampling (top-p / top-k are
 # evaluated over the top-TOPK_SLICE logits, as in the JAX engine).
 TOPK_SLICE = 128
 
 
+def _col(x, dtype, device) -> torch.Tensor:
+    """A scalar or a (B,) vector of sampling parameters as a (1, 1) or
+    (B, 1) column on `device`."""
+    t = x.to(device, dtype) if torch.is_tensor(x) else host_to_device(
+        np.asarray(x), device).to(dtype)
+    return t[:, None] if t.ndim == 1 else t.reshape(1, 1)
+
+
 def sample_token(
     logits: torch.Tensor,  # (B, V) float32
     generator: torch.Generator,
     do_sample: bool,
-    temperature: float,
-    top_p: float,
-    top_k: int,
+    temperature,
+    top_p,
+    top_k,
 ) -> torch.Tensor:
     """Greedy or temperature / top-k / top-p sampling; returns (B,) int64.
-    temperature <= 0 is greedy. The random stream is torch's, so a sampled
-    transcript differs from the JAX engine's for the same seed."""
+
+    `temperature`, `top_p` and `top_k` are each a scalar or a per-row
+    `(B,)` vector (host values or tensors), so the continuous batcher
+    decodes rows with different sampling configs in one call; a row with
+    temperature <= 0 is greedy, exactly the argmax. Filtered rows (top_p <
+    1 or top_k > 0) sample over the top-`TOPK_SLICE` logits, the others
+    over the full vocabulary. The random stream is torch's (`generator`),
+    so a sampled transcript differs from the JAX engine's for the same
+    seed. When every parameter is a host value and no row samples, no
+    random number is drawn."""
     greedy = logits.argmax(-1)
-    if not do_sample or temperature <= 0.0:
+    if not do_sample:
         return greedy
-    l = logits.float() / max(temperature, 1e-6)
-    if top_p >= 1.0 and top_k <= 0:
-        probs = torch.softmax(l, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0]
-    kmax = min(TOPK_SLICE, l.shape[-1])
-    vals, idx = torch.topk(l, kmax, dim=-1)
-    ranks = torch.arange(kmax, device=l.device)
-    if top_k > 0:
-        vals = vals.masked_fill(ranks >= top_k, float("-inf"))
-    probs = torch.softmax(vals, dim=-1)
-    keep = (probs.cumsum(-1) - probs) < top_p
-    keep[..., 0] = True
-    probs = torch.softmax(vals.masked_fill(~keep, float("-inf")), dim=-1)
-    choice = torch.multinomial(probs, 1, generator=generator)
-    return idx.gather(-1, choice)[:, 0]
+    need_full = need_slice = True
+    if not any(torch.is_tensor(x) for x in (temperature, top_p, top_k)):
+        if bool(np.all(np.asarray(temperature) <= 0.0)):
+            return greedy
+        filt = (np.asarray(top_p) < 1.0) | (np.asarray(top_k) > 0)
+        need_full, need_slice = not bool(np.all(filt)), bool(np.any(filt))
+    dev = logits.device
+    temp = _col(temperature, torch.float32, dev)
+    tp = _col(top_p, torch.float32, dev)
+    v = logits.shape[-1]
+    tk = _col(top_k, torch.int64, dev).clamp(0, v)
+    l = logits.float() / temp.clamp_min(1e-6)
+    sampled = None
+    if need_full:
+        sampled = torch.multinomial(torch.softmax(l, dim=-1), 1, generator=generator)[:, 0]
+    if need_slice:
+        kmax = min(TOPK_SLICE, v)
+        vals, idx = torch.topk(l, kmax, dim=-1)
+        ranks = torch.arange(kmax, device=dev)
+        vals = vals.masked_fill((tk > 0) & (ranks >= tk), float("-inf"))
+        probs = torch.softmax(vals, dim=-1)
+        keep = (probs.cumsum(-1) - probs) < tp
+        keep[..., 0] = True
+        probs = torch.softmax(vals.masked_fill(~keep, float("-inf")), dim=-1)
+        choice = torch.multinomial(probs, 1, generator=generator)
+        sampled_slice = idx.gather(-1, choice)[:, 0]
+        filtered = ((tp < 1.0) | (tk > 0))[:, 0]
+        sampled = sampled_slice if sampled is None else torch.where(
+            filtered, sampled_slice, sampled)
+    return torch.where(temp[:, 0] <= 0.0, greedy, sampled)

@@ -6,15 +6,29 @@ over the layers. Numerics follow HF `modeling_qwen2`: RMSNorm and softmax
 statistics in float32, rotate-half RoPE with float32 cos/sin, GQA, SwiGLU.
 
 The KV cache keeps the JAX layout, flat `(L, B, S, Hkv*hd)` with a `(B, S)`
-validity mask and a scalar write cursor `fill` (a Python int). Unlike the
+validity mask and a write cursor `fill`: a Python int shared by the rows,
+or with `init_cache(per_slot_fill=True)` a `(B,)` int32 tensor on the
+device plus its host copy `fill_host`, each row at its own depth (the
+continuous batcher, `serving/batcher.py`). Per-slot writes past the cache
+drop, as the JAX scatter's `mode="drop"`; every such decision is taken from
+the host copy, so a step never reads the device back. Unlike the
 functional JAX cache it is updated in place: `forward` writes the new rows
 into the given tensors and returns a dict with the advanced cursor.
 
 W4 decoder weights (`ops/quant.py`, stacked `(L, nj, din/2, bout)`) are
 never sliced per layer: the kernels take the whole stacked slot and a layer
-index. At bs=1 decode with the fused slots and the GQA-padded o layout the
-layer runs as `ops/fused_decode.fused_layer` (the mega path); otherwise each
-projection is one W4 matmul (`w4_matmul_stacked_dispatch`).
+index. A decode step (s == 1, b <= 32) with the fused W4 slots takes the
+JAX package's routes, chosen by the same conditions:
+
+  * b == 1 with the GQA-padded o layout: `fused_decode.fused_layer` (K3,
+    the mega path, `_mega_decode`);
+  * 1 < b <= 16, padded o, group padded to 8: `fused_decode.
+    fused_layer_batched` (K6, `_mega_b_decode`);
+  * otherwise: plain attention, then `fused_o_gateup` (K4) and
+    `fused_down_qkv` (K5) (`_fused_decode`).
+
+Everything else runs each projection as one W4 matmul
+(`w4_matmul_stacked_dispatch`).
 """
 
 from __future__ import annotations
@@ -23,12 +37,13 @@ import dataclasses
 import os
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from vila_tpu_torch.ops.attention import multi_head_attention
 from vila_tpu_torch.ops.norms import rms_norm
 from vila_tpu_torch.ops.rope import apply_rope, rope_cos_sin
-from vila_tpu_torch.utils.device import resolve_device
+from vila_tpu_torch.utils.device import host_to_device, resolve_device
 
 Params = Dict[str, Any]
 
@@ -106,20 +121,30 @@ def init_params(
 
 
 def init_cache(
-    cfg: LLMConfig, batch: int, max_len: int, dtype=None, device="cuda"
+    cfg: LLMConfig, batch: int, max_len: int, dtype=None, device="cuda",
+    per_slot_fill: bool = False,
 ) -> Params:
     """Pre-allocated decode cache (zeros); `valid` marks written,
-    non-padding slots and `fill` is the shared write cursor."""
+    non-padding slots and `fill` is the shared write cursor.
+
+    With `per_slot_fill` the cursor is a `(B,)` int32 tensor on the device
+    and `fill_host` its host copy (int64 numpy): each batch row advances
+    independently, as the continuous batcher needs. Whoever moves a cursor
+    moves both."""
     dev = resolve_device(device)
     dtype = dtype or cfg.compute_dtype
     shape = (cfg.num_hidden_layers, batch, max_len,
              cfg.num_key_value_heads * cfg.head_dim_)
-    return {
+    cache = {
         "k": torch.zeros(shape, dtype=dtype, device=dev),
         "v": torch.zeros(shape, dtype=dtype, device=dev),
         "valid": torch.zeros((batch, max_len), dtype=torch.bool, device=dev),
         "fill": 0,
     }
+    if per_slot_fill:
+        cache["fill"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        cache["fill_host"] = np.zeros((batch,), np.int64)
+    return cache
 
 
 # --------------------------------------------------------------------------
@@ -166,8 +191,11 @@ def forward(
     """Run the decoder. Returns (logits_or_hidden, updated_cache).
 
     With `cache`, the S new tokens are written at slots [fill, fill+S) and
-    attend to every previously valid slot plus themselves (causally).
-    Without `cache`, standard causal (optionally packed) attention."""
+    attend to every previously valid slot plus themselves (causally). A
+    per-slot cursor (`init_cache(per_slot_fill=True)`) writes each row at
+    its own depth and drops writes past the cache: the continuous-batching
+    decode path. Without `cache`, standard causal (optionally packed)
+    attention."""
     dtype = cfg.compute_dtype
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, cfg, input_ids)
@@ -175,26 +203,53 @@ def forward(
     b, s, _ = h.shape
     dev = h.device
 
-    fill = 0 if cache is None else int(cache["fill"])
+    per_slot = cache is not None and "fill_host" in cache
+    steps = torch.arange(s, dtype=torch.int32, device=dev)
+    if per_slot:
+        fill_host = np.asarray(cache["fill_host"], np.int64)
+        start = cache["fill"][:, None] + steps  # (b, s) write rows, device
+    else:
+        fill = 0 if cache is None else int(cache["fill"])
+        start = steps.expand(b, s) + fill
     if positions is None:
-        positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s) + fill
+        positions = start
     cos, sin = rope_cos_sin(
         positions, cfg.head_dim_, cfg.rope_theta, cfg.rope_linear_scaling
     )
 
-    new_valid = q_slots = kv_slots = q_seg = kv_seg = None
+    new_valid = q_slots = kv_slots = q_seg = kv_seg = writes = None
     if cache is not None:
         max_len = cache["k"].shape[2]
-        if fill + s > max_len:
-            raise ValueError(f"cache of {max_len} slots cannot take {fill}+{s}")
         if token_valid is None:
             token_valid = torch.ones((b, s), dtype=torch.bool, device=dev)
         new_valid = cache["valid"].clone()
-        new_valid[:, fill:fill + s] = token_valid
-        q_slots = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s) + fill
+        if per_slot:
+            # (row, token, slot) of every write inside the cache, from the
+            # host cursors; the rest drop (JAX: scatter mode="drop")
+            rows = fill_host[:, None] + np.arange(s)
+            w_b, w_t = np.nonzero(rows < max_len)
+            writes = host_to_device(np.stack([w_b, w_t, rows[w_b, w_t]]), dev).long()
+            new_valid[writes[0], writes[2]] = token_valid[writes[0], writes[1]]
+            last = (fill_host + s - 1).tolist()  # each row's last written slot
+        else:
+            if fill + s > max_len:
+                raise ValueError(f"cache of {max_len} slots cannot take {fill}+{s}")
+            new_valid[:, fill:fill + s] = token_valid
+            last = fill + s - 1
+        q_slots = start
         kv_slots = torch.arange(max_len, dtype=torch.int32, device=dev).expand(b, max_len)
         kv_seg = new_valid.to(torch.int32)
         q_seg = torch.ones((b, s), dtype=torch.int32, device=dev)
+
+    def write_kv(l, kf, vf):
+        """New (b, s, Hkv*hd) rows of layer l into the cache, in place."""
+        ck, cv = cache["k"][l], cache["v"][l]  # (b, max_len, Hkv*hd) views
+        if per_slot:
+            ck.index_put_((writes[0], writes[2]), kf[writes[0], writes[1]].to(ck.dtype))
+            cv.index_put_((writes[0], writes[2]), vf[writes[0], writes[1]].to(cv.dtype))
+        else:
+            ck[:, fill:fill + s] = kf.to(ck.dtype)
+            cv[:, fill:fill + s] = vf.to(cv.dtype)
 
     Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
     nq, nkv = Hq * hd, Hkv * hd
@@ -236,9 +291,8 @@ def forward(
         k = apply_rope(k.reshape(b, s, Hkv, hd), cos, sin)
         v = v.reshape(b, s, Hkv, hd)
         if cache is not None:
+            write_kv(l, k.reshape(b, s, -1), v.reshape(b, s, -1))
             ck, cv = cache["k"][l], cache["v"][l]  # (b, max_len, Hkv*hd) views
-            ck[:, fill:fill + s] = k.reshape(b, s, -1).to(ck.dtype)
-            cv[:, fill:fill + s] = v.reshape(b, s, -1).to(cv.dtype)
             attn = multi_head_attention(
                 q, ck.reshape(b, -1, Hkv, hd).to(dtype),
                 cv.reshape(b, -1, Hkv, hd).to(dtype),
@@ -278,22 +332,36 @@ def forward(
         and all_layers["input_layernorm"]["scale"].ndim == 2
         and not os.environ.get("VILA_TPU_NO_FUSED_DECODE")
     )
+    # the JAX package's route selection off a TPU (qwen2.py use_mega /
+    # use_mega_b), so that both take the same route for the same b
     use_mega = (
         use_fused and b == 1 and padded_o
         and not os.environ.get("VILA_TPU_NO_MEGA_DECODE")
     )
+    use_mega_b = (
+        use_fused and 1 < b <= 16 and padded_o and grp_pad == 8
+        and not os.environ.get("VILA_TPU_NO_MEGA_DECODE")
+        and not os.environ.get("VILA_TPU_NO_MEGA_BATCHED")
+    )
 
-    L = cfg.num_hidden_layers
     if use_mega:
-        h = _mega_decode(params, cfg, h, cos, sin, cache, new_valid, fill, lin)
+        h = _mega_decode(params, cfg, h, cos, sin, cache, new_valid,
+                         last[0] if per_slot else last, write_kv, lin)
+    elif use_mega_b:
+        h = _mega_b_decode(params, cfg, h, cos, sin, cache, new_valid, last,
+                           write_kv, lin)
+    elif use_fused:
+        h = _fused_decode(params, cfg, h, attend, pad_attn, lin)
     else:
-        for l in range(L):
+        for l in range(cfg.num_hidden_layers):
             h = layer_fn(h, l)
 
     new_cache = None
     if cache is not None:
         new_cache = {"k": cache["k"], "v": cache["v"], "valid": new_valid,
-                     "fill": fill + s}
+                     "fill": cache["fill"] + s}
+        if per_slot:
+            new_cache["fill_host"] = fill_host + s
 
     h = rms_norm(h, params["norm"]["scale"], cfg.rms_norm_eps)
     if gather_position is not None:
@@ -305,10 +373,11 @@ def forward(
     return compute_logits(params, cfg, h), new_cache
 
 
-def _mega_decode(params, cfg, h, cos, sin, cache, new_valid, fill, lin):
-    """bs=1 decode step through `fused_decode.fused_layer`: the loop carries
-    (h, qkv of the current layer) as 8 broadcast rows; layer l emits layer
-    l+1's qkv. RoPE and the cache write stay here, before each call."""
+def _mega_decode(params, cfg, h, cos, sin, cache, new_valid, fill, write_kv, lin):
+    """bs=1 decode step through `fused_decode.fused_layer` (K3): the loop
+    carries (h, qkv of the current layer) as 8 broadcast rows; layer l emits
+    layer l+1's qkv. RoPE and the cache write stay here, before each call;
+    `fill` is the slot written this step (host int)."""
     from vila_tpu_torch.ops import fused_decode
 
     dtype = cfg.compute_dtype
@@ -318,7 +387,6 @@ def _mega_decode(params, cfg, h, cos, sin, cache, new_valid, fill, lin):
     grp = Hq // Hkv
     grp_pad = ((grp + 7) // 8) * 8
     d_model = h.shape[-1]
-    ck_all, cv_all = cache["k"], cache["v"]
 
     x0 = rms_norm(h, layers["input_layernorm"]["scale"][0], cfg.rms_norm_eps)
     qkv0 = lin(x0, "qkv_proj", 0)  # layer 0's qkv (+ bias), one GEMV
@@ -330,11 +398,10 @@ def _mega_decode(params, cfg, h, cos, sin, cache, new_valid, fill, lin):
     for l in range(cfg.num_hidden_layers):
         qk = qkv8[0, :nq + nkv].to(dtype).reshape(1, 1, Hq + Hkv, hd)
         qk = apply_rope(qk, cos, sin)[0, 0]  # q and k heads in one call
-        ck_all[l, 0, fill] = qk[Hq:].reshape(-1)
-        cv_all[l, 0, fill] = qkv8[0, nq + nkv:]
+        write_kv(l, qk[Hq:].reshape(1, 1, nkv), qkv8[0:1, None, nq + nkv:])
         q32[:, :grp] = (qk[:Hq].float() * hd ** -0.5).reshape(Hkv, grp, hd)
         h8, qkv8 = fused_decode.fused_layer(
-            q32.reshape(Hkv * grp_pad, hd), mask, h8, l, ck_all, cv_all,
+            q32.reshape(Hkv * grp_pad, hd), mask, h8, l, cache["k"], cache["v"],
             layers["o_proj"], layers["gate_up_proj"], layers["down_proj"],
             layers["qkv_proj"],
             layers["post_attention_layernorm"]["scale"],
@@ -342,6 +409,75 @@ def _mega_decode(params, cfg, h, cos, sin, cache, new_valid, fill, lin):
             hkv=Hkv, hd=hd, eps=cfg.rms_norm_eps, fill=fill, num_q_heads=Hq,
         )
     return h8[0:1].reshape(1, 1, d_model).to(dtype)
+
+
+def _mega_b_decode(params, cfg, h, cos, sin, cache, new_valid, fill, write_kv,
+                   lin):
+    """1 < b <= 16 decode step through `fused_decode.fused_layer_batched`
+    (K6), as the JAX `mega_b_layer_fn`: the loop carries (h, qkv of the
+    current layer) with rows = batch rows. RoPE on q and k and each row's
+    cache write stay here; `fill` is each row's last written slot (host
+    ints, or one int for a shared cursor)."""
+    from vila_tpu_torch.ops import fused_decode
+
+    dtype = cfg.compute_dtype
+    layers = params["layers"]
+    Hq, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+    nq, nkv = Hq * hd, Hkv * hd
+    grp = Hq // Hkv
+    b, _, d_model = h.shape
+
+    x0 = rms_norm(h, layers["input_layernorm"]["scale"][0], cfg.rms_norm_eps)
+    qkv = lin(x0, "qkv_proj", 0).reshape(b, -1).to(torch.bfloat16)
+    mask = torch.where(new_valid, 0.0, -1e30).float()  # (b, S)
+    hb = h.reshape(b, d_model)
+    # group-padded q (the group pads to 8); pad rows stay zero
+    q32 = torch.zeros((b, Hkv, 8, hd), dtype=torch.bfloat16, device=h.device)
+    for l in range(cfg.num_hidden_layers):
+        qk = qkv[:, :nq + nkv].to(dtype).reshape(b, 1, Hq + Hkv, hd)
+        qk = apply_rope(qk, cos, sin)[:, 0]  # q and k heads in one call
+        write_kv(l, qk[:, Hq:].reshape(b, 1, nkv), qkv[:, None, nq + nkv:])
+        q32[:, :, :grp] = (qk[:, :Hq].float() * hd ** -0.5).reshape(b, Hkv, grp, hd)
+        hb, qkv = fused_decode.fused_layer_batched(
+            q32.reshape(b, Hkv * 8, hd), mask, hb, l, cache["k"], cache["v"],
+            layers["o_proj"], layers["gate_up_proj"], layers["down_proj"],
+            layers["qkv_proj"],
+            layers["post_attention_layernorm"]["scale"],
+            layers["input_layernorm"]["scale"],
+            hkv=Hkv, hd=hd, eps=cfg.rms_norm_eps, fill=fill, num_q_heads=Hq,
+        )
+    return hb.reshape(b, 1, d_model).to(dtype)
+
+
+def _fused_decode(params, cfg, h, attend, pad_attn, lin):
+    """Decode step through the two-kernel layer, as the JAX
+    `fused_layer_fn`: attention (RoPE, cache write and plain attention in
+    `attend`), then `fused_o_gateup` (K4) and `fused_down_qkv` (K5), which
+    emits the next layer's qkv."""
+    from vila_tpu_torch.ops import fused_decode
+
+    dtype = cfg.compute_dtype
+    layers = params["layers"]
+    nq = cfg.num_attention_heads * cfg.head_dim_
+    nkv = cfg.num_key_value_heads * cfg.head_dim_
+    b, s, d_model = h.shape
+
+    x0 = rms_norm(h, layers["input_layernorm"]["scale"][0], cfg.rms_norm_eps)
+    qkv_flat = lin(x0, "qkv_proj", 0).reshape(b * s, -1).to(torch.bfloat16)
+    for l in range(cfg.num_hidden_layers):
+        qkv = qkv_flat.reshape(b, s, -1).to(dtype)
+        attn = attend(qkv[..., :nq], qkv[..., nq:nq + nkv], qkv[..., nq + nkv:], l)
+        h2, gu = fused_decode.fused_o_gateup(
+            pad_attn(attn).reshape(b * s, -1).to(torch.bfloat16),
+            h.reshape(b * s, d_model), l, layers["o_proj"], layers["gate_up_proj"],
+            layers["post_attention_layernorm"]["scale"], eps=cfg.rms_norm_eps,
+        )
+        h2, qkv_flat = fused_decode.fused_down_qkv(
+            gu, h2, l, layers["down_proj"], layers["qkv_proj"],
+            layers["input_layernorm"]["scale"], eps=cfg.rms_norm_eps,
+        )
+        h = h2.reshape(b, s, d_model).to(dtype)
+    return h
 
 
 def embed_tokens(params: Params, cfg: LLMConfig, input_ids: torch.Tensor):

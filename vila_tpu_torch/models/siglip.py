@@ -11,10 +11,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 from vila_tpu_torch.ops.attention import multi_head_attention
 from vila_tpu_torch.ops.norms import layer_norm
+from vila_tpu_torch.utils.device import host_to_device
 
 Params = Dict[str, Any]
 
@@ -118,8 +120,8 @@ def embed_pixels(params: Params, cfg: SigLIPConfig, pixel_values: torch.Tensor):
     dtype = cfg.compute_dtype
     if pixel_values.dtype == torch.uint8:
         dev = pixel_values.device
-        mean = torch.tensor(cfg.image_mean, dtype=dtype, device=dev) * 255.0
-        std = torch.tensor(cfg.image_std, dtype=dtype, device=dev) * 255.0
+        mean = host_to_device(np.asarray(cfg.image_mean, np.float32), dev).to(dtype) * 255.0
+        std = host_to_device(np.asarray(cfg.image_std, np.float32), dev).to(dtype) * 255.0
         pixel_values = (pixel_values.to(dtype) - mean) / std
     x = patchify(pixel_values.to(dtype), cfg.patch_size)
     h = _linear(x, params["patch_embedding"], dtype)

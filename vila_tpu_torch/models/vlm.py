@@ -60,13 +60,15 @@ def splice_media(
     media_embeds: torch.Tensor,  # (M, D) flattened media features in order
     media_positions: torch.Tensor,  # (M,) flat indices into B*S; >= B*S drops
 ) -> torch.Tensor:
-    """Scatter media embeddings into their placeholder slots (a new tensor)."""
+    """Scatter media embeddings into their placeholder slots (a new tensor).
+    Dropped rows land in one spare row past the end, so nothing waits for
+    the device to learn which positions are kept."""
     b, s, d = text_embeds.shape
-    flat = text_embeds.reshape(b * s, d).clone()
-    pos = media_positions.to(flat.device).long()
-    keep = pos < b * s
-    flat[pos[keep]] = media_embeds[keep].to(flat.dtype)
-    return flat.reshape(b, s, d)
+    flat = torch.cat([text_embeds.reshape(b * s, d),
+                      text_embeds.new_zeros((1, d))])
+    pos = media_positions.to(flat.device).long().clamp(max=b * s)
+    flat.index_copy_(0, pos, media_embeds.to(flat.dtype))
+    return flat[:b * s].reshape(b, s, d)
 
 
 def forward(

@@ -27,15 +27,27 @@ SOURCES = ("w4_gemv.cu", "w4_gemm.cu", "decode_attn.cu")
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
-# Launch counts of the kernel wrappers: each public wrapper adds one where
-# it launches its kernel on the card (K1 w4_matmul_decode, K2
-# w4_matmul_prefill, K3 fused_layer), and nowhere else.
-LAUNCHES: Dict[str, int] = {"w4_gemv": 0, "w4_gemm": 0, "fused_layer": 0}
+# Launch counts of the kernel wrappers: each public wrapper adds one
+# (`count`) where it launches its kernel on the card (K1 w4_matmul_decode,
+# K2 w4_matmul_prefill, K3 fused_layer, K4 fused_o_gateup, K5
+# fused_down_qkv, K6 fused_layer_batched), and nowhere else. The serving
+# loop and its admission thread both launch, hence the lock.
+LAUNCHES: Dict[str, int] = {
+    "w4_gemv": 0, "w4_gemm": 0, "fused_layer": 0,
+    "fused_o_gateup": 0, "fused_down_qkv": 0, "fused_layer_batched": 0,
+}
+_count_lock = threading.Lock()
+
+
+def count(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:

@@ -1,13 +1,15 @@
-"""One whole bs=1 W4 decoder layer (K3), as
-`vila_tpu/ops/fused_decode.py:fused_layer`.
+"""The fused W4 decode layers, as `vila_tpu/ops/fused_decode.py`: K3
+`fused_layer` (bs=1), K6 `fused_layer_batched` (1 < B <= 16) and the
+two-kernel layer K4 `fused_o_gateup` + K5 `fused_down_qkv` (any m <= 32).
 
-On the TPU the layer is one Pallas kernel whose sequential grid and ~100 MB
-of VMEM keep every intermediate on chip. A Hopper block has neither, so on
-the card the same function is five hand-written launches on one stream:
+On the TPU each is one Pallas kernel whose sequential grid and ~100 MB of
+VMEM keep every intermediate on chip. A Hopper block has neither, so on the
+card each is a few hand-written launches on one stream. K3 and K6 are five:
 
-  1. `decode_attn` (`csrc/decode_attn.cu`): GQA attention of the
-     pre-scaled, group-padded q over the live prefix [0, fill] of layer l's
-     flat cache, additive mask, f32 softmax; pad heads write zeros;
+  1. attention (`csrc/decode_attn.cu`; K3 `decode_attn`, K6
+     `decode_attn_batched`): GQA attention of the pre-scaled, group-padded
+     q over each row's live prefix [0, fill] of layer l's flat cache,
+     additive mask, f32 softmax; pad heads write zeros;
   2. o GEMV + residual:          h32  = h + x_att @ W_o[l]           (f32)
   3. gate_up GEMV, RMSNorm in:   gu   = rms(h32) * g_post[l] @ W_gu[l]
   4. down GEMV, SiLU*up in,
@@ -15,37 +17,47 @@ the card the same function is five hand-written launches on one stream:
   5. qkv GEMV, RMSNorm in,
      bias out:                   qkv  = rms(h32b) * g_in[l+1] @ W_qkv[l+1] + b
 
-Steps 2-5 are the W4 GEMV kernel (`csrc/w4_gemv.cu`) with its fused
-prologue / epilogue variants and the TPU kernel's int8-digit arithmetic;
-the residual stream stays f32 inside the layer, as on the TPU.
+K4 is stages 2-3 and K5 stages 4-5, two launches each; unlike the whole
+layer they hand h back rounded to h's dtype in between (K5 adds to K4's
+rounded h_new), while each RMSNorm still reads its unrounded f32 sum, as on
+the TPU. Stages 2-5 are the W4 GEMV kernel (`csrc/w4_gemv.cu`) with its
+fused prologue / epilogue variants and the TPU kernels' int8-digit
+arithmetic, with rows = the m tokens or batch rows.
 
-The TPU kernel spreads the head outputs block-diagonally over 8 rows and
-sums the o product over rows only to fill MXU rows; here the padded-head
-attention output is one `(1, Hkv*P*hd)` row (zeros in the pad heads) fed to
-the GQA-padded o weights (`quant.pad_o_heads`). The math is the same; the
-digit expansion then sees one row instead of eight, which changes only
-float rounding.
+The TPU kernels spread the head outputs block-diagonally over 8 rows and
+pad the batch to 8 or 16 rows only to fill MXU rows; here each row's
+padded-head attention output is one `(Hkv*P*hd)` row (zeros in the pad
+heads) fed to the GQA-padded o weights (`quant.pad_o_heads`), and no pad
+rows are added. The math is the same; the digit expansion then sees other
+rows, which changes only float rounding.
 
-The public signature is the JAX one: 8 broadcast rows of `h` in, and
-`(h_new, qkv_{l+1})` out as 8-row expanded views.
+Each wrapper takes its plain PyTorch version for CPU tensors only; a CUDA
+tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import operator
+import threading
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from vila_tpu_torch.ops import _build
 from vila_tpu_torch.ops import quant
+from vila_tpu_torch.utils.device import host_to_device
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ATTN_ARGTYPES = [_P] * 7 + [_I] * 7 + [_P]
+_ATTN_B_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
 _ATTN_CHUNK = 32  # cache rows per block of decode_attn.cu
+_ATTN_COUNTER_SLOTS = 1024  # (batch row, kv head) arrival counters
 _attn_counters: Dict[torch.device, torch.Tensor] = {}
+_rows_memo: Dict[torch.device, Tuple[Tuple[int, ...], torch.Tensor]] = {}
+_state_lock = threading.Lock()
 
 
 def _rms_scale(h32, gamma_row, eps):
@@ -71,23 +83,77 @@ def _decode_attn_ref(q32, k_rows, v_rows, mask_row, hkv, hd, grp):
     return o.reshape(1, hkv * p_rows * hd).to(torch.bfloat16)
 
 
-def _plan(q32, o_slot, qkv_slot, k_cache, gamma_post, gamma_in, layer_index,
-          fill, hkv, num_q_heads):
-    """Layer indices, live rows, group sizes and the bf16 rows of the
-    per-layer vectors, shared by the kernel path and its plain version."""
+def _layer_rows(o_slot, qkv_slot, gamma_post, gamma_in, layer_index):
+    """Layer indices and the bf16 rows of the per-layer vectors (layer l's
+    post-attention norm, layer l+1's input norm and qkv bias; the last
+    layer streams its own qkv again, clamped as in the JAX package)."""
     L = o_slot["packed"].shape[0]
     l = operator.index(layer_index)
     l_next = min(l + 1, L - 1)
-    n_rows = k_cache.shape[2] if fill is None else operator.index(fill) + 1
-    p_rows = q32.shape[0] // hkv
-    grp = num_q_heads // hkv if num_q_heads else p_rows
     bias = qkv_slot.get("bias")
     rows = (
         gamma_post[l].to(torch.bfloat16),
         gamma_in[l_next].to(torch.bfloat16),
         None if bias is None else bias[l_next].to(torch.bfloat16),
     )
-    return l, l_next, n_rows, p_rows, grp, rows
+    return l, l_next, rows
+
+
+def _live_rows(fill, batch: int, s_len: int) -> Tuple[int, ...]:
+    """Cache rows each batch row attends over: `fill` (the last written
+    slot, one int or one per row, host values) + 1, clamped to the cache (an
+    idle slot's cursor runs past it); all of it when `fill` is None."""
+    if fill is None:
+        return (s_len,) * batch
+    fills = list(fill) if hasattr(fill, "__iter__") else [fill] * batch
+    if len(fills) != batch:
+        raise ValueError(f"{len(fills)} cursors for {batch} rows")
+    return tuple(min(operator.index(f) + 1, s_len) for f in fills)
+
+
+def _group(q_rows, hkv, num_q_heads):
+    """(padded group P, real group G) of a group-padded q."""
+    p_rows = q_rows // hkv
+    return p_rows, (num_q_heads // hkv if num_q_heads else p_rows)
+
+
+# Plain versions of the GEMV stages (`quant._w4_gemv_ref` with the
+# kernel's prologues and epilogues written out; f32 sums unrounded)
+
+
+def _o_gateup_ref(x_att, h, l, o_slot, gu_slot, gpost, eps):
+    """(h32, gu): h32 = h + x_att @ W_o[l] (f32); gu = rms(h32)*g @ W_gu[l]."""
+    h32 = h.float() + quant._w4_gemv_ref(
+        x_att, o_slot["packed"], o_slot["scales"], l, out_f32=True)
+    x1 = _rms_scale(h32, gpost, eps).to(torch.bfloat16)
+    return h32, quant._w4_gemv_ref(x1, gu_slot["packed"], gu_slot["scales"], l)
+
+
+def _down_qkv_ref(gu, h, l, l_next, down_slot, qkv_slot, gin, bias, eps):
+    """(h32, qkv): h32 = h + (silu(g)*u) @ W_d[l] (f32);
+    qkv = rms(h32)*g @ W_qkv[l+1] + b, rounded to bf16 once."""
+    inter = gu.shape[1] // 2
+    gu32 = gu.float()
+    m_act = (torch.nn.functional.silu(gu32[:, :inter]) * gu32[:, inter:]).to(
+        torch.bfloat16)
+    h32 = h.float() + quant._w4_gemv_ref(
+        m_act, down_slot["packed"], down_slot["scales"], l, out_f32=True)
+    x2 = _rms_scale(h32, gin, eps).to(torch.bfloat16)
+    qkv = quant._w4_gemv_ref(
+        x2, qkv_slot["packed"], qkv_slot["scales"], l_next, out_f32=True)
+    if bias is not None:
+        qkv = qkv + bias.float()
+    return h32, qkv.to(torch.bfloat16)
+
+
+def _layer_tail_ref(x_att, h, l, l_next, slots, rows, eps):
+    """Plain o / gate_up / down / qkv_{l+1} of a whole layer (the residual
+    stays f32 between them); returns (h_new in h's dtype, qkv bf16)."""
+    o_slot, gu_slot, down_slot, qkv_slot = slots
+    gpost, gin, bias = rows
+    h32, gu = _o_gateup_ref(x_att, h, l, o_slot, gu_slot, gpost, eps)
+    h32b, qkv = _down_qkv_ref(gu, h32, l, l_next, down_slot, qkv_slot, gin, bias, eps)
+    return h32b.to(h.dtype), qkv
 
 
 def _fused_layer_ref(q32, mask, h, layer_index, k_cache, v_cache,
@@ -95,42 +161,55 @@ def _fused_layer_ref(q32, mask, h, layer_index, k_cache, v_cache,
                      gamma_post, gamma_in, *, hkv, hd, eps=1e-6, fill=None,
                      num_q_heads=None):
     """Plain version of the five launches (the signature of `fused_layer`)."""
-    l, l_next, n_rows, _, grp, (gpost, gin, bias) = _plan(
-        q32, o_slot, qkv_slot, k_cache, gamma_post, gamma_in, layer_index,
-        fill, hkv, num_q_heads,
-    )
+    l, l_next, rows = _layer_rows(o_slot, qkv_slot, gamma_post, gamma_in, layer_index)
+    (n_rows,) = _live_rows(fill, 1, k_cache.shape[2])
+    _, grp = _group(q32.shape[0], hkv, num_q_heads)
     x_att = _decode_attn_ref(
         q32, k_cache[l, 0, :n_rows], v_cache[l, 0, :n_rows],
         mask[0, :n_rows], hkv, hd, grp,
     )
-    h32 = h[0:1].float() + quant._w4_gemv_ref(
-        x_att, o_slot["packed"], o_slot["scales"], l, out_f32=True)
-    x1 = _rms_scale(h32, gpost, eps).to(torch.bfloat16)
-    gu = quant._w4_gemv_ref(x1, gu_slot["packed"], gu_slot["scales"], l)
-    inter = gu.shape[1] // 2
-    gu32 = gu.float()
-    m_act = (torch.nn.functional.silu(gu32[:, :inter]) * gu32[:, inter:]).to(
-        torch.bfloat16)
-    h32b = h32 + quant._w4_gemv_ref(
-        m_act, down_slot["packed"], down_slot["scales"], l, out_f32=True)
-    x2 = _rms_scale(h32b, gin, eps).to(torch.bfloat16)
-    qkv = quant._w4_gemv_ref(
-        x2, qkv_slot["packed"], qkv_slot["scales"], l_next, out_f32=True)
-    if bias is not None:
-        qkv = qkv + bias.float()
+    h_new, qkv = _layer_tail_ref(
+        x_att, h[0:1], l, l_next, (o_slot, gu_slot, down_slot, qkv_slot), rows, eps)
     d_model = h.shape[1]
-    h_new, qkv = h32b.to(h.dtype), qkv.to(torch.bfloat16)
     return h_new.expand(8, d_model), qkv.expand(8, qkv.shape[1])
+
+
+def _fused_layer_batched_ref(q32, mask, h, layer_index, k_cache, v_cache,
+                             o_slot, gu_slot, down_slot, qkv_slot,
+                             gamma_post, gamma_in, *, hkv, hd, eps=1e-6,
+                             fill=None, num_q_heads=None):
+    """Plain version of `fused_layer_batched`: row b attends over its own
+    live prefix, then the layer's four products with rows = batch rows."""
+    l, l_next, rows = _layer_rows(o_slot, qkv_slot, gamma_post, gamma_in, layer_index)
+    _, grp = _group(q32.shape[1], hkv, num_q_heads)
+    x_att = torch.cat([
+        _decode_attn_ref(q32[b], k_cache[l, b, :n], v_cache[l, b, :n],
+                         mask[b, :n], hkv, hd, grp)
+        for b, n in enumerate(_live_rows(fill, q32.shape[0], k_cache.shape[2]))
+    ])
+    return _layer_tail_ref(
+        x_att, h, l, l_next, (o_slot, gu_slot, down_slot, qkv_slot), rows, eps)
+
+
+def _fused_o_gateup_ref(attn_out, h, layer_index, o_slot, gu_slot, gamma_post,
+                        eps=1e-6):
+    l = operator.index(layer_index)
+    h32, gu = _o_gateup_ref(attn_out, h, l, o_slot, gu_slot,
+                            gamma_post[l].to(torch.bfloat16), eps)
+    return h32.to(h.dtype), gu
+
+
+def _fused_down_qkv_ref(gu, h, layer_index, down_slot, qkv_slot, gamma_in,
+                        eps=1e-6):
+    l, l_next, (_, gin, bias) = _layer_rows(
+        down_slot, qkv_slot, gamma_in, gamma_in, layer_index)
+    h32, qkv = _down_qkv_ref(gu, h, l, l_next, down_slot, qkv_slot, gin, bias, eps)
+    return h32.to(h.dtype), qkv
 
 
 def _launch_attn(q32, k_cache, v_cache, mask, l, n_rows, hkv, hd, grp, out):
     dev = quant.require_cuda(q32, k_cache, v_cache, mask, out)
-    if q32.dtype != torch.bfloat16 or k_cache.dtype != torch.bfloat16 or (
-        v_cache.dtype != torch.bfloat16
-    ):
-        raise TypeError("decode attention takes a bf16 q and a bf16 cache")
-    if mask.dtype != torch.float32:
-        raise TypeError("the additive mask is f32")
+    _check_attn_dtypes(q32, k_cache, v_cache, mask)
     _, b, s_len, kv_ld = k_cache.shape
     p_rows = q32.shape[0] // hkv
     if (b != 1 or kv_ld != hkv * hd or not 0 < n_rows <= s_len or hd % 32
@@ -139,18 +218,134 @@ def _launch_attn(q32, k_cache, v_cache, mask, l, n_rows, hkv, hd, grp, out):
                          f"group {grp} of {p_rows}")
     nsplit = -(-n_rows // _ATTN_CHUNK)
     ws = torch.empty((hkv * p_rows, nsplit, hd + 2), dtype=torch.float32, device=dev)
-    if dev not in _attn_counters or _attn_counters[dev].numel() < hkv:
-        _attn_counters[dev] = torch.zeros(max(hkv, 64), dtype=torch.int32, device=dev)
     layer_off = l * s_len * kv_ld * 2
     fn = quant._fn("decode_attn.cu", "decode_attn", _ATTN_ARGTYPES)
     status = fn(
         q32.data_ptr(), k_cache.data_ptr() + layer_off,
         v_cache.data_ptr() + layer_off, mask.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), _attn_counters[dev].data_ptr(),
+        ws.data_ptr(), _attn_counters_of(dev, hkv).data_ptr(),
         hkv, n_rows, grp, p_rows, hd, kv_ld, nsplit,
-        torch.cuda.current_stream(dev).cuda_stream,
+        quant._stream(dev),
     )
     _build.check(status, "decode_attn")
+
+
+def _check_attn_dtypes(q32, k_cache, v_cache, mask):
+    if q32.dtype != torch.bfloat16 or k_cache.dtype != torch.bfloat16 or (
+        v_cache.dtype != torch.bfloat16
+    ):
+        raise TypeError("decode attention takes a bf16 q and a bf16 cache")
+    if mask.dtype != torch.float32:
+        raise TypeError("the additive mask is f32")
+
+
+def _attn_counters_of(dev: torch.device, n: int) -> torch.Tensor:
+    """Zeroed arrival counters of decode_attn.cu on a device (at least n),
+    made once; every launch leaves them zeroed. Launches share them, so
+    they must run on one stream (the serving loop and its admission thread
+    both use the device's current stream)."""
+    with _state_lock:
+        c = _attn_counters.get(dev)
+        if c is None or c.numel() < n:
+            c = _attn_counters[dev] = torch.zeros(
+                max(n, _ATTN_COUNTER_SLOTS), dtype=torch.int32, device=dev)
+        return c
+
+
+def _live_rows_on(dev: torch.device, n_rows: Tuple[int, ...]) -> torch.Tensor:
+    """The (B,) int32 live-row counts on the card. Every layer of a decode
+    step passes the same counts, so the last copy is kept: one host-to-device
+    copy (pinned, asynchronous) per step, none per layer, no read back."""
+    with _state_lock:
+        hit = _rows_memo.get(dev)
+        if hit is None or hit[0] != n_rows:
+            hit = _rows_memo[dev] = (
+                n_rows, host_to_device(np.asarray(n_rows, np.int32), dev))
+        return hit[1]
+
+
+def _launch_attn_batched(q32, k_cache, v_cache, mask, l, n_rows, hkv, hd, grp, out):
+    """Batched attention (`decode_attn_batched`): q32 (B, Hkv*P, hd), mask
+    (B, S), layer l of the (L, B, S, Hkv*hd) caches, host live rows
+    `n_rows` (B,), out (B, Hkv*P*hd)."""
+    dev = quant.require_cuda(q32, k_cache, v_cache, mask, out)
+    _check_attn_dtypes(q32, k_cache, v_cache, mask)
+    L, b, s_len, kv_ld = k_cache.shape
+    q_b, q_rows, q_hd = q32.shape
+    p_rows = q_rows // hkv
+    if (q_b != b or len(n_rows) != b or mask.shape != (b, s_len) or q_hd != hd
+            or kv_ld != hkv * hd or hd % 32 or hd > 256
+            or not grp <= p_rows <= 8 or p_rows * hkv != q_rows
+            or not all(0 < n <= s_len for n in n_rows) or not 0 <= l < L):
+        raise ValueError(f"q {tuple(q32.shape)}, cache {tuple(k_cache.shape)}, "
+                         f"rows {n_rows}, hd {hd}, group {grp} of {p_rows}")
+    nsplit = -(-max(n_rows) // _ATTN_CHUNK)
+    ws = torch.empty((b, q_rows, nsplit, hd + 2), dtype=torch.float32, device=dev)
+    layer_off = l * b * s_len * kv_ld * 2
+    fn = quant._fn("decode_attn.cu", "decode_attn_batched", _ATTN_B_ARGTYPES)
+    status = fn(
+        q32.data_ptr(), k_cache.data_ptr() + layer_off,
+        v_cache.data_ptr() + layer_off, mask.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), _attn_counters_of(dev, b * hkv).data_ptr(),
+        _live_rows_on(dev, tuple(n_rows)).data_ptr(),
+        b, hkv, s_len, grp, p_rows, hd, kv_ld, nsplit, quant._stream(dev),
+    )
+    _build.check(status, "decode_attn_batched")
+
+
+def _residual(h: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The GEMV epilogue argument that adds residual rows h (bf16 rows, or
+    the f32 sum of the layer's previous stage)."""
+    return {"res_bf16": h} if h.dtype == torch.bfloat16 else {"res_f32": h}
+
+
+def _launch_o_gateup(x_att, h, l, o_slot, gu_slot, gpost, eps, h_new=None):
+    """Two GEMV launches: h32 = h + x_att @ W_o[l] (f32, and rounded into
+    `h_new` when given); gu = rms(h32)*g @ W_gu[l]. Returns (h32, gu)."""
+    m, dev = x_att.shape[0], x_att.device
+    h32 = torch.empty((m, h.shape[1]), dtype=torch.float32, device=dev)
+    quant.launch_gemv(x_att, o_slot["packed"], o_slot["scales"], l, m=m,
+                      out_f32=h32, out_bf16=h_new, **_residual(h))
+    gu = torch.empty((m, _dout(gu_slot)), dtype=torch.bfloat16, device=dev)
+    quant.launch_gemv(h32, gu_slot["packed"], gu_slot["scales"], l, m=m,
+                      prologue=quant.PRO_RMS, gamma=gpost, eps=eps, out_bf16=gu)
+    return h32, gu
+
+
+def _launch_down_qkv(gu, h, l, l_next, down_slot, qkv_slot, gin, bias, eps,
+                     h_new=None):
+    """Two GEMV launches: h32 = h + (silu(g)*u) @ W_d[l] (f32, and rounded
+    into `h_new` when given); qkv = rms(h32)*g @ W_qkv[l+1] + b (bf16).
+    Returns (h32, qkv)."""
+    m, dev = gu.shape[0], gu.device
+    h32 = torch.empty((m, h.shape[1]), dtype=torch.float32, device=dev)
+    quant.launch_gemv(gu, down_slot["packed"], down_slot["scales"], l, m=m,
+                      prologue=quant.PRO_SILU, out_f32=h32, out_bf16=h_new,
+                      **_residual(h))
+    qkv = torch.empty((m, _dout(qkv_slot)), dtype=torch.bfloat16, device=dev)
+    quant.launch_gemv(h32, qkv_slot["packed"], qkv_slot["scales"], l_next, m=m,
+                      prologue=quant.PRO_RMS, gamma=gin, eps=eps, bias=bias,
+                      out_bf16=qkv)
+    return h32, qkv
+
+
+def _bf16_like(h: torch.Tensor) -> torch.Tensor:
+    """An empty tensor for h_new: the card's fused layers carry h in bf16."""
+    if h.dtype != torch.bfloat16:
+        raise TypeError(f"the card's fused layers carry h in bf16, got {h.dtype}")
+    return torch.empty(h.shape, dtype=h.dtype, device=h.device)
+
+
+def _launch_layer_tail(x_att, h, l, l_next, slots, rows, eps):
+    """The four GEMV stages of a whole layer with rows = x_att's rows; the
+    residual stays f32 from o to down. Returns (h_new bf16, qkv bf16)."""
+    o_slot, gu_slot, down_slot, qkv_slot = slots
+    gpost, gin, bias = rows
+    h_new = _bf16_like(h)
+    h32, gu = _launch_o_gateup(x_att, h, l, o_slot, gu_slot, gpost, eps)
+    _, qkv = _launch_down_qkv(gu, h32, l, l_next, down_slot, qkv_slot, gin, bias,
+                              eps, h_new=h_new)
+    return h_new, qkv
 
 
 def fused_layer(
@@ -168,8 +363,8 @@ def fused_layer(
     fill: Optional[int] = None,  # last written cache slot
     num_q_heads: Optional[int] = None,  # real q heads (pad heads -> zeros)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One decoder layer (bs=1, W4): returns (h_new (8, D), qkv of layer
-    l+1 (8, dqkv)), row 0 real. Attention reads only the live prefix
+    """One decoder layer (bs=1, W4; K3): returns (h_new (8, D), qkv of
+    layer l+1 (8, dqkv)), row 0 real. Attention reads only the live prefix
     [0, fill] of the cache. `num_q_heads` (an addition to the JAX
     signature) names the real heads so the pad heads' outputs are zero."""
     if q32.device.type == "cpu":
@@ -178,29 +373,102 @@ def fused_layer(
             o_slot, gu_slot, down_slot, qkv_slot, gamma_post, gamma_in,
             hkv=hkv, hd=hd, eps=eps, fill=fill, num_q_heads=num_q_heads,
         )
-    l, l_next, n_rows, p_rows, grp, (gpost, gin, bias) = _plan(
-        q32, o_slot, qkv_slot, k_cache, gamma_post, gamma_in, layer_index,
-        fill, hkv, num_q_heads,
-    )
-    if h.dtype != torch.bfloat16:
-        raise TypeError("the card's fused layer carries h in bf16")
-    dev, d_model = q32.device, h.shape[1]
-    x_att = torch.empty((1, hkv * p_rows * hd), dtype=torch.bfloat16, device=dev)
+    l, l_next, rows = _layer_rows(o_slot, qkv_slot, gamma_post, gamma_in, layer_index)
+    (n_rows,) = _live_rows(fill, 1, k_cache.shape[2])
+    p_rows, grp = _group(q32.shape[0], hkv, num_q_heads)
+    d_model = h.shape[1]
+    x_att = torch.empty((1, hkv * p_rows * hd), dtype=torch.bfloat16, device=q32.device)
     _launch_attn(q32, k_cache, v_cache, mask, l, n_rows, hkv, hd, grp, x_att)
-    h32 = torch.empty((1, d_model), dtype=torch.float32, device=dev)
-    quant.launch_gemv(x_att, o_slot["packed"], o_slot["scales"], l, m=1,
-                      res_bf16=h[0:1], out_f32=h32)
-    gu = torch.empty((1, _dout(gu_slot)), dtype=torch.bfloat16, device=dev)
-    quant.launch_gemv(h32, gu_slot["packed"], gu_slot["scales"], l, m=1,
-                      prologue=quant.PRO_RMS, gamma=gpost, eps=eps, out_bf16=gu)
-    h32b = torch.empty((1, d_model), dtype=torch.float32, device=dev)
-    h_new = torch.empty((1, d_model), dtype=torch.bfloat16, device=dev)
-    quant.launch_gemv(gu, down_slot["packed"], down_slot["scales"], l, m=1,
-                      prologue=quant.PRO_SILU, res_f32=h32, out_f32=h32b,
-                      out_bf16=h_new)
-    qkv = torch.empty((1, _dout(qkv_slot)), dtype=torch.bfloat16, device=dev)
-    quant.launch_gemv(h32b, qkv_slot["packed"], qkv_slot["scales"], l_next,
-                      m=1, prologue=quant.PRO_RMS, gamma=gin, eps=eps,
-                      bias=bias, out_bf16=qkv)
-    _build.LAUNCHES["fused_layer"] += 1
+    h_new, qkv = _launch_layer_tail(
+        x_att, h[0:1], l, l_next, (o_slot, gu_slot, down_slot, qkv_slot), rows, eps)
+    _build.count("fused_layer")
     return h_new.expand(8, d_model), qkv.expand(8, qkv.shape[1])
+
+
+def fused_layer_batched(
+    q32: torch.Tensor,  # (B, Hkv*8, hd) bf16: rope'd, scaled, group-padded q
+    mask: torch.Tensor,  # (B, S) f32 additive
+    h: torch.Tensor,  # (B, D), all rows real
+    layer_index: int,
+    k_cache: torch.Tensor,  # (L, B, S, Hkv*hd) flat decode cache
+    v_cache: torch.Tensor,
+    o_slot, gu_slot, down_slot, qkv_slot,
+    gamma_post: torch.Tensor,  # (L, D)
+    gamma_in: torch.Tensor,  # (L, D)
+    *,
+    hkv: int, hd: int, eps: float = 1e-6,
+    fill=None,  # last written slot: one int or (B,) host ints; None = all S
+    num_q_heads: Optional[int] = None,  # real q heads (pad heads -> zeros)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer for batched W4 decode, 1 < B <= 16 (K6): returns
+    (h_new (B, D), qkv of layer l+1 (B, dqkv)). Row b attends over its own
+    live prefix [0, fill[b]] (clamped to the cache: an idle slot's cursor
+    may run past it); the four products run with rows = batch rows, so no
+    pad rows are added (the JAX wrapper pads to 8 or 16 only to fill MXU
+    rows, and the per-row digit expansion makes them inert). `fill` holds
+    host values: the caller knows every cursor, and the kernel gets them
+    with one copy per decode step."""
+    if q32.device.type == "cpu":
+        return _fused_layer_batched_ref(
+            q32, mask, h, layer_index, k_cache, v_cache,
+            o_slot, gu_slot, down_slot, qkv_slot, gamma_post, gamma_in,
+            hkv=hkv, hd=hd, eps=eps, fill=fill, num_q_heads=num_q_heads,
+        )
+    b = q32.shape[0]
+    if not 1 <= b <= 16 or h.shape[0] != b:
+        raise ValueError(f"batched layer takes 1..16 rows, got q {b}, h {h.shape[0]}")
+    l, l_next, rows = _layer_rows(o_slot, qkv_slot, gamma_post, gamma_in, layer_index)
+    n_rows = _live_rows(fill, b, k_cache.shape[2])
+    p_rows, grp = _group(q32.shape[1], hkv, num_q_heads)
+    x_att = torch.empty((b, hkv * p_rows * hd), dtype=torch.bfloat16, device=q32.device)
+    _launch_attn_batched(q32, k_cache, v_cache, mask, l, n_rows, hkv, hd, grp, x_att)
+    h_new, qkv = _launch_layer_tail(
+        x_att, h, l, l_next, (o_slot, gu_slot, down_slot, qkv_slot), rows, eps)
+    _build.count("fused_layer_batched")
+    return h_new, qkv
+
+
+def fused_o_gateup(
+    attn_out: torch.Tensor,  # (m <= 32, o_din) bf16
+    h: torch.Tensor,  # (m, D)
+    layer_index: int,
+    o_slot, gu_slot,  # stacked (L, ...) W4 slots
+    gamma_post: torch.Tensor,  # (L, D)
+    eps: float = 1e-6,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4: h32 = h + attn_out @ W_o[l]; returns (h_new = h32 rounded to h's
+    dtype, gate_up = rms(h32)*g_post[l] @ W_gu[l] in bf16). The norm reads
+    the unrounded f32 sum, as the TPU kernel does."""
+    if attn_out.device.type == "cpu":
+        return _fused_o_gateup_ref(attn_out, h, layer_index, o_slot, gu_slot,
+                                   gamma_post, eps)
+    l = operator.index(layer_index)
+    h_new = _bf16_like(h)
+    _, gu = _launch_o_gateup(attn_out, h, l, o_slot, gu_slot,
+                             gamma_post[l].to(torch.bfloat16), eps, h_new=h_new)
+    _build.count("fused_o_gateup")
+    return h_new, gu
+
+
+def fused_down_qkv(
+    gu: torch.Tensor,  # (m <= 32, 2I) bf16
+    h: torch.Tensor,  # (m, D): K4's h_new
+    layer_index: int,  # the current layer l
+    down_slot, qkv_slot,  # stacked W4 slots; qkv with optional "bias" (L, dqkv)
+    gamma_in: torch.Tensor,  # (L, D) input_layernorm scales
+    eps: float = 1e-6,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5: h32 = h + (silu(g)*u) @ W_d[l]; returns (h_new = h32 rounded to
+    h's dtype, qkv of layer l+1 = rms(h32)*g_in[l+1] @ W_qkv[l+1] + b). The
+    last layer streams its own qkv again (clamped l+1); the caller discards
+    it."""
+    if gu.device.type == "cpu":
+        return _fused_down_qkv_ref(gu, h, layer_index, down_slot, qkv_slot,
+                                   gamma_in, eps)
+    l, l_next, (_, gin, bias) = _layer_rows(
+        down_slot, qkv_slot, gamma_in, gamma_in, layer_index)
+    h_new = _bf16_like(h)
+    _, qkv = _launch_down_qkv(gu, h, l, l_next, down_slot, qkv_slot, gin, bias,
+                              eps, h_new=h_new)
+    _build.count("fused_down_qkv")
+    return h_new, qkv

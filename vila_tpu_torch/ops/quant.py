@@ -415,7 +415,7 @@ def w4_matmul_decode(
         raise TypeError("w4_matmul_decode takes bf16 activations")
     out = torch.empty((x.shape[0], dout), dtype=torch.bfloat16, device=x.device)
     launch_gemv(x, packed, scales, layer_index, m=x.shape[0], out_bf16=out)
-    _build.LAUNCHES["w4_gemv"] += 1
+    _build.count("w4_gemv")
     return out
 
 
@@ -432,7 +432,7 @@ def w4_matmul_prefill(
     _, _, _, _, _, _, dout = _tiled_meta(packed, scales)
     out = torch.empty((x.shape[0], dout), dtype=torch.bfloat16, device=x.device)
     launch_gemm(x, packed, scales, layer_index, out)
-    _build.LAUNCHES["w4_gemm"] += 1
+    _build.count("w4_gemm")
     return out
 
 

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -20,3 +21,13 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def host_to_device(array, device: torch.device) -> torch.Tensor:
+    """A copy of a host array on `device`. On the card it goes through
+    pinned memory and an asynchronous copy, so the host does not wait for
+    the work already queued on the stream."""
+    t = torch.tensor(np.asarray(array))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
