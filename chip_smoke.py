@@ -19,8 +19,26 @@ Phases:
                per-step logits against one cache-free forward over prefix
                plus generated tokens run through the plain versions on the
                CPU;
+  train_kernels  hold the flash-attention kernels K7 (forward), K8 (dQ)
+               and K9 (dK/dV) against their plain versions at the
+               NVILA-Lite-2B training shape (B 1, S 2048, 12/2 heads of 128,
+               causal, three packed segments and a padding tail) and at
+               S 2000 (ragged tiles); times kernel, plain version and
+               scaled_dot_product_attention forward / backward;
+  train        NVILA-Lite-2B SFT at full width (Qwen2-1.5B LLM, 28 layers;
+               SigLIP-SO400M-448; mlp_downsample), f32 master weights
+               synthesised on the card from a seed, bf16 compute: 6 steps of
+               `Trainer` over `DummyDataset` images packed into one 2048-token
+               row, checkpoints at 3 and 6; then a fresh `Trainer` resumes
+               from step 3 and must reproduce steps 4-6; exact K7-K9 launch
+               counts, step wall, tokens/s, model-FLOPs share, peak memory;
+  train_consistency  one `train_step` at full widths with 2 LLM and 2 SigLIP
+               layers at seq 512 on the card (kernels) against the same
+               step on the CPU (plain versions);
   profile      (only when named) torch.profiler trace of one request:
-               device busy time and idle share of a decode step.
+               device busy time and idle share of a decode step;
+  train_profile  (only when named) one full-width training step traced:
+               device busy time and the ops by device time.
 
 The second-to-last line is the kernels JSON, the last line
 `{"ok": true, "device": {...}}`. The script exits nonzero, and prints no
@@ -31,7 +49,9 @@ output, per-shape numbers) go to `chiprun_out/`.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -68,12 +88,26 @@ KERNELS = {
         source="vila_tpu_torch/csrc/decode_attn.cu + "
                "vila_tpu_torch/csrc/w4_gemv.cu",
         replaces="vila_tpu/ops/fused_decode.py:1014 (_fused_layer_b_kernel)"),
+    "flash_fwd": dict(
+        route="cuda", source="vila_tpu_torch/csrc/flash_attn.cu",
+        replaces="vila_tpu/ops/flash_attention.py:50 (_fwd_kernel; pallas_call "
+                 "flash_attention.py:229)"),
+    "flash_bwd_dq": dict(
+        route="cuda", source="vila_tpu_torch/csrc/flash_attn.cu",
+        replaces="vila_tpu/ops/flash_attention.py:306 (_bwd_dq_kernel; pallas_call "
+                 "flash_attention.py:436)"),
+    "flash_bwd_dkv": dict(
+        route="cuda", source="vila_tpu_torch/csrc/flash_attn.cu",
+        replaces="vila_tpu/ops/flash_attention.py:356 (_bwd_dkv_kernel; pallas_call "
+                 "flash_attention.py:465)"),
 }
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # the kernels the serial (bs=1) path must launch
 E2E_KERNELS = ("w4_gemv", "w4_gemm", "fused_layer")
 # (max_batch, requests, new tokens) of each serve run: K6, then K4/K5
 SERVE_RUNS = ((8, 12, 32), (24, 24, 16))
-DEFAULT_PHASES = "build,kernels,e2e,serve,consistency,batched_consistency,http"
+DEFAULT_PHASES = ("build,kernels,e2e,serve,consistency,batched_consistency,http,"
+                  "train_kernels,train,train_consistency")
 
 
 def log(*a):
@@ -88,13 +122,16 @@ def log(*a):
 class ByteTokenizer:
     """Byte-level tokenizer with a ChatML template: ids 0-255 are the
     UTF-8 bytes, special tokens follow. Implements what `GenerationEngine`
-    calls."""
+    and the training data path (`preprocess_conversation`: special tokens
+    added on the fly, the sentinel among them; the collators' pad id)
+    call."""
 
     def __init__(self):
         self.vocab = {}
         self.add_tokens(["<|endoftext|>", "<|im_start|>", "<|im_end|>"],
                         special_tokens=True)
         self.eos_token = "<|im_end|>"
+        self.pad_token_id = self.vocab["<|endoftext|>"]
         from vila_tpu_torch.data.tokenizer_utils import add_media_tokens
 
         add_media_tokens(self)
@@ -590,6 +627,7 @@ def summarise(results, launches):
         "fused_o_gateup": lambda r: r["m"] == 24,
         "fused_down_qkv": lambda r: r["m"] == 24,
         "fused_layer_batched": lambda r: r["m"] == 8,
+        **{name: (lambda r: r["m"] == 2048) for name in FLASH_KERNELS},
     }
     out = []
     for name, meta in KERNELS.items():
@@ -979,6 +1017,444 @@ def phase_profile(torch, engine, seed, new_tokens=17):
                 step_busy_ms=step_busy)
 
 
+# --------------------------------------------------------------------------
+# Training (NVILA-Lite-2B SFT)
+# --------------------------------------------------------------------------
+
+
+def nvila_lite_2b_config(layers=28, vision_layers=27):
+    """NVILA-Lite-2B shape (`__graft_entry__._flagship_cfg`): Qwen2-1.5B LLM
+    (tied embeddings, vocab 151936 + 64), SigLIP-SO400M-448,
+    mlp_downsample; bf16 compute over f32 master weights."""
+    from vila_tpu_torch.models import projector, qwen2, siglip, vlm
+
+    llm = qwen2.LLMConfig(
+        vocab_size=151936 + 64, hidden_size=1536, intermediate_size=8960,
+        num_hidden_layers=layers, num_attention_heads=12, num_key_value_heads=2,
+        rope_theta=1e6, tie_word_embeddings=True, dtype="bfloat16",
+    )
+    vis = siglip.SigLIPConfig(num_hidden_layers=vision_layers, dtype="bfloat16")
+    proj = projector.ProjectorConfig(projector_type="mlp_downsample", mm_hidden_size=1152,
+                                     hidden_size=1536, dtype="bfloat16")
+    return vlm.VLMConfig(llm=llm, vision=vis, projector=proj)
+
+
+def train_flops_per_token(cfg, seq):
+    """bench.py's model-FLOPs count (bench.py:240-243) with this model's
+    P, L, H and S: 6 P + 12 L H S (the LLM; the vision tower is not
+    counted)."""
+    llm = cfg.llm
+    D, I, hd = llm.hidden_size, llm.intermediate_size, llm.head_dim_
+    Hq, Hkv, L = llm.num_attention_heads, llm.num_key_value_heads, llm.num_hidden_layers
+    p_layer = D * (Hq + 2 * Hkv) * hd + Hq * hd * D + 3 * D * I
+    P = L * p_layer + llm.vocab_size * D
+    return 6 * P + 12 * L * D * seq
+
+
+def _packed_segments(torch, s, dev):
+    """(1, s) int32: three packed samples (40 %, 35 %, 20 % of the row) and
+    a tail of collator padding (segment 0)."""
+    cuts = [int(s * f) for f in (0.4, 0.75, 0.95)]
+    seg = torch.zeros((1, s), dtype=torch.int32, device=dev)
+    seg[:, :cuts[0]] = 1
+    seg[:, cuts[0]:cuts[1]] = 2
+    seg[:, cuts[1]:cuts[2]] = 3
+    return seg
+
+
+def phase_train_kernels(torch, seed, dev="cuda", heads=(12, 2), seqs=(2048, 2000)):
+    """K7, K8 and K9 against their plain versions (same inputs, on the
+    card), each timed beside its plain version and, as the yardstick,
+    `scaled_dot_product_attention` (causal, GQA) forward and backward. The
+    bound counts this run's work: 2, 3 and 4 products over the (q, k) pairs
+    the causal and segment masks allow."""
+    import torch.nn.functional as F
+
+    from vila_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    hq, hkv = heads
+    d = fa.HEAD_DIM
+    scale = d ** -0.5
+    bf16 = torch.bfloat16
+    results = {name: [] for name in FLASH_KERNELS}
+    ok = True
+    for s in seqs:
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(bf16)  # noqa: E731
+        q, k, v, do = rnd(1, s, hq, d), rnd(1, s, hkv, d), rnd(1, s, hkv, d), rnd(1, s, hq, d)
+        seg = _packed_segments(torch, s, dev)
+        kw = dict(causal=True, scale=scale)
+        out_r, lse_r = fa.flash_fwd_plain(q, k, v, seg, seg, **kw)
+        delta = (do.float() * out_r.float()).sum(-1).transpose(1, 2).contiguous()
+        bwd = (q, k, v, do, lse_r, delta, seg, seg)
+        cases = {
+            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, seg, seg, **kw),
+                          lambda: fa.flash_fwd_plain(q, k, v, seg, seg, **kw), 2),
+            "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*bwd, **kw),
+                             lambda: fa.flash_bwd_dq_plain(*bwd, **kw), 3),
+            "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*bwd, **kw),
+                              lambda: fa.flash_bwd_dkv_plain(*bwd, **kw), 4),
+        }
+        # the yardstick: one SDPA call in the (B, H, S, D) layout, causal only
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+        qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        out_g = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+        sdpa_bwd = lambda: torch.autograd.grad(out_g, (qg, kg, vg), dot,  # noqa: E731
+                                               retain_graph=True)
+        t_sdpa, t_sdpa_bwd = time_ms(torch, sdpa, 20, flush), time_ms(torch, sdpa_bwd, 20, flush)
+        # allowed (q, k) pairs: causal within each segment, padding included
+        counts = torch.bincount(seg[0].long()).tolist()
+        pairs = sum(n * (n + 1) // 2 for n in counts)
+        in_bytes = 2 * (q.numel() + k.numel() + v.numel()) + 4 * seg.numel() * 2
+        for name, (fn, ref, products) in cases.items():
+            got, want = fn(), ref()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            errs = []
+            good = True
+            for g, w in zip(got, want):
+                err, sc = rel_err(torch, g, w)
+                # bf16 outputs: 1e-2 x max|ref| (the kernel rounds P and dS
+                # at its running tile maxima, the plain version at the row's);
+                # the LSE (f32): 1e-3 absolute
+                tol = 1e-3 if g.dtype == torch.float32 else 1e-2 * sc
+                good &= bool(torch.isfinite(g.float()).all()) and err <= tol
+                errs.append(err)
+            ok &= good
+            t = time_ms(torch, fn, 20, flush)
+            t_plain = time_ms(torch, ref, 3, flush)
+            flops = products * 2 * hq * d * pairs
+            flops_causal = products * 2 * hq * d * s * s // 2
+            out_bytes = sum(g.numel() * g.element_size() for g in got)
+            extra = 0 if name == "flash_fwd" else 2 * do.numel() + 8 * hq * s  # dO, lse, delta
+            b_ms, b_by = bound(in_bytes + extra + out_bytes, flops, BF16_FLOPS)
+            lib = t_sdpa if name == "flash_fwd" else t_sdpa_bwd
+            results[name].append(dict(
+                shape=f"B 1, S {s}, {hq}/{hkv} heads of {d}, causal, segments {counts}",
+                m=s, max_abs_err=max(errs), ok=good, ms=t, plain_ms=t_plain,
+                bound_ms=b_ms, bound_by=b_by,
+                bound_ms_causal=bound(in_bytes + extra + out_bytes, flops_causal,
+                                      BF16_FLOPS)[0],
+                library_ms=lib,
+                library="sdpa forward" if name == "flash_fwd" else
+                        "sdpa backward (dq, dk, dv in one call)",
+                tflops=flops / t / 1e9))
+            log(f"[train_kernels] {name:13s} S={s}: err {max(errs):.3e} "
+                f"{'OK' if good else 'FAIL'}  kernel {t:.4f} ms ({flops / t / 1e9:.1f} "
+                f"TFLOP/s on allowed pairs)  plain {t_plain:.3f} ms  "
+                f"{results[name][-1]['library']} {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by}; "
+                f"causal-only {results[name][-1]['bound_ms_causal']:.4f})")
+        del out_g, qg, kg, vg
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "train_kernels.json"), "w") as f:
+        json.dump(results, f, indent=1)
+    return ok, results
+
+
+def _materialise(dataset):
+    """Every example of a dataset, processed once: the DummyDataset draws
+    its images from one generator in call order, so the examples are fixed
+    here and a resumed run reads the same data as the run it continues."""
+    return [dataset[i] for i in range(len(dataset))]
+
+
+def train_data(torch, cfg, seq, fill=0.85):
+    """DummyDataset (with images) through the smoke's ByteTokenizer, the
+    per-step sample count whose mean length fills `fill` of one row, and the
+    packing collator."""
+    from vila_tpu_torch.data.collate import PackingCollator
+    from vila_tpu_torch.data.dummy import DummyDataset
+
+    tok = ByteTokenizer()
+    examples = _materialise(DummyDataset(tok, cfg, with_images=True))
+    mean = sum(len(e["input_ids"]) for e in examples) / len(examples)
+    per_step = max(1, math.ceil(fill * seq / mean))
+    collator = PackingCollator(seq_len=seq, rows=1, pad_token_id=tok.pad_token_id,
+                               tile_size=cfg.vision.image_size)
+    return examples, per_step, collator, mean
+
+
+def _snapshot(params):
+    """Copies of one tensor per component that every step's gradient
+    reaches."""
+    return {
+        "llm": params["llm"]["layers"]["input_layernorm"]["scale"].detach().clone(),
+        "vision_tower": params["vision_tower"]["layers"]["layer_norm1"]["scale"].detach().clone(),
+        "mm_projector": params["mm_projector"]["1"]["scale"].detach().clone(),
+    }
+
+
+def phase_train(torch, seed, cfg=None, dev="cuda", steps=6, save_steps=3, seq=2048,
+                out_dir=os.path.join("runs", "chip_smoke_train")):
+    """`Trainer` on the card at full NVILA-Lite-2B width, stage sft: `steps`
+    steps with checkpoints every `save_steps`; then the last checkpoint is
+    removed and a fresh `Trainer` resumes from step `save_steps`, which must
+    reproduce the first run's losses. K7-K9 must launch 28 times per step
+    (one per LLM layer; no remat) and nothing else."""
+    import dataclasses
+    import gc
+    import shutil
+
+    from vila_tpu_torch.cli.train import STAGE_PRESETS
+    from vila_tpu_torch.models import vlm
+    from vila_tpu_torch.ops import _build
+    from vila_tpu_torch.train.trainer import TrainArgs, Trainer
+
+    cfg = cfg or nvila_lite_2b_config()
+    layers = cfg.llm.num_hidden_layers
+    dev = torch.device(dev)
+    examples, per_step, collator, mean = train_data(torch, cfg, seq)
+    fill = collator(examples[:per_step])["segment_ids"].astype(bool).mean()
+    log(f"[train] {len(examples)} DummyDataset image samples, mean {mean:.1f} tokens; "
+        f"{per_step} per step fill {100 * fill:.1f}% of a {seq}-token row")
+    args = TrainArgs(output_dir=out_dir, max_steps=steps, per_device_batch_size=per_step,
+                     seq_len=seq, pack_rows=1, logging_steps=1, save_steps=save_steps,
+                     max_ckpts_to_keep=2, seed=seed, **STAGE_PRESETS["sft"])
+    fpt = train_flops_per_token(cfg, seq)
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    def run(tag):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = vlm.init_params(gen, cfg, torch.float32)
+        before = _snapshot(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, params, examples, collator, args, device=dev)
+        t_init = time.perf_counter() - t0
+        saves = {}  # step -> seconds of its checkpoint save
+        save = trainer.ckpt.save
+
+        def timed_save(step, *a, **kw):
+            ts = time.perf_counter()
+            save(step, *a, **kw)
+            saves[step] = time.perf_counter() - ts
+
+        trainer.ckpt.save = timed_save
+        hist = trainer.train()["log_history"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        moved = {k: not torch.equal(v, _snapshot(trainer.params)[k]) for k, v in before.items()}
+        n_steps = steps - trainer.start_step
+        rows = []
+        prev = 0.0
+        for h in hist:
+            # a save after step n is timed apart, not as part of step n + 1
+            step_s = h["elapsed_s"] - prev - saves.get(h["step"] - 1, 0.0)
+            prev = h["elapsed_s"]
+            rows.append(dict(step=h["step"], loss=h["loss"], grad_norm=h["grad_norm"],
+                             n_tokens=h["n_tokens"], step_s=step_s,
+                             tokens_per_s=seq / step_s,
+                             mfu=fpt * seq / step_s / BF16_FLOPS))
+            log(f"[{tag}] step {h['step']}: loss {h['loss']:.4f} grad_norm "
+                f"{h['grad_norm']:.4f} step wall {1e3 * step_s:.1f} ms, "
+                f"{seq / step_s:.0f} tokens/s, model-FLOPs share "
+                f"{100 * rows[-1]['mfu']:.2f}%")
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[{tag}] {n_steps} steps from step {trainer.start_step} in {wall:.1f} s "
+            f"(set-up {t_init:.1f} s; checkpoint saves "
+            f"{', '.join(f'{k}: {v:.1f} s' for k, v in saves.items())}); peak allocated "
+            f"{peak / 2**30:.2f} GiB; launches {launches}; moved {moved}")
+        want = dict(_no_launches(), **{k: layers * n_steps for k in FLASH_KERNELS})
+        good = (launches == want and all(moved.values()) and len(rows) == n_steps
+                and all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                        for r in rows))
+        if not good:
+            log(f"[{tag}] FAIL: launches {launches}, expected {want}; moved {moved}")
+        del trainer, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return good, rows, launches, dict(peak_bytes=peak, wall_s=wall, init_s=t_init,
+                                          save_s=saves)
+
+    try:
+        ok1, rows1, launches1, info1 = run("train")
+        ckpt = os.path.join(out_dir, "checkpoints")
+        shutil.rmtree(os.path.join(ckpt, f"checkpoint-{steps}"))
+        os.remove(os.path.join(ckpt, f"metadata-{steps}.json"))
+        ok2, rows2, launches2, info2 = run("train resumed")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    resumed = rows2[0]["step"] == save_steps + 1 if rows2 else False
+    rel = [abs(a["loss"] - b["loss"]) / abs(a["loss"])
+           for a, b in zip(rows1[save_steps:], rows2)]
+    ok3 = resumed and len(rel) == steps - save_steps and max(rel) <= 1e-3
+    log(f"[train] resumed run: steps {[r['step'] for r in rows2]}, loss relative "
+        f"differences to the first run {[f'{x:.2e}' for x in rel]} (limit 1e-3) -> "
+        f"{'OK' if ok3 else 'FAIL'}")
+    steady = rows1[1:] or rows1
+    summary = dict(
+        config="NVILA-Lite-2B, sft, f32 master weights, bf16 compute, no remat",
+        seq=seq, samples_per_step=per_step, row_fill=float(fill), steps=rows1,
+        resumed_steps=rows2, resume_loss_rel_diff=rel,
+        step_s_median=statistics.median(r["step_s"] for r in steady),
+        tokens_per_s_median=statistics.median(r["tokens_per_s"] for r in steady),
+        mfu_median=statistics.median(r["mfu"] for r in steady),
+        flops_per_token=fpt, peak_bytes=info1["peak_bytes"], run=info1, resumed_run=info2)
+    log(f"[train] steady steps (2..{steps}): step wall median "
+        f"{1e3 * summary['step_s_median']:.1f} ms, {summary['tokens_per_s_median']:.0f} "
+        f"tokens/s, model-FLOPs share {100 * summary['mfu_median']:.2f}%, peak "
+        f"{info1['peak_bytes'] / 2**30:.2f} GiB")
+    return ok1 and ok2 and ok3, summary, {"train": launches1, "train resumed": launches2}
+
+
+def phase_train_profile(torch, seed, cfg=None, dev="cuda", seq=2048, warmup=2):
+    """(only when named) One full-width training step (the `train` phase's
+    configuration and batch size) timed without and then with
+    torch.profiler: device busy time against the host clock, and the ops by
+    device time (chiprun_out/train_profile.txt)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vila_tpu_torch.models import vlm
+    from vila_tpu_torch.train import optimizer as topt
+    from vila_tpu_torch.train.step import batch_to_device, make_train_step, train_step
+
+    cfg = cfg or nvila_lite_2b_config()
+    dev = torch.device(dev)
+    examples, per_step, collator, _ = train_data(torch, cfg, seq)
+    params = vlm.init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                             torch.float32)
+    opt = topt.make_optimizer(topt.OptimizerConfig(learning_rate=2e-5,
+                                                   vision_tower_lr=2e-6))
+    _, params, state = make_train_step(cfg, params, opt)
+    batch = batch_to_device(collator(examples[:per_step]), dev)
+
+    def step():
+        nonlocal params, state
+        params, state, m = train_step(params, state, batch, cfg=cfg, optimizer=opt)
+        float(m["loss"])  # the host waits for the step, as the trainer's log does
+
+    for _ in range(warmup):
+        step()
+    t0 = time.perf_counter()
+    step()
+    wall = time.perf_counter() - t0
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step()
+        traced = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+
+    # device time = the kernels' own intervals (an op's self device time
+    # repeats its kernels' and is not added again)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    groups = {}
+    for e in kernels:
+        t = e.time_range.elapsed_us() / 1e3
+        name = e.name.lower()
+        group = ("flash (K7-K9)" if "flash" in name else
+                 "adamw" if "adam" in name else
+                 "matmul f32" if "f32f32" in name or "sgemm" in name else
+                 "matmul bf16" if any(w in name for w in ("gemm", "cutlass", "xmma",
+                                                          "nvjet", "cublas")) else
+                 "softmax / reductions" if any(w in name for w in ("softmax", "reduce",
+                                                                   "norm")) else
+                 "copies / casts / elementwise")
+        groups[group] = groups.get(group, 0.0) + t
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "train_profile.txt"), "w") as f:
+        f.write(prof.key_averages().table(
+            sort_by="self_device_time_total" if dev.type == "cuda" else "self_cpu_time_total",
+            row_limit=40))
+    log(f"[train_profile] one step ({per_step} samples, {seq} tokens): wall "
+        f"{1e3 * wall:.1f} ms unprofiled, {1e3 * traced:.1f} ms traced; device busy "
+        f"{busy:.1f} ms ({100 * (1 - busy / (1e3 * traced)):.0f}% idle while traced); "
+        "by group (ms): " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                      sorted(groups.items(), key=lambda kv: -kv[1])))
+    return dict(wall_ms=1e3 * wall, traced_ms=1e3 * traced, busy_ms=busy, groups_ms=groups)
+
+
+def copy_tree(tree, dev):
+    """A copy of a nested dict of tensors on `dev` (a copy even on the
+    same device)."""
+    if isinstance(tree, dict):
+        return {k: copy_tree(v, dev) for k, v in tree.items()}
+    return tree.to(dev, copy=True)
+
+
+def phase_train_consistency(torch, seed, cfg=None, card="cuda", seq=512):
+    """One `train_step` (stage sft, constant learning rates so that the
+    step moves every tuned tensor) at full widths and reduced depth: on the
+    card through K7-K9, and from the same parameters and batch on the CPU
+    through their plain versions. Tolerances: loss 1e-2 and grad_norm 5e-2
+    relative (bf16 products rounded by different libraries); the updated
+    tensors: each update is at most lr per element (Adam's first step is
+    lr * g / (|g| + eps)), so the card's and the CPU's may differ by up to
+    2 lr where a gradient near zero changes sign, and at least 90 % of the
+    elements must agree within 0.1 lr."""
+    from vila_tpu_torch.models import vlm
+    from vila_tpu_torch.ops import _build
+    from vila_tpu_torch.train import optimizer as topt
+    from vila_tpu_torch.train.step import batch_to_device, make_train_step, train_step
+
+    cfg = cfg or nvila_lite_2b_config(layers=2, vision_layers=2)
+    layers = cfg.llm.num_hidden_layers
+    examples, _, collator, _ = train_data(torch, cfg, seq)
+    batch = collator(examples[:1])
+    ocfg = topt.OptimizerConfig(learning_rate=2e-5, vision_tower_lr=2e-6,
+                                schedule="constant", warmup_ratio=0.0)
+    named = {"llm.layers.q_proj.kernel": (("llm", "layers", "q_proj", "kernel"), 2e-5),
+             "vision_tower.layers.fc1.kernel": (("vision_tower", "layers", "fc1", "kernel"), 2e-6),
+             "mm_projector.2.kernel": (("mm_projector", "2", "kernel"), 2e-5)}
+
+    def get(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
+
+    cpu = torch.device("cpu")
+    params_cpu = vlm.init_params(torch.Generator().manual_seed(seed), cfg, torch.float32)
+    before = {n: get(params_cpu, p).detach().clone() for n, (p, _) in named.items()}
+    out = {}
+    for tag, dev, impl in (("card", torch.device(card), "auto"), ("cpu", cpu, "flash")):
+        params = copy_tree(params_cpu, dev) if tag == "card" else params_cpu
+        opt = topt.make_optimizer(ocfg)
+        _, params, state = make_train_step(cfg, params, opt)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        params, state, m = train_step(params, state, batch_to_device(batch, dev), cfg=cfg,
+                                      optimizer=opt, attn_impl=impl)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        out[tag] = dict(loss=loss, grad_norm=gnorm, s=time.perf_counter() - t0,
+                             launches=dict(_build.LAUNCHES),
+                             delta={n: (get(params, p).detach().to(cpu) - before[n])
+                                    for n, (p, _) in named.items()})
+        del params, state, opt
+    card, host = out["card"], out["cpu"]
+    want = dict(_no_launches(), **{k: layers for k in FLASH_KERNELS})
+    ok = card["launches"] == want and all(v == 0 for v in host["launches"].values())
+    rel_loss = abs(card["loss"] - host["loss"]) / abs(host["loss"])
+    rel_gn = abs(card["grad_norm"] - host["grad_norm"]) / abs(host["grad_norm"])
+    ok &= rel_loss <= 1e-2 and rel_gn <= 5e-2
+    tensors = {}
+    for n, (_, lr) in named.items():
+        diff = (card["delta"][n] - host["delta"][n]).abs()
+        agree = float((diff <= 0.1 * lr).float().mean())
+        moved = bool((host["delta"][n] != 0).any())
+        good = float(diff.max()) <= 2 * lr * (1 + 1e-3) and agree >= 0.9 and moved
+        ok &= good
+        tensors[n] = dict(max_abs_diff=float(diff.max()), lr=lr, share_within_0p1_lr=agree)
+        log(f"[train_consistency] {n}: max |d update| {float(diff.max()):.3e} "
+            f"(lr {lr:g}), {100 * agree:.2f}% within 0.1 lr -> {'OK' if good else 'FAIL'}")
+    log(f"[train_consistency] {layers} LLM + {cfg.vision.num_hidden_layers} SigLIP layers, "
+        f"seq {seq}: "
+        f"loss card {card['loss']:.6f} / CPU {host['loss']:.6f} (rel {rel_loss:.2e}, "
+        f"limit 1e-2); grad_norm {card['grad_norm']:.5f} / {host['grad_norm']:.5f} "
+        f"(rel {rel_gn:.2e}, limit 5e-2); card launches {card['launches']}; CPU step "
+        f"{host['s']:.1f} s -> {'OK' if ok else 'FAIL'}")
+    return ok, dict(loss=(card["loss"], host["loss"]), grad_norm=(card["grad_norm"],
+                    host["grad_norm"]), tensors=tensors, cpu_s=host["s"])
+
+
 def nvidia_smi_line():
     try:
         r = subprocess.run(
@@ -1078,6 +1554,24 @@ def main(argv=None) -> int:
         ok &= good
     if "profile" in phases:  # not in the default run
         report["profile"] = phase_profile(torch, engine(args.layers, args.seed), args.seed)
+    if any(p.startswith("train") for p in phases):
+        # the serving engines' weights make room for training
+        engines.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "train_kernels" in phases:
+        good, train_results = phase_train_kernels(torch, args.seed)
+        results.update(train_results)
+        ok &= good
+    if "train" in phases:
+        good, report["train"], train_launches = phase_train(torch, args.seed)
+        launches.update(train_launches)
+        ok &= good
+    if "train_consistency" in phases:
+        good, report["train_consistency"] = phase_train_consistency(torch, args.seed)
+        ok &= good
+    if "train_profile" in phases:  # not in the default run
+        report["train_profile"] = phase_train_profile(torch, args.seed)
     report["seconds"] = time.time() - t_all
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_report.json"), "w") as f:

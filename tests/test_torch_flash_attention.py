@@ -1,0 +1,146 @@
+"""Parity of the port's flash attention (`vila_tpu_torch.ops.flash_attention`,
+the plain versions of K7-K9 on the CPU) with the JAX package's Pallas
+kernels, run in interpret mode as `tests/test_flash_attention.py` runs them.
+Inputs are drawn with numpy from a seed; float32 throughout except the
+bf16 test. Tolerance atol 2e-5, rtol 1e-4: the JAX kernels sum blockwise
+(online softmax over 128-wide blocks), the plain versions densely."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vila_tpu.ops.flash_attention import flash_attention as jflash
+from vila_tpu.ops.flash_attention import flash_block_backward as jblock_bwd
+from vila_tpu_torch.ops import attention as tattn
+from vila_tpu_torch.ops import flash_attention as tfa
+
+TOL = dict(atol=2e-5, rtol=1e-4)
+
+
+def _qkv(b=1, s=256, hq=4, hkv=2, d=128, seed=0, skv=None):
+    rng = np.random.default_rng(seed)
+    skv = s if skv is None else skv
+    q = (rng.standard_normal((b, s, hq, d)) * 0.3).astype(np.float32)
+    k = (rng.standard_normal((b, skv, hkv, d)) * 0.3).astype(np.float32)
+    v = (rng.standard_normal((b, skv, hkv, d)) * 0.3).astype(np.float32)
+    return q, k, v
+
+
+def _segments(s):
+    seg = np.ones((1, s), np.int32)
+    seg[:, s // 3:] = 2
+    seg[:, 2 * s // 3:] = 3
+    return seg
+
+
+def _torch(*arrays):
+    return [torch.tensor(a, requires_grad=a.dtype == np.float32) for a in arrays]
+
+
+@pytest.mark.parametrize("s,with_seg", [(256, False), (256, True), (200, False), (200, True)])
+def test_forward_lse_and_grads_match_jax(s, with_seg):
+    q, k, v = _qkv(s=s)
+    seg = _segments(s) if with_seg else None
+    w = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
+    jseg = None if seg is None else jnp.asarray(seg)
+
+    def jloss(q, k, v):
+        o = jflash(q, k, v, causal=True, q_segment_ids=jseg, kv_segment_ids=jseg,
+                   block_q=128, block_kv=128)
+        return jnp.sum(o * w)
+
+    jl, jg = jax.value_and_grad(jloss, argnums=(0, 1, 2))(q, k, v)
+    jo, jlse = jflash(q, k, v, causal=True, q_segment_ids=jseg, kv_segment_ids=jseg,
+                      block_q=128, block_kv=128, return_lse=True)
+
+    tq, tk, tv = _torch(q, k, v)
+    tseg = None if seg is None else torch.tensor(seg)
+    out = tfa.flash_attention(tq, tk, tv, causal=True, q_segment_ids=tseg,
+                              kv_segment_ids=tseg)
+    (out * torch.tensor(w)).sum().backward()
+    to, tlse = tfa.flash_attention(tq.detach(), tk.detach(), tv.detach(), causal=True,
+                                   q_segment_ids=tseg, kv_segment_ids=tseg,
+                                   return_lse=True)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), **TOL)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), jg):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_block_backward_matches_jax():
+    """flash_block_backward with the forward's own LSE and delta."""
+    q, k, v = _qkv(s=256, seed=3)
+    w = np.random.default_rng(4).standard_normal(q.shape).astype(np.float32)
+    seg = _segments(256)
+    jo, jlse = jflash(q, k, v, causal=True, q_segment_ids=seg, kv_segment_ids=seg,
+                      block_q=128, block_kv=128, return_lse=True)
+    delta = np.sum(w.transpose(0, 2, 1, 3) * np.asarray(jo).transpose(0, 2, 1, 3), -1)
+    want = jblock_bwd(q, k, v, w, jlse, delta, causal=True, q_segment_ids=seg,
+                      kv_segment_ids=seg, block_q=128, block_kv=128)
+    got = tfa.flash_block_backward(
+        *map(torch.tensor, (q, k, v, w, np.asarray(jlse), delta)), causal=True,
+        q_segment_ids=torch.tensor(seg), kv_segment_ids=torch.tensor(seg))
+    for g, wnt in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wnt), **TOL)
+
+
+def test_cross_attention_is_not_causal():
+    """Sq != Skv: causal masking does not apply (JAX's causal_eff)."""
+    q, k, v = _qkv(s=200, skv=256, seed=5)
+    jo = jflash(q, k, v, causal=True, block_q=128, block_kv=128)
+    to = tfa.flash_attention(*map(torch.tensor, (q, k, v)), causal=True)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+
+
+def test_fully_masked_rows_output_zero():
+    """A row with nothing to attend to: out 0, LSE -1e30, no gradient."""
+    q, k, v = _qkv(s=64, skv=96, seed=6, d=16)
+    q_seg = np.ones((1, 64), np.int32)
+    q_seg[:, :5] = 7  # segment 7 has no keys
+    kv_seg = np.ones((1, 96), np.int32)
+    tq, tk, tv = _torch(q, k, v)
+    out, lse = tfa.flash_fwd(tq.detach(), tk.detach(), tv.detach(),
+                             torch.tensor(q_seg), torch.tensor(kv_seg),
+                             causal=False, scale=0.25)
+    assert torch.all(out[:, :5] == 0) and torch.all(lse[:, :, :5] == -1e30)
+    assert torch.all(lse[:, :, 5:] > -1e3)
+    o = tfa.flash_attention(tq, tk, tv, causal=False, q_segment_ids=torch.tensor(q_seg),
+                            kv_segment_ids=torch.tensor(kv_seg))
+    o.sum().backward()
+    assert torch.all(tq.grad[:, :5] == 0) and torch.isfinite(tk.grad).all()
+
+
+def test_bf16_grads_finite_and_close_to_jax():
+    """bf16 in, bf16 gradients out; the dense plain version and the blocked
+    kernel round P at different running maxima, so bf16 agreement is to a
+    few bf16 ulps of the largest value."""
+    q, k, v = _qkv(s=256, seed=5)
+    jb = [jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)]
+    jg = jax.grad(lambda q, k, v: jnp.sum(jflash(q, k, v, causal=True, block_q=128,
+                                                 block_kv=128).astype(jnp.float32)),
+                  argnums=(0, 1, 2))(*jb)
+    tb = [torch.tensor(x).to(torch.bfloat16).requires_grad_() for x in (q, k, v)]
+    tfa.flash_attention(*tb, causal=True).float().sum().backward()
+    for t, j in zip(tb, jg):
+        assert t.grad.dtype == torch.bfloat16 and torch.isfinite(t.grad.float()).all()
+        want = np.asarray(j.astype(jnp.float32))
+        err = np.abs(t.grad.float().numpy() - want).max()
+        assert err <= 2 ** -5 * np.abs(want).max(), err
+
+
+def test_cpu_route_never_picks_flash():
+    """On the CPU "auto" keeps the plain and blocked routes (JAX off a TPU);
+    "flash" forced by name runs the plain versions and agrees with them."""
+    q, k, v = map(torch.tensor, _qkv(s=256, seed=7))
+    assert not tattn._flash_supported(q, k, None)
+    assert not tattn._flash_supported(q.to(torch.bfloat16), k.to(torch.bfloat16), None)
+    auto = tattn.multi_head_attention(q, k, v, causal=True)
+    xla = tattn.attention_xla(q, k, v, causal=True)
+    flash = tattn.multi_head_attention(q, k, v, causal=True, impl="flash")
+    assert torch.equal(auto, xla)
+    np.testing.assert_allclose(flash.numpy(), xla.numpy(), **TOL)
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        tattn.multi_head_attention(q, k, v, impl="pallas")

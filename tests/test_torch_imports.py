@@ -94,6 +94,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         weights.from_jax_params({"a": torch.zeros(2).numpy()})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         GenerationEngine({}, None, None)
+    from vila_tpu_torch.train.trainer import TrainArgs, Trainer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(None, {}, [], None, TrainArgs())
 
 
 def test_kernel_wrappers_never_fall_back(no_cuda):
@@ -116,6 +120,18 @@ def test_kernel_wrappers_never_fall_back(no_cuda):
             torch.zeros(2, 1, 16, 64), torch.zeros(2, 1, 16, 64),
             slot, slot, slot, slot, torch.ones(2, 256), torch.ones(2, 256),
             hkv=1, hd=64)
+
+    from vila_tpu_torch.ops import flash_attention as fa
+
+    qm = torch.empty((1, 128, 2, 128), dtype=torch.bfloat16, device="meta")
+    km = torch.empty((1, 128, 1, 128), dtype=torch.bfloat16, device="meta")
+    lse = torch.empty((1, 2, 128), device="meta")
+    with pytest.raises((ValueError, RuntimeError)):
+        fa.flash_fwd(qm, km, km, causal=True, scale=0.1)
+    with pytest.raises((ValueError, RuntimeError)):
+        fa.flash_bwd_dq(qm, km, km, qm, lse, lse, causal=True, scale=0.1)
+    with pytest.raises((ValueError, RuntimeError)):
+        fa.flash_bwd_dkv(qm, km, km, qm, lse, lse, causal=True, scale=0.1)
 
     class CudaLike:
         device = torch.device("cuda")

@@ -29,11 +29,22 @@ JAX package's routes, chosen by the same conditions:
 
 Everything else runs each projection as one W4 matmul
 (`w4_matmul_stacked_dispatch`).
+
+The cache-free path is also the training forward: it differentiates with
+f32 master weights and a bf16 compute dtype (weights cast inside the
+graph; the tied embedding's two uses accumulate into one gradient), takes
+each layer's dense weights as views of one `unbind` per stacked tensor (so
+the backward stacks one gradient per tensor instead of summing a full-size
+one per layer), and runs each layer under `torch.utils.checkpoint` with
+`cfg.remat` (True: full recompute; "dots": matmul outputs kept, JAX's
+`dots_with_no_batch_dims_saveable`). Its attention takes the flash kernels
+on the card (`ops/attention.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Any, Dict, Optional, Tuple
 
@@ -62,7 +73,19 @@ class LLMConfig:
     rms_norm_eps: float = 1e-6
     tie_word_embeddings: bool = True
     qkv_bias: bool = True  # Qwen2: q/k/v have bias, o_proj does not
+    max_position_embeddings: int = 32768
     dtype: str = "float32"  # compute dtype
+    # False | True (full recompute per layer) | "dots" (matmul outputs kept)
+    remat: Any = False
+    # FP8 training matmuls (JAX's ops/fp8.py): not ported yet, must be False
+    fp8_matmul: Any = False
+
+    def __post_init__(self):
+        if self.fp8_matmul:
+            raise NotImplementedError(
+                "fp8_matmul needs ops/fp8.py, which is not ported yet")
+        if self.remat not in (False, True, "dots"):
+            raise ValueError(f"remat must be False, True or 'dots', got {self.remat!r}")
 
     @property
     def head_dim_(self) -> int:
@@ -264,6 +287,18 @@ def forward(
              if "o_proj" in q_stacked else None)
     padded_o = o_din == Hkv * grp_pad * hd and grp_pad != grp
 
+    # cache-free (training) path: one unbind per dense stacked tensor
+    unbound = None if cache is not None else {
+        name: {k: v.unbind(0) for k, v in slot.items()}
+        for name, slot in all_layers.items() if name not in q_stacked
+    }
+
+    def layer_slot(name, l):
+        """Layer l's tensors of a dense stacked slot."""
+        if unbound is not None:
+            return {k: v[l] for k, v in unbound[name].items()}
+        return {k: v[l] for k, v in all_layers[name].items()}
+
     def lin(x, name, l):
         lp = all_layers[name]
         if name in q_stacked:
@@ -276,7 +311,7 @@ def forward(
             if "bias" in lp:
                 y = y + lp["bias"][l].to(dtype)
             return y
-        return _linear(x, {k: v[l] for k, v in lp.items()}, dtype)
+        return _linear(x, layer_slot(name, l), dtype)
 
     def pad_attn(attn):
         """(b, s, nq) -> (b, s, o_din): zero lanes for the GQA group pad."""
@@ -307,7 +342,7 @@ def forward(
         return attn.reshape(b, s, nq)
 
     def layer_fn(h, l):
-        scale = lambda n: all_layers[n]["scale"][l]  # noqa: E731
+        scale = lambda n: layer_slot(n, l)["scale"]  # noqa: E731
         x = rms_norm(h, scale("input_layernorm"), cfg.rms_norm_eps)
         if "qkv_proj" in all_layers:
             qkv = lin(x, "qkv_proj", l)
@@ -353,8 +388,11 @@ def forward(
     elif use_fused:
         h = _fused_decode(params, cfg, h, attend, pad_attn, lin)
     else:
+        body = layer_fn
+        if cache is None and cfg.remat:
+            body = _checkpointed(layer_fn, cfg.remat)
         for l in range(cfg.num_hidden_layers):
-            h = layer_fn(h, l)
+            h = body(h, l)
 
     new_cache = None
     if cache is not None:
@@ -371,6 +409,29 @@ def forward(
     if return_hidden:
         return h, new_cache
     return compute_logits(params, cfg, h), new_cache
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat="dots": keep the outputs of
+    matmuls without batch dimensions (the projections), recompute the
+    rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(fn, remat):
+    """fn(h, l) under `torch.utils.checkpoint`: full recompute for
+    remat=True, the matmul outputs kept for "dots"."""
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _save_dots)
+    return lambda h, l: checkpoint(fn, h, l, use_reentrant=False, **kw)
 
 
 def _mega_decode(params, cfg, h, cos, sin, cache, new_valid, fill, write_kv, lin):

@@ -140,7 +140,10 @@ def encode_tokens(params: Params, cfg: SigLIPConfig, h: torch.Tensor, *,
     assert 0 <= n_run <= L, f"feature_layer {feature_layer} out of range"
     b, s, d = h.shape
     nh, hd = cfg.num_attention_heads, cfg.head_dim
-    layers = params["layers"]
+    # one unbind per stacked tensor: the backward stacks one gradient per
+    # tensor instead of summing a full-size one per layer
+    layers = {name: {k: v.unbind(0) for k, v in slot.items()}
+              for name, slot in params["layers"].items()}
     for l in range(n_run):
         lp = {name: {k: v[l] for k, v in slot.items()} for name, slot in layers.items()}
         x = layer_norm(h, lp["layer_norm1"]["scale"], lp["layer_norm1"]["bias"],

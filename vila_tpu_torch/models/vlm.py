@@ -1,6 +1,7 @@
 """VLM meta-architecture: vision tower + projector + LLM with media splice,
 as `vila_tpu/models/vlm.py` (the SigLIP tower with plain images; the
-other towers, S2, PS3 and video are not ported yet).
+other towers, S2, PS3 and video are not ported yet), and the training
+forward over a collated batch (`forward_batch`).
 
 The host expands each media token into a fixed run of placeholder positions
 (plus the encoder's end-token ids); the device scatters the flattened
@@ -28,6 +29,12 @@ class VLMConfig:
     vision_feature_layer: int = -2
     vision_select: str = "cls_patch"
     image_aspect_ratio: str = "resize"  # resize | pad
+    vision_tower_type: str = "siglip"  # the other towers (PS3, ...) come later
+
+    def __post_init__(self):
+        if self.vision_tower_type != "siglip":
+            raise NotImplementedError(
+                f"vision_tower_type={self.vision_tower_type!r} is not ported yet")
 
     @property
     def tokens_per_image(self) -> int:
@@ -67,7 +74,7 @@ def splice_media(
     flat = torch.cat([text_embeds.reshape(b * s, d),
                       text_embeds.new_zeros((1, d))])
     pos = media_positions.to(flat.device).long().clamp(max=b * s)
-    flat.index_copy_(0, pos, media_embeds.to(flat.dtype))
+    flat = flat.index_copy(0, pos, media_embeds.to(flat.dtype))
     return flat[:b * s].reshape(b, s, d)
 
 
@@ -97,3 +104,34 @@ def forward(
         token_valid=token_valid, cache=cache, last_token_only=last_token_only,
         gather_position=gather_position, attn_impl=attn_impl,
     )
+
+
+def forward_batch(params: Params, cfg: VLMConfig, batch: Dict[str, torch.Tensor], *,
+                  attn_impl: str = "auto", return_hidden: bool = False) -> torch.Tensor:
+    """Training forward over a collated batch (`data/collate.py`). Returns
+    logits (B, S, V), or the final hidden states (B, S, D) with
+    `return_hidden` (for the chunked cross entropy).
+
+    Batch: input_ids, positions, segment_ids (B, S); pixel_values
+    (B, T, s, s, 3) per-sample tiles; media_positions (B, M) row-local flat
+    indices with an out-of-range sentinel for padding, M = T *
+    tokens_per_image. `attn_impl` picks the LLM's attention route."""
+    input_ids = batch["input_ids"]
+    b, s = input_ids.shape
+    embeds = qwen2.embed_tokens(params["llm"], cfg.llm, input_ids)
+    pixels = batch.get("pixel_values")
+    if pixels is not None:
+        feats = encode_images(params, cfg, pixels.reshape((-1,) + pixels.shape[2:]))
+        feats = feats.reshape(b, -1, feats.shape[-1])  # (B, M, D)
+        mp = batch["media_positions"].to(embeds.device).long()
+        # row-local -> global flat indices; the sentinels stay out of range
+        offsets = (torch.arange(b, device=mp.device) * s)[:, None]
+        global_pos = torch.where(mp < s, mp + offsets, b * s)
+        embeds = splice_media(embeds, feats.reshape(-1, feats.shape[-1]),
+                              global_pos.reshape(-1))
+    out, _ = qwen2.forward(
+        params["llm"], cfg.llm, inputs_embeds=embeds,
+        positions=batch.get("positions"), segment_ids=batch.get("segment_ids"),
+        attn_impl=attn_impl, return_hidden=return_hidden,
+    )
+    return out

@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("w4_gemv.cu", "w4_gemm.cu", "decode_attn.cu")
+SOURCES = ("w4_gemv.cu", "w4_gemm.cu", "decode_attn.cu", "flash_attn.cu")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -30,11 +30,13 @@ _lock = threading.Lock()
 # Launch counts of the kernel wrappers: each public wrapper adds one
 # (`count`) where it launches its kernel on the card (K1 w4_matmul_decode,
 # K2 w4_matmul_prefill, K3 fused_layer, K4 fused_o_gateup, K5
-# fused_down_qkv, K6 fused_layer_batched), and nowhere else. The serving
-# loop and its admission thread both launch, hence the lock.
+# fused_down_qkv, K6 fused_layer_batched, K7 flash_fwd, K8 flash_bwd_dq,
+# K9 flash_bwd_dkv), and nowhere else. The serving loop and its admission
+# thread both launch, hence the lock.
 LAUNCHES: Dict[str, int] = {
     "w4_gemv": 0, "w4_gemm": 0, "fused_layer": 0,
     "fused_o_gateup": 0, "fused_down_qkv": 0, "fused_layer_batched": 0,
+    "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
 }
 _count_lock = threading.Lock()
 

@@ -1,10 +1,12 @@
-"""Multi-head attention, as `vila_tpu/ops/attention.py` (XLA and blocked
-paths; mask semantics of `_build_mask`).
+"""Multi-head attention, as `vila_tpu/ops/attention.py`: the plain
+("xla") and blocked paths with the mask semantics of `_build_mask`, and the
+flash route (`ops/flash_attention.py`, kernels K7-K9).
 
-The JAX package's flash branch runs only on a TPU, for cache-free prefill
-and training; the served path never takes it (prefill against a cache
-passes `q_positions`, decode runs the fused layer), so it is not ported
-here. Plain matmul + softmax is used rather than SDPA so the mask semantics
+The flash route serves cache-free causal attention on the card, as the JAX
+package's Pallas branch does on a TPU: training and cache-free prefill.
+The served path never takes it (prefill against a cache passes
+`q_positions`, decode runs the fused layers), nor does SigLIP (head dim
+72). Plain matmul + softmax is used rather than SDPA so the mask semantics
 stay those of the reference.
 
 Conventions:
@@ -187,14 +189,27 @@ def multi_head_attention(
     scale: Optional[float] = None,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """Dispatch as `vila_tpu.ops.attention.multi_head_attention` does off a
-    TPU: "auto" takes the blocked path for large score matrices, else the
-    plain one."""
+    """Dispatch as `vila_tpu.ops.attention.multi_head_attention`: impl
+    "auto" | "xla" | "blocked" | "flash" (the JAX package's "pallas").
+    "auto" takes the flash kernels for the shapes they serve on the card
+    (`_flash_supported`), else the blocked path for large score matrices,
+    else the plain one; on the CPU it never picks "flash", as JAX never
+    picks Pallas off a TPU. Forced, "flash" on CPU tensors runs the
+    kernels' plain versions."""
     if impl == "auto":
-        if q.shape[1] >= 256 and q.shape[1] * k.shape[1] >= (1 << 22):
+        if _flash_supported(q, k, q_positions):
+            impl = "flash"
+        elif q.shape[1] >= 256 and q.shape[1] * k.shape[1] >= (1 << 22):
             impl = "blocked"
         else:
             impl = "xla"
+    if impl == "flash":
+        from vila_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(
+            q, k, v, causal=causal, q_segment_ids=q_segment_ids,
+            kv_segment_ids=kv_segment_ids, scale=scale,
+        )
     if impl not in ("xla", "blocked"):
         raise ValueError(f"unknown attention impl {impl!r}")
     fn = attention_blocked if impl == "blocked" else attention_xla
@@ -208,3 +223,19 @@ def multi_head_attention(
         kv_valid_len=kv_valid_len,
         scale=scale,
     )
+
+
+def _flash_supported(q, k, q_positions) -> bool:
+    """JAX's `_pallas_supported` with "on a TPU" read as "tensors on the
+    card", narrowed to what the kernels take (bf16, head dim 128)."""
+    from vila_tpu_torch.ops.flash_attention import HEAD_DIM
+
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16:
+        return False
+    b, sq, hq, d = q.shape
+    skv = k.shape[1]
+    if sq < 128 or skv < 128 or sq != skv:
+        return False
+    if d != HEAD_DIM or sq % 128 != 0:
+        return False
+    return q_positions is None
