@@ -22,15 +22,18 @@ Phases:
   train_kernels  hold the flash-attention kernels K7 (forward), K8 (dQ)
                and K9 (dK/dV) against their plain versions at the
                NVILA-Lite-2B training shape (B 1, S 2048, 12/2 heads of 128,
-               causal, three packed segments and a padding tail) and at
-               S 2000 (ragged tiles); times kernel, plain version and
-               scaled_dot_product_attention forward / backward;
+               causal, three packed segments and a padding tail), at
+               S 2000 (ragged tiles), causal alone, on the `train` phase's
+               first packed row, on shuffled segment ids, and at Sq 1024
+               against Skv 2048 without causality; times kernel, plain
+               version and scaled_dot_product_attention forward / backward,
+               and counts the tile pairs each kernel walks;
   train        NVILA-Lite-2B SFT at full width (Qwen2-1.5B LLM, 28 layers;
                SigLIP-SO400M-448; mlp_downsample), f32 master weights
                synthesised on the card from a seed, bf16 compute: 6 steps of
                `Trainer` over `DummyDataset` images packed into one 2048-token
                row, checkpoints at 3 and 6; then a fresh `Trainer` resumes
-               from step 3 and must reproduce steps 4-6; exact K7-K9 launch
+               from step 3 and must reproduce steps 4-6 exactly; exact K7-K9 launch
                counts, step wall, tokens/s, model-FLOPs share, peak memory;
   train_consistency  one `train_step` at full widths with 2 LLM and 2 SigLIP
                layers at seq 512 on the card (kernels) against the same
@@ -89,7 +92,7 @@ KERNELS = {
                "vila_tpu_torch/csrc/w4_gemv.cu",
         replaces="vila_tpu/ops/fused_decode.py:1014 (_fused_layer_b_kernel)"),
     "flash_fwd": dict(
-        route="cuda", source="vila_tpu_torch/csrc/flash_attn.cu",
+        route="cuda", source="vila_tpu_torch/csrc/flash_attn_sm90.cu",
         replaces="vila_tpu/ops/flash_attention.py:50 (_fwd_kernel; pallas_call "
                  "flash_attention.py:229)"),
     "flash_bwd_dq": dict(
@@ -97,7 +100,7 @@ KERNELS = {
         replaces="vila_tpu/ops/flash_attention.py:306 (_bwd_dq_kernel; pallas_call "
                  "flash_attention.py:436)"),
     "flash_bwd_dkv": dict(
-        route="cuda", source="vila_tpu_torch/csrc/flash_attn.cu",
+        route="cuda", source="vila_tpu_torch/csrc/flash_attn_sm90.cu",
         replaces="vila_tpu/ops/flash_attention.py:356 (_bwd_dkv_kernel; pallas_call "
                  "flash_attention.py:465)"),
 }
@@ -334,6 +337,14 @@ def phase_build():
             f.write(f"==== {src}\n{rep}\n")
     log(f"[build] {len(reports)} sources compiled in {secs:.1f} s "
         f"(ptxas report: {OUT_DIR}/ptxas.txt)")
+    # the wgmma kernels' registers, spills and shared memory
+    lines = reports.get("flash_attn_sm90.cu", "").splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line:
+            log("[build] " + line.strip())
+            for follow in lines[i + 1:i + 5]:
+                if any(w in follow for w in ("registers", "spill", "stack frame")):
+                    log("[build]   " + follow.strip())
     return secs
 
 
@@ -627,7 +638,7 @@ def summarise(results, launches):
         "fused_o_gateup": lambda r: r["m"] == 24,
         "fused_down_qkv": lambda r: r["m"] == 24,
         "fused_layer_batched": lambda r: r["m"] == 8,
-        **{name: (lambda r: r["m"] == 2048) for name in FLASH_KERNELS},
+        **{name: (lambda r: r["main"]) for name in FLASH_KERNELS},
     }
     out = []
     for name, meta in KERNELS.items():
@@ -1062,12 +1073,55 @@ def _packed_segments(torch, s, dev):
     return seg
 
 
-def phase_train_kernels(torch, seed, dev="cuda", heads=(12, 2), seqs=(2048, 2000)):
+def _shuffled_runs(torch, s, dev, seed, run=24, n_ids=9):
+    """(1, s) int32: runs of `run` rows whose ids (0, the padding id, among
+    them) come in a shuffled order, so that the tiles' id ranges overlap
+    without sharing ids: the skip test must stay conservative."""
+    import numpy as np
+
+    ids = np.random.default_rng(seed).integers(0, n_ids, size=(s + run - 1) // run)
+    return torch.tensor(np.repeat(ids, run)[:s], dtype=torch.int32, device=dev)[None]
+
+
+def train_row_segments(torch, seq, dev):
+    """(1, seq) int32: the `train` phase's first packed row (DummyDataset
+    samples through PackingCollator, padding 0 at the tail)."""
+    examples, per_step, collator, _ = train_data(torch, nvila_lite_2b_config(), seq)
+    seg = collator(examples[:per_step])["segment_ids"]
+    return torch.tensor(seg, dtype=torch.int32, device=dev)
+
+
+# the tiles each kernel walks: K7 128 q x 128 kv, K8 64 x 64 (no skipping),
+# K9 64 q x 128 kv
+FLASH_TILES = {"flash_fwd": (128, 128), "flash_bwd_dq": (64, 64), "flash_bwd_dkv": (64, 128)}
+FLASH_SKIPS = ("flash_fwd", "flash_bwd_dkv")
+
+
+def live_tiles(fa, seg_q, seg_kv, sq, skv, causal, tiles, skips=True):
+    """(tile pairs walked, tile pairs under the causal cut alone)."""
+    tq, tkv = tiles
+    qs = None if seg_q is None else seg_q[0].tolist()
+    ks = None if seg_kv is None else seg_kv[0].tolist()
+    live = total = 0
+    for q0 in range(0, sq, tq):
+        for kv0 in range(0, skv, tkv):
+            if causal and kv0 > q0 + tq - 1:
+                continue
+            total += 1
+            live += (not skips) or fa.tile_may_attend(qs, ks, q0, kv0, tiles, causal)
+    return live, total
+
+
+def phase_train_kernels(torch, seed, dev="cuda", heads=(12, 2), seq=2048, row_seg=None):
     """K7, K8 and K9 against their plain versions (same inputs, on the
     card), each timed beside its plain version and, as the yardstick,
-    `scaled_dot_product_attention` (causal, GQA) forward and backward. The
-    bound counts this run's work: 2, 3 and 4 products over the (q, k) pairs
-    the causal and segment masks allow."""
+    `scaled_dot_product_attention` (GQA; causal, or not for the cross shape)
+    forward and backward. Shapes: B 1, heads of 128, S `seq` with three
+    packed segments and a padding tail (the main one); the same at S - 48
+    (ragged tiles); causal alone (SDPA's own work); the `train` phase's first
+    packed row; short runs of shuffled segment ids; Sq seq/2 against Skv seq,
+    not causal. The bound counts this run's work: 2, 3 and 4 products over
+    the (q, k) pairs the masks allow."""
     import torch.nn.functional as F
 
     from vila_tpu_torch.ops import flash_attention as fa
@@ -1079,13 +1133,22 @@ def phase_train_kernels(torch, seed, dev="cuda", heads=(12, 2), seqs=(2048, 2000
     d = fa.HEAD_DIM
     scale = d ** -0.5
     bf16 = torch.bfloat16
+    if row_seg is None:
+        row_seg = train_row_segments(torch, seq, dev)
+    shapes = [  # (tag, Sq, Skv, causal, segment ids)
+        ("3 segments", seq, seq, True, _packed_segments(torch, seq, dev)),
+        ("3 segments, ragged", seq - 48, seq - 48, True, _packed_segments(torch, seq - 48, dev)),
+        ("causal only", seq, seq, True, None),
+        ("train row", seq, seq, True, row_seg.to(dev)),
+        ("shuffled ids", seq, seq, True, _shuffled_runs(torch, seq, dev, seed)),
+        ("cross, not causal", seq // 2, seq, False, None),
+    ]
     results = {name: [] for name in FLASH_KERNELS}
     ok = True
-    for s in seqs:
+    for tag, s, skv, causal, seg in shapes:
         rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(bf16)  # noqa: E731
-        q, k, v, do = rnd(1, s, hq, d), rnd(1, s, hkv, d), rnd(1, s, hkv, d), rnd(1, s, hq, d)
-        seg = _packed_segments(torch, s, dev)
-        kw = dict(causal=True, scale=scale)
+        q, k, v, do = rnd(1, s, hq, d), rnd(1, skv, hkv, d), rnd(1, skv, hkv, d), rnd(1, s, hq, d)
+        kw = dict(causal=causal, scale=scale)
         out_r, lse_r = fa.flash_fwd_plain(q, k, v, seg, seg, **kw)
         delta = (do.float() * out_r.float()).sum(-1).transpose(1, 2).contiguous()
         bwd = (q, k, v, do, lse_r, delta, seg, seg)
@@ -1097,19 +1160,22 @@ def phase_train_kernels(torch, seed, dev="cuda", heads=(12, 2), seqs=(2048, 2000
             "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*bwd, **kw),
                               lambda: fa.flash_bwd_dkv_plain(*bwd, **kw), 4),
         }
-        # the yardstick: one SDPA call in the (B, H, S, D) layout, causal only
+        # the yardstick: one SDPA call in the (B, H, S, D) layout, no segments
         qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
         qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-        out_g = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+        out_g = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, enable_gqa=True)
         sdpa_bwd = lambda: torch.autograd.grad(out_g, (qg, kg, vg), dot,  # noqa: E731
                                                retain_graph=True)
         t_sdpa, t_sdpa_bwd = time_ms(torch, sdpa, 20, flush), time_ms(torch, sdpa_bwd, 20, flush)
-        # allowed (q, k) pairs: causal within each segment, padding included
-        counts = torch.bincount(seg[0].long()).tolist()
-        pairs = sum(n * (n + 1) // 2 for n in counts)
-        in_bytes = 2 * (q.numel() + k.numel() + v.numel()) + 4 * seg.numel() * 2
+        # allowed (q, k) pairs per head, and those of causality alone
+        mask = fa._mask(1, s, skv, causal, seg, seg, dev)
+        pairs = s * skv if mask is None else int(mask.sum())
+        pairs_causal = s * (s + 1) // 2 if causal else s * skv
+        counts = None if seg is None else torch.bincount(seg[0].long()).tolist()
+        seg_bytes = 0 if seg is None else 4 * seg.numel() * 2
+        in_bytes = 2 * (q.numel() + k.numel() + v.numel()) + seg_bytes
         for name, (fn, ref, products) in cases.items():
             got, want = fn(), ref()
             torch.cuda.synchronize()
@@ -1129,24 +1195,31 @@ def phase_train_kernels(torch, seed, dev="cuda", heads=(12, 2), seqs=(2048, 2000
             t = time_ms(torch, fn, 20, flush)
             t_plain = time_ms(torch, ref, 3, flush)
             flops = products * 2 * hq * d * pairs
-            flops_causal = products * 2 * hq * d * s * s // 2
+            flops_causal = products * 2 * hq * d * pairs_causal
             out_bytes = sum(g.numel() * g.element_size() for g in got)
             extra = 0 if name == "flash_fwd" else 2 * do.numel() + 8 * hq * s  # dO, lse, delta
             b_ms, b_by = bound(in_bytes + extra + out_bytes, flops, BF16_FLOPS)
             lib = t_sdpa if name == "flash_fwd" else t_sdpa_bwd
+            live, walk = live_tiles(fa, seg, seg, s, skv, causal, FLASH_TILES[name],
+                                    skips=name in FLASH_SKIPS)
             results[name].append(dict(
-                shape=f"B 1, S {s}, {hq}/{hkv} heads of {d}, causal, segments {counts}",
-                m=s, max_abs_err=max(errs), ok=good, ms=t, plain_ms=t_plain,
-                bound_ms=b_ms, bound_by=b_by,
+                shape=f"B 1, Sq {s}, Skv {skv}, {hq}/{hkv} heads of {d}, "
+                      f"{'causal' if causal else 'not causal'}, {tag}"
+                      + ("" if counts is None else f" (segment sizes by id {counts})"),
+                m=s, main=tag == "3 segments", max_abs_err=max(errs), ok=good, ms=t,
+                plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
                 bound_ms_causal=bound(in_bytes + extra + out_bytes, flops_causal,
                                       BF16_FLOPS)[0],
                 library_ms=lib,
-                library="sdpa forward" if name == "flash_fwd" else
-                        "sdpa backward (dq, dk, dv in one call)",
-                tflops=flops / t / 1e9))
-            log(f"[train_kernels] {name:13s} S={s}: err {max(errs):.3e} "
+                library=("sdpa forward" if name == "flash_fwd" else
+                         "sdpa backward (dq, dk, dv in one call)")
+                        + (", causal" if causal else ", not causal"),
+                tflops=flops / t / 1e9, allowed_pairs=pairs, tiles_walked=live,
+                tiles_causal=walk, tile=FLASH_TILES[name]))
+            log(f"[train_kernels] {name:13s} {tag:18s} Sq={s}: err {max(errs):.3e} "
                 f"{'OK' if good else 'FAIL'}  kernel {t:.4f} ms ({flops / t / 1e9:.1f} "
-                f"TFLOP/s on allowed pairs)  plain {t_plain:.3f} ms  "
+                f"TFLOP/s on allowed pairs; tiles {live}/{walk} of "
+                f"{FLASH_TILES[name][0]}x{FLASH_TILES[name][1]})  plain {t_plain:.3f} ms  "
                 f"{results[name][-1]['library']} {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by}; "
                 f"causal-only {results[name][-1]['bound_ms_causal']:.4f})")
         del out_g, qg, kg, vg
@@ -1285,9 +1358,11 @@ def phase_train(torch, seed, cfg=None, dev="cuda", steps=6, save_steps=3, seq=20
     resumed = rows2[0]["step"] == save_steps + 1 if rows2 else False
     rel = [abs(a["loss"] - b["loss"]) / abs(a["loss"])
            for a, b in zip(rows1[save_steps:], rows2)]
-    ok3 = resumed and len(rel) == steps - save_steps and max(rel) <= 1e-3
+    # the kernels sum in a fixed order (no atomics): the resumed steps repeat
+    # the first run's exactly
+    ok3 = resumed and len(rel) == steps - save_steps and max(rel) == 0.0
     log(f"[train] resumed run: steps {[r['step'] for r in rows2]}, loss relative "
-        f"differences to the first run {[f'{x:.2e}' for x in rel]} (limit 1e-3) -> "
+        f"differences to the first run {[f'{x:.2e}' for x in rel]} (must be 0) -> "
         f"{'OK' if ok3 else 'FAIL'}")
     steady = rows1[1:] or rows1
     summary = dict(

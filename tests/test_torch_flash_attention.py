@@ -144,3 +144,140 @@ def test_cpu_route_never_picks_flash():
     np.testing.assert_allclose(flash.numpy(), xla.numpy(), **TOL)
     with pytest.raises(ValueError, match="unknown attention impl"):
         tattn.multi_head_attention(q, k, v, impl="pallas")
+
+
+# --------------------------------------------------------------------------
+# The kernels' tile-skip test (`tile_may_attend`, the Python twin of the
+# range test in csrc/flash_attn_sm90.cu): a tile pair it rejects must hold
+# no allowed (q, k) pair of the dense mask; on ids that never decrease
+# (the packing collator's layout, padding 0 ordered last) it is exact.
+# --------------------------------------------------------------------------
+
+
+def _packed(lengths, s):
+    """(s,) int32: samples 1, 2, ... of the given lengths, padding 0 after."""
+    seg = np.zeros(s, np.int32)
+    at = 0
+    for i, n in enumerate(lengths):
+        seg[at:at + n] = i + 1
+        at += n
+    return seg
+
+
+def _shuffled_runs(s, run, n_ids, seed):
+    """(s,) int32: runs of `run` rows whose ids (0 among them) come in a
+    shuffled order, so that tile ranges overlap without sharing ids."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, n_ids, size=(s + run - 1) // run)
+    return np.repeat(ids, run)[:s].astype(np.int32)
+
+
+def _smoke_segments(s):
+    """chip_smoke's train_kernels layout: 40 / 35 / 20 % and a padding tail."""
+    cuts = [int(s * f) for f in (0.4, 0.75, 0.95)]
+    return _packed([cuts[0], cuts[1] - cuts[0], cuts[2] - cuts[1]], s)
+
+
+def _check_tiles(q_seg, kv_seg, sq, skv, causal, tq, tkv, exact):
+    qt = None if q_seg is None else torch.tensor(q_seg)[None]
+    kt = None if kv_seg is None else torch.tensor(kv_seg)[None]
+    mask = tfa._mask(1, sq, skv, causal, qt, kt, "cpu")
+    mask = torch.ones((sq, skv), dtype=torch.bool) if mask is None else mask[0]
+    live = 0
+    for q0 in range(0, sq, tq):
+        for kv0 in range(0, skv, tkv):
+            keep = tfa.tile_may_attend(q_seg, kv_seg, q0, kv0, (tq, tkv), causal)
+            any_pair = bool(mask[q0:q0 + tq, kv0:kv0 + tkv].any())
+            assert keep or not any_pair, (q0, kv0)
+            if exact:
+                assert keep == any_pair, (q0, kv0)
+            live += keep
+    return live
+
+
+@pytest.mark.parametrize("tiles", [(128, 128), (64, 128)], ids=["k7", "k9"])
+@pytest.mark.parametrize("layout", [
+    "three_segments_2048", "three_segments_2000", "causal_only_2048",
+    "train_row_2048", "non_monotone_2048", "cross_1024_2048"])
+def test_tile_may_attend_rejects_only_empty_tiles(layout, tiles):
+    tq, tkv = tiles
+    causal, sq, skv, exact = True, 2048, 2048, True
+    if layout == "three_segments_2048":
+        q_seg = _smoke_segments(2048)
+    elif layout == "three_segments_2000":
+        sq = skv = 2000
+        q_seg = _smoke_segments(2000)
+    elif layout == "causal_only_2048":
+        q_seg = None
+    elif layout == "train_row_2048":  # ~6 DummyDataset samples and the padding tail
+        q_seg = _packed([341, 337, 352, 329, 346, 330], 2048)
+    elif layout == "non_monotone_2048":
+        q_seg, exact = _shuffled_runs(2048, 24, 9, seed=3), False
+    else:
+        causal, sq = False, 1024
+        q_seg = _shuffled_runs(1024, 40, 5, seed=1)
+        kv_seg, exact = _shuffled_runs(2048, 40, 5, seed=2), False
+    if layout != "cross_1024_2048":
+        kv_seg = q_seg
+    live = _check_tiles(q_seg, kv_seg, sq, skv, causal, tq, tkv, exact)
+    if layout == "three_segments_2048" and tiles == (128, 128):
+        assert live == 58  # of the 136 causal tile pairs
+    if layout == "causal_only_2048" and tiles == (128, 128):
+        assert live == 136
+
+
+@pytest.mark.parametrize("shuffle", [False, True], ids=["packed", "shuffled"])
+def test_tile_may_attend_on_drawn_packings(shuffle):
+    hypothesis = pytest.importorskip("hypothesis")
+    st = hypothesis.strategies
+
+    @hypothesis.settings(max_examples=25, deadline=None, derandomize=True, database=None)
+    @hypothesis.given(lengths=st.lists(st.integers(1, 300), min_size=1, max_size=8),
+                      s=st.sampled_from([256, 384, 500, 640]), seed=st.integers(0, 99))
+    def check(lengths, s, seed):
+        seg = _packed(lengths, s)
+        if shuffle:  # the samples' ids in another order
+            perm = np.random.default_rng(seed).permutation(len(lengths)) + 1
+            seg = np.where(seg > 0, perm[np.maximum(seg - 1, 0)], 0).astype(np.int32)
+        for tiles in ((128, 128), (64, 128)):
+            _check_tiles(seg, seg, s, s, True, *tiles, exact=not shuffle)
+
+    check()
+
+
+def test_skipping_rejected_tiles_keeps_the_forward():
+    """A blockwise online softmax that walks only the tiles `tile_may_attend`
+    keeps (as K7 does) gives the plain forward's output and LSE."""
+    s, tile = 512, 64
+    q, k, v = (torch.tensor(x) for x in _qkv(s=s, hq=2, hkv=1))
+    seg = torch.tensor(_packed([100, 150, 37, 160], s))[None]
+    want, want_lse = tfa.flash_fwd_plain(q, k, v, seg, seg, causal=True, scale=0.1)
+    mask = tfa._mask(1, s, s, True, seg, seg, "cpu")[0]
+    out = torch.zeros_like(q)
+    lse = torch.full((1, 2, s), -1e30)
+    walked = 0
+    for h in range(2):
+        for q0 in range(0, s, tile):
+            rows = slice(q0, q0 + tile)
+            m = torch.full((tile, 1), -1e30)
+            l = torch.zeros((tile, 1))
+            acc = torch.zeros((tile, 128))
+            for kv0 in range(0, s, tile):
+                if not tfa.tile_may_attend(seg[0], seg[0], q0, kv0, tile, True):
+                    continue
+                walked += 1
+                cols = slice(kv0, kv0 + tile)
+                sc = (q[0, rows, h] @ k[0, cols, 0].T) * 0.1
+                sc = sc.masked_fill(~mask[rows, cols], float("-inf"))
+                m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+                p = torch.exp(sc - m_new)
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(-1, keepdim=True)
+                acc = acc * corr + p @ v[0, cols, 0]
+                m = m_new
+            out[0, rows, h] = torch.where(l > 0, acc / torch.where(l > 0, l, 1.0), 0.0)
+            lse[0, h, rows] = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)),
+                                          -1e30)[:, 0]
+    assert walked < 2 * (s // tile) * (s // tile + 1) // 2  # some tiles were skipped
+    np.testing.assert_allclose(out.numpy(), want.numpy(), **TOL)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), **TOL)

@@ -5,7 +5,9 @@ library with a plain C interface, loaded with `ctypes`. Builds happen at
 first use, into `vila_tpu_torch/_build/` (listed in `.gitignore`); the
 library name carries a hash of its source, so an edited kernel is never
 served from a stale build. `build_all()` starts one `nvcc` per source, all
-at once.
+at once. Nothing links against libcuda: `flash_attn_sm90.cu` takes
+`cuTensorMapEncodeTiled` (TMA descriptors) with `dlsym` from the
+`libcuda.so.1` the process already holds.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("w4_gemv.cu", "w4_gemm.cu", "decode_attn.cu", "flash_attn.cu")
+SOURCES = ("w4_gemv.cu", "w4_gemm.cu", "decode_attn.cu", "flash_attn.cu",
+           "flash_attn_sm90.cu")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -73,7 +76,7 @@ def _command(src: str, out: Path) -> list:
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(out), str(CSRC / src),
+        "-o", str(out), str(CSRC / src), "-ldl",
     ]
 
 

@@ -1,10 +1,13 @@
 """Flash attention for training: forward (K7) and backward (K8 dQ, K9
 dK/dV), as `vila_tpu/ops/flash_attention.py`.
 
-The three kernels are CUDA C++ for Hopper (`csrc/flash_attn.cu`); beside
-each sits its plain PyTorch version, computed densely with the same
-roundings, which the wrappers take for CPU tensors only (a CUDA tensor
-launches the kernel or raises):
+The three kernels are CUDA C++ for Hopper: K7 and K9 in
+`csrc/flash_attn_sm90.cu` (wgmma, TMA and an mbarrier ring, skipping the
+tiles that the causal and segment masks empty; `tile_may_attend` is their
+skip test in Python), K8 in `csrc/flash_attn.cu`. Beside each sits its
+plain PyTorch version, computed densely with the same roundings, which the
+wrappers take for CPU tensors only (a CUDA tensor launches the kernel or
+raises):
 
   * `flash_fwd` (K7) -> (out, lse), plain `flash_fwd_plain`;
   * `flash_bwd_dq` (K8), plain `flash_bwd_dq_plain`;
@@ -41,6 +44,12 @@ HEAD_DIM = 128  # the only head dim the kernels take
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# the source that holds each entry point
+_SOURCES = {
+    "flash_fwd": "flash_attn_sm90.cu",
+    "flash_bwd_dq": "flash_attn.cu",
+    "flash_bwd_dkv": "flash_attn_sm90.cu",
+}
 _ARGTYPES = {
     "flash_fwd": [_P] * 7 + [_I] * 7 + [_F, _P],
     "flash_bwd_dq": [_P] * 9 + [_I] * 7 + [_F, _P],
@@ -134,13 +143,42 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _range(seg, lo, hi):
+    """(min, max) of the segment ids of rows [lo, hi), the padding id 0
+    ordered above every sample id."""
+    keys = [int(x) for x in seg[lo:hi]]
+    keys = [float("inf") if x == 0 else x for x in keys]
+    return min(keys), max(keys)
+
+
+def tile_may_attend(q_seg, kv_seg, q0, kv0, tile, causal) -> bool:
+    """The kernels' tile-skip test: False only when no (q, k) pair of the q
+    tile starting at row q0 and the kv tile starting at row kv0 may attend.
+
+    `q_seg` / `kv_seg` are one batch row's segment ids (None without
+    segments); `tile` is the tile size, or (q rows, kv rows) (K7 walks
+    128 x 128, K9 64 q rows x 128 kv rows). Causal: the kv tile starts past
+    the q tile's last row. Segments: the id ranges of the two tiles (rows
+    inside the sequence) do not meet, with the collator's padding id 0
+    ordered above every sample id. Conservative: a tile it keeps may still
+    hold no allowed pair (ids out of order)."""
+    tq, tkv = (tile, tile) if isinstance(tile, int) else tile
+    if causal and kv0 > q0 + tq - 1:
+        return False
+    if q_seg is None:
+        return True
+    q_lo, q_hi = _range(q_seg, q0, min(q0 + tq, len(q_seg)))
+    k_lo, k_hi = _range(kv_seg, kv0, min(kv0 + tkv, len(kv_seg)))
+    return k_lo <= q_hi and q_lo <= k_hi
+
+
 # --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
 
 
 def _fn(name: str):
-    fn = getattr(_build.load("flash_attn.cu"), name)
+    fn = getattr(_build.load(_SOURCES[name]), name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
