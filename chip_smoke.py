@@ -9,7 +9,9 @@ Phases:
                `vila_tpu_torch/csrc/` (one nvcc per source, in parallel);
   kernels      hold each kernel against its plain PyTorch version on the
                card at the NVILA-8B main-path shapes, and time kernel, plain
-               version and the nearest PyTorch library call;
+               version and the nearest PyTorch library call; K6's digit
+               pass (bit for bit) and rows GEMV also on their own, and
+               K3's and K6's launches one by one;
   e2e          serve 3 image+prompt requests through `GenerationEngine` at
                the full NVILA-8B width (Qwen2-7B W4A16 LLM, 28 layers;
                SigLIP-SO400M-448 bf16; mlp_downsample projector), weights
@@ -27,7 +29,8 @@ Phases:
                first packed row, on shuffled segment ids, and at Sq 1024
                against Skv 2048 without causality; times kernel, plain
                version and scaled_dot_product_attention forward / backward,
-               and counts the tile pairs each kernel walks;
+               counts the tile pairs each kernel walks, and checks that a
+               second launch of K8 repeats its dQ bit for bit;
   train        NVILA-Lite-2B SFT at full width (Qwen2-1.5B LLM, 28 layers;
                SigLIP-SO400M-448; mlp_downsample), f32 master weights
                synthesised on the card from a seed, bf16 compute: 6 steps of
@@ -39,9 +42,11 @@ Phases:
                layers at seq 512 on the card (kernels) against the same
                step on the CPU (plain versions);
   profile      (only when named) torch.profiler trace of one request:
-               device busy time and idle share of a decode step;
+               device busy time and idle share of a decode step; then one
+               max_batch=8 decode step (K6): host issue time per layer and
+               the device's busy share of the step;
   train_profile  (only when named) one full-width training step traced:
-               device busy time and the ops by device time.
+               device busy time and the ops by device time;
 
 The second-to-last line is the kernels JSON, the last line
 `{"ok": true, "device": {...}}`. The script exits nonzero, and prints no
@@ -89,14 +94,14 @@ KERNELS = {
     "fused_layer_batched": dict(
         route="cuda",
         source="vila_tpu_torch/csrc/decode_attn.cu + "
-               "vila_tpu_torch/csrc/w4_gemv.cu",
+               "vila_tpu_torch/csrc/w4_gemv_mma.cu",
         replaces="vila_tpu/ops/fused_decode.py:1014 (_fused_layer_b_kernel)"),
     "flash_fwd": dict(
         route="cuda", source="vila_tpu_torch/csrc/flash_attn_sm90.cu",
         replaces="vila_tpu/ops/flash_attention.py:50 (_fwd_kernel; pallas_call "
                  "flash_attention.py:229)"),
     "flash_bwd_dq": dict(
-        route="cuda", source="vila_tpu_torch/csrc/flash_attn.cu",
+        route="cuda", source="vila_tpu_torch/csrc/flash_attn_sm90.cu",
         replaces="vila_tpu/ops/flash_attention.py:306 (_bwd_dq_kernel; pallas_call "
                  "flash_attention.py:436)"),
     "flash_bwd_dkv": dict(
@@ -337,14 +342,15 @@ def phase_build():
             f.write(f"==== {src}\n{rep}\n")
     log(f"[build] {len(reports)} sources compiled in {secs:.1f} s "
         f"(ptxas report: {OUT_DIR}/ptxas.txt)")
-    # the wgmma kernels' registers, spills and shared memory
-    lines = reports.get("flash_attn_sm90.cu", "").splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line:
-            log("[build] " + line.strip())
-            for follow in lines[i + 1:i + 5]:
-                if any(w in follow for w in ("registers", "spill", "stack frame")):
-                    log("[build]   " + follow.strip())
+    # the Hopper kernels' registers, spills and shared memory (K7-K9, K6)
+    for src in ("flash_attn_sm90.cu", "w4_gemv_mma.cu", "decode_attn.cu"):
+        lines = reports.get(src, "").splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line:
+                log("[build] " + line.strip())
+                for follow in lines[i + 1:i + 5]:
+                    if any(w in follow for w in ("registers", "spill", "stack frame")):
+                        log("[build]   " + follow.strip())
     return secs
 
 
@@ -464,6 +470,7 @@ def phase_kernels(torch, seed, dev="cuda", dims=(3584, 18944, 128, 28, 4, 152064
     layer_w = (w4_bytes(Hkv * 8 * hd, D) + w4_bytes(D, 2 * I) + w4_bytes(I, D)
                + w4_bytes(D, (Hq + 2 * Hkv) * hd))
     layer_macs = Hkv * 8 * hd * D + D * 2 * I + I * D + D * (Hq + 2 * Hkv) * hd
+    ok &= _check_rows(torch, quant, results, slots, seed, flush, dims)
     ok &= _check_k6(torch, quant, fused_decode, results, slots, qkv_slot, gpost, gin,
                     gen, flush, dims, S, layer_w, layer_macs)
     ok &= _check_k4_k5(torch, quant, fused_decode, results, slots, qkv_slot, gpost,
@@ -472,6 +479,99 @@ def phase_kernels(torch, seed, dev="cuda", dims=(3584, 18944, 128, 28, 4, 152064
     with open(os.path.join(OUT_DIR, "kernels.json"), "w") as f:
         json.dump(results, f, indent=1)
     return ok, results
+
+
+def _check_rows(torch, quant, results, slots, seed, flush, dims, rows=(2, 8, 16, 24)):
+    """K6's two GEMV kernels on their own, on inputs from a generator of
+    their own (K6's and K4/K5's checks draw what they drew before these
+    kernels existed). `w4_digits` for each prologue: its digits, scales and
+    group sums bit for bit against the plain version run on the CPU over
+    the kernel's own prologue values (`value_out`), and those values
+    against the plain prologue on the CPU: equal for bf16 rows with no
+    prologue (o's input), within one bf16 ulp with RMS and SiLU, whose f32
+    sum order, reciprocal square root and exp differ from the CPU's.
+    `w4_gemv_rows` on the four products of layer 1 at M = 2, 8, 16 and 24
+    (24 is not routed: K6 takes B <= 16), over the kernel's own digits: its
+    f32 output against the plain version's per element within 2^-10 |want|
+    + 2^-14 max|want| (the two differ only in the order of f32 sums), its
+    bf16 output that f32 output rounded; timed with its digit pass at M = 8
+    and 16."""
+    D, I, hd, Hq, Hkv, V = dims
+    dev, bf16 = flush.device, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    shapes = {"o": (Hkv * 8 * hd, D), "gate_up": (D, 2 * I), "down": (I, D),
+              "qkv": (D, (Hq + 2 * Hkv) * hd)}
+    gamma = (1.0 + 0.1 * torch.randn((D,), generator=gen, device=dev)).to(bf16)
+    results["w4_digits"], results["w4_gemv_rows"] = [], []
+    ok = True
+    for m in rows:
+        cases = {
+            "none": (torch.randn((m, I), generator=gen, device=dev).to(bf16),
+                     quant.PRO_NONE, None, I),
+            "rms": (4 * torch.randn((m, D), generator=gen, device=dev), quant.PRO_RMS,
+                    gamma, D),
+            "silu": (torch.randn((m, 2 * I), generator=gen, device=dev).to(bf16),
+                     quant.PRO_SILU, None, I),
+        }
+        for tag, (x, pro, g, din) in cases.items():
+            value = torch.empty((m, din), dtype=bf16, device=dev)
+            got = quant.launch_digits(x, m=m, prologue=pro, gamma=g, eps=1e-6,
+                                      value_out=value)
+            torch.cuda.synchronize()
+            got, v_k = [t.cpu() for t in got], value.cpu().float()
+            # the plain versions on the CPU: on the card PyTorch divides by a
+            # scalar through its reciprocal, which is not the IEEE quotient
+            # that quant._digits (and JAX's _int8_digits) take
+            want = quant._w4_digits_ref(value.cpu(), quant.PRO_NONE)
+            exact = all(torch.equal(a, b) for a, b in zip(got, want))
+            v = quant._prologue_ref(x.cpu(), pro, None if g is None else g.cpu(), 1e-6)
+            ulp = torch.where(v == 0, 0.0, torch.ldexp(torch.ones_like(v),
+                                                       torch.frexp(v).exponent - 8))
+            within = bool(((v_k - v).abs() <= (0 if tag == "none" else 1) * ulp).all())
+            same = float((v_k == v).float().mean())
+            good = exact and within
+            ok &= good
+            results["w4_digits"].append(dict(
+                prologue=tag, m=m, digits_bit_exact=exact, values_within=within,
+                values_equal_share=same, ok=good))
+            log(f"[kernels] w4_digits {tag:4s} M={m:<3d} digits, scales, sums bit-exact "
+                f"{exact}; values within {'0' if tag == 'none' else '1'} ulp {within} "
+                f"(equal {100 * same:.4f}%) {'OK' if good else 'FAIL'}")
+        for name, (din, dout) in shapes.items():
+            slot = slots[name]
+            x = torch.randn((m, din), generator=gen, device=dev).to(bf16)
+            out = torch.empty((m, dout), dtype=bf16, device=dev)
+            out32 = torch.empty((m, dout), dtype=torch.float32, device=dev)
+            expansion = quant.launch_digits(x, m=m)
+            quant.launch_rows(expansion, slot["packed"], slot["scales"], 1, m=m,
+                              out_f32=out32, out_bf16=out)
+            want = quant._w4_gemv_rows_ref(*expansion, slot["packed"], slot["scales"], 1,
+                                           m=m)
+            torch.cuda.synchronize()
+            err = (out32 - want).abs()
+            scale = float(want.abs().max())
+            tol = 2.0 ** -10 * want.abs() + 2.0 ** -14 * scale
+            good = (bool(torch.isfinite(out32).all()) and bool((err <= tol).all())
+                    and torch.equal(out, out32.to(bf16)))
+            ok &= good
+            rec = dict(shape=name, m=m, max_abs_err=float(err.max()),
+                       worst_err_over_tol=float((err / tol).max()),
+                       tol="2^-10 |want| + 2^-14 max|want| per element (f32 output)",
+                       max_abs_ref=scale, ok=good)
+            msg = ""
+            if m in (8, 16):
+                fn = lambda: quant.launch_gemv_rows(  # noqa: E731
+                    x, slot["packed"], slot["scales"], 1, m=m, out_bf16=out)
+                t = time_ms(torch, fn, 30, flush)
+                b_ms, b_by = bound(m * din * 2 + w4_bytes(din, dout) + m * dout * 2,
+                                   4 * m * din * dout, INT8_OPS)
+                rec.update(ms=t, bound_ms=b_ms, bound_by=b_by)
+                msg = f"  digits + rows {t:.4f} ms  bound {b_ms:.4f} ms ({b_by})"
+            results["w4_gemv_rows"].append(rec)
+            log(f"[kernels] w4_gemv_rows {name:8s} M={m:<3d} err {rec['max_abs_err']:.3e} "
+                f"(max|ref| {scale:.3e}, worst err/tol {rec['worst_err_over_tol']:.3f}) "
+                f"{'OK' if good else 'FAIL'}{msg}")
+    return ok
 
 
 def _check_k6(torch, quant, fused_decode, results, slots, qkv_slot, gpost, gin, gen,
@@ -586,8 +686,10 @@ def _check_k4_k5(torch, quant, fused_decode, results, slots, qkv_slot, gpost, gi
 
 
 def _layer_stages(torch, quant, fused_decode, args, fill, flush):
-    """Each of K3's or K6's five launches timed on its own (same inputs):
-    K6 when q32 holds a batch (B, Hkv*8, hd) and `fill` one cursor per row."""
+    """Each of K3's five launches or K6's nine timed on its own (same
+    inputs, each stage run once in order first so that every input holds
+    real values): K6 when q32 holds a batch (B, Hkv*8, hd) and `fill` one
+    cursor per row; K6's products are a digit pass and a rows GEMV each."""
     q32, mask, h, _, kc, vc, o, gu, down, qkv, gpost, gin = args
     dev, bf16 = q32.device, torch.bfloat16
     hkv, hd = kc.shape[-1] // 128, 128
@@ -599,27 +701,36 @@ def _layer_stages(torch, quant, fused_decode, args, fill, flush):
     x_att, h32, h32b = e((m, q32.numel() // m), bf16), e((m, d), torch.float32), e((m, d), torch.float32)
     g_out, q_out = e((m, fused_decode._dout(gu)), bf16), e((m, fused_decode._dout(qkv)), bf16)
     h_new = e((m, d), bf16)
+    rms_post = dict(prologue=quant.PRO_RMS, gamma=gpost[0].to(bf16), eps=1e-6)
+    rms_in = dict(prologue=quant.PRO_RMS, gamma=gin[1].to(bf16), eps=1e-6)
+    epi = {  # stage: (input, slot, layer, prologue, epilogue)
+        "o": (x_att, o, 0, {}, dict(res_bf16=rows, out_f32=h32)),
+        "gate_up": (h32, gu, 0, rms_post, dict(out_bf16=g_out)),
+        "down": (g_out, down, 0, dict(prologue=quant.PRO_SILU),
+                 dict(res_f32=h32, out_f32=h32b, out_bf16=h_new)),
+        "qkv": (h32b, qkv, 1, rms_in, dict(bias=qkv["bias"][1].to(bf16), out_bf16=q_out)),
+    }
     if batched:
         live = fused_decode._live_rows(fill, m, kc.shape[2])
-        attention = lambda: fused_decode._launch_attn_batched(  # noqa: E731
-            q32, kc, vc, mask, 0, live, hkv, hd, 7, x_att)
+        stages = {"attention": lambda: fused_decode._launch_attn_batched(
+            q32, kc, vc, mask, 0, live, hkv, hd, 7, x_att)}
+        digits = {}
+
+        def digit_pass(name, x, pro):
+            digits[name] = quant.launch_digits(x, m=m, **pro)
+
+        for name, (x, slot, li, pro, out) in epi.items():
+            stages[f"{name} digits"] = (lambda n=name, x=x, pro=pro: digit_pass(n, x, pro))
+            stages[name] = (lambda n=name, slot=slot, li=li, out=out: quant.launch_rows(
+                digits[n], slot["packed"], slot["scales"], li, m=m, **out))
     else:
-        attention = lambda: fused_decode._launch_attn(  # noqa: E731
-            q32, kc, vc, mask, 0, fill + 1, hkv, hd, 7, x_att)
-    stages = {
-        "attention": attention,
-        "o": lambda: quant.launch_gemv(x_att, o["packed"], o["scales"], 0, m=m,
-                                       res_bf16=rows, out_f32=h32),
-        "gate_up": lambda: quant.launch_gemv(
-            h32, gu["packed"], gu["scales"], 0, m=m, prologue=quant.PRO_RMS,
-            gamma=gpost[0].to(bf16), eps=1e-6, out_bf16=g_out),
-        "down": lambda: quant.launch_gemv(
-            g_out, down["packed"], down["scales"], 0, m=m, prologue=quant.PRO_SILU,
-            res_f32=h32, out_f32=h32b, out_bf16=h_new),
-        "qkv": lambda: quant.launch_gemv(
-            h32b, qkv["packed"], qkv["scales"], 1, m=m, prologue=quant.PRO_RMS,
-            gamma=gin[1].to(bf16), eps=1e-6, bias=qkv["bias"][1].to(bf16), out_bf16=q_out),
-    }
+        stages = {"attention": lambda: fused_decode._launch_attn(
+            q32, kc, vc, mask, 0, fill + 1, hkv, hd, 7, x_att)}
+        for name, (x, slot, li, pro, out) in epi.items():
+            stages[name] = (lambda x=x, slot=slot, li=li, pro=pro, out=out: quant.launch_gemv(
+                x, slot["packed"], slot["scales"], li, m=m, **pro, **out))
+    for f in stages.values():
+        f()
     return {k: time_ms(torch, f, 30, flush) for k, f in stages.items()}
 
 
@@ -1028,6 +1139,73 @@ def phase_profile(torch, engine, seed, new_tokens=17):
                 step_busy_ms=step_busy)
 
 
+def phase_profile_batched(torch, engine, max_batch=8, warmup=2):
+    """(only with `profile`) One decode step of a full `max_batch` batch
+    (K6 at every layer, K1 for the lm_head at M = max_batch), fed as the
+    batcher feeds it: host clock of the step unprofiled (the issue time,
+    then the wall to the synchronise), then the same step under
+    torch.profiler: device busy time (the kernels' own intervals), its
+    share of the step wall, the host time per layer, and the kernels by
+    device time (chiprun_out/profile_batched.txt)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vila_tpu_torch.models import qwen2
+    from vila_tpu_torch.serving.batcher import ContinuousBatcher
+
+    device, cfg = engine.device, engine.cfg
+    llm, lcfg = engine.params["llm"], cfg.llm
+    layers = lcfg.num_hidden_layers
+    batcher = ContinuousBatcher(engine, max_batch=max_batch, max_len=2048)  # never started
+    first, n = [], []
+    for i in range(max_batch):
+        inputs = engine.prepare_inputs(f"Row {i}: " + "tell me more " * (4 + 3 * i))
+        _, cache1, tok, plen = batcher._prepare(_greedy_request(inputs))
+        batcher._insert(i, cache1)
+        first.append(tok)
+        n.append(plen)
+    del cache1
+    cache = batcher.cache
+    toks = torch.tensor(first, device=device)
+    pos = torch.tensor(n, dtype=torch.int32, device=device)
+    j = 0
+
+    def step():
+        nonlocal cache, toks, j
+        logits, cache = qwen2.forward(llm, lcfg, input_ids=toks[:, None],
+                                      positions=(pos + j)[:, None], cache=cache)
+        toks = logits[:, 0].argmax(-1)
+        j += 1
+
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    issue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "profile_batched.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    del batcher, cache
+    log(f"[profile b{max_batch}] one decode step, {layers} layers: wall {1e3 * wall:.2f} ms "
+        f"unprofiled (host issue {1e3 * issue:.2f} ms, {1e3 * issue / layers:.3f} ms per "
+        f"layer); traced wall {1e3 * traced:.2f} ms, device busy {busy:.2f} ms "
+        f"({100 * busy / (1e3 * wall):.0f}% of the unprofiled wall, "
+        f"{100 * busy / (1e3 * traced):.0f}% of the traced)")
+    return dict(max_batch=max_batch, step_wall_ms=1e3 * wall, host_issue_ms=1e3 * issue,
+                host_ms_per_layer=1e3 * issue / layers, traced_ms=1e3 * traced,
+                device_busy_ms=busy)
+
+
 # --------------------------------------------------------------------------
 # Training (NVILA-Lite-2B SFT)
 # --------------------------------------------------------------------------
@@ -1091,13 +1269,12 @@ def train_row_segments(torch, seq, dev):
     return torch.tensor(seg, dtype=torch.int32, device=dev)
 
 
-# the tiles each kernel walks: K7 128 q x 128 kv, K8 64 x 64 (no skipping),
-# K9 64 q x 128 kv
-FLASH_TILES = {"flash_fwd": (128, 128), "flash_bwd_dq": (64, 64), "flash_bwd_dkv": (64, 128)}
-FLASH_SKIPS = ("flash_fwd", "flash_bwd_dkv")
+# the tiles each kernel walks (all three skip the tiles the masks empty):
+# K7 128 q x 128 kv, K8 128 q x 64 kv, K9 64 q x 128 kv
+FLASH_TILES = {"flash_fwd": (128, 128), "flash_bwd_dq": (128, 64), "flash_bwd_dkv": (64, 128)}
 
 
-def live_tiles(fa, seg_q, seg_kv, sq, skv, causal, tiles, skips=True):
+def live_tiles(fa, seg_q, seg_kv, sq, skv, causal, tiles):
     """(tile pairs walked, tile pairs under the causal cut alone)."""
     tq, tkv = tiles
     qs = None if seg_q is None else seg_q[0].tolist()
@@ -1108,7 +1285,7 @@ def live_tiles(fa, seg_q, seg_kv, sq, skv, causal, tiles, skips=True):
             if causal and kv0 > q0 + tq - 1:
                 continue
             total += 1
-            live += (not skips) or fa.tile_may_attend(qs, ks, q0, kv0, tiles, causal)
+            live += fa.tile_may_attend(qs, ks, q0, kv0, tiles, causal)
     return live, total
 
 
@@ -1200,8 +1377,13 @@ def phase_train_kernels(torch, seed, dev="cuda", heads=(12, 2), seq=2048, row_se
             extra = 0 if name == "flash_fwd" else 2 * do.numel() + 8 * hq * s  # dO, lse, delta
             b_ms, b_by = bound(in_bytes + extra + out_bytes, flops, BF16_FLOPS)
             lib = t_sdpa if name == "flash_fwd" else t_sdpa_bwd
-            live, walk = live_tiles(fa, seg, seg, s, skv, causal, FLASH_TILES[name],
-                                    skips=name in FLASH_SKIPS)
+            live, walk = live_tiles(fa, seg, seg, s, skv, causal, FLASH_TILES[name])
+            if name == "flash_bwd_dq":  # no atomics: a second launch repeats dQ bit for bit
+                again = fn()
+                torch.cuda.synchronize()
+                same = torch.equal(again, got[0])
+                good &= same
+                ok &= same
             results[name].append(dict(
                 shape=f"B 1, Sq {s}, Skv {skv}, {hq}/{hkv} heads of {d}, "
                       f"{'causal' if causal else 'not causal'}, {tag}"
@@ -1215,9 +1397,11 @@ def phase_train_kernels(torch, seed, dev="cuda", heads=(12, 2), seq=2048, row_se
                          "sdpa backward (dq, dk, dv in one call)")
                         + (", causal" if causal else ", not causal"),
                 tflops=flops / t / 1e9, allowed_pairs=pairs, tiles_walked=live,
-                tiles_causal=walk, tile=FLASH_TILES[name]))
+                tiles_causal=walk, tile=FLASH_TILES[name],
+                **({"deterministic": same} if name == "flash_bwd_dq" else {})))
             log(f"[train_kernels] {name:13s} {tag:18s} Sq={s}: err {max(errs):.3e} "
-                f"{'OK' if good else 'FAIL'}  kernel {t:.4f} ms ({flops / t / 1e9:.1f} "
+                f"{'OK' if good else 'FAIL'}{'' if name != 'flash_bwd_dq' else f' (repeat bit-exact {same})'}"
+                f"  kernel {t:.4f} ms ({flops / t / 1e9:.1f} "
                 f"TFLOP/s on allowed pairs; tiles {live}/{walk} of "
                 f"{FLASH_TILES[name][0]}x{FLASH_TILES[name][1]})  plain {t_plain:.3f} ms  "
                 f"{results[name][-1]['library']} {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by}; "
@@ -1629,6 +1813,7 @@ def main(argv=None) -> int:
         ok &= good
     if "profile" in phases:  # not in the default run
         report["profile"] = phase_profile(torch, engine(args.layers, args.seed), args.seed)
+        report["profile_batched"] = phase_profile_batched(torch, engine(args.layers, args.seed))
     if any(p.startswith("train") for p in phases):
         # the serving engines' weights make room for training
         engines.clear()

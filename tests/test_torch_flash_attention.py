@@ -195,7 +195,7 @@ def _check_tiles(q_seg, kv_seg, sq, skv, causal, tq, tkv, exact):
     return live
 
 
-@pytest.mark.parametrize("tiles", [(128, 128), (64, 128)], ids=["k7", "k9"])
+@pytest.mark.parametrize("tiles", [(128, 128), (128, 64), (64, 128)], ids=["k7", "k8", "k9"])
 @pytest.mark.parametrize("layout", [
     "three_segments_2048", "three_segments_2000", "causal_only_2048",
     "train_row_2048", "non_monotone_2048", "cross_1024_2048"])
@@ -224,6 +224,8 @@ def test_tile_may_attend_rejects_only_empty_tiles(layout, tiles):
         assert live == 58  # of the 136 causal tile pairs
     if layout == "causal_only_2048" and tiles == (128, 128):
         assert live == 136
+    if layout == "three_segments_2048" and tiles == (128, 64):
+        assert live == 116  # of the 272 causal tile pairs
 
 
 @pytest.mark.parametrize("shuffle", [False, True], ids=["packed", "shuffled"])
@@ -239,7 +241,7 @@ def test_tile_may_attend_on_drawn_packings(shuffle):
         if shuffle:  # the samples' ids in another order
             perm = np.random.default_rng(seed).permutation(len(lengths)) + 1
             seg = np.where(seg > 0, perm[np.maximum(seg - 1, 0)], 0).astype(np.int32)
-        for tiles in ((128, 128), (64, 128)):
+        for tiles in ((128, 128), (128, 64), (64, 128)):
             _check_tiles(seg, seg, s, s, True, *tiles, exact=not shuffle)
 
     check()
@@ -281,3 +283,60 @@ def test_skipping_rejected_tiles_keeps_the_forward():
     assert walked < 2 * (s // tile) * (s // tile + 1) // 2  # some tiles were skipped
     np.testing.assert_allclose(out.numpy(), want.numpy(), **TOL)
     np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), **TOL)
+
+
+def _skipping_dq(q, k, v, do, lse, delta, seg, causal, scale, tiles=(128, 64)):
+    """Blockwise dQ that walks only the tile pairs `tile_may_attend` keeps,
+    K8's walk: 128 q rows x 64 kv rows, P from the LSE (rows at -1e30 carry
+    none), dS = P * (dP - delta), dQ += dS K, scaled once at the end."""
+    _, s, hq, d = q.shape
+    grp = hq // k.shape[2]
+    tq, tkv = tiles
+    mask = tfa._mask(1, s, s, causal, seg, seg, "cpu")[0]
+    dq = torch.zeros_like(q)
+    walked = 0
+    for h in range(hq):
+        kh, vh = k[0, :, h // grp], v[0, :, h // grp]
+        for q0 in range(0, s, tq):
+            rows = slice(q0, q0 + tq)
+            lse_r = lse[0, h, rows][:, None]
+            valid = lse_r > -1e30 / 2
+            acc = torch.zeros((min(tq, s - q0), d))
+            for kv0 in range(0, s, tkv):
+                if not tfa.tile_may_attend(seg[0], seg[0], q0, kv0, tiles, causal):
+                    continue
+                walked += 1
+                cols = slice(kv0, kv0 + tkv)
+                sc = (q[0, rows, h] @ kh[cols].T) * scale
+                p = torch.exp(sc - torch.where(valid, lse_r, 0.0))
+                p = torch.where(valid & mask[rows, cols], p, 0.0)
+                dp = do[0, rows, h] @ vh[cols].T
+                acc = acc + (p * (dp - delta[0, h, rows][:, None])) @ kh[cols]
+            dq[0, rows, h] = acc * scale
+    return dq, walked
+
+
+@pytest.mark.parametrize("layout", ["packed", "shuffled"])
+def test_skipping_dq_matches_dense_and_jax(layout):
+    """K8's skipping walk (128 x 64 tiles) gives the dense plain dQ and the
+    JAX package's `_bwd_dq_kernel` (interpret mode, through
+    `flash_block_backward`), on packed samples (padding 0 last) and on
+    shuffled runs of ids (the skip test stays conservative)."""
+    s, scale = 256, 128 ** -0.5
+    q, k, v = _qkv(s=s, seed=11)
+    w = (np.random.default_rng(12).standard_normal(q.shape) * 0.3).astype(np.float32)
+    seg_np = (_packed([70, 90, 41], s) if layout == "packed"
+              else _shuffled_runs(s, 24, 5, seed=4))[None]
+    tq, tk, tv, tdo, seg = (torch.tensor(x) for x in (q, k, v, w, seg_np))
+    out, lse = tfa.flash_fwd_plain(tq, tk, tv, seg, seg, causal=True, scale=scale)
+    delta = (tdo * out).sum(-1).transpose(1, 2).contiguous()
+    got, walked = _skipping_dq(tq, tk, tv, tdo, lse, delta, seg, True, scale)
+    want = tfa.flash_bwd_dq_plain(tq, tk, tv, tdo, lse, delta, seg, seg, causal=True,
+                                  scale=scale)
+    jdq, _, _ = jblock_bwd(q, k, v, w, lse.numpy(), delta.numpy(), causal=True,
+                           q_segment_ids=seg_np, kv_segment_ids=seg_np, scale=scale,
+                           block_q=128, block_kv=128)
+    if layout == "packed":
+        assert walked < 4 * 6  # of the 6 causal tile pairs per head, 4 heads
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jdq), **TOL)

@@ -1,26 +1,29 @@
 // Flash attention for training on Hopper (sm_90a), redesigned for the card's
-// own tools: the forward with its log-sum-exp (K7) and the group-summed
-// dK/dV backward (K9). dQ (K8) stays in flash_attn.cu.
+// own tools: the forward with its log-sum-exp (K7), the dQ backward (K8) and
+// the group-summed dK/dV backward (K9).
 //
 // Replaces (vila_tpu/ops/flash_attention.py):
 //   K7 flash_fwd_sm90_kernel     <- _fwd_kernel (:50; pallas_call :229)
+//   K8 flash_bwd_dq_sm90_kernel  <- _bwd_dq_kernel (:306; pallas_call :436)
 //   K9 flash_bwd_dkv_sm90_kernel <- _bwd_dkv_kernel (:356; pallas_call :465),
 //      and flash_dkv_group_sum_kernel <- the group sum outside it.
 //
-// What they compute is flash_attn.cu's contract, unchanged: public layout
-// (B, S, H, 128) bf16, LSE (B, Hq, Sq) f32; row r of q and column c of k/v
-// may attend when c < Skv, r < Sq, (not causal or r >= c) and
-// q_seg[r] == kv_seg[c]; scores (q . k in f32) * scale; P, and dS, rounded
-// to bf16 before their products; a row with nothing to attend to writes
-// O = 0 and LSE = -1e30 and carries no gradient; causal only when Sq == Skv.
+// What they compute (public layout (B, S, H, 128) bf16, LSE (B, Hq, Sq)
+// f32): row r of q and column c of k/v may attend when c < Skv, r < Sq,
+// (not causal or r >= c) and q_seg[r] == kv_seg[c]; scores (q . k in f32) *
+// scale; P, and dS, rounded to bf16 before their products; the backward
+// recomputes P from the saved LSE and takes delta = rowsum(dO * O) from the
+// caller; a row with nothing to attend to writes O = 0 and LSE = -1e30 and
+// carries no gradient; causal only when Sq == Skv.
 //
 // Bound on this card, at the NVILA-Lite-2B training shape (B 1, S 2048,
 // 12/2 heads of 128): operations. Each product is 2 * 128 flops per (q, k)
-// pair; K7 runs 2 products, K9 4. Causal alone leaves S^2/2 pairs per head:
-// 12.9 GFLOP for K7 (13 us at 989 TFLOP/s) and 25.8 for K9 (26 us). The
-// smoke's packed row (three samples and a padding tail) allows 0.68 M pairs
-// per head: 4.2 and 8.4 GFLOP, where K7's 13.7 MB of q, k, v, o and LSE
-// (4.1 us at 3.35 TB/s) come within a few percent of its operations.
+// pair; K7 runs 2 products, K8 3, K9 4. Causal alone leaves S^2/2 pairs per
+// head: 12.9 GFLOP for K7 (13 us at 989 TFLOP/s), 19.3 for K8 (20 us) and
+// 25.8 for K9 (26 us). The smoke's packed row (three samples and a padding
+// tail) allows 0.68 M pairs per head: 4.2, 6.3 and 8.4 GFLOP, where K7's
+// 13.7 MB of q, k, v, o and LSE (4.1 us at 3.35 TB/s) come within a few
+// percent of its operations.
 //
 // Design. Each CTA is three warpgroups: a producer warpgroup (setmaxnreg
 // down to 24 registers) whose first warp keeps TMA loads in flight, and two
@@ -46,6 +49,16 @@
 //       barriers, ping-pong), so that one's softmax overlaps the other's
 //       products. The grid is ordered so that the q tiles with the most kv
 //       tiles start first.
+//   K8: one CTA per (128-row q tile, q head), ordered as K7's; Q and dO are
+//       loaded once, K and V of kv head h / G stream through the ring 64
+//       rows at a time (one full and one empty barrier per stage: the slot
+//       is free once dQ += dS K is done). S = Q K^T and dP = dO V^T are
+//       wgmma SS (m64n64); P is recomputed from the LSE in the exp2 domain
+//       (a row whose LSE is -1e30 gets +inf, so P = 0); dS = P * (dP -
+//       delta) is rounded to bf16 in the A-register layout and dQ += dS K is
+//       wgmma RS with K's tile as the MN-major B operand. dQ stays in
+//       registers (64 a thread) and is written once, scaled and rounded:
+//       no workspace, no atomics, deterministic.
 //   K9: one CTA per (128-row kv tile, q head); K and V are loaded once; the
 //       head's q rows stream through the ring 64 at a time (Q, dO by TMA;
 //       the producer warp stages their LSE, delta and segment codes). S^T =
@@ -55,23 +68,21 @@
 //       in registers (128 a thread) and are written per head in f32; a
 //       second launch sums each group's heads in head order and rounds once
 //       (no atomics: deterministic).
-//   Both skip tiles that the masks empty. Causal tiles past the diagonal
+//   All three skip tiles that the masks empty. Causal tiles past the diagonal
 //   are never walked; with segments, a tile pair is walked only when the
 //   ranges of its segment ids meet, with the collator's padding id 0
 //   ordered above every sample id (padding attends only to padding). A
 //   skipped tile's scores would all be -inf: it changes no running max, no
-//   l, dK or dV. The prologue builds the CTA's list of live tiles (one warp
+//   l, dQ, dK or dV. The prologue builds the CTA's list of live tiles (one warp
 //   per tile computes its range, one warp compacts); tiles wholly inside
 //   one segment, below the diagonal and inside the sequence are also
 //   marked as needing no per-element mask.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <limits.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -97,48 +108,15 @@ constexpr int kFwdBars = kTileBytes + kStages * 2 * kTileBytes;
 constexpr int kBwdAux = 2 * kTileBytes + kStages * 2 * kQcBytes;
 constexpr int kAuxBytes = 3 * kQc * 4;  // LSE (log2), delta, segment codes
 constexpr int kBwdBars = kBwdAux + kStages * kAuxBytes;
+constexpr int kDqBars = 2 * kTileBytes + kStages * 2 * kQcBytes;  // K8: Q, dO, ring
 constexpr int kBarBytes = 128;           // the mbarriers
 constexpr int kListOff = kBarBytes + 16; // the live-tile count, then the list
-constexpr int kMaxSmem = 232448;
 
 typedef __nv_bfloat16 bf16;
 
 // ---------------------------------------------------------------------------
 // PTX helpers: mbarriers, TMA, wgmma
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// (no __trap() watchdog here: a trap anywhere in the kernel keeps ptxas from
-// giving the consumers the registers that setmaxnreg grants them)
-// an arrival by the threads where `pred` holds, predicated inside the
-// instruction: a branch around it while a wgmma is in flight would make ptxas
-// serialize the wgmmas
-__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(smem_u32(bar)),
-      "r"((int)pred)
-      : "memory");
-}
 
 // named barriers 1 and 2 (0 is __syncthreads) between the two consumer
 // warpgroups: 256 threads, 128 waiting and 128 arriving
@@ -150,19 +128,6 @@ __device__ __forceinline__ void named_arrive_if(int id, bool pred) {
       "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n@p bar.arrive %0, 256;\n}\n" ::"r"(id),
       "r"((int)pred)
       : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
 }
 
 // one box (64 columns x rows) of a (B, S, H, 128) tensor: column c0, head,
@@ -769,6 +734,164 @@ __global__ void __launch_bounds__(256) flash_dkv_group_sum_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// K8: dQ of one 128-row q tile of one query head, written once in bf16.
+// Grid (Hq, q tiles, B), the last q tile first.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_sm90_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ q_seg, const int* __restrict__ kv_seg, bf16* __restrict__ dq,
+    int sq, int skv, int hq, int hkv, int causal, float scale) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sdO = sQ + kTile * kD;
+  bf16* sKV = sdO + kTile * kD;  // stage s: K (64 rows), then V
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(smem + kDqBars);
+  uint64_t* full = qd_full + 1;
+  uint64_t* empty = full + kStages;
+  int* count = reinterpret_cast<int*>(smem + kDqBars + kBarBytes);
+  int* list = reinterpret_cast<int*>(smem + kDqBars + kListOff);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int hk = h / (hq / hkv);
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(qd_full, 2 * kTileBytes);  // Q and dO arrive while the tiles are planned
+    tma_tile(sQ, &tm_q, qd_full, kTile, h, q0, b);
+    tma_tile(sdO, &tm_do, qd_full, kTile, h, q0, b);
+  }
+  const int n_kv = (skv + kQc - 1) / kQc;
+  const int kv_end = causal ? min(n_kv, (q0 + kTile - 1) / kQc + 1) : n_kv;
+  const int n = plan_tiles<kQc>(list, count, q_seg ? q_seg + (size_t)b * sq : nullptr, q0, sq,
+                                kv_seg ? kv_seg + (size_t)b * skv : nullptr, skv, 0, kv_end,
+                                true, causal);
+
+  // the warpgroup's role, warp-uniform for the compiler (setmaxnreg needs it)
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) == 0) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp == 0 && lane == 0) {
+      for (int it = 0; it < n; ++it) {
+        const int s = it % kStages;
+        const int j0 = (list[it] & (kNeedMask - 1)) * kQc;
+        bf16* sK = sKV + s * 2 * kQc * kD;
+        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * kQcBytes);
+        tma_tile(sK, &tm_k, &full[s], kQc, hk, j0, b);
+        tma_tile(sK + kQc * kD, &tm_v, &full[s], kQc, hk, j0, b);
+      }
+    }
+  } else {  // consumers: 64 q rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = (warp >> 2) - 1, w = warp & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const int row = q0 + wg * 64 + w * 16 + g;  // this thread's rows: row, row + 8
+    int qcode[2];
+    float l2[2], dl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row + 8 * i;
+      const bool in = r < sq;
+      qcode[i] = in ? (q_seg ? q_seg[(size_t)b * sq + r] : 0) : kOutQ;
+      const float L = in ? lse[((size_t)b * hq + h) * sq + r] : kNoRow;
+      // a row without any key gets +inf: exp2(s - inf) = 0, no gradient
+      l2[i] = L > 0.5f * kNoRow ? L * kLog2e : INFINITY;
+      dl[i] = in ? delta[((size_t)b * hq + h) * sq + r] : 0.f;
+    }
+    const float c = scale * kLog2e;  // scores in the exp2 domain
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    const bf16* sQw = sQ + wg * 64 * 64;  // this warpgroup's rows of each half
+    const bf16* sdOw = sdO + wg * 64 * 64;
+
+    mbar_wait(qd_full, 0);
+    for (int it = 0; it < n; ++it) {
+      const int s = it % kStages;
+      const int e = __shfl_sync(0xffffffffu, list[it], 0);  // warp-uniform
+      const int j0 = (e & (kNeedMask - 1)) * kQc;
+      const bool need = e & kNeedMask;
+      const bf16* sK = sKV + s * 2 * kQc * kD;
+      const bf16* sV = sK + kQc * kD;
+      int kcode[16];  // this thread's columns' segment codes (tiles that need a mask)
+      if (need) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int col = j0 + 8 * j + 2 * t + x;
+            kcode[2 * j + x] = col < skv ? (kv_seg ? kv_seg[(size_t)b * skv + col] : 0) : kOutKv;
+          }
+      }
+
+      // S = Q K^T and dP = dO V^T: 64 q rows x 64 kv columns per warpgroup
+      float sc[32], dp[32];
+      mbar_wait(&full[s], (it / kStages) & 1);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_ss_n64(sc, desc_k(sQw, kTile, 0, kk), desc_k(sK, kQc, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_ss_n64(dp, desc_k(sdOw, kTile, 0, kk), desc_k(sV, kQc, 0, kk), kk > 0);
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(sc);
+      reg_fence(dp);
+
+      // P from the LSE, dS = P * (dP - delta)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int idx = 4 * j + 2 * i + x;
+            float p = exp2_fast(sc[idx] * c - l2[i]);
+            if (need) {
+              const int col = j0 + 8 * j + 2 * t + x;
+              const bool ok = qcode[i] == kcode[2 * j + x] && (!causal || row + 8 * i >= col);
+              p = ok ? p : 0.f;
+            }
+            sc[idx] = p * (dp[idx] - dl[i]);
+          }
+
+      // dQ += dS K, dS rounded to bf16; K MN-major
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) to_a(pa[kk], sc, kk);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQc / 16; ++kk) wgmma_rs_n128(acc, pa[kk], desc_mn(sK, kQc, kk));
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(acc);
+      mbar_arrive_if(&empty[s], lane == 0);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row + 8 * i;
+      if (r >= sq) continue;
+      bf16* drow = dq + (((size_t)b * sq + r) * hq + h) * kD;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<uint32_t*>(drow + 8 * j + 2 * t) =
+            pack2(acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
@@ -777,23 +900,6 @@ int check_shape(int batch, int sq, int skv, int hq, int hkv, int d, int causal) 
       hq > 65535 || (causal && sq != skv))
     return (int)cudaErrorInvalidValue;
   return 0;
-}
-
-// cuTensorMapEncodeTiled from the libcuda.so.1 the process already holds
-// (no link against libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    if (lib) fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
 }
 
 // a (B, S, H, 128) bf16 tensor as TMA boxes of 64 columns x `rows` rows of
@@ -814,21 +920,10 @@ int make_map(CUtensorMap* map, const void* p, int batch, int seq, int heads, int
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// dynamic shared memory above 48 KB, raised as a call needs more
-int allow_smem(const void* kernel, int bytes, int* granted) {
-  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (bytes <= *granted) return 0;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return (int)e;
-  *granted = bytes;
-  return 0;
-}
-
 }  // namespace
 
-// Plain C entry points (bound with ctypes), the signatures of flash_attn.cu's
-// earlier K7 and K9; each returns cudaGetLastError() or an error for what it
+// Plain C entry points (bound with ctypes), the signatures of the first
+// mma.sync versions of K7-K9; each returns cudaGetLastError() or an error for what it
 // does not take. q, o, do are (B, Sq, Hq, 128) and k, v, dk, dv
 // (B, Skv, Hkv, 128) contiguous bf16, 16-byte aligned; lse and delta
 // (B, Hq, Sq) f32; q_seg (B, Sq) and kv_seg (B, Skv) int32, both null
@@ -885,5 +980,29 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
   const long long n = (long long)batch * skv * hkv * kD;
   flash_dkv_group_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
       ws_k, ws_v, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, hkv, hq / hkv);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, const void* q_seg,
+                            const void* kv_seg, void* dq, int batch, int sq, int skv, int hq,
+                            int hkv, int d, int causal, float scale, void* stream) {
+  int st = check_shape(batch, sq, skv, hq, hkv, d, causal);
+  if (st) return st;
+  const int n_kv = (skv + kQc - 1) / kQc;
+  const int smem = 1024 + kDqBars + kListOff + 4 * n_kv;
+  static int granted = 0;
+  st = allow_smem((const void*)flash_bwd_dq_sm90_kernel, smem, &granted);
+  CUtensorMap tq, tk, tv, tdo;
+  if (!st) st = make_map(&tq, q, batch, sq, hq, kTile);
+  if (!st) st = make_map(&tdo, dout, batch, sq, hq, kTile);
+  if (!st) st = make_map(&tk, k, batch, skv, hkv, kQc);
+  if (!st) st = make_map(&tv, v, batch, skv, hkv, kQc);
+  if (st) return st;
+  const dim3 grid(hq, (sq + kTile - 1) / kTile, batch);
+  flash_bwd_dq_sm90_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), static_cast<bf16*>(dq),
+      sq, skv, hq, hkv, causal, scale);
   return (int)cudaGetLastError();
 }

@@ -3,11 +3,12 @@
 Each source is compiled on its own by `nvcc` for `sm_90a` into a shared
 library with a plain C interface, loaded with `ctypes`. Builds happen at
 first use, into `vila_tpu_torch/_build/` (listed in `.gitignore`); the
-library name carries a hash of its source, so an edited kernel is never
-served from a stale build. `build_all()` starts one `nvcc` per source, all
-at once. Nothing links against libcuda: `flash_attn_sm90.cu` takes
-`cuTensorMapEncodeTiled` (TMA descriptors) with `dlsym` from the
-`libcuda.so.1` the process already holds.
+library name carries a hash of its source and of the shared header
+`sm90_common.cuh`, so an edited kernel is never served from a stale build.
+`build_all()` starts one `nvcc` per source, all at once. Nothing links
+against libcuda: the Hopper sources take `cuTensorMapEncodeTiled` (TMA
+descriptors) with `dlsym` from the `libcuda.so.1` the process already
+holds (`sm90_common.cuh`).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("w4_gemv.cu", "w4_gemm.cu", "decode_attn.cu", "flash_attn.cu",
+SOURCES = ("w4_gemv.cu", "w4_gemv_mma.cu", "w4_gemm.cu", "decode_attn.cu",
            "flash_attn_sm90.cu")
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -67,8 +68,10 @@ def _nvcc() -> str:
 
 
 def _target(src: str) -> Path:
-    text = (CSRC / src).read_bytes()
-    digest = hashlib.sha1(text).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / src).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # what the sources include
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{Path(src).stem}_{digest}.so"
 
 

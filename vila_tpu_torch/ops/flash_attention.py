@@ -1,10 +1,10 @@
 """Flash attention for training: forward (K7) and backward (K8 dQ, K9
 dK/dV), as `vila_tpu/ops/flash_attention.py`.
 
-The three kernels are CUDA C++ for Hopper: K7 and K9 in
+The three kernels are CUDA C++ for Hopper, all in
 `csrc/flash_attn_sm90.cu` (wgmma, TMA and an mbarrier ring, skipping the
 tiles that the causal and segment masks empty; `tile_may_attend` is their
-skip test in Python), K8 in `csrc/flash_attn.cu`. Beside each sits its
+skip test in Python). Beside each sits its
 plain PyTorch version, computed densely with the same roundings, which the
 wrappers take for CPU tensors only (a CUDA tensor launches the kernel or
 raises):
@@ -44,12 +44,7 @@ HEAD_DIM = 128  # the only head dim the kernels take
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# the source that holds each entry point
-_SOURCES = {
-    "flash_fwd": "flash_attn_sm90.cu",
-    "flash_bwd_dq": "flash_attn.cu",
-    "flash_bwd_dkv": "flash_attn_sm90.cu",
-}
+_SOURCE = "flash_attn_sm90.cu"  # holds every entry point
 _ARGTYPES = {
     "flash_fwd": [_P] * 7 + [_I] * 7 + [_F, _P],
     "flash_bwd_dq": [_P] * 9 + [_I] * 7 + [_F, _P],
@@ -157,7 +152,7 @@ def tile_may_attend(q_seg, kv_seg, q0, kv0, tile, causal) -> bool:
 
     `q_seg` / `kv_seg` are one batch row's segment ids (None without
     segments); `tile` is the tile size, or (q rows, kv rows) (K7 walks
-    128 x 128, K9 64 q rows x 128 kv rows). Causal: the kv tile starts past
+    128 x 128, K8 128 q rows x 64 kv rows, K9 64 q rows x 128 kv rows). Causal: the kv tile starts past
     the q tile's last row. Segments: the id ranges of the two tiles (rows
     inside the sequence) do not meet, with the collator's padding id 0
     ordered above every sample id. Conservative: a tile it keeps may still
@@ -178,7 +173,7 @@ def tile_may_attend(q_seg, kv_seg, q0, kv0, tile, causal) -> bool:
 
 
 def _fn(name: str):
-    fn = getattr(_build.load(_SOURCES[name]), name)
+    fn = getattr(_build.load(_SOURCE), name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int

@@ -7,9 +7,10 @@ VMEM keep every intermediate on chip. A Hopper block has neither, so on the
 card each is a few hand-written launches on one stream. K3 and K6 are five:
 
   1. attention (`csrc/decode_attn.cu`; K3 `decode_attn`, K6
-     `decode_attn_batched`): GQA attention of the pre-scaled, group-padded
-     q over each row's live prefix [0, fill] of layer l's flat cache,
-     additive mask, f32 softmax; pad heads write zeros;
+     `decode_attn_batched` on the tensor cores): GQA attention of the
+     pre-scaled, group-padded q over each row's live prefix [0, fill] of
+     layer l's flat cache, additive mask, f32 softmax; pad heads write
+     zeros;
   2. o GEMV + residual:          h32  = h + x_att @ W_o[l]           (f32)
   3. gate_up GEMV, RMSNorm in:   gu   = rms(h32) * g_post[l] @ W_gu[l]
   4. down GEMV, SiLU*up in,
@@ -17,12 +18,17 @@ card each is a few hand-written launches on one stream. K3 and K6 are five:
   5. qkv GEMV, RMSNorm in,
      bias out:                   qkv  = rms(h32b) * g_in[l+1] @ W_qkv[l+1] + b
 
+In K6 each of stages 2-5 is two launches (`quant.launch_gemv_rows`: the
+digit pass `w4_digits`, then one tensor-core weight pass for all rows,
+`csrc/w4_gemv_mma.cu`), nine launches a layer.
+
 K4 is stages 2-3 and K5 stages 4-5, two launches each; unlike the whole
 layer they hand h back rounded to h's dtype in between (K5 adds to K4's
 rounded h_new), while each RMSNorm still reads its unrounded f32 sum, as on
-the TPU. Stages 2-5 are the W4 GEMV kernel (`csrc/w4_gemv.cu`) with its
-fused prologue / epilogue variants and the TPU kernels' int8-digit
-arithmetic, with rows = the m tokens or batch rows.
+the TPU. In K3, K4 and K5 the products are the W4 GEMV kernel
+(`csrc/w4_gemv.cu`) with its fused prologue / epilogue variants; every
+route keeps the TPU kernels' int8-digit arithmetic, with rows = the m
+tokens or batch rows.
 
 The TPU kernels spread the head outputs block-diagonally over 8 rows and
 pad the batch to 8 or 16 rows only to fill MXU rows; here each row's
@@ -53,16 +59,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ATTN_ARGTYPES = [_P] * 7 + [_I] * 7 + [_P]
 _ATTN_B_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
-_ATTN_CHUNK = 32  # cache rows per block of decode_attn.cu
+_ATTN_CHUNK = 32  # cache rows per block of decode_attn.cu's bs=1 kernel
+_ATTN_B_CHUNK = 128  # and of its batched kernel
 _ATTN_COUNTER_SLOTS = 1024  # (batch row, kv head) arrival counters
 _attn_counters: Dict[torch.device, torch.Tensor] = {}
 _rows_memo: Dict[torch.device, Tuple[Tuple[int, ...], torch.Tensor]] = {}
 _state_lock = threading.Lock()
-
-
-def _rms_scale(h32, gamma_row, eps):
-    var = h32.square().mean(-1, keepdim=True)
-    return (h32 * torch.rsqrt(var + eps)) * gamma_row.float()
 
 
 def _dout(slot) -> int:
@@ -125,20 +127,17 @@ def _o_gateup_ref(x_att, h, l, o_slot, gu_slot, gpost, eps):
     """(h32, gu): h32 = h + x_att @ W_o[l] (f32); gu = rms(h32)*g @ W_gu[l]."""
     h32 = h.float() + quant._w4_gemv_ref(
         x_att, o_slot["packed"], o_slot["scales"], l, out_f32=True)
-    x1 = _rms_scale(h32, gpost, eps).to(torch.bfloat16)
+    x1 = quant._prologue_ref(h32, quant.PRO_RMS, gpost, eps).to(torch.bfloat16)
     return h32, quant._w4_gemv_ref(x1, gu_slot["packed"], gu_slot["scales"], l)
 
 
 def _down_qkv_ref(gu, h, l, l_next, down_slot, qkv_slot, gin, bias, eps):
     """(h32, qkv): h32 = h + (silu(g)*u) @ W_d[l] (f32);
     qkv = rms(h32)*g @ W_qkv[l+1] + b, rounded to bf16 once."""
-    inter = gu.shape[1] // 2
-    gu32 = gu.float()
-    m_act = (torch.nn.functional.silu(gu32[:, :inter]) * gu32[:, inter:]).to(
-        torch.bfloat16)
+    m_act = quant._prologue_ref(gu, quant.PRO_SILU).to(torch.bfloat16)
     h32 = h.float() + quant._w4_gemv_ref(
         m_act, down_slot["packed"], down_slot["scales"], l, out_f32=True)
-    x2 = _rms_scale(h32, gin, eps).to(torch.bfloat16)
+    x2 = quant._prologue_ref(h32, quant.PRO_RMS, gin, eps).to(torch.bfloat16)
     qkv = quant._w4_gemv_ref(
         x2, qkv_slot["packed"], qkv_slot["scales"], l_next, out_f32=True)
     if bias is not None:
@@ -265,21 +264,21 @@ def _live_rows_on(dev: torch.device, n_rows: Tuple[int, ...]) -> torch.Tensor:
 
 
 def _launch_attn_batched(q32, k_cache, v_cache, mask, l, n_rows, hkv, hd, grp, out):
-    """Batched attention (`decode_attn_batched`): q32 (B, Hkv*P, hd), mask
-    (B, S), layer l of the (L, B, S, Hkv*hd) caches, host live rows
-    `n_rows` (B,), out (B, Hkv*P*hd)."""
+    """Batched attention (`decode_attn_batched`, head dim 128): q32 (B,
+    Hkv*P, hd), mask (B, S), layer l of the (L, B, S, Hkv*hd) caches, host
+    live rows `n_rows` (B,), out (B, Hkv*P*hd)."""
     dev = quant.require_cuda(q32, k_cache, v_cache, mask, out)
     _check_attn_dtypes(q32, k_cache, v_cache, mask)
     L, b, s_len, kv_ld = k_cache.shape
     q_b, q_rows, q_hd = q32.shape
     p_rows = q_rows // hkv
     if (q_b != b or len(n_rows) != b or mask.shape != (b, s_len) or q_hd != hd
-            or kv_ld != hkv * hd or hd % 32 or hd > 256
+            or kv_ld != hkv * hd or hd != 128
             or not grp <= p_rows <= 8 or p_rows * hkv != q_rows
             or not all(0 < n <= s_len for n in n_rows) or not 0 <= l < L):
         raise ValueError(f"q {tuple(q32.shape)}, cache {tuple(k_cache.shape)}, "
                          f"rows {n_rows}, hd {hd}, group {grp} of {p_rows}")
-    nsplit = -(-max(n_rows) // _ATTN_CHUNK)
+    nsplit = -(-max(n_rows) // _ATTN_B_CHUNK)
     ws = torch.empty((b, q_rows, nsplit, hd + 2), dtype=torch.float32, device=dev)
     layer_off = l * b * s_len * kv_ld * 2
     fn = quant._fn("decode_attn.cu", "decode_attn_batched", _ATTN_B_ARGTYPES)
@@ -299,33 +298,33 @@ def _residual(h: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {"res_bf16": h} if h.dtype == torch.bfloat16 else {"res_f32": h}
 
 
-def _launch_o_gateup(x_att, h, l, o_slot, gu_slot, gpost, eps, h_new=None):
-    """Two GEMV launches: h32 = h + x_att @ W_o[l] (f32, and rounded into
-    `h_new` when given); gu = rms(h32)*g @ W_gu[l]. Returns (h32, gu)."""
+def _launch_o_gateup(x_att, h, l, o_slot, gu_slot, gpost, eps, h_new=None,
+                     gemv=quant.launch_gemv):
+    """Two GEMVs (`gemv`: `quant.launch_gemv` or `quant.launch_gemv_rows`):
+    h32 = h + x_att @ W_o[l] (f32, and rounded into `h_new` when given);
+    gu = rms(h32)*g @ W_gu[l]. Returns (h32, gu)."""
     m, dev = x_att.shape[0], x_att.device
     h32 = torch.empty((m, h.shape[1]), dtype=torch.float32, device=dev)
-    quant.launch_gemv(x_att, o_slot["packed"], o_slot["scales"], l, m=m,
-                      out_f32=h32, out_bf16=h_new, **_residual(h))
+    gemv(x_att, o_slot["packed"], o_slot["scales"], l, m=m,
+         out_f32=h32, out_bf16=h_new, **_residual(h))
     gu = torch.empty((m, _dout(gu_slot)), dtype=torch.bfloat16, device=dev)
-    quant.launch_gemv(h32, gu_slot["packed"], gu_slot["scales"], l, m=m,
-                      prologue=quant.PRO_RMS, gamma=gpost, eps=eps, out_bf16=gu)
+    gemv(h32, gu_slot["packed"], gu_slot["scales"], l, m=m,
+         prologue=quant.PRO_RMS, gamma=gpost, eps=eps, out_bf16=gu)
     return h32, gu
 
 
 def _launch_down_qkv(gu, h, l, l_next, down_slot, qkv_slot, gin, bias, eps,
-                     h_new=None):
-    """Two GEMV launches: h32 = h + (silu(g)*u) @ W_d[l] (f32, and rounded
-    into `h_new` when given); qkv = rms(h32)*g @ W_qkv[l+1] + b (bf16).
-    Returns (h32, qkv)."""
+                     h_new=None, gemv=quant.launch_gemv):
+    """Two GEMVs (`gemv` as in `_launch_o_gateup`): h32 = h + (silu(g)*u)
+    @ W_d[l] (f32, and rounded into `h_new` when given); qkv = rms(h32)*g @
+    W_qkv[l+1] + b (bf16). Returns (h32, qkv)."""
     m, dev = gu.shape[0], gu.device
     h32 = torch.empty((m, h.shape[1]), dtype=torch.float32, device=dev)
-    quant.launch_gemv(gu, down_slot["packed"], down_slot["scales"], l, m=m,
-                      prologue=quant.PRO_SILU, out_f32=h32, out_bf16=h_new,
-                      **_residual(h))
+    gemv(gu, down_slot["packed"], down_slot["scales"], l, m=m,
+         prologue=quant.PRO_SILU, out_f32=h32, out_bf16=h_new, **_residual(h))
     qkv = torch.empty((m, _dout(qkv_slot)), dtype=torch.bfloat16, device=dev)
-    quant.launch_gemv(h32, qkv_slot["packed"], qkv_slot["scales"], l_next, m=m,
-                      prologue=quant.PRO_RMS, gamma=gin, eps=eps, bias=bias,
-                      out_bf16=qkv)
+    gemv(h32, qkv_slot["packed"], qkv_slot["scales"], l_next, m=m,
+         prologue=quant.PRO_RMS, gamma=gin, eps=eps, bias=bias, out_bf16=qkv)
     return h32, qkv
 
 
@@ -336,15 +335,18 @@ def _bf16_like(h: torch.Tensor) -> torch.Tensor:
     return torch.empty(h.shape, dtype=h.dtype, device=h.device)
 
 
-def _launch_layer_tail(x_att, h, l, l_next, slots, rows, eps):
+def _launch_layer_tail(x_att, h, l, l_next, slots, rows, eps, gemv=quant.launch_gemv):
     """The four GEMV stages of a whole layer with rows = x_att's rows; the
-    residual stays f32 from o to down. Returns (h_new bf16, qkv bf16)."""
+    residual stays f32 from o to down. K3 takes `quant.launch_gemv`, K6 the
+    tensor-core rows route `quant.launch_gemv_rows` (each stage a digit
+    pass and one weight pass for all rows). Returns (h_new bf16, qkv
+    bf16)."""
     o_slot, gu_slot, down_slot, qkv_slot = slots
     gpost, gin, bias = rows
     h_new = _bf16_like(h)
-    h32, gu = _launch_o_gateup(x_att, h, l, o_slot, gu_slot, gpost, eps)
+    h32, gu = _launch_o_gateup(x_att, h, l, o_slot, gu_slot, gpost, eps, gemv=gemv)
     _, qkv = _launch_down_qkv(gu, h32, l, l_next, down_slot, qkv_slot, gin, bias,
-                              eps, h_new=h_new)
+                              eps, h_new=h_new, gemv=gemv)
     return h_new, qkv
 
 
@@ -423,7 +425,8 @@ def fused_layer_batched(
     x_att = torch.empty((b, hkv * p_rows * hd), dtype=torch.bfloat16, device=q32.device)
     _launch_attn_batched(q32, k_cache, v_cache, mask, l, n_rows, hkv, hd, grp, x_att)
     h_new, qkv = _launch_layer_tail(
-        x_att, h, l, l_next, (o_slot, gu_slot, down_slot, qkv_slot), rows, eps)
+        x_att, h, l, l_next, (o_slot, gu_slot, down_slot, qkv_slot), rows, eps,
+        gemv=quant.launch_gemv_rows)
     _build.count("fused_layer_batched")
     return h_new, qkv
 

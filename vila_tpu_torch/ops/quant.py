@@ -22,6 +22,13 @@ Two kernels, dispatched by the number of rows M (as `w4_matmul`):
     dequantised to bf16 with the TPU kernel's roundings and contracted on
     the tensor cores with f32 accumulation (== dequantize-then-matmul).
 
+The batched decode layer (K6) runs its four products on a third kernel
+pair, `csrc/w4_gemv_mma.cu` (`launch_gemv_rows`): `w4_digits` expands the M
+rows once per product, `w4_gemv_rows` streams the weights once for all rows
+through the int8 tensor cores (`mma.sync` m16n8k32), summing whole groups in
+int32 before the f32 scale (plain versions `_w4_digits_ref`,
+`_w4_gemv_rows_ref`, together `_w4_rows_ref`).
+
 Each wrapper takes its plain PyTorch version (`_w4_gemv_ref`,
 `_w4_gemm_ref`) for CPU tensors only; a CUDA tensor launches the kernel or
 raises. Stacked `(L, ...)` weights are indexed by `layer_index` (a Python
@@ -31,6 +38,7 @@ int) with a pointer offset: no per-layer copy.
 from __future__ import annotations
 
 import ctypes
+import functools
 import operator
 from typing import Any, Dict, Optional
 
@@ -232,6 +240,118 @@ def _w4_gemm_ref(x, packed, scales, layer_index=None):
     return (x.float() @ w.float()).to(x.dtype)
 
 
+def _mma_order(x: torch.Tensor) -> torch.Tensor:
+    """(..., n) with n % 32 == 0 -> the same values in w4_gemv_rows' k
+    order: inside each 32-block, position kappa holds element
+    rho(kappa) = 8 (kappa % 4) + 2 ((kappa % 16) // 4) + kappa // 16."""
+    return x.reshape(*x.shape[:-1], -1, 32)[..., _RHO].reshape(x.shape)
+
+
+def _plain_order(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of `_mma_order`."""
+    return x.reshape(*x.shape[:-1], -1, 32)[..., _KAPPA].reshape(x.shape)
+
+
+_RHO = torch.tensor([8 * (k % 4) + 2 * ((k % 16) // 4) + k // 16 for k in range(32)])
+_KAPPA = torch.argsort(_RHO)
+
+
+def _prologue_ref(x, prologue, gamma=None, eps=0.0):
+    """The W4 GEMV prologue value of each row as f32 (bf16-exact): x as it
+    is, RMSNorm(x) * gamma, or SiLU(gate) * up of a (gate | up) row."""
+    x32 = x.float()
+    if prologue == PRO_RMS:
+        var = x32.square().mean(-1, keepdim=True)
+        x32 = (x32 * torch.rsqrt(var + eps)) * gamma.float()
+    elif prologue == PRO_SILU:
+        inter = x32.shape[1] // 2
+        x32 = torch.nn.functional.silu(x32[:, :inter]) * x32[:, inter:]
+    return x32.to(torch.bfloat16).float()
+
+
+def _w4_digits_ref(x, prologue=PRO_NONE, gamma=None, eps=0.0, m_pad=None, group=128):
+    """Plain version of the `w4_digits` kernel: (digits (2 planes, 2
+    digits, m_pad, din/2) int8 in w4_gemv_rows' k order, dscale (m_pad, 2,
+    2) f32 = (s1, s2) per plane, gsum (ngh, 2 digits, m_pad) int32 = the lo
+    plane's per-group digit sums); rows past x's are zeros. The digits and
+    scales are `_digits`' per half-plane."""
+    v = _prologue_ref(x, prologue, gamma, eps)
+    m, din = v.shape
+    half = din // 2
+    m_pad = m_pad or 8 * -(-m // 8)
+    digits = torch.zeros((2, 2, m_pad, half), dtype=torch.int8, device=x.device)
+    dscale = torch.zeros((m_pad, 2, 2), dtype=torch.float32, device=x.device)
+    for p in range(2):
+        for d, (q, sx) in enumerate(_digits(v[:, p * half:(p + 1) * half])):
+            digits[p, d, :m] = _mma_order(q.to(torch.int8))
+            dscale[:m, p, d] = sx[:, 0]
+    gsum = digits[0].int().reshape(2, m_pad, half // group, group).sum(-1)
+    return digits, dscale, gsum.permute(2, 0, 1).contiguous()
+
+
+def _w4_gemv_rows_ref(digits, dscale, gsum, packed, scales, layer_index=None, m=None):
+    """Plain version of the `w4_gemv_rows` kernel: (m, dout) f32. Each
+    group's integer dot is summed whole (exact: below 2**21), the lo plane
+    corrected by its digit sum, then scaled in f32 per (row, group,
+    column)."""
+    packed, scales, _ = _layer(packed, scales, layer_index)
+    half, bout, nj, ngh, gs, din, dout = _tiled_meta(packed, scales)
+    m = digits.shape[2] if m is None else m
+    p = _untile(packed, half)
+    lo = (p & 0x0F).double().reshape(ngh, gs, dout)
+    h16 = ((p & 0xF0) ^ 0x80).view(torch.int8).double().reshape(ngh, gs, dout)
+    s = _untile(scales, 2 * ngh).float()
+    s_lo, s_hi = s[:ngh], s[ngh:] / 16.0
+    q = _plain_order(digits[:, :, :m].double()).reshape(2, 2, m, ngh, gs)
+    acc = torch.zeros((m, dout), dtype=torch.float32, device=digits.device)
+    for d in range(2):
+        d_lo = (torch.einsum("mgk,gkn->mgn", q[0, d], lo)
+                - 8.0 * gsum[:, d, :m].T[:, :, None])
+        d_hi = torch.einsum("mgk,gkn->mgn", q[1, d], h16)
+        acc = acc + (d_lo.float() * (dscale[:m, 0, d, None, None] * s_lo[None])).sum(1)
+        acc = acc + (d_hi.float() * (dscale[:m, 1, d, None, None] * s_hi[None])).sum(1)
+    return acc
+
+
+def _w4_rows_ref(x, packed, scales, layer_index=None, prologue=PRO_NONE, gamma=None,
+                 eps=0.0):
+    """The digit pass and the rows GEMV in plain PyTorch: (m, dout) f32."""
+    digits, dscale, gsum = _w4_digits_ref(x, prologue, gamma, eps)
+    return _w4_gemv_rows_ref(digits, dscale, gsum, packed, scales, layer_index,
+                             m=x.shape[0])
+
+
+ROWS_TILE_N = 128
+
+
+@functools.lru_cache(maxsize=None)
+def rows_plan(dout: int, ngh: int, n_sm: int):
+    """(column tiles, K splits, groups per split) of `w4_gemv_rows`: 128
+    output columns per CTA and the fewest splits of the groups of 128 input
+    rows that give the grid one CTA per SM. Fewer, longer CTAs win on the
+    H100: each CTA's start (barriers, the first loads) and each split's
+    partial cost more than a second resident CTA per SM gains."""
+    tiles = dout // ROWS_TILE_N
+    ksplit = min(ngh, -(-n_sm // tiles))
+    while True:
+        gps = -(-ngh // ksplit)  # balanced runs
+        if tiles * -(-ngh // gps) >= n_sm or gps == 1:
+            return tiles, -(-ngh // gps), gps
+        ksplit += 1
+
+
+def rows_work(dout: int, bout: int, ngh: int, n_sm: int):
+    """Every CTA of `w4_gemv_rows`' grid with the work its indices give it,
+    as the kernel computes them: (tile, split, columns range, bout block,
+    groups range)."""
+    tiles, ksplit, gps = rows_plan(dout, ngh, n_sm)
+    for x in range(tiles):
+        n0 = x * ROWS_TILE_N
+        for y in range(ksplit):
+            yield (x, y, (n0, n0 + ROWS_TILE_N), n0 // bout,
+                   (y * gps, min(ngh, (y + 1) * gps)))
+
+
 # --------------------------------------------------------------------------
 # CUDA launch plumbing
 # --------------------------------------------------------------------------
@@ -244,6 +364,8 @@ _GEMV_ARGTYPES = [
     _P, _P, _P, _P, _P, _P, _P, _P,
 ]
 _GEMM_ARGTYPES = [_P] * 6 + [_I] * 9 + [_P]
+_DIGITS_ARGTYPES = [_P, _I, _I, _I, _P, ctypes.c_float, _I, _I, _I, _P, _P, _P, _P, _P]
+_ROWS_ARGTYPES = [_P] * 5 + [_I] * 8 + [_P] * 8
 _counters: Dict[int, torch.Tensor] = {}
 _sm_count: Dict[int, int] = {}
 
@@ -336,6 +458,86 @@ def launch_gemv(x, packed, scales, layer_index, *, m, prologue=PRO_NONE,
         _ptr(bias), _ptr(out_f32), _ptr(out_bf16), _stream(dev),
     )
     _build.check(status, "w4_gemv")
+
+
+def launch_digits(x, *, m, prologue=PRO_NONE, gamma=None, eps=0.0, value_out=None):
+    """Launch the `w4_digits` kernel on the current stream: (digits,
+    dscale, gsum) of `_w4_digits_ref`'s shapes for x's m rows (x as in
+    `launch_gemv`); `value_out`, an (m, din) bf16 tensor, also receives the
+    prologue values the digits expand (for checks). Counts nothing."""
+    dev = require_cuda(x)
+    din = x.numel() // m // (2 if prologue == PRO_SILU else 1)
+    ldx = 2 * din if prologue == PRO_SILU else din
+    if x.numel() != m * ldx or not 1 <= m <= 32 or din % 256:
+        raise ValueError(f"x {tuple(x.shape)} does not hold {m} rows of {ldx} (din % 256)")
+    x_f32 = x.dtype == torch.float32
+    if x.dtype not in (torch.bfloat16, torch.float32) or (x_f32 and prologue != PRO_RMS):
+        raise TypeError(f"unsupported input dtype {x.dtype} for prologue {prologue}")
+    if prologue == PRO_RMS:
+        if gamma is None or gamma.numel() != din or gamma.dtype != torch.bfloat16:
+            raise ValueError("RMS prologue needs a (din,) bf16 gamma")
+        require_cuda(x, gamma)
+    if value_out is not None:
+        require_cuda(x, value_out)
+        if value_out.dtype != torch.bfloat16 or value_out.numel() != m * din:
+            raise ValueError(f"value_out {tuple(value_out.shape)} {value_out.dtype}")
+    m_pad = 8 * -(-m // 8)
+    digits = torch.empty((2, 2, m_pad, din // 2), dtype=torch.int8, device=dev)
+    dscale = torch.empty((m_pad, 2, 2), dtype=torch.float32, device=dev)
+    gsum = torch.empty((din // 256, 2, m_pad), dtype=torch.int32, device=dev)
+    status = _fn("w4_gemv_mma.cu", "w4_digits", _DIGITS_ARGTYPES)(
+        x.data_ptr(), int(x_f32), ldx, prologue, _ptr(gamma), float(eps), m, m_pad, din,
+        digits.data_ptr(), dscale.data_ptr(), gsum.data_ptr(), _ptr(value_out), _stream(dev))
+    _build.check(status, "w4_digits")
+    return digits, dscale, gsum
+
+
+def launch_gemv_rows(x, packed, scales, layer_index, *, m, prologue=PRO_NONE,
+                     gamma=None, eps=0.0, **epilogue) -> None:
+    """The tensor-core W4 GEMV for m <= 32 rows, `launch_gemv`'s signature
+    (epilogue: res_f32, res_bf16, bias, out_f32, out_bf16): two launches,
+    `w4_digits` (the prologue, once) and `w4_gemv_rows` (one weight pass for
+    all rows). Counts nothing: the public wrappers count."""
+    require_cuda(x, packed, scales)
+    expansion = launch_digits(x, m=m, prologue=prologue, gamma=gamma, eps=eps)
+    launch_rows(expansion, packed, scales, layer_index, m=m, **epilogue)
+
+
+def launch_rows(expansion, packed, scales, layer_index, *, m, res_f32=None,
+                res_bf16=None, bias=None, out_f32=None, out_bf16=None) -> None:
+    """Launch `w4_gemv_rows` over `launch_digits`' expansion (digits,
+    dscale, gsum) of m rows. Needs groups of 128 and bout % 128 == 0.
+    Counts nothing."""
+    digits, dscale, gsum = expansion
+    dev = require_cuda(digits, dscale, gsum, packed, scales)
+    _check_w4(packed, scales)
+    half, bout, nj, ngh, gs, din, dout = _tiled_meta(packed, scales)
+    if gs != 128 or bout % ROWS_TILE_N:
+        raise ValueError(f"w4_gemv_rows needs group 128 and bout % 128 == 0 ({gs}, {bout})")
+    if digits.shape[-1] != half or digits.shape[2] != 8 * -(-m // 8):
+        raise ValueError(f"digits {tuple(digits.shape)} against {m} rows of {din}")
+    for t, dt in ((bias, torch.bfloat16), (res_f32, torch.float32),
+                  (res_bf16, torch.bfloat16), (out_f32, torch.float32),
+                  (out_bf16, torch.bfloat16)):
+        if t is not None:
+            require_cuda(digits, t)
+            if t.dtype != dt or t.numel() != (dout if t is bias else m * dout):
+                raise ValueError(f"epilogue tensor {tuple(t.shape)} {t.dtype}")
+    _, _, l = _layer(packed, scales, layer_index)
+    s_rows = scales.shape[-2]
+    n_sm, counters = _device_state(dev)
+    tiles, ksplit, gps = rows_plan(dout, ngh, n_sm)
+    ws = None
+    if ksplit > 1:
+        ws = torch.empty((ksplit, m, dout), dtype=torch.float32, device=dev)
+    status = _fn("w4_gemv_mma.cu", "w4_gemv_rows", _ROWS_ARGTYPES)(
+        digits.data_ptr(), dscale.data_ptr(), gsum.data_ptr(),
+        packed.data_ptr() + l * nj * half * bout,
+        scales.data_ptr() + l * nj * s_rows * bout * 2,
+        m, digits.shape[2], din, dout, bout, s_rows, ksplit, gps,
+        _ptr(ws), counters.data_ptr(), _ptr(res_f32), _ptr(res_bf16), _ptr(bias),
+        _ptr(out_f32), _ptr(out_bf16), _stream(dev))
+    _build.check(status, "w4_gemv_rows")
 
 
 def _device_state(dev: torch.device):
