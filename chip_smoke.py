@@ -9,9 +9,13 @@ Phases:
                `vila_tpu_torch/csrc/` (one nvcc per source, in parallel);
   kernels      hold each kernel against its plain PyTorch version on the
                card at the NVILA-8B main-path shapes, and time kernel, plain
-               version and the nearest PyTorch library call; K6's digit
-               pass (bit for bit) and rows GEMV also on their own, and
-               K3's and K6's launches one by one;
+               version and the nearest PyTorch library call (and cuBLAS
+               bf16 `x @ w` over the dequantised weights beside each W4
+               GEMM / GEMV); K2's products alone (the dots-only variant, X1)
+               over those weights; K6's digit pass (prologue values, digits,
+               scales and sums bit for bit) and rows GEMV also on their own;
+               K3's stage times from inside its one launch and K6's
+               launches one by one;
   e2e          serve 3 image+prompt requests through `GenerationEngine` at
                the full NVILA-8B width (Qwen2-7B W4A16 LLM, 28 layers;
                SigLIP-SO400M-448 bf16; mlp_downsample projector), weights
@@ -77,13 +81,17 @@ KERNELS = {
         replaces="vila_tpu/ops/quant.py:384 (_w4_decode_manual_kernel; "
                  "grid form quant.py:349)"),
     "w4_gemm": dict(
-        route="cuda", source="vila_tpu_torch/csrc/w4_gemm.cu",
+        route="cuda", source="vila_tpu_torch/csrc/w4_gemm_sm90.cu",
         replaces="vila_tpu/ops/quant.py:796 (_w4_prefill_kernel; stacked "
                  "closure quant.py:914)"),
+    # X1-X3, TPU timing prototypes of K2's body on no path: the dequant's
+    # overlap and the single K loop live in K2; this is X1's products alone
+    "w4_gemm_dots": dict(
+        route="cuda", source="vila_tpu_torch/csrc/w4_gemm_sm90.cu (DOTS variant)",
+        replaces="experiments/chip_prefill_pipeline.py:46 (dots_only_kernel; "
+                 "pallas_call chip_prefill_pipeline.py:189)"),
     "fused_layer": dict(
-        route="cuda",
-        source="vila_tpu_torch/csrc/decode_attn.cu + "
-               "vila_tpu_torch/csrc/w4_gemv.cu",
+        route="cuda", source="vila_tpu_torch/csrc/decode_layer_sm90.cu",
         replaces="vila_tpu/ops/fused_decode.py:550 (_fused_layer_kernel)"),
     "fused_o_gateup": dict(
         route="cuda", source="vila_tpu_torch/csrc/w4_gemv.cu",
@@ -342,8 +350,9 @@ def phase_build():
             f.write(f"==== {src}\n{rep}\n")
     log(f"[build] {len(reports)} sources compiled in {secs:.1f} s "
         f"(ptxas report: {OUT_DIR}/ptxas.txt)")
-    # the Hopper kernels' registers, spills and shared memory (K7-K9, K6)
-    for src in ("flash_attn_sm90.cu", "w4_gemv_mma.cu", "decode_attn.cu"):
+    # the Hopper kernels' registers, spills and shared memory (K7-K9, K6, K2, K3)
+    for src in ("flash_attn_sm90.cu", "w4_gemv_mma.cu", "decode_attn.cu",
+                "w4_gemm_sm90.cu", "decode_layer_sm90.cu"):
         lines = reports.get(src, "").splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry function" in line:
@@ -351,6 +360,9 @@ def phase_build():
                 for follow in lines[i + 1:i + 5]:
                     if any(w in follow for w in ("registers", "spill", "stack frame")):
                         log("[build]   " + follow.strip())
+        for line in lines:  # e.g. wgmma serialization (C7510, C7515)
+            if "warning" in line.lower():
+                log(f"[build] {src}: " + line.strip()[:200])
     return secs
 
 
@@ -418,6 +430,26 @@ def phase_kernels(torch, seed, dev="cuda", dims=(3584, 18944, 128, 28, 4, 152064
                 f"kernel {t:.4f} ms  plain {t_plain:.3f} ms  "
                 f"dequant+matmul {t_lib:.3f} ms  bf16 matmul {t_bf16:.4f} ms  "
                 f"bound {b_ms:.4f} ms ({b_by})")
+            if kern == "w4_gemm":  # X1: K2's ring and products alone, over w_l
+                dots = lambda: quant.bf16_matmul_dots(x, w_l)  # noqa: E731
+                got_d = dots()
+                torch.cuda.synchronize()
+                err_d, _ = rel_err(torch, got_d, want)
+                good_d = bool(torch.isfinite(got_d.float()).all()) and err_d <= tol
+                ok &= good_d
+                t_d = time_ms(torch, dots, 30, flush)
+                t_dp = time_ms(torch, lambda: (x.float() @ w_l.float()).to(torch.bfloat16),
+                               5, flush)
+                bd_ms, bd_by = bound(m * din * 2 + din * dout * 2 + m * dout * 2,
+                                     2 * m * din * dout, BF16_FLOPS)
+                results["w4_gemm_dots"].append(dict(
+                    shape=name, m=m, din=din, dout=dout, max_abs_err=err_d, tol=tol,
+                    ok=good_d, ms=t_d, plain_ms=t_dp, bound_ms=bd_ms, bound_by=bd_by,
+                    library_ms=t_bf16, bf16_matmul_ms=t_bf16))
+                log(f"[kernels] w4_gemm_dots {name:8s} M={m:<4d} err {err_d:.3e} "
+                    f"(tol {tol:.3e}) {'OK' if good_d else 'FAIL'}  kernel {t_d:.4f} ms  "
+                    f"W4 - dots {t - t_d:.4f} ms  bf16 matmul {t_bf16:.4f} ms  "
+                    f"bound {bd_ms:.4f} ms ({bd_by})")
         del w_l
 
     # K3: one decode layer at cache 2048, fill 1300 (live prefix 1301 rows)
@@ -444,7 +476,9 @@ def phase_kernels(torch, seed, dev="cuda", dims=(3584, 18944, 128, 28, 4, 152064
     torch.cuda.synchronize()
     err_h, sc_h = rel_err(torch, h_k[0], h_r[0])
     err_q, sc_q = rel_err(torch, qkv_k[0], qkv_r[0])
-    good = (err_h <= 2e-2 * sc_h and err_q <= 2e-2 * sc_q
+    # 1e-2 x max|ref|: the one launch reads 0.35 % on h and 0.71 % on qkv
+    # (NVIDIA H100 80GB HBM3, 700.00 W)
+    good = (err_h <= 1e-2 * sc_h and err_q <= 1e-2 * sc_q
             and bool(torch.isfinite(qkv_k.float()).all()))
     ok &= good
     t = time_ms(torch, fn, 30, flush)
@@ -457,19 +491,21 @@ def phase_kernels(torch, seed, dev="cuda", dims=(3584, 18944, 128, 28, 4, 152064
     b_ms, b_by = bound(byts, ops, INT8_OPS)
     results["fused_layer"].append(dict(
         shape="decode layer, cache 2048, fill 1300", m=1, max_abs_err=max(err_h, err_q),
-        tol=f"2e-2 x max|ref| (h {2e-2 * sc_h:.3e}, qkv {2e-2 * sc_q:.3e})",
+        tol=f"1e-2 x max|ref| (h {1e-2 * sc_h:.3e}, qkv {1e-2 * sc_q:.3e})",
         ok=good, ms=t, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=None))
     log(f"[kernels] fused_layer h err {err_h:.3e} (max {sc_h:.3e}) qkv err "
         f"{err_q:.3e} (max {sc_q:.3e}) {'OK' if good else 'FAIL'}  kernel {t:.4f} ms  "
         f"plain {t_plain:.3f} ms  bound {b_ms:.4f} ms ({b_by})")
     if dev.type == "cuda":
-        results["fused_layer"][-1]["stages_ms"] = stages = _layer_stages(
-            torch, quant, fused_decode, args, fill, flush)
-        log("[kernels] fused_layer stages (ms): " + ", ".join(
-            f"{k} {v:.4f}" for k, v in stages.items()))
+        results["fused_layer"][-1]["stages_ms"] = stages = _layer_stamps(
+            torch, fused_decode, args, kw, flush)
+        log("[kernels] fused_layer stages inside the launch (ms, median of 20, "
+            "%globaltimer of CTA 0): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in stages.items()))
     layer_w = (w4_bytes(Hkv * 8 * hd, D) + w4_bytes(D, 2 * I) + w4_bytes(I, D)
                + w4_bytes(D, (Hq + 2 * Hkv) * hd))
     layer_macs = Hkv * 8 * hd * D + D * 2 * I + I * D + D * (Hq + 2 * Hkv) * hd
+    ok &= _check_gemm_plans(torch, quant, slots, seed, flush)
     ok &= _check_rows(torch, quant, results, slots, seed, flush, dims)
     ok &= _check_k6(torch, quant, fused_decode, results, slots, qkv_slot, gpost, gin,
                     gen, flush, dims, S, layer_w, layer_macs)
@@ -481,15 +517,42 @@ def phase_kernels(torch, seed, dev="cuda", dims=(3584, 18944, 128, 28, 4, 152064
     return ok, results
 
 
+def _check_gemm_plans(torch, quant, slots, seed, flush, rows=(33, 200, 1024)):
+    """K2 and its products alone on layer 1's qkv at the other tile plans
+    (one warpgroup's slices, two, and three M tiles), on inputs from a
+    generator of their own, against the plain version with the main
+    shape's tolerance (one bf16 ulp of the largest output)."""
+    dev = flush.device
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    slot = slots["qkv"]
+    w_l = quant.dequantize({"packed": slot["packed"][1], "scales": slot["scales"][1]})
+    ok = True
+    for m in rows:
+        x = torch.randn((m, w_l.shape[0]), generator=gen, device=dev).to(torch.bfloat16)
+        want = quant._w4_gemm_ref(x, slot["packed"], slot["scales"], 1)
+        got = quant.w4_matmul_prefill(x, slot["packed"], slot["scales"], layer_index=1)
+        got_d = quant.bf16_matmul_dots(x, w_l)
+        torch.cuda.synchronize()
+        tol = 2.0 ** -7 * float(want.float().abs().max())
+        errs = [rel_err(torch, g, want)[0] for g in (got, got_d)]
+        good = all(e <= tol for e in errs) and bool(torch.isfinite(got.float()).all())
+        ok &= good
+        plan = (quant.gemm_plan(m, w_l.shape[1], w_l.shape[0] // 2,
+                                quant._device_state(dev)[0]) if dev.type == "cuda" else "-")
+        log(f"[kernels] w4_gemm / w4_gemm_dots qkv M={m:<4d} plan {plan} err "
+            f"{errs[0]:.3e} / {errs[1]:.3e} (tol {tol:.3e}) {'OK' if good else 'FAIL'}")
+    return ok
+
+
 def _check_rows(torch, quant, results, slots, seed, flush, dims, rows=(2, 8, 16, 24)):
     """K6's two GEMV kernels on their own, on inputs from a generator of
     their own (K6's and K4/K5's checks draw what they drew before these
     kernels existed). `w4_digits` for each prologue: its digits, scales and
     group sums bit for bit against the plain version run on the CPU over
-    the kernel's own prologue values (`value_out`), and those values
-    against the plain prologue on the CPU: equal for bf16 rows with no
-    prologue (o's input), within one bf16 ulp with RMS and SiLU, whose f32
-    sum order, reciprocal square root and exp differ from the CPU's.
+    the kernel's own prologue values (`value_out`), and those values bit
+    for bit against the plain prologue on the CPU (none, RMS, SiLU: the
+    definition of `csrc/w4_common.cuh`, which takes the sum of squares, the
+    square root and exp in f64 so that no sum order shows).
     `w4_gemv_rows` on the four products of layer 1 at M = 2, 8, 16 and 24
     (24 is not routed: K6 takes B <= 16), over the kernel's own digits: its
     f32 output against the plain version's per element within 2^-10 |want|
@@ -525,18 +588,16 @@ def _check_rows(torch, quant, results, slots, seed, flush, dims, rows=(2, 8, 16,
             want = quant._w4_digits_ref(value.cpu(), quant.PRO_NONE)
             exact = all(torch.equal(a, b) for a, b in zip(got, want))
             v = quant._prologue_ref(x.cpu(), pro, None if g is None else g.cpu(), 1e-6)
-            ulp = torch.where(v == 0, 0.0, torch.ldexp(torch.ones_like(v),
-                                                       torch.frexp(v).exponent - 8))
-            within = bool(((v_k - v).abs() <= (0 if tag == "none" else 1) * ulp).all())
             same = float((v_k == v).float().mean())
-            good = exact and within
+            equal = torch.equal(v_k, v)
+            good = exact and equal
             ok &= good
             results["w4_digits"].append(dict(
-                prologue=tag, m=m, digits_bit_exact=exact, values_within=within,
+                prologue=tag, m=m, digits_bit_exact=exact, values_bit_exact=equal,
                 values_equal_share=same, ok=good))
             log(f"[kernels] w4_digits {tag:4s} M={m:<3d} digits, scales, sums bit-exact "
-                f"{exact}; values within {'0' if tag == 'none' else '1'} ulp {within} "
-                f"(equal {100 * same:.4f}%) {'OK' if good else 'FAIL'}")
+                f"{exact}; values bit-exact {equal} (equal {100 * same:.4f}%) "
+                f"{'OK' if good else 'FAIL'}")
         for name, (din, dout) in shapes.items():
             slot = slots[name]
             x = torch.randn((m, din), generator=gen, device=dev).to(bf16)
@@ -638,6 +699,8 @@ def _check_k4_k5(torch, quant, fused_decode, results, slots, qkv_slot, gpost, gi
     o, gu, down = slots["o"], slots["gate_up"], slots["down"]
     deq = lambda slot, l: quant.dequantize(  # noqa: E731
         {"packed": slot["packed"][l], "scales": slot["scales"][l]})
+    # the one-call yardstick: cuBLAS bf16 products over weights dequantised once
+    w_o, w_gu, w_d, w_q = deq(o, 0), deq(gu, 0), deq(down, 0), deq(qkv_slot, 1)
     ok = True
     for m in rows:
         attn = torch.randn((m, Hkv, 8, hd), generator=gen, device=dev)
@@ -657,12 +720,14 @@ def _check_k4_k5(torch, quant, fused_decode, results, slots, qkv_slot, gpost, gi
         cases = {
             "fused_o_gateup": ((h1, h1_r), (g1, g1_r), k4, k4_ref,
                                lambda: (attn @ deq(o, 0), x1 @ deq(gu, 0)),
+                               lambda: (attn @ w_o, x1 @ w_gu),
                                ((Hkv * 8 * hd, D), (D, 2 * I))),
             "fused_down_qkv": ((h2, h2_r), (q2, q2_r), k5, k5_ref,
                                lambda: (x2 @ deq(down, 0), x1 @ deq(qkv_slot, 1)),
+                               lambda: (x2 @ w_d, x1 @ w_q),
                                ((I, D), (D, (Hq + 2 * Hkv) * hd))),
         }
-        for name, (ha, oa, fn, ref, lib, mats) in cases.items():
+        for name, (ha, oa, fn, ref, lib, lib1, mats) in cases.items():
             err_h, sc_h = rel_err(torch, *ha)
             err_o, sc_o = rel_err(torch, *oa)
             good = (err_h <= 1e-2 * sc_h and err_o <= 1e-2 * sc_o
@@ -671,31 +736,58 @@ def _check_k4_k5(torch, quant, fused_decode, results, slots, qkv_slot, gpost, gi
             t = time_ms(torch, fn, 30, flush)
             t_plain = time_ms(torch, ref, 5, flush)
             t_lib = time_ms(torch, lib, 5, flush)
+            t_bf16 = time_ms(torch, lib1, 30, flush)
             byts = sum(w4_bytes(a, b) + m * a * 2 + m * b * 2 for a, b in mats) + 3 * m * D * 2
             b_ms, b_by = bound(byts, sum(4 * m * a * b for a, b in mats), INT8_OPS)
             results[name].append(dict(
                 shape="o + gate_up" if name == "fused_o_gateup" else "down + qkv", m=m, max_abs_err=max(err_h, err_o),
                 tol=f"1e-2 x max|ref| (h {1e-2 * sc_h:.3e}, out {1e-2 * sc_o:.3e})",
                 ok=good, ms=t, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=t_lib))
+                library_ms=t_lib, bf16_matmul_ms=t_bf16))
             log(f"[kernels] {name} M={m} h err {err_h:.3e} (max {sc_h:.3e}) out err "
                 f"{err_o:.3e} (max {sc_o:.3e}) {'OK' if good else 'FAIL'}  kernel "
                 f"{t:.4f} ms  plain {t_plain:.3f} ms  dequant+matmul {t_lib:.3f} ms  "
-                f"bound {b_ms:.4f} ms ({b_by})")
+                f"bf16 matmul {t_bf16:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
     return ok
 
 
+LAYER_STAGES = ("attention", "attention merge", "o prologue", "o stream",
+                "gate_up prologue", "gate_up stream", "silu", "down prologue", "down stream",
+                "qkv prologue", "qkv stream", "qkv merge")
+
+
+def _layer_stamps(torch, fused_decode, args, kw, flush, reps=20):
+    """K3's stage times from inside its one launch: the kernel writes
+    %globaltimer at the start, after each of its seven grid barriers, after
+    each product's prologue (digits) and at the end (CTA 0's view; a
+    product's "stream" runs to the next barrier); medians over `reps`
+    launches, L2 flushed before each."""
+    q32, mask, h, li, kc, vc, o, gu, down, qkv, gpost, gin = args
+    l, l_next, rows = fused_decode._layer_rows(o, qkv, gpost, gin, li)
+    _, grp = fused_decode._group(q32.shape[0], kw["hkv"], kw["num_q_heads"])
+    d = h.shape[1]
+    out = torch.empty(d + fused_decode._dout(qkv), dtype=torch.bfloat16, device=q32.device)
+    stamps = torch.zeros(len(LAYER_STAGES) + 1, dtype=torch.int64, device=q32.device)
+    per = []
+    for _ in range(reps):
+        flush.zero_()
+        fused_decode.launch_layer(q32, kc, vc, mask, h[0:1], l, l_next, kw["fill"] + 1,
+                                  kw["hkv"], kw["hd"], grp, (o, gu, down, qkv), rows,
+                                  kw["eps"], out, stamps=stamps)
+        torch.cuda.synchronize()
+        t = stamps.tolist()
+        per.append([(b - a) / 1e6 for a, b in zip(t, t[1:])])
+    return {name: statistics.median(p[i] for p in per) for i, name in enumerate(LAYER_STAGES)}
+
+
 def _layer_stages(torch, quant, fused_decode, args, fill, flush):
-    """Each of K3's five launches or K6's nine timed on its own (same
-    inputs, each stage run once in order first so that every input holds
-    real values): K6 when q32 holds a batch (B, Hkv*8, hd) and `fill` one
-    cursor per row; K6's products are a digit pass and a rows GEMV each."""
+    """Each of K6's nine launches timed on its own (same inputs, each stage
+    run once in order first so that every input holds real values): the
+    attention, then per product a digit pass and a rows GEMV."""
     q32, mask, h, _, kc, vc, o, gu, down, qkv, gpost, gin = args
     dev, bf16 = q32.device, torch.bfloat16
     hkv, hd = kc.shape[-1] // 128, 128
-    batched = q32.ndim == 3
-    m = q32.shape[0] if batched else 1
-    rows = h if batched else h[0:1]
+    m = q32.shape[0]
     d = h.shape[1]
     e = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
     x_att, h32, h32b = e((m, q32.numel() // m), bf16), e((m, d), torch.float32), e((m, d), torch.float32)
@@ -704,31 +796,24 @@ def _layer_stages(torch, quant, fused_decode, args, fill, flush):
     rms_post = dict(prologue=quant.PRO_RMS, gamma=gpost[0].to(bf16), eps=1e-6)
     rms_in = dict(prologue=quant.PRO_RMS, gamma=gin[1].to(bf16), eps=1e-6)
     epi = {  # stage: (input, slot, layer, prologue, epilogue)
-        "o": (x_att, o, 0, {}, dict(res_bf16=rows, out_f32=h32)),
+        "o": (x_att, o, 0, {}, dict(res_bf16=h, out_f32=h32)),
         "gate_up": (h32, gu, 0, rms_post, dict(out_bf16=g_out)),
         "down": (g_out, down, 0, dict(prologue=quant.PRO_SILU),
                  dict(res_f32=h32, out_f32=h32b, out_bf16=h_new)),
         "qkv": (h32b, qkv, 1, rms_in, dict(bias=qkv["bias"][1].to(bf16), out_bf16=q_out)),
     }
-    if batched:
-        live = fused_decode._live_rows(fill, m, kc.shape[2])
-        stages = {"attention": lambda: fused_decode._launch_attn_batched(
-            q32, kc, vc, mask, 0, live, hkv, hd, 7, x_att)}
-        digits = {}
+    live = fused_decode._live_rows(fill, m, kc.shape[2])
+    stages = {"attention": lambda: fused_decode._launch_attn_batched(
+        q32, kc, vc, mask, 0, live, hkv, hd, 7, x_att)}
+    digits = {}
 
-        def digit_pass(name, x, pro):
-            digits[name] = quant.launch_digits(x, m=m, **pro)
+    def digit_pass(name, x, pro):
+        digits[name] = quant.launch_digits(x, m=m, **pro)
 
-        for name, (x, slot, li, pro, out) in epi.items():
-            stages[f"{name} digits"] = (lambda n=name, x=x, pro=pro: digit_pass(n, x, pro))
-            stages[name] = (lambda n=name, slot=slot, li=li, out=out: quant.launch_rows(
-                digits[n], slot["packed"], slot["scales"], li, m=m, **out))
-    else:
-        stages = {"attention": lambda: fused_decode._launch_attn(
-            q32, kc, vc, mask, 0, fill + 1, hkv, hd, 7, x_att)}
-        for name, (x, slot, li, pro, out) in epi.items():
-            stages[name] = (lambda x=x, slot=slot, li=li, pro=pro, out=out: quant.launch_gemv(
-                x, slot["packed"], slot["scales"], li, m=m, **pro, **out))
+    for name, (x, slot, li, pro, out) in epi.items():
+        stages[f"{name} digits"] = (lambda n=name, x=x, pro=pro: digit_pass(n, x, pro))
+        stages[name] = (lambda n=name, slot=slot, li=li, out=out: quant.launch_rows(
+            digits[n], slot["packed"], slot["scales"], li, m=m, **out))
     for f in stages.values():
         f()
     return {k: time_ms(torch, f, 30, flush) for k, f in stages.items()}
@@ -745,6 +830,7 @@ def summarise(results, launches):
     picks = {
         "w4_gemv": lambda r: r["m"] == 1 and r["shape"] in ("qkv", "lm_head"),
         "w4_gemm": lambda r: r["m"] > 32,
+        "w4_gemm_dots": lambda r: r["m"] > 32,
         "fused_layer": lambda r: True,
         "fused_o_gateup": lambda r: r["m"] == 24,
         "fused_down_qkv": lambda r: r["m"] == 24,
@@ -767,6 +853,8 @@ def summarise(results, launches):
             bound_ms=sum(r["bound_ms"] for r in rows),
             bound_by=rows[0]["bound_by"],
             library_ms=None if None in lib else sum(lib),
+            **({"bf16_matmul_ms": sum(r["bf16_matmul_ms"] for r in rows)}
+               if all("bf16_matmul_ms" in r for r in rows) else {}),
             work=", ".join(f"{r['shape']} M={r['m']}" for r in rows),
             checks_ok=all(r["ok"] for r in results[name]),
         ))
@@ -804,23 +892,26 @@ def phase_e2e(torch, engine, seed, n_requests=3, new_tokens=32):
     def serve(i):
         t_start = time.perf_counter()
         inputs = engine.prepare_inputs([images[i], QUESTIONS[i % len(QUESTIONS)]])
+        t_inputs = time.perf_counter()
         ids, times = [], []
         for chunk in engine.stream_ids(inputs, gc):
             ids.extend(chunk)
             times.append(time.perf_counter())
-        return inputs, ids, t_start, times
+        return inputs, ids, t_start, times, t_inputs - t_start
 
     serve(n_requests)  # warm-up request (cuBLAS handles, allocator)
     _build.reset_launches()
     reqs = []
     for i in range(n_requests):
-        inputs, ids, t_start, times = serve(i)
+        inputs, ids, t_start, times, prep = serve(i)
         ttft = (times[0] - t_start) * 1e3
         dec = (len(ids) - 1) / (times[-1] - times[0])
         reqs.append(dict(prompt_tokens=int(inputs["input_ids"].shape[0]),
-                         new_tokens=len(ids), ttft_ms=ttft, decode_tok_s=dec))
+                         new_tokens=len(ids), ttft_ms=ttft, inputs_ms=prep * 1e3,
+                         decode_tok_s=dec))
         log(f"[e2e] request {i}: prompt {inputs['input_ids'].shape[0]} tokens, "
-            f"{len(ids)} new, TTFT {ttft:.1f} ms, decode {dec:.1f} tok/s, "
+            f"{len(ids)} new, TTFT {ttft:.1f} ms (host inputs {prep * 1e3:.1f} ms), "
+            f"decode {dec:.1f} tok/s, "
             f"text {tok.decode(ids, skip_special_tokens=True)[:40]!r}")
         ok_ids = len(ids) == new_tokens and all(0 <= t < cfg.llm.vocab_size for t in ids)
         if not ok_ids:

@@ -1,9 +1,10 @@
 // W4A16 GEMV for M <= 32 rows (decode-shaped), for Hopper (sm_90a).
 //
 // Replaces the TPU kernels vila_tpu/ops/quant.py:_w4_decode_manual_kernel
-// and :_w4_decode_kernel (behind w4_matmul_decode), and provides the four
-// weight streams of vila_tpu/ops/fused_decode.py:_fused_layer_kernel
-// through the prologue/epilogue variants below.
+// and :_w4_decode_kernel (behind w4_matmul_decode), and provides the two
+// weight streams each of vila_tpu/ops/fused_decode.py:_fused_o_gateup_kernel
+// and :_fused_down_qkv_kernel (K4, K5) through the prologue/epilogue
+// variants below.
 //
 // Arithmetic (identical to the TPU kernels, so greedy transcripts agree):
 //   * each activation row is expanded per half-plane into two int8 digits,
@@ -31,20 +32,22 @@
 // Variants (template arguments):
 //   prologue: none | RMSNorm(gamma) of an f32/bf16 row | SiLU(gate)*up of
 //             a (gate | up) bf16 row, each rounded to bf16 before the digit
-//             expansion, as the TPU kernel does;
+//             expansion, as the TPU kernel does (w4_common.cuh's definition:
+//             the RMS statistic and exp in f64, bit for bit the plain
+//             version's);
 //   epilogue: + f32 or bf16 residual, + bf16 bias, f32 and/or bf16 output.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "w4_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileN = 128;  // output columns per block: 32 lanes x 4
-
-enum { PRO_NONE = 0, PRO_RMS = 1, PRO_SILU = 2 };
 
 struct GemvArgs {
   const void* x;  // (M, ldx) prologue input, bf16 or f32
@@ -64,14 +67,6 @@ struct GemvArgs {
   __nv_bfloat16* out_bf16;
 };
 
-__device__ __forceinline__ float ld_f(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float ld_f(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 __device__ __forceinline__ float block_reduce(float v, bool is_max, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -87,19 +82,6 @@ __device__ __forceinline__ float block_reduce(float v, bool is_max, float* red) 
   return r;
 }
 
-// Prologue value of element i of one input row (already bf16-exact).
-template <int PRO, typename TIn>
-__device__ __forceinline__ float pro_value(const TIn* xr, int i, int din,
-                                           float rms, const __nv_bfloat16* gamma) {
-  if (PRO == PRO_NONE) return ld_f(xr, i);
-  if (PRO == PRO_RMS)
-    return round_bf16(__fmul_rn(__fmul_rn(ld_f(xr, i), rms), __bfloat162float(gamma[i])));
-  const float g = ld_f(xr, i);
-  const float u = ld_f(xr, (size_t)din + i);
-  const float sig = 1.0f / (1.0f + expf(-g));
-  return round_bf16(__fmul_rn(__fmul_rn(g, sig), u));
-}
-
 __device__ __forceinline__ void epilogue(const GemvArgs& a, int m, int col, float v) {
   const size_t o = (size_t)m * a.dout + col;
   if (a.res_f32) v = a.res_f32[o] + v;
@@ -113,6 +95,7 @@ template <int NR, int PRO, typename TIn>
 __global__ void __launch_bounds__(kThreads) w4_gemv_kernel(GemvArgs a) {
   extern __shared__ __align__(16) int8_t qs[];  // [NR][plane][digit][kr]
   __shared__ float red[kWarps];
+  __shared__ double red64[kWarps];
   __shared__ float s_scale[NR][2][2];           // [row][plane][digit]
   __shared__ float s_part[kWarps][NR][kTileN];  // cross-warp reduction
   __shared__ int s_last;
@@ -131,15 +114,9 @@ __global__ void __launch_bounds__(kThreads) w4_gemv_kernel(GemvArgs a) {
   for (int r = 0; r < rows; ++r) {
     const TIn* xr = reinterpret_cast<const TIn*>(a.x) + (size_t)(m0 + r) * a.ldx;
     float rms = 1.0f;
-    if (PRO == PRO_RMS) {
-      float ss = 0.f;
-      for (int i = tid; i < a.din; i += kThreads) {
-        const float v = ld_f(xr, i);
-        ss += v * v;
-      }
-      ss = block_reduce(ss, false, red);
-      rms = 1.0f / sqrtf(ss / (float)a.din + a.eps);
-    }
+    if (PRO == PRO_RMS)
+      rms = rms_scale(block_sum_f64<kWarps>(sumsq_part(xr, a.din, tid, kThreads), red64),
+                      a.din, a.eps);
     float am_lo = 0.f, am_hi = 0.f;
     for (int i = tid; i < a.din; i += kThreads) {
       const float v = fabsf(pro_value<PRO>(xr, i, a.din, rms, a.gamma));

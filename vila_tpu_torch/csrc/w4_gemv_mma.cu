@@ -6,10 +6,9 @@
 //
 //   w4_digits     the prologue for the M rows, once per product: the input
 //                 value (as it is, RMSNorm(gamma) of an f32/bf16 row, or
-//                 SiLU(gate)*up of a (gate | up) bf16 row, rounded to bf16
-//                 with w4_gemv.cu's sequence; the RMS and SiLU values may
-//                 differ from the plain version's by one bf16 ulp, whose
-//                 f32 sum order and exp differ), each half-plane's amax,
+//                 SiLU(gate)*up of a (gate | up) bf16 row, rounded to bf16:
+//                 w4_common.cuh's definition, bit for bit the plain
+//                 version's), each half-plane's amax,
 //                 the two int8 digits x ~= q1*s1 + q2*s2 (s1 = amax/127,
 //                 s2 = s1/127, round half even: of its own values, bit for
 //                 bit quant._digits and the JAX package's _int8_digits /
@@ -59,6 +58,7 @@
 #include <cuda_bf16.h>
 
 #include "sm90_common.cuh"
+#include "w4_common.cuh"
 
 namespace {
 
@@ -71,14 +71,6 @@ constexpr int kThreads = 32 * (kConsumers + 1);
 constexpr int kStages = 4;
 constexpr int kStageBytes = kGroup * kTileN;  // 16 KB
 constexpr int kDigitThreads = 1024;
-
-enum { PRO_NONE = 0, PRO_RMS = 1, PRO_SILU = 2 };
-
-__device__ __forceinline__ float ld_f(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float ld_f(const bf16* p, size_t i) { return __bfloat162float(p[i]); }
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // ---------------------------------------------------------------------------
 // w4_digits
@@ -99,33 +91,6 @@ __device__ __forceinline__ float block_reduce(float v, bool is_max, float* red) 
   return r;
 }
 
-// the prologue value of element i of one input row (bf16-exact)
-template <int PRO, typename TIn>
-__device__ __forceinline__ float pro_value(const TIn* xr, int i, int din, float rms,
-                                           const bf16* gamma) {
-  if (PRO == PRO_NONE) return ld_f(xr, i);
-  if (PRO == PRO_RMS)
-    return round_bf16(__fmul_rn(__fmul_rn(ld_f(xr, i), rms), __bfloat162float(gamma[i])));
-  const float g = ld_f(xr, i);
-  const float u = ld_f(xr, (size_t)din + i);
-  const float sig = 1.0f / (1.0f + expf(-g));
-  return round_bf16(__fmul_rn(__fmul_rn(g, sig), u));
-}
-
-// the two digits of v (no FMA contraction: the plain version's roundings)
-__device__ __forceinline__ void two_digits(float v, float s1, float s2, int* q1, int* q2) {
-  const float a = fminf(fmaxf(rintf(v / s1), -127.f), 127.f);
-  const float r = __fsub_rn(v, __fmul_rn(a, s1));
-  *q1 = (int)a;
-  *q2 = (int)fminf(fmaxf(rintf(r / s2), -127.f), 127.f);
-}
-
-// mma position of row rho inside its 32-row step (the inverse of
-// rho(kappa) = 8 (kappa % 4) + 2 ((kappa % 16) / 4) + kappa / 16)
-__device__ __forceinline__ int kappa_of(int rho) {
-  return 16 * (rho & 1) + 4 * ((rho & 7) >> 1) + (rho >> 3);
-}
-
 // Block m (of m_pad): row m of x. digits (2 planes, 2 digits, m_pad, din/2)
 // int8 in mma order, dscale (m_pad, plane, digit) f32, gsum (ngh, digit,
 // m_pad) int32 (lo plane); rows m >= M are zeros.
@@ -136,6 +101,7 @@ __global__ void __launch_bounds__(kDigitThreads) w4_digits_kernel(
     bf16* __restrict__ vout) {
   extern __shared__ float sv[];  // the row's din prologue values
   __shared__ float red[kDigitThreads / 32];
+  __shared__ double red64[kDigitThreads / 32];
   const int m = blockIdx.x, m_pad = gridDim.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int half = din / 2, ngh = half / kGroup;
@@ -152,19 +118,17 @@ __global__ void __launch_bounds__(kDigitThreads) w4_digits_kernel(
   // pass 1: the prologue values into shared memory, each half-plane's amax
   float am_lo = 0.f, am_hi = 0.f;
   if (PRO == PRO_RMS) {
-    float ss = 0.f;
+    double ss = 0.0;
 #pragma unroll 4
     for (int i = tid; i < din; i += kDigitThreads) {
       const float v = ld_f(xr, i);
       sv[i] = v;
-      ss += v * v;
+      ss += (double)v * (double)v;
     }
-    ss = block_reduce(ss, false, red);
-    const float rms = 1.0f / sqrtf(ss / (float)din + eps);
+    const float rms = rms_scale(block_sum_f64<kDigitThreads / 32>(ss, red64), din, eps);
 #pragma unroll 4
     for (int i = tid; i < din; i += kDigitThreads) {  // (each thread its own elements)
-      const float v =
-          round_bf16(__fmul_rn(__fmul_rn(sv[i], rms), __bfloat162float(gamma[i])));
+      const float v = rms_value(sv[i], rms, __bfloat162float(gamma[i]));
       sv[i] = v;
       if (i < half) am_lo = fmaxf(am_lo, fabsf(v)); else am_hi = fmaxf(am_hi, fabsf(v));
     }
@@ -248,61 +212,6 @@ __host__ __device__ constexpr int stage_tx(int m_pad) { return stage_gsum(m_pad)
 __host__ __device__ constexpr int stage_bytes(int m_pad) { return (stage_tx(m_pad) + 1023) & ~1023; }
 __host__ __device__ constexpr int rows_smem(int m_pad) {
   return 1024 + kStages * stage_bytes(m_pad) + 2 * kStages * 8;
-}
-
-// one TMA box of a 2-D or 3-D map at the given coordinates
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-// `bytes` (a multiple of 16) contiguous bytes, 16-byte aligned at both ends
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 32-bit word at byte column col (a multiple of 4) of row r of a 128-byte
-// wide tile written by TMA with 128-byte swizzle (16-byte chunk ^ (r & 7))
-__device__ __forceinline__ uint32_t lds_sw(const uint8_t* tile, int r, int col) {
-  return *reinterpret_cast<const uint32_t*>(
-      tile + r * kTileN + ((((col >> 4) ^ (r & 7)) << 4) | (col & 15)));
-}
-
-// 4 x 4 byte transpose: out[c] byte j = byte c of w[j]
-__device__ __forceinline__ void transpose4(const uint32_t (&w)[4], uint32_t (&out)[4]) {
-  const uint32_t t01l = __byte_perm(w[0], w[1], 0x5140);
-  const uint32_t t01h = __byte_perm(w[0], w[1], 0x7362);
-  const uint32_t t23l = __byte_perm(w[2], w[3], 0x5140);
-  const uint32_t t23h = __byte_perm(w[2], w[3], 0x7362);
-  out[0] = __byte_perm(t01l, t23l, 0x5410);
-  out[1] = __byte_perm(t01l, t23l, 0x7632);
-  out[2] = __byte_perm(t01h, t23h, 0x5410);
-  out[3] = __byte_perm(t01h, t23h, 0x7632);
 }
 
 // A fragments of one plane at k-step column col: digit 0 of row r (A row g)
@@ -406,20 +315,12 @@ __global__ void __launch_bounds__(kThreads, MT <= 2 ? 2 : 1) w4_gemv_rows_kernel
           uint32_t alo[4], ahi[4];
           load_a(alo, dig, r, kMPad, ks * 32 + 4 * t);           // plane lo
           load_a(ahi, dig, 2 * kMPad + r, kMPad, ks * 32 + 4 * t);  // plane hi
-          uint32_t w0[4], w1[4], b0[4], b1[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int rr = ks * 32 + 8 * j + 2 * t;
-            w0[j] = lds_sw(st, rr, cw + 4 * g);
-            w1[j] = lds_sw(st, rr + 1, cw + 4 * g);
-          }
-          transpose4(w0, b0);
-          transpose4(w1, b1);
+          uint32_t b0[4], b1[4];
+          w4_fragments(st, ks * 32, cw, g, t, b0, b1);
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
-            mma_s8(ilo[q], alo, b0[q] & 0x0F0F0F0Fu, b1[q] & 0x0F0F0F0Fu);
-            mma_s8(ihi[q], ahi, (b0[q] & 0xF0F0F0F0u) ^ 0x80808080u,
-                   (b1[q] & 0xF0F0F0F0u) ^ 0x80808080u);
+            mma_s8(ilo[q], alo, lo_plane(b0[q]), lo_plane(b1[q]));
+            mma_s8(ihi[q], ahi, hi_plane(b0[q]), hi_plane(b1[q]));
           }
         }
         // whole-group integer sums -> f32, per (row, group, column)

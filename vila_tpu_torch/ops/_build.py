@@ -8,7 +8,9 @@ library name carries a hash of its source and of the shared header
 `build_all()` starts one `nvcc` per source, all at once. Nothing links
 against libcuda: the Hopper sources take `cuTensorMapEncodeTiled` (TMA
 descriptors) with `dlsym` from the `libcuda.so.1` the process already
-holds (`sm90_common.cuh`).
+holds (`sm90_common.cuh`, which also holds the mbarrier, TMA and wgmma
+helpers; `w4_common.cuh` holds the W4 prologue and int8 fragments the GEMV
+kernels share).
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("w4_gemv.cu", "w4_gemv_mma.cu", "w4_gemm.cu", "decode_attn.cu",
-           "flash_attn_sm90.cu")
+SOURCES = ("w4_gemv.cu", "w4_gemv_mma.cu", "w4_gemm_sm90.cu", "decode_layer_sm90.cu",
+           "decode_attn.cu", "flash_attn_sm90.cu")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -35,10 +37,11 @@ _lock = threading.Lock()
 # (`count`) where it launches its kernel on the card (K1 w4_matmul_decode,
 # K2 w4_matmul_prefill, K3 fused_layer, K4 fused_o_gateup, K5
 # fused_down_qkv, K6 fused_layer_batched, K7 flash_fwd, K8 flash_bwd_dq,
-# K9 flash_bwd_dkv), and nowhere else. The serving loop and its admission
+# K9 flash_bwd_dkv; and K2's products alone, bf16_matmul_dots, on no
+# path), and nowhere else. The serving loop and its admission
 # thread both launch, hence the lock.
 LAUNCHES: Dict[str, int] = {
-    "w4_gemv": 0, "w4_gemm": 0, "fused_layer": 0,
+    "w4_gemv": 0, "w4_gemm": 0, "w4_gemm_dots": 0, "fused_layer": 0,
     "fused_o_gateup": 0, "fused_down_qkv": 0, "fused_layer_batched": 0,
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
 }

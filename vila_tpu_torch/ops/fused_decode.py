@@ -3,14 +3,11 @@
 two-kernel layer K4 `fused_o_gateup` + K5 `fused_down_qkv` (any m <= 32).
 
 On the TPU each is one Pallas kernel whose sequential grid and ~100 MB of
-VMEM keep every intermediate on chip. A Hopper block has neither, so on the
-card each is a few hand-written launches on one stream. K3 and K6 are five:
+VMEM keep every intermediate on chip. The layer's stages are:
 
-  1. attention (`csrc/decode_attn.cu`; K3 `decode_attn`, K6
-     `decode_attn_batched` on the tensor cores): GQA attention of the
-     pre-scaled, group-padded q over each row's live prefix [0, fill] of
-     layer l's flat cache, additive mask, f32 softmax; pad heads write
-     zeros;
+  1. attention: GQA attention of the pre-scaled, group-padded q over each
+     row's live prefix [0, fill] of layer l's flat cache, additive mask,
+     f32 softmax; pad heads write zeros;
   2. o GEMV + residual:          h32  = h + x_att @ W_o[l]           (f32)
   3. gate_up GEMV, RMSNorm in:   gu   = rms(h32) * g_post[l] @ W_gu[l]
   4. down GEMV, SiLU*up in,
@@ -18,17 +15,20 @@ card each is a few hand-written launches on one stream. K3 and K6 are five:
   5. qkv GEMV, RMSNorm in,
      bias out:                   qkv  = rms(h32b) * g_in[l+1] @ W_qkv[l+1] + b
 
-In K6 each of stages 2-5 is two launches (`quant.launch_gemv_rows`: the
-digit pass `w4_digits`, then one tensor-core weight pass for all rows,
-`csrc/w4_gemv_mma.cu`), nine launches a layer.
+K3 is one persistent cooperative launch per layer
+(`csrc/decode_layer_sm90.cu`: one CTA per SM, grid-wide barriers between
+the stages, every weight tile streamed by TMA from the launch on; its plan:
+`layer_plan`, `attn_plan`). K6 is nine launches: attention
+(`csrc/decode_attn.cu` `decode_attn_batched`, on the tensor cores), then per
+product the digit pass `w4_digits` and one tensor-core weight pass for all
+rows (`quant.launch_gemv_rows`, `csrc/w4_gemv_mma.cu`).
 
-K4 is stages 2-3 and K5 stages 4-5, two launches each; unlike the whole
-layer they hand h back rounded to h's dtype in between (K5 adds to K4's
-rounded h_new), while each RMSNorm still reads its unrounded f32 sum, as on
-the TPU. In K3, K4 and K5 the products are the W4 GEMV kernel
-(`csrc/w4_gemv.cu`) with its fused prologue / epilogue variants; every
-route keeps the TPU kernels' int8-digit arithmetic, with rows = the m
-tokens or batch rows.
+K4 is stages 2-3 and K5 stages 4-5, two launches each of the W4 GEMV kernel
+(`csrc/w4_gemv.cu`); unlike the whole layer they hand h back rounded to h's
+dtype in between (K5 adds to K4's rounded h_new), while each RMSNorm still
+reads its unrounded f32 sum, as on the TPU. Every route keeps the TPU
+kernels' int8-digit arithmetic, with rows = the m tokens or batch rows, and
+the prologue values of `csrc/w4_common.cuh` (`quant._prologue_ref`).
 
 The TPU kernels spread the head outputs block-diagonally over 8 rows and
 pad the batch to 8 or 16 rows only to fill MXU rows; here each row's
@@ -44,6 +44,7 @@ tensor launches the kernels or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import operator
 import threading
 from typing import Dict, Optional, Tuple
@@ -57,13 +58,13 @@ from vila_tpu_torch.utils.device import host_to_device
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ATTN_ARGTYPES = [_P] * 7 + [_I] * 7 + [_P]
 _ATTN_B_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
-_ATTN_CHUNK = 32  # cache rows per block of decode_attn.cu's bs=1 kernel
-_ATTN_B_CHUNK = 128  # and of its batched kernel
+_ATTN_B_CHUNK = 128  # cache rows per block of decode_attn.cu's batched kernel
 _ATTN_COUNTER_SLOTS = 1024  # (batch row, kv head) arrival counters
 _attn_counters: Dict[torch.device, torch.Tensor] = {}
 _rows_memo: Dict[torch.device, Tuple[Tuple[int, ...], torch.Tensor]] = {}
+_layer_ws: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+_layer_ws_floats: Dict[Tuple[int, ...], int] = {}
 _state_lock = threading.Lock()
 
 
@@ -159,7 +160,7 @@ def _fused_layer_ref(q32, mask, h, layer_index, k_cache, v_cache,
                      o_slot, gu_slot, down_slot, qkv_slot,
                      gamma_post, gamma_in, *, hkv, hd, eps=1e-6, fill=None,
                      num_q_heads=None):
-    """Plain version of the five launches (the signature of `fused_layer`)."""
+    """Plain version of the layer kernel (the signature of `fused_layer`)."""
     l, l_next, rows = _layer_rows(o_slot, qkv_slot, gamma_post, gamma_in, layer_index)
     (n_rows,) = _live_rows(fill, 1, k_cache.shape[2])
     _, grp = _group(q32.shape[0], hkv, num_q_heads)
@@ -204,29 +205,6 @@ def _fused_down_qkv_ref(gu, h, layer_index, down_slot, qkv_slot, gamma_in,
         down_slot, qkv_slot, gamma_in, gamma_in, layer_index)
     h32, qkv = _down_qkv_ref(gu, h, l, l_next, down_slot, qkv_slot, gin, bias, eps)
     return h32.to(h.dtype), qkv
-
-
-def _launch_attn(q32, k_cache, v_cache, mask, l, n_rows, hkv, hd, grp, out):
-    dev = quant.require_cuda(q32, k_cache, v_cache, mask, out)
-    _check_attn_dtypes(q32, k_cache, v_cache, mask)
-    _, b, s_len, kv_ld = k_cache.shape
-    p_rows = q32.shape[0] // hkv
-    if (b != 1 or kv_ld != hkv * hd or not 0 < n_rows <= s_len or hd % 32
-            or hd > 256 or not grp <= p_rows <= 8):
-        raise ValueError(f"cache {tuple(k_cache.shape)}, rows {n_rows}, hd {hd}, "
-                         f"group {grp} of {p_rows}")
-    nsplit = -(-n_rows // _ATTN_CHUNK)
-    ws = torch.empty((hkv * p_rows, nsplit, hd + 2), dtype=torch.float32, device=dev)
-    layer_off = l * s_len * kv_ld * 2
-    fn = quant._fn("decode_attn.cu", "decode_attn", _ATTN_ARGTYPES)
-    status = fn(
-        q32.data_ptr(), k_cache.data_ptr() + layer_off,
-        v_cache.data_ptr() + layer_off, mask.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), _attn_counters_of(dev, hkv).data_ptr(),
-        hkv, n_rows, grp, p_rows, hd, kv_ld, nsplit,
-        quant._stream(dev),
-    )
-    _build.check(status, "decode_attn")
 
 
 def _check_attn_dtypes(q32, k_cache, v_cache, mask):
@@ -335,12 +313,11 @@ def _bf16_like(h: torch.Tensor) -> torch.Tensor:
     return torch.empty(h.shape, dtype=h.dtype, device=h.device)
 
 
-def _launch_layer_tail(x_att, h, l, l_next, slots, rows, eps, gemv=quant.launch_gemv):
-    """The four GEMV stages of a whole layer with rows = x_att's rows; the
-    residual stays f32 from o to down. K3 takes `quant.launch_gemv`, K6 the
-    tensor-core rows route `quant.launch_gemv_rows` (each stage a digit
-    pass and one weight pass for all rows). Returns (h_new bf16, qkv
-    bf16)."""
+def _launch_layer_tail(x_att, h, l, l_next, slots, rows, eps, gemv):
+    """K6's four GEMV stages with rows = x_att's rows (`gemv`: the
+    tensor-core rows route `quant.launch_gemv_rows`, each stage a digit pass
+    and one weight pass for all rows); the residual stays f32 from o to
+    down. Returns (h_new bf16, qkv bf16)."""
     o_slot, gu_slot, down_slot, qkv_slot = slots
     gpost, gin, bias = rows
     h_new = _bf16_like(h)
@@ -348,6 +325,145 @@ def _launch_layer_tail(x_att, h, l, l_next, slots, rows, eps, gemv=quant.launch_
     _, qkv = _launch_down_qkv(gu, h32, l, l_next, down_slot, qkv_slot, gin, bias,
                               eps, h_new=h_new, gemv=gemv)
     return h_new, qkv
+
+
+# --------------------------------------------------------------------------
+# K3: one persistent launch per layer (csrc/decode_layer_sm90.cu)
+# --------------------------------------------------------------------------
+
+LAYER_TILE_N, LAYER_GROUP, LAYER_MAX_CHUNK = 128, 128, 64
+# the most K splits of each product (o, gate_up, down, qkv): o's and down's
+# partials are summed whole by every CTA (h32 and h32b feed an RMSNorm),
+# gate_up's and qkv's by one pass spread over the grid
+LAYER_SPLIT_CAPS = (4, 16, 4, 16)
+_LAYER_PTRS = ctypes.c_void_p * 21
+_LAYER_INTS = ctypes.c_int * 35
+
+
+@functools.lru_cache(maxsize=None)
+def layer_plan(dout: int, ngh: int, n_cta: int, cap: int) -> Tuple[int, int]:
+    """(K splits, groups of 128 input rows per split) of one product of the
+    persistent layer: its (column tile of 128, split) units are dealt
+    round-robin to the n_cta CTAs (one per SM); the split count that leaves
+    the busiest CTA the fewest groups, at most `cap`, ties to fewer splits
+    (fewer partials to sum)."""
+    tiles = dout // LAYER_TILE_N
+    best = None
+    for ks in range(1, min(cap, ngh) + 1):
+        gps = -(-ngh // ks)
+        if -(-ngh // gps) != ks:
+            continue
+        load = -(-tiles * ks // n_cta) * gps
+        if best is None or load < best[0]:
+            best = (load, ks, gps)
+    return best[1], best[2]
+
+
+def attn_plan(n_rows: int, hkv: int, n_cta: int) -> Tuple[int, int]:
+    """(cache rows per chunk, chunks) of the persistent layer's attention:
+    the live rows of each kv head spread over the CTAs, at most 64 rows a
+    chunk."""
+    chunk = min(LAYER_MAX_CHUNK, -(-n_rows // max(1, n_cta // hkv)))
+    return chunk, -(-n_rows // chunk)
+
+
+def layer_work(dims, n_cta: int):
+    """Every unit of the persistent layer's four products, (din, dout) each
+    in `dims` (o, gate_up, down, qkv), as the kernel deals them: (product,
+    CTA, column tile, split, columns range, groups range)."""
+    for p, (din, dout) in enumerate(dims):
+        ngh = din // 2 // LAYER_GROUP
+        ks, gps = layer_plan(dout, ngh, n_cta, LAYER_SPLIT_CAPS[p])
+        tiles = dout // LAYER_TILE_N
+        for u in range(tiles * ks):  # split-major
+            split, tile = divmod(u, tiles)
+            yield (p, u % n_cta, tile, split,
+                   (tile * LAYER_TILE_N, (tile + 1) * LAYER_TILE_N),
+                   (split * gps, min(ngh, (split + 1) * gps)))
+
+
+def _layer_workspace(dev: torch.device, ints) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The device's persistent-layer scratch (f32, grown to what the plan
+    needs, else made once) and its two barrier words (zeroed once; the
+    kernel leaves them as generations). Launches share them, so they run on
+    one stream."""
+    key = tuple(ints[1:34])
+    with _state_lock:
+        floats = _layer_ws_floats.get(key)
+        if floats is None:
+            fn = getattr(_build.load("decode_layer_sm90.cu"), "decode_layer_ws_floats")
+            fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_longlong
+            floats = _layer_ws_floats[key] = int(fn(ctypes.cast(ints, ctypes.c_void_p)))
+        ws, bar = _layer_ws.get(dev, (None, None))
+        if bar is None:
+            bar = torch.zeros(2, dtype=torch.int32, device=dev)
+        if ws is None or ws.numel() < floats:
+            ws = torch.empty(floats, dtype=torch.float32, device=dev)
+        _layer_ws[dev] = (ws, bar)
+        return ws, bar
+
+
+def launch_layer(q32, k_cache, v_cache, mask, h_row, l, l_next, n_rows, hkv, hd, grp,
+                 slots, rows, eps, out, stamps=None) -> None:
+    """Launch the persistent layer kernel on the current stream: one bs=1
+    layer (h_row (1, D) bf16; the caches' layer l, live rows n_rows) into
+    `out` (D + dqkv bf16: h_new, then qkv of layer l_next). `stamps`, nine
+    int64 on the card, receives the %globaltimer readings at the start,
+    after each of the seven grid barriers and at the end (for checks).
+    Counts nothing."""
+    o_slot, gu_slot, down_slot, qkv_slot = slots
+    gpost, gin, bias = rows
+    dev = quant.require_cuda(q32, k_cache, v_cache, mask, h_row, out, gpost, gin)
+    _check_attn_dtypes(q32, k_cache, v_cache, mask)
+    L, b, s_len, kv_ld = k_cache.shape
+    p_rows = q32.shape[0] // hkv
+    d_model = h_row.shape[-1]
+    if (b != 1 or hd != 128 or kv_ld != hkv * hd or not 0 < n_rows <= s_len
+            or not grp <= p_rows <= 8 or q32.shape != (hkv * p_rows, hd)
+            or not 0 <= l < L or h_row.numel() != d_model or mask.shape[-1] != s_len):
+        raise ValueError(f"q {tuple(q32.shape)}, cache {tuple(k_cache.shape)}, rows "
+                         f"{n_rows}, hd {hd}, group {grp} of {p_rows}")
+    if h_row.dtype != torch.bfloat16 or out.dtype != torch.bfloat16:
+        raise TypeError("the persistent layer carries h in bf16")
+    if any(t.data_ptr() % 16 for t in (h_row, gpost, gin)) or d_model % 8:
+        raise ValueError("h and the norm scales must be 16-byte aligned rows, D % 8 == 0")
+    n_sm, _ = quant._device_state(dev)
+    chunk, nsplit = attn_plan(n_rows, hkv, n_sm)
+    dims, packed, scales = [], [], []
+    for p, (slot, li) in enumerate(((o_slot, l), (gu_slot, l), (down_slot, l),
+                                    (qkv_slot, l_next))):
+        pk, sc = slot["packed"], slot["scales"]
+        quant.require_cuda(q32, pk, sc)
+        quant._check_w4(pk, sc)
+        half, bout, nj, ngh, gs, din, dout = quant._tiled_meta(pk, sc)
+        if gs != LAYER_GROUP or bout % LAYER_TILE_N:
+            raise ValueError(f"the layer kernel needs group 128 and bout % 128 == 0 "
+                             f"({gs}, {bout})")
+        s_rows = sc.shape[-2]
+        dims += [din, dout, bout, s_rows,
+                 *layer_plan(dout, ngh, n_sm, LAYER_SPLIT_CAPS[p])]
+        packed.append(pk.data_ptr() + li * nj * half * bout)
+        scales.append(sc.data_ptr() + li * nj * s_rows * bout * 2)
+    inter = dims[7] // 2
+    if out.numel() != d_model + dims[19]:
+        raise ValueError(f"out {tuple(out.shape)} does not hold h and qkv")
+    for t, n in ((gpost, d_model), (gin, d_model), (bias, dims[19])):
+        if t is not None and (t.dtype != torch.bfloat16 or t.numel() != n):
+            raise ValueError(f"layer vector {tuple(t.shape)} {t.dtype}")
+    ints = _LAYER_INTS(n_rows, kv_ld, hkv, p_rows, grp, chunk, nsplit, d_model, inter,
+                       n_sm, *dims, quant._device_index(dev))
+    ws, bar = _layer_workspace(dev, ints)
+    layer_off = l * s_len * kv_ld * 2
+    ptrs = _LAYER_PTRS(
+        q32.data_ptr(), k_cache.data_ptr() + layer_off, v_cache.data_ptr() + layer_off,
+        mask.data_ptr(), h_row.data_ptr(), gpost.data_ptr(), gin.data_ptr(),
+        quant._ptr(bias), ws.data_ptr(), bar.data_ptr(), out.data_ptr(),
+        out.data_ptr() + d_model * 2, quant._ptr(stamps), *packed, *scales)
+    fn = quant._fn("decode_layer_sm90.cu", "decode_layer",
+                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+    status = fn(ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(ints, ctypes.c_void_p),
+                float(eps), quant._stream(dev))
+    _build.check(status, "decode_layer")
 
 
 def fused_layer(
@@ -377,14 +493,14 @@ def fused_layer(
         )
     l, l_next, rows = _layer_rows(o_slot, qkv_slot, gamma_post, gamma_in, layer_index)
     (n_rows,) = _live_rows(fill, 1, k_cache.shape[2])
-    p_rows, grp = _group(q32.shape[0], hkv, num_q_heads)
-    d_model = h.shape[1]
-    x_att = torch.empty((1, hkv * p_rows * hd), dtype=torch.bfloat16, device=q32.device)
-    _launch_attn(q32, k_cache, v_cache, mask, l, n_rows, hkv, hd, grp, x_att)
-    h_new, qkv = _launch_layer_tail(
-        x_att, h[0:1], l, l_next, (o_slot, gu_slot, down_slot, qkv_slot), rows, eps)
+    _, grp = _group(q32.shape[0], hkv, num_q_heads)
+    d_model, dq = h.shape[1], _dout(qkv_slot)
+    out = torch.empty(d_model + dq, dtype=torch.bfloat16, device=q32.device)
+    launch_layer(q32, k_cache, v_cache, mask, h[0:1], l, l_next, n_rows, hkv, hd, grp,
+                 (o_slot, gu_slot, down_slot, qkv_slot), rows, eps, out)
     _build.count("fused_layer")
-    return h_new.expand(8, d_model), qkv.expand(8, qkv.shape[1])
+    return (out[:d_model].view(1, d_model).expand(8, d_model),
+            out[d_model:].view(1, dq).expand(8, dq))
 
 
 def fused_layer_batched(

@@ -1,5 +1,5 @@
 """Weight-only W4A16 quantization with grouped scales, and the W4 matmul
-kernels (CUDA: `csrc/w4_gemv.cu`, `csrc/w4_gemm.cu`), as
+kernels (CUDA: `csrc/w4_gemv.cu`, `csrc/w4_gemm_sm90.cu`), as
 `vila_tpu/ops/quant.py`.
 
 Storage is the JAX package's, byte for byte, and the kernels read it as it
@@ -18,9 +18,10 @@ Two kernels, dispatched by the number of rows M (as `w4_matmul`):
     expanded per row into two int8 digits and contracted with s8 x s8 ->
     s32 dot products, with the lo plane's zero point corrected by a group
     row sum, exactly the TPU kernel's arithmetic;
-  * M > 32, `w4_matmul_prefill` (K2, `w4_gemm.cu`): the weight tile is
-    dequantised to bf16 with the TPU kernel's roundings and contracted on
-    the tensor cores with f32 accumulation (== dequantize-then-matmul).
+  * M > 32, `w4_matmul_prefill` (K2, `w4_gemm_sm90.cu`): the weight tile
+    is dequantised to bf16 with the TPU kernel's roundings, by warps of its
+    own while the previous tile's wgmma products run, and contracted on the
+    tensor cores with f32 accumulation (== dequantize-then-matmul).
 
 The batched decode layer (K6) runs its four products on a third kernel
 pair, `csrc/w4_gemv_mma.cu` (`launch_gemv_rows`): `w4_digits` expands the M
@@ -258,14 +259,21 @@ _KAPPA = torch.argsort(_RHO)
 
 def _prologue_ref(x, prologue, gamma=None, eps=0.0):
     """The W4 GEMV prologue value of each row as f32 (bf16-exact): x as it
-    is, RMSNorm(x) * gamma, or SiLU(gate) * up of a (gate | up) row."""
+    is, RMSNorm(x) * gamma, or SiLU(gate) * up of a (gate | up) row. The
+    definition the kernels share (`csrc/w4_common.cuh`): the row's sum of
+    squares, the square root, the reciprocal and exp in f64, rounded once
+    to f32 (so the sum order does not show), the products in f32."""
     x32 = x.float()
     if prologue == PRO_RMS:
-        var = x32.square().mean(-1, keepdim=True)
-        x32 = (x32 * torch.rsqrt(var + eps)) * gamma.float()
+        ss = x32.double().square().sum(-1, keepdim=True)
+        eps64 = float(torch.tensor(eps, dtype=torch.float32))  # the kernels' f32 eps
+        rms = (1.0 / torch.sqrt(ss / x32.shape[-1] + eps64)).float()
+        x32 = (x32 * rms) * gamma.float()
     elif prologue == PRO_SILU:
         inter = x32.shape[1] // 2
-        x32 = torch.nn.functional.silu(x32[:, :inter]) * x32[:, inter:]
+        g = x32[:, :inter]
+        sig = (1.0 / (1.0 + torch.exp(-g.double()))).float()
+        x32 = (g * sig) * x32[:, inter:]
     return x32.to(torch.bfloat16).float()
 
 
@@ -363,10 +371,11 @@ _GEMV_ARGTYPES = [
     _I, _I, _I, _I, _I, _I, _I, _I,
     _P, _P, _P, _P, _P, _P, _P, _P,
 ]
-_GEMM_ARGTYPES = [_P] * 6 + [_I] * 9 + [_P]
+_GEMM_ARGTYPES = [_P] * 6 + [_I] * 13 + [_P]
 _DIGITS_ARGTYPES = [_P, _I, _I, _I, _P, ctypes.c_float, _I, _I, _I, _P, _P, _P, _P, _P]
 _ROWS_ARGTYPES = [_P] * 5 + [_I] * 8 + [_P] * 8
 _counters: Dict[int, torch.Tensor] = {}
+_gemm_counters: Dict[int, torch.Tensor] = {}
 _sm_count: Dict[int, int] = {}
 
 
@@ -540,33 +549,102 @@ def launch_rows(expansion, packed, scales, layer_index, *, m, res_f32=None,
     _build.check(status, "w4_gemv_rows")
 
 
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _gemm_counters_of(dev: torch.device) -> torch.Tensor:
+    """The GEMM kernel's split-K words of a device (an arrival count, left
+    0, and a generation per tile), zeroed once."""
+    idx = _device_index(dev)
+    if idx not in _gemm_counters:
+        _gemm_counters[idx] = torch.zeros(2 * _COUNTER_SLOTS, dtype=torch.int32, device=dev)
+    return _gemm_counters[idx]
+
+
 def _device_state(dev: torch.device):
     """(SM count, zeroed arrival counters) of a device, made once."""
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    idx = _device_index(dev)
     if idx not in _sm_count:
         _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
         _counters[idx] = torch.zeros(_COUNTER_SLOTS, dtype=torch.int32, device=dev)
     return _sm_count[idx], _counters[idx]
 
 
+GEMM_TILE_N, GEMM_SLICE, GEMM_MAX_SLICES, GEMM_BK = 128, 64, 6, 32
+
+
+@functools.lru_cache(maxsize=None)
 def gemm_plan(m: int, dout: int, half: int, n_sm: int):
-    """(rows per tile, K splits, k tiles per split) for the GEMM kernel:
-    128-row tiles where they give two tiles per SM, else 64-row tiles; K is
-    split while the blocks are fewer than two per SM and each split keeps
-    at least 8 k tiles of 32."""
-    tiles_n, nk = dout // 128, half // 32
-    bm = 128 if tiles_n * -(-m // 128) >= 2 * n_sm else 64
-    tiles = tiles_n * -(-m // bm)
-    ksplit = 1
-    while tiles * ksplit < 2 * n_sm and nk // (2 * ksplit) >= 8:
-        ksplit *= 2
+    """(slices of 64 rows per M tile, M tiles, K splits, k tiles of 32 per
+    split, tail parts) of `w4_gemm_sm90`: 128 output columns per CTA; M
+    tiles of at most six slices (384 rows), balanced, so that every weight
+    element is dequantised once per M tile and a prompt of up to 384 tokens
+    is one M tile. K is split (at most 8 ways) while the CTAs are fewer than
+    the SMs and each split keeps at least 8 k tiles: a split grid is one
+    cooperative wave, one CTA per SM. When one M tile's column tiles fill
+    more than a whole number of waves, the tiles past the last whole wave
+    are each shared by `tail parts` CTAs that take a part of the slices
+    (their dequant repeats; the short last wave needs no partial sums)."""
+    ns = -(-m // GEMM_SLICE)
+    m_tiles = -(-ns // GEMM_MAX_SLICES)
+    spt = -(-ns // m_tiles)
+    tiles = dout // GEMM_TILE_N * m_tiles
+    nk = half // GEMM_BK
+    ksplit = max(1, min(n_sm // tiles, nk // 8, 8))
     kps = -(-nk // ksplit)
-    return bm, -(-nk // kps), kps
+    parts = 0
+    tail = tiles % n_sm
+    if m_tiles == 1 and tiles > n_sm and tail:
+        parts = min(ns, n_sm // tail)
+        parts = parts if parts > 1 else 0
+    return spt, m_tiles, -(-nk // kps), kps, parts
+
+
+def gemm_work(m: int, dout: int, half: int, n_sm: int):
+    """Every CTA of `w4_gemm_sm90`'s grid with the work its indices give it,
+    as the kernel computes them: (CTA x, M tile, split, columns range, rows
+    range, k tiles range)."""
+    spt, m_tiles, ksplit, kps, parts = gemm_plan(m, dout, half, n_sm)
+    nk = half // GEMM_BK
+    tiles = dout // GEMM_TILE_N
+    n_main = tiles // n_sm * n_sm
+    nst = -(-m // GEMM_SLICE)
+    for x in range(n_main + (tiles - n_main) * parts if parts else tiles):
+        for y in range(m_tiles):
+            tile, r0 = x, y * spt * GEMM_SLICE
+            ns = min(spt, -(-(m - r0) // GEMM_SLICE))
+            if parts and x >= n_main:
+                part = (x - n_main) % parts
+                tile = n_main + (x - n_main) // parts
+                r0 = part * nst // parts * GEMM_SLICE
+                ns = (part + 1) * nst // parts - part * nst // parts
+            for z in range(ksplit):
+                yield (x, y, z, (tile * GEMM_TILE_N, (tile + 1) * GEMM_TILE_N),
+                       (r0, min(m, r0 + ns * GEMM_SLICE)),
+                       (z * kps, min(nk, (z + 1) * kps)))
+
+
+def _launch_gemm_sm90(x, w, scales, out, *, m, din, dout, bout, s_rows, gs, dots):
+    dev = x.device
+    n_sm, _ = _device_state(dev)
+    spt, m_tiles, ksplit, kps, parts = gemm_plan(m, dout, din // 2, n_sm)
+    if dout // GEMM_TILE_N * m_tiles > _COUNTER_SLOTS:
+        raise ValueError(f"{m} x {dout} output exceeds the counter buffer")
+    counters = _gemm_counters_of(dev)
+    ws = None
+    if ksplit > 1:
+        ws = torch.empty((ksplit, m, dout), dtype=torch.float32, device=dev)
+    status = _fn("w4_gemm_sm90.cu", "w4_gemm_sm90", _GEMM_ARGTYPES)(
+        x.data_ptr(), w, scales, out.data_ptr(), _ptr(ws), counters.data_ptr(),
+        m, din, dout, bout, s_rows, gs, spt, ksplit, kps, parts, n_sm, int(dots),
+        _device_index(dev), _stream(dev))
+    _build.check(status, "w4_gemm_sm90")
 
 
 def launch_gemm(x, packed, scales, layer_index, out) -> None:
     """Launch the W4 GEMM kernel on the current stream (counts nothing)."""
-    dev = require_cuda(x, packed, scales, out)
+    require_cuda(x, packed, scales, out)
     _check_w4(packed, scales)
     half, bout, nj, ngh, gs, din, dout = _tiled_meta(packed, scales)
     m = x.shape[0]
@@ -578,20 +656,23 @@ def launch_gemm(x, packed, scales, layer_index, out) -> None:
         raise ValueError(f"kernel needs bout % 128 == 0, group % 32 == 0 ({bout}, {gs})")
     _, _, l = _layer(packed, scales, layer_index)
     s_rows = scales.shape[-2]
-    n_sm, counters = _device_state(dev)
-    bm, ksplit, kps = gemm_plan(m, dout, half, n_sm)
-    if (dout // 128) * -(-m // bm) > _COUNTER_SLOTS:
-        raise ValueError(f"{m} x {dout} output exceeds the counter buffer")
-    ws = None
-    if ksplit > 1:
-        ws = torch.empty((ksplit, m, dout), dtype=torch.float32, device=dev)
-    status = _fn("w4_gemm.cu", "w4_gemm", _GEMM_ARGTYPES)(
-        x.data_ptr(), packed.data_ptr() + l * nj * half * bout,
-        scales.data_ptr() + l * nj * s_rows * bout * 2, out.data_ptr(),
-        _ptr(ws), counters.data_ptr(), m, din, dout, bout, s_rows, gs,
-        bm, ksplit, kps, _stream(dev),
-    )
-    _build.check(status, "w4_gemm")
+    _launch_gemm_sm90(x, packed.data_ptr() + l * nj * half * bout,
+                      scales.data_ptr() + l * nj * s_rows * bout * 2, out,
+                      m=m, din=din, dout=dout, bout=bout, s_rows=s_rows, gs=gs, dots=False)
+
+
+def launch_gemm_dots(x, w, out) -> None:
+    """Launch the GEMM kernel's products alone (the DOTS variant) over a
+    pre-dequantised bf16 (din, dout) weight (counts nothing)."""
+    require_cuda(x, w, out)
+    m, din = x.shape
+    dout = w.shape[1]
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 or out.dtype != torch.bfloat16:
+        raise TypeError("the products take and return bf16")
+    if w.shape != (din, dout) or out.shape != (m, dout) or din % 64 or dout % 128:
+        raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)}, out {tuple(out.shape)}")
+    _launch_gemm_sm90(x, w.data_ptr(), None, out, m=m, din=din, dout=dout, bout=dout,
+                      s_rows=0, gs=din // 2, dots=True)
 
 
 # --------------------------------------------------------------------------
@@ -635,6 +716,19 @@ def w4_matmul_prefill(
     out = torch.empty((x.shape[0], dout), dtype=torch.bfloat16, device=x.device)
     launch_gemm(x, packed, scales, layer_index, out)
     _build.count("w4_gemm")
+    return out
+
+
+def bf16_matmul_dots(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (M, din) @ w (din, dout), both bf16, through the W4 GEMM kernel's
+    ring and products with no dequant (`w4_gemm_sm90.cu`'s DOTS variant, the
+    counterpart of the TPU prototype `dots_only_kernel`): it measures what
+    the dequant costs K2. On no path of the port."""
+    if x.device.type == "cpu":
+        return (x.float() @ w.float()).to(x.dtype)
+    out = torch.empty((x.shape[0], w.shape[1]), dtype=torch.bfloat16, device=x.device)
+    launch_gemm_dots(x, w, out)
+    _build.count("w4_gemm_dots")
     return out
 
 
