@@ -40,15 +40,16 @@ namespace {
 constexpr int kMaxGrp = 8;  // query heads per kv head (padded group)
 
 // ---------------------------------------------------------------------------
-// The batched kernel (hd 128): grid (Hkv, splits, B), 128 threads.
+// The batched kernel (hd 64 or 128): grid (Hkv, splits, B), 128 threads.
 // ---------------------------------------------------------------------------
 
 constexpr int kBChunk = 128;   // cache rows per block
 constexpr int kBHalf = 64;     // rows per cp.async half
 constexpr int kBThreads = 128; // 4 warps x 16 rows of each half
-constexpr int kBHd = 128;
-constexpr int kBLd = kBHd + 8; // shared row stride in bf16 (conflict-free fragments)
-constexpr int kBSmem = 2 * 2 * kBHalf * kBLd * 2;  // [half][K, V][row][kBLd]
+// shared row stride in bf16 (conflict-free fragments)
+__host__ __device__ constexpr int b_ld(int hd) { return hd + 8; }
+// [half][K, V][row][b_ld]
+__host__ __device__ constexpr int b_smem(int hd) { return 2 * 2 * kBHalf * b_ld(hd) * 2; }
 constexpr float kNeg = -3.0e38f;
 
 // 16 bytes global -> shared; zeros when !valid (src is then not read)
@@ -79,16 +80,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // rows r and r + 1 of one shared column, as a bf16 pair
+template <int LD>
 __device__ __forceinline__ uint32_t col_pair(const __nv_bfloat16* p) {
-  return (uint32_t)__bfloat16_as_ushort(p[0]) | ((uint32_t)__bfloat16_as_ushort(p[kBLd]) << 16);
+  return (uint32_t)__bfloat16_as_ushort(p[0]) | ((uint32_t)__bfloat16_as_ushort(p[LD]) << 16);
 }
 
+// HD / 16 k steps of the scores, HD / 8 n tiles of P V
+template <int HD>
 __global__ void __launch_bounds__(kBThreads) decode_attn_b_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask,
     __nv_bfloat16* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
     const int* __restrict__ n_rows_b, int s_len, int hkv, int grp, int pad_grp, int kv_ld,
     int nsplit) {
+  constexpr int kBHd = HD, kBLd = b_ld(HD), KS = HD / 16, NT = HD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* skv = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __shared__ int s_last;
@@ -127,9 +132,9 @@ __global__ void __launch_bounds__(kBThreads) decode_attn_b_kernel(
 
   // q of head gq as A fragments (k-step kk: columns 16 kk + 2t, + 8); pad
   // heads and heads past the group are zeros
-  uint32_t qa[8][2];
+  uint32_t qa[KS][2];
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
     for (int x = 0; x < 2; ++x)
       qa[kk][x] = gq < grp ? *reinterpret_cast<const uint32_t*>(
@@ -137,9 +142,9 @@ __global__ void __launch_bounds__(kBThreads) decode_attn_b_kernel(
                            : 0u;
 
   float m_run = kNeg, l_run = 0.f;
-  float o[16][4];
+  float o[NT][4];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  for (int i = 0; i < NT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
 
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
@@ -154,7 +159,7 @@ __global__ void __launch_bounds__(kBThreads) decode_attn_b_kernel(
       sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
       const __nv_bfloat16* kr = sK + (nt * 8 + gq) * kBLd + 2 * t;
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < KS; ++kk)
         mma16816(sc[nt], qa[kk][0], qa[kk][1],
                  *reinterpret_cast<const uint32_t*>(kr + 16 * kk),
                  *reinterpret_cast<const uint32_t*>(kr + 16 * kk + 8));
@@ -185,7 +190,7 @@ __global__ void __launch_bounds__(kBThreads) decode_attn_b_kernel(
         l_run += p[nt][e];
       }
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < NT; ++i) {
       o[i][0] *= corr;
       o[i][1] *= corr;
     }
@@ -194,9 +199,9 @@ __global__ void __launch_bounds__(kBThreads) decode_attn_b_kernel(
     __syncthreads();
     const uint32_t pa0 = pack_bf16(p[0][0], p[0][1]), pa2 = pack_bf16(p[1][0], p[1][1]);
 #pragma unroll
-    for (int dn = 0; dn < 16; ++dn) {
+    for (int dn = 0; dn < NT; ++dn) {
       const __nv_bfloat16* vr = sV + (2 * t) * kBLd + 8 * dn + gq;
-      mma16816(o[dn], pa0, pa2, col_pair(vr), col_pair(vr + 8 * kBLd));
+      mma16816(o[dn], pa0, pa2, col_pair<kBLd>(vr), col_pair<kBLd>(vr + 8 * kBLd));
     }
   }
   l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
@@ -212,7 +217,7 @@ __global__ void __launch_bounds__(kBThreads) decode_attn_b_kernel(
     pl[warp * 8 + gq] = l_run;
   }
 #pragma unroll
-  for (int dn = 0; dn < 16; ++dn) {
+  for (int dn = 0; dn < NT; ++dn) {
     po[(warp * 8 + gq) * kBHd + 8 * dn + 2 * t] = o[dn][0];
     po[(warp * 8 + gq) * kBHd + 8 * dn + 2 * t + 1] = o[dn][1];
   }
@@ -269,29 +274,30 @@ __global__ void __launch_bounds__(kBThreads) decode_attn_b_kernel(
 
 // Plain C entry point (bound with ctypes); returns cudaGetLastError().
 //
-// decode_attn_batched: B batch rows of one layer, hd 128. q is (B, hkv *
-// pad_grp, 128), mask (B, S) f32, out (B, hkv * pad_grp * 128); k/v point
+// decode_attn_batched: B batch rows of one layer, hd 64 or 128. q is (B,
+// hkv * pad_grp, hd), mask (B, S) f32, out (B, hkv * pad_grp * hd); k/v point
 // at the (B, S, kv_ld) block of the selected layer; n_rows holds B ints on
 // the device (live rows per batch row, clamped to [1, S] here); ws holds
-// (B, hkv * pad_grp, nsplit, 130) f32 and counters B * hkv zeroed ints;
+// (B, hkv * pad_grp, nsplit, hd + 2) f32 and counters B * hkv zeroed ints;
 // nsplit is ceil(max live rows / 128), at most ceil(S / 128).
 extern "C" int decode_attn_batched(const void* q, const void* k, const void* v,
                                    const void* mask, void* out, void* ws,
                                    void* counters, const void* n_rows, int batch,
                                    int hkv, int s_len, int grp, int pad_grp, int hd,
                                    int kv_ld, int nsplit, void* stream) {
-  if (hd != kBHd || pad_grp > kMaxGrp || grp > pad_grp || batch < 1 || batch > 65535 ||
-      nsplit < 1 || nsplit > (s_len + kBChunk - 1) / kBChunk || kv_ld % 8)
+  if ((hd != 64 && hd != 128) || pad_grp > kMaxGrp || grp > pad_grp || batch < 1 ||
+      batch > 65535 || nsplit < 1 || nsplit > (s_len + kBChunk - 1) / kBChunk || kv_ld % 8)
     return (int)cudaErrorInvalidValue;
-  static bool smem_ok = false;
-  if (!smem_ok) {
+  static bool smem_ok[2] = {false, false};
+  auto kernel = hd == 64 ? decode_attn_b_kernel<64> : decode_attn_b_kernel<128>;
+  if (!smem_ok[hd == 64]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_attn_b_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBSmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, b_smem(hd));
     if (e != cudaSuccess) return (int)e;
-    smem_ok = true;
+    smem_ok[hd == 64] = true;
   }
   const dim3 grid(hkv, nsplit, batch);
-  decode_attn_b_kernel<<<grid, kBThreads, kBSmem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kBThreads, b_smem(hd), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(mask),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws),

@@ -3,17 +3,20 @@
 // _fused_layer_kernel (pallas_call :937), K3.
 //
 // What it computes (== fused_decode._fused_layer_ref): GQA attention of the
-// rope'd, pre-scaled, group-padded q (Hkv * P heads of 128) over the live
-// prefix [0, n_rows) of layer l's flat (S, Hkv * 128) cache, additive f32
+// rope'd, pre-scaled, group-padded q (Hkv * P heads of hd = 64 or 128) over
+// the live prefix [0, n_rows) of layer l's flat (S, Hkv * hd) cache, additive f32
 // mask, f32 softmax, zeros in the pad heads; then
 //   h32  = h + x_att @ W_o[l]                  (f32)
 //   gu   = rms(h32) * g_post[l] @ W_gu[l]      (bf16)
 //   h32b = h32 + (silu(g) * u) @ W_d[l]        (f32; h_new = bf16(h32b))
 //   qkv  = rms(h32b) * g_in[l+1] @ W_qkv[l+1] + b   (bf16)
 // Every product keeps the TPU kernel's int8-digit arithmetic (two digits
-// per half-plane, exact integer dots summed per group of 128 input rows,
-// f32 group scales), with the prologue values of w4_common.cuh, as
-// w4_gemv.cu and w4_gemv_mma.cu compute them.
+// per half-plane, exact integer dots summed per group of input rows, f32
+// group scales), with the prologue values of w4_common.cuh, as w4_gemv.cu
+// and w4_gemv_mma.cu compute them. A group is any multiple of 16 rows up to
+// 128 (112 at Qwen2-0.5B's D = 896): its digits are padded with zeros to the
+// next multiple of 32 (the mma k step), so the weight rows a padded step
+// reads past the group meet zero digits.
 //
 // Bound on this card: bytes (~120 MB of packed weights and scales and the
 // live KV per layer at the NVILA-8B shape, a few int8 operations a byte).
@@ -41,8 +44,9 @@
 //      amax partials.
 // Weights do not depend on the activations, so a producer warp streams
 // each CTA's weight tiles of all four products, in the order the consumers
-// take them, through a 6-stage ring of 16 KB TMA tiles (128 input rows x
-// 128 columns, 128-byte swizzle) and their scale rows, from the launch on:
+// take them, through a 6-stage ring of TMA tiles (one group's rows, padded
+// to a multiple of 32, x 128 columns, 128-byte swizzle) and their scale
+// rows, from the launch on:
 // the o weights arrive while attention runs, and each product's head while
 // the CTA waits at the barrier before it and expands its digits. Units are dealt split-major, so
 // the CTAs that run at once read the same input rows of neighbouring column
@@ -53,12 +57,13 @@
 // group's integer dots run on mma.sync m16n8k32 s8 with the row's two
 // digits as A rows 0 and 8 (w4_gemv_mma.cu's fragment layout). Scratch
 // lives in one workspace made once per device; the barrier word counts
-// generations, so launches need no reset.
+// arrivals, so launches need no reset. The grid barrier, the gathers, the
+// ring's stage layout and the group product are w4_persist.cuh's, shared
+// with K4/K5 (w4_pair_sm90.cu).
 
 #include <cuda_bf16.h>
 
-#include "sm90_common.cuh"
-#include "w4_common.cuh"
+#include "w4_persist.cuh"
 
 namespace {
 
@@ -67,31 +72,30 @@ typedef __nv_bfloat16 bf16;
 constexpr int kConsumerWarps = 8;
 constexpr int kConsumers = 32 * kConsumerWarps;
 constexpr int kThreads = kConsumers + 32;  // + the producer warp
-constexpr int kGroup = 128;                // input rows per scale group and ring stage
-constexpr int kTileN = 128;                // output columns per unit
+constexpr int kTileN = kPTileN;            // output columns per unit
 constexpr int kStages = 6;                 // even: stage s belongs to warp set s & 1
-constexpr int kWeightBytes = kGroup * kTileN;
-constexpr int kStageTx = kWeightBytes + 2 * kTileN * 2;
-constexpr int kStageBytes = (kStageTx + 1023) & ~1023;
-constexpr int kHd = 128;
+constexpr int kWeightBytes = kPWeightBytes;
+constexpr int kStageBytes = kPStageBytes;
 constexpr int kMaxChunk = 64;
 constexpr int kMaxP = 8;
 constexpr int kMaxGroups = 128;  // per plane: din <= 32768
 constexpr int kStamps = 13;  // start; after each barrier and each product's prologue; end
 constexpr int kMaxSplits = 16;   // K splits of a product
 constexpr int kMaxResSplits = 4;  // K splits of o and down (summed by every CTA)
-constexpr int kAttStride = 2 + kHd + 2;  // attention partial: max, sum, P V, pad to 16 B
 constexpr int kMergeChunk = 32;  // attention partials merged per round
+
+// attention partial of one head: max, sum, P V, pad to 16 bytes
+__host__ __device__ constexpr int att_stride(int hd) { return 2 + hd + 2; }
 
 struct Prod {
   const uint8_t* packed;  // (nj, din/2, bout) of the layer
   const bf16* scales;     // (nj, s_rows, bout) of the layer
   float* part;            // (ks, dout) partials
-  int din, dout, bout, s_rows, ngh, ks, gps;
+  int din, dout, bout, s_rows, group, gp, hp, ngh, ks, gps;  // gp: group padded; hp: ngh * gp
 };
 
 struct LayerArgs {
-  const bf16* q;     // (hkv * pad, 128)
+  const bf16* q;     // (hkv * pad, hd)
   const bf16* k;     // (S, kv_ld) of layer l
   const bf16* v;
   const float* mask;  // (>= n_rows,) additive
@@ -99,11 +103,11 @@ struct LayerArgs {
   const bf16* gpost;  // (D,)
   const bf16* gin;    // (D,)
   const bf16* bias;   // (dq,) or null
-  float* att;         // (hkv * pad, nsplit, kAttStride)
-  bf16* x_att;        // (hkv * pad * 128,)
+  float* att;         // (hkv * pad, nsplit, att_stride(hd))
+  bf16* x_att;        // (hkv * pad * hd,)
   bf16* m_act;        // (inter,)
   float* amax_part;   // (gridDim.x, 2)
-  unsigned* bar;      // arrivals, generation
+  unsigned long long* bar;  // the grid barrier's arrival count (w4_persist.cuh)
   bf16* h_out;        // (D,)
   bf16* qkv_out;      // (dq,)
   unsigned long long* stamps;  // (kStamps,) or null
@@ -112,15 +116,7 @@ struct LayerArgs {
   float eps;
 };
 
-__device__ __forceinline__ void csync() {  // the consumer warps
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
+__device__ __forceinline__ void csync() { ::csync<kConsumers>(); }
 
 // CTA 0's %globaltimer reading k (checks only)
 __device__ __forceinline__ void stamp(const LayerArgs& a, int k) {
@@ -148,82 +144,59 @@ __device__ __forceinline__ double cons_sum64(double v, double* red) {
   return r;
 }
 
-// every CTA's consumers: arrive, wait for the last, then read what the grid
-// wrote before it (through L2). Thread 0 arrives with an acq_rel add on the
-// arrival count; the last resets it and releases the next generation, the
-// others acquire it (as CUTLASS's grid barrier).
-__device__ void grid_sync(const LayerArgs& a, int k) {
-  csync();
-  if (threadIdx.x == 0) {
-    unsigned g0, old;
-    asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];\n" : "=r"(g0) : "l"(a.bar + 1) : "memory");
-    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
-                 : "=r"(old) : "l"(a.bar) : "memory");
-    if (old == gridDim.x - 1) {
-      asm volatile("st.relaxed.gpu.global.u32 [%0], 0;\n" ::"l"(a.bar) : "memory");
-      asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(a.bar + 1) : "memory");
-    } else {
-      unsigned g;
-      do {
-        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(g) : "l"(a.bar + 1) : "memory");
-      } while (g == g0);
-    }
-  }
+// the grid barrier (w4_persist.cuh; `target`: thread 0's), then CTA 0's stamp k
+__device__ void grid_sync(const LayerArgs& a, unsigned long long& target, int k) {
+  ::grid_sync<kConsumers>(a.bar, target);
   stamp(a, k);
-  csync();
 }
 
-// 16 bytes global -> shared through L2, not waited for
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// rows x 16-byte chunks from global (row i at src + i * stride bytes) to
-// shared memory (row i at dst + i * chunks * 16), every copy in flight at
-// once; waited for by the caller
 __device__ __forceinline__ void gather(void* dst, const void* src, int rows, int chunks,
                                        size_t stride) {
-  for (int k = threadIdx.x; k < rows * chunks; k += kConsumers) {
-    const int r = k / chunks, c = k - r * chunks;
-    cp_async16(static_cast<char*>(dst) + 16 * k,
-               static_cast<const char*>(src) + r * stride + 16 * c);
-  }
+  ::gather<kConsumers>(dst, src, rows, chunks, stride);
 }
 
 // ---- stage 0: one attention partial (kv head g, rows [t0, t0 + chunk)):
-// the chunk's K and V rows of head g into shared memory (kvs: 2 x 64 x 128
-// bf16) by cp.async, all in flight at once, then scores, softmax and P V
+// the chunk's K and V rows of head g into shared memory (kvs: 2 x 64 x HD
+// bf16) by cp.async, all in flight at once, then scores, softmax and P V.
+// A lane holds HD / 32 elements of each head; P V runs on kConsumers / HD
+// parts of the rows, summed in part order.
+template <int HD>
 __device__ void attn_partial(const LayerArgs& a, int g, int split, float (*sc)[kMaxChunk],
-                             float (*pv)[kMaxP][kHd], float* s_ml, bf16* kvs) {
+                             float* pv, float* s_ml, bf16* kvs) {
+  constexpr int EPL = HD / 32, NP = kConsumers / HD, CPR = HD / 8;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int t0 = split * a.chunk, rows = min(a.chunk, a.n_rows - t0);
-  for (int idx = tid; idx < 2 * rows * 16; idx += kConsumers) {
-    const int which = idx >= rows * 16, r = (idx - which * rows * 16) >> 4, c = idx & 15;
-    cp_async16(kvs + (which * kMaxChunk + r) * kHd + c * 8,
-               (which ? a.v : a.k) + (size_t)(t0 + r) * a.kv_ld + g * kHd + c * 8);
+  for (int idx = tid; idx < 2 * rows * CPR; idx += kConsumers) {
+    const int which = idx >= rows * CPR, r = (idx - which * rows * CPR) / CPR, c = idx % CPR;
+    cp_async16(kvs + (which * kMaxChunk + r) * HD + c * 8,
+               (which ? a.v : a.k) + (size_t)(t0 + r) * a.kv_ld + g * HD + c * 8);
   }
-  float qr[kMaxP][4];  // elements 4 lane .. 4 lane + 3 of each head
+  float qr[kMaxP][EPL];  // elements EPL lane .. EPL lane + EPL - 1 of each head
 #pragma unroll
   for (int j = 0; j < kMaxP; ++j)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      qr[j][i] = j < a.grp ? __bfloat162float(a.q[(size_t)(g * a.pad + j) * kHd + 4 * lane + i])
+    for (int i = 0; i < EPL; ++i)
+      qr[j][i] = j < a.grp ? __bfloat162float(a.q[(size_t)(g * a.pad + j) * HD + EPL * lane + i])
                            : 0.f;
   cp_async_wait_all();
   csync();
   for (int r = warp; r < rows; r += kConsumerWarps) {
-    const uint2 kw = *reinterpret_cast<const uint2*>(kvs + r * kHd + 4 * lane);
-    const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kw);
-    const float2 k01 = __bfloat1622float2(k2[0]), k23 = __bfloat1622float2(k2[1]);
+    float kf[EPL];
+#pragma unroll
+    for (int i = 0; i < EPL; i += 2) {
+      const float2 k2 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(kvs + r * HD + EPL * lane + i));
+      kf[i] = k2.x;
+      kf[i + 1] = k2.y;
+    }
     const float mk = a.mask[t0 + r];
     float s[kMaxP];  // every head's reduction interleaved (pad heads: q = 0)
 #pragma unroll
-    for (int j = 0; j < kMaxP; ++j)
-      s[j] = qr[j][0] * k01.x + qr[j][1] * k01.y + qr[j][2] * k23.x + qr[j][3] * k23.y;
+    for (int j = 0; j < kMaxP; ++j) {
+      s[j] = qr[j][0] * kf[0];
+#pragma unroll
+      for (int i = 1; i < EPL; ++i) s[j] += qr[j][i] * kf[i];
+    }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
 #pragma unroll
@@ -255,24 +228,27 @@ __device__ void attn_partial(const LayerArgs& a, int g, int split, float (*sc)[k
     }
   }
   csync();
-  {  // P V: thread (d, half) sums rows half, half + 2, ...
-    const int d = tid & (kHd - 1), hh = tid >> 7;
+  {  // P V: thread (d, part hh) sums rows hh, hh + NP, ...
+    const int d = tid % HD, hh = tid / HD;
     float acc[kMaxP];
 #pragma unroll
     for (int j = 0; j < kMaxP; ++j) acc[j] = 0.f;
-    for (int r = hh; r < rows; r += 2) {
-      const float vv = __bfloat162float(kvs[(kMaxChunk + r) * kHd + d]);
+    for (int r = hh; r < rows; r += NP) {
+      const float vv = __bfloat162float(kvs[(kMaxChunk + r) * HD + d]);
 #pragma unroll
       for (int j = 0; j < kMaxP; ++j) acc[j] += sc[j][r] * vv;
     }
 #pragma unroll
-    for (int j = 0; j < kMaxP; ++j) pv[hh][j][d] = acc[j];
+    for (int j = 0; j < kMaxP; ++j) pv[(hh * kMaxP + j) * HD + d] = acc[j];
   }
   csync();
-  if (tid < kHd) {
+  if (tid < HD) {
     for (int j = 0; j < a.grp; ++j) {
-      float* w = a.att + ((size_t)(g * a.pad + j) * a.nsplit + split) * kAttStride;
-      w[2 + tid] = pv[0][j][tid] + pv[1][j][tid];
+      float* w = a.att + ((size_t)(g * a.pad + j) * a.nsplit + split) * att_stride(HD);
+      float v = pv[j * HD + tid];
+#pragma unroll
+      for (int hh = 1; hh < NP; ++hh) v += pv[(hh * kMaxP + j) * HD + tid];
+      w[2 + tid] = v;
       if (tid == 0) {
         w[0] = s_ml[2 * j];
         w[1] = s_ml[2 * j + 1];
@@ -289,7 +265,7 @@ struct ProdSmem {
   uint8_t* ring;
   uint64_t* full;
   uint64_t* empty;
-  int8_t* dig;    // (plane, digit, din/2) int8
+  int8_t* dig;    // (plane, digit, ngh * gp) int8, each group padded with zeros
   int* gsum;      // (ngh, digit) int32, lo plane
   float* sd;      // s1 lo, s2 lo, s1 hi, s2 hi
   int* glist;     // the groups of this CTA's units, their count at kMaxGroups
@@ -310,12 +286,18 @@ __device__ __forceinline__ unsigned need_splits(const Prod& pr) {
 __device__ void stage_values(const Prod& pr, const bf16* src, bf16* vals) {
   const int half = pr.din / 2;
   const unsigned need = need_splits(pr);
+  const int cpg = pr.group / 8;  // 16-byte chunks of one group and plane
   for (int z = 0; z < pr.ks; ++z) {
     if (!(need >> z & 1)) continue;
     const int g0 = z * pr.gps, g1 = min(pr.ngh, g0 + pr.gps);
-    for (int k = threadIdx.x; k < (g1 - g0) * 32; k += kConsumers) {
-      const int gi = g0 + (k >> 5), p = (k >> 4) & 1, c = k & 15;
-      const size_t off = (size_t)p * half + gi * kGroup + c * 8;
+    for (int k = threadIdx.x; k < (g1 - g0) * 2 * cpg; k += kConsumers) {
+      int gi, p, c;
+      if (cpg == 16) {  // (groups of 128: shifts)
+        gi = g0 + (k >> 5), p = (k >> 4) & 1, c = k & 15;
+      } else {
+        gi = g0 + k / (2 * cpg), p = (k / cpg) & 1, c = k % cpg;
+      }
+      const size_t off = (size_t)p * half + gi * pr.group + c * 8;
       cp_async16(vals + off, src + off);
     }
   }
@@ -323,6 +305,7 @@ __device__ void stage_values(const Prod& pr, const bf16* src, bf16* vals) {
   csync();
 }
 
+template <int FULL>
 __device__ void expand_digits(const Prod& pr, const ProdSmem& sm, const bf16* vals,
                               float am_lo, float am_hi) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -339,20 +322,22 @@ __device__ void expand_digits(const Prod& pr, const ProdSmem& sm, const bf16* va
     sm.glist[kMaxGroups] = n;
   }
   csync();
-  // one warp per (group, plane) block of 128: four elements a lane, one
-  // reduction of the lo plane's digit sums per block
+  // one warp per (group, plane) block: one element a lane per 32-row step
+  // (zero digits past the group's end), one reduction of the lo plane's
+  // digit sums per block
   const int nblk = 2 * sm.glist[kMaxGroups];
   for (int b = warp; b < nblk; b += kConsumerWarps) {
     const int gi = sm.glist[b >> 1], p = b & 1;
     const float s1 = p ? s1h : s1l, s2 = p ? s2h : s2l;
     int a1 = 0, a2 = 0;
-#pragma unroll
-    for (int e = 0; e < kGroup / 32; ++e) {
-      const int ii = gi * kGroup + 32 * e;  // a 32-row step
-      int q1, q2;
-      two_digits(__bfloat162float(vals[p * half + ii + lane]), s1, s2, &q1, &q2);
-      sm.dig[(2 * p) * half + ii + kappa_of(lane)] = (int8_t)q1;
-      sm.dig[(2 * p + 1) * half + ii + kappa_of(lane)] = (int8_t)q2;
+#pragma unroll 4
+    for (int e = 0; e < (FULL ? kPGroup / 32 : pr.gp / 32); ++e) {
+      const int ii = gi * pr.gp + 32 * e, el = 32 * e + lane;  // a 32-row step
+      int q1 = 0, q2 = 0;
+      if (el < pr.group)
+        two_digits(__bfloat162float(vals[p * half + gi * pr.group + el]), s1, s2, &q1, &q2);
+      sm.dig[(2 * p) * pr.hp + ii + kappa_of(lane)] = (int8_t)q1;
+      sm.dig[(2 * p + 1) * pr.hp + ii + kappa_of(lane)] = (int8_t)q2;
       a1 += q1;
       a2 += q2;
     }
@@ -371,11 +356,13 @@ __device__ void expand_digits(const Prod& pr, const ProdSmem& sm, const bf16* va
   csync();
 }
 
-// the units of one product; `it` counts ring stages as the producer does
+// the units of one product; `it` counts ring stages as the producer does.
+// FULL: the group is padded to 128 rows (four whole k steps)
+template <int FULL>
 __device__ void run_product(const Prod& pr, const ProdSmem& sm, int& it) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int set = warp >> 2, cw = (warp & 3) * 32, g = lane >> 2, t = lane & 3;
-  const int half = pr.din / 2, nunits = (pr.dout / kTileN) * pr.ks;
+  const int nunits = (pr.dout / kTileN) * pr.ks;
   const float sd0 = sm.sd[0], sd1 = sm.sd[1], sd2 = sm.sd[2], sd3 = sm.sd[3];
   for (int u = blockIdx.x; u < nunits; u += gridDim.x) {
     const int tile = u % (pr.dout / kTileN), split = u / (pr.dout / kTileN);
@@ -386,53 +373,30 @@ __device__ void run_product(const Prod& pr, const ProdSmem& sm, int& it) {
     for (int gi = g0; gi < g1; ++gi, ++it) {
       if ((it & 1) != set) continue;
       const int s = it % kStages;
-      const uint8_t* st = sm.ring + s * kStageBytes;
+      const uint8_t* st = ring_stage(sm.ring, it, kStages);
       mbar_wait(&sm.full[s], (it / kStages) & 1);
-      int ilo[4][4], ihi[4][4];
+      // A rows 0 and 8: the row's two digits; rows 1-7 and 9-15 zero
+      const int8_t* dg = sm.dig + gi * pr.gp + 4 * t;
+      const int hp = pr.hp;
+      auto load_a = [&](int ks, uint32_t (&alo)[4], uint32_t (&ahi)[4]) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) ilo[q][e] = ihi[q][e] = 0;
-#pragma unroll
-      for (int ks = 0; ks < kGroup / 32; ++ks) {
-        // A rows 0 and 8: the row's two digits; rows 1-7 and 9-15 zero
-        uint32_t alo[4] = {0, 0, 0, 0}, ahi[4] = {0, 0, 0, 0};
+        for (int i = 0; i < 4; ++i) alo[i] = ahi[i] = 0u;
         if (g == 0) {
-          const int8_t* d0 = sm.dig + gi * kGroup + ks * 32 + 4 * t;
+          const int8_t* d0 = dg + ks * 32;
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
             alo[2 * hh] = *reinterpret_cast<const uint32_t*>(d0 + 16 * hh);
-            alo[2 * hh + 1] = *reinterpret_cast<const uint32_t*>(d0 + half + 16 * hh);
-            ahi[2 * hh] = *reinterpret_cast<const uint32_t*>(d0 + 2 * half + 16 * hh);
-            ahi[2 * hh + 1] = *reinterpret_cast<const uint32_t*>(d0 + 3 * half + 16 * hh);
+            alo[2 * hh + 1] = *reinterpret_cast<const uint32_t*>(d0 + hp + 16 * hh);
+            ahi[2 * hh] = *reinterpret_cast<const uint32_t*>(d0 + 2 * hp + 16 * hh);
+            ahi[2 * hh + 1] = *reinterpret_cast<const uint32_t*>(d0 + 3 * hp + 16 * hh);
           }
         }
-        uint32_t b0[4], b1[4];
-        w4_fragments(st, ks * 32, cw, g, t, b0, b1);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          mma_s8(ilo[q], alo, lo_plane(b0[q]), lo_plane(b1[q]));
-          mma_s8(ihi[q], ahi, hi_plane(b0[q]), hi_plane(b1[q]));
-        }
-      }
-      if (g == 0) {  // the whole group's integer sums -> f32 (row 0 in lanes 0-3)
-        const bf16* sc = reinterpret_cast<const bf16*>(st + kWeightBytes) + cw + 8 * t;
-        const int gs0 = sm.gsum[gi * 2], gs1 = sm.gsum[gi * 2 + 1];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int c = 4 * e + q;  // column cw + 8t + c
-            const float sl = __bfloat162float(sc[c]);
-            const float sh = __bfloat162float(sc[kTileN + c]) / 16.0f;
-            float v = acc[c];
-            v += (float)(ilo[q][e] - 8 * gs0) * (sd0 * sl);
-            v += (float)(ilo[q][2 + e] - 8 * gs1) * (sd1 * sl);
-            v += (float)ihi[q][e] * (sd2 * sh);
-            v += (float)ihi[q][2 + e] * (sd3 * sh);
-            acc[c] = v;
-          }
-      }
+      };
+      int ilo[4][4], ihi[4][4];
+      group_dots<FULL ? kPGroup / 32 : 0>(st, pr.gp, cw, g, t, load_a, ilo, ihi);
+      if (g == 0)  // the whole group's integer sums -> f32 (row 0 in lanes 0-3)
+        group_scale(acc, ilo, ihi, sm.gsum[gi * 2], sm.gsum[gi * 2 + 1], sd0, sd1, sd2, sd3,
+                    reinterpret_cast<const bf16*>(st + kWeightBytes) + cw + 8 * t);
       __syncwarp();
       mbar_arrive_if(&sm.empty[s], lane == 0);  // the warp's reads of the stage are done
     }
@@ -518,13 +482,14 @@ __device__ void residual_and_rms(const LayerArgs& a, const Prod& res, const bf16
   *hi = cons_max(hh, redf);
 }
 
+// HD: the head dim; FULL: every product's group padded to 128 rows
+template <int HD, int FULL>
 __global__ void __launch_bounds__(kThreads, 1) decode_layer_kernel(
     const __grid_constant__ CUtensorMap tm_o, const __grid_constant__ CUtensorMap tm_gu,
     const __grid_constant__ CUtensorMap tm_d, const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ LayerArgs a) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  uint8_t* ring = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ring = align1024(smem_raw);
   float* h32 = reinterpret_cast<float*>(ring + kStages * kStageBytes);
   int8_t* dig = reinterpret_cast<int8_t*>(h32 + a.D);
   // each product's input values; the attention's K and V chunk
@@ -533,7 +498,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_layer_kernel(
   float* scratch = reinterpret_cast<float*>(dig);
   __shared__ uint64_t full[kStages], empty[kStages];
   __shared__ float sc[kMaxP][kMaxChunk];
-  __shared__ float pv[2][kMaxP][kHd];
+  __shared__ float pv[kConsumers * kMaxP];
   __shared__ float s_ml[2 * kMaxP];
   __shared__ float s_unit[2][kTileN];
   __shared__ int s_gsum[2 * kMaxGroups];
@@ -566,10 +531,10 @@ __global__ void __launch_bounds__(kThreads, 1) decode_layer_kernel(
           const int g1 = min(pr.ngh, (split + 1) * pr.gps);
           for (int gi = split * pr.gps; gi < g1; ++gi, ++it) {
             const int s = it % kStages;
-            uint8_t* st = ring + s * kStageBytes;
+            uint8_t* st = ring_stage(ring, it, kStages);
             mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-            mbar_expect_tx(&full[s], kStageTx);
-            tma_load_3d(st, tm, &full[s], oo0, gi * kGroup, jb);
+            mbar_expect_tx(&full[s], ring_stage_tx(pr.gp));
+            tma_load_3d(st, tm, &full[s], oo0, gi * pr.group, jb);
             bulk_load(st + kWeightBytes, srow + (size_t)gi * pr.bout, kTileN * 2, &full[s]);
             bulk_load(st + kWeightBytes + kTileN * 2, srow + (size_t)(pr.ngh + gi) * pr.bout,
                       kTileN * 2, &full[s]);
@@ -583,11 +548,12 @@ __global__ void __launch_bounds__(kThreads, 1) decode_layer_kernel(
   const ProdSmem sm{ring, full, empty, dig, s_gsum, s_sd, s_glist, s_unit};
   const int N = gridDim.x, D = a.D;
   int it = 0;
+  unsigned long long target = tid == 0 ? launch_start(a.bar) : 0;  // (before any arrival)
 
   // 0: attention partials
   for (int u = blockIdx.x; u < a.hkv * a.nsplit; u += N)
-    attn_partial(a, u / a.nsplit, u % a.nsplit, sc, pv, s_ml, vals);
-  grid_sync(a, 1);
+    attn_partial<HD>(a, u / a.nsplit, u % a.nsplit, sc, pv, s_ml, vals);
+  grid_sync(a, target, 1);
 
   // 1: merge them into x_att (pad heads: zeros), kMergeChunk splits a round
   // in split order, with this CTA's amax of each half-plane
@@ -596,26 +562,26 @@ __global__ void __launch_bounds__(kThreads, 1) decode_layer_kernel(
     float lo = 0.f, hi = 0.f;
     for (int u = blockIdx.x; u < a.hkv * a.pad; u += N) {
       if (u % a.pad >= a.grp) {  // a pad head (block-uniform)
-        if (tid < kHd) a.x_att[(size_t)u * kHd + tid] = __float2bfloat16_rn(0.f);
+        if (tid < HD) a.x_att[(size_t)u * HD + tid] = __float2bfloat16_rn(0.f);
         continue;
       }
       float m = -3.4e38f, l = 0.f, o = 0.f;
       for (int z0 = 0; z0 < a.nsplit; z0 += kMergeChunk) {
         const int nz = min(kMergeChunk, a.nsplit - z0);
-        gather(scratch, a.att + ((size_t)u * a.nsplit + z0) * kAttStride, 1,
-               nz * kAttStride / 4, 0);
+        gather(scratch, a.att + ((size_t)u * a.nsplit + z0) * att_stride(HD), 1,
+               nz * att_stride(HD) / 4, 0);
         cp_async_wait_all();
         csync();
-        if (tid < kHd) {
+        if (tid < HD) {
           float mz = m;
 #pragma unroll 8
-          for (int z = 0; z < nz; ++z) mz = fmaxf(mz, scratch[z * kAttStride]);
+          for (int z = 0; z < nz; ++z) mz = fmaxf(mz, scratch[z * att_stride(HD)]);
           const float f0 = expf(m - mz);
           l *= f0;
           o *= f0;
 #pragma unroll 8
           for (int z = 0; z < nz; ++z) {
-            const float* w = scratch + z * kAttStride;
+            const float* w = scratch + z * att_stride(HD);
             const float f = expf(w[0] - mz);
             l += w[1] * f;
             o += w[2 + tid] * f;
@@ -624,8 +590,8 @@ __global__ void __launch_bounds__(kThreads, 1) decode_layer_kernel(
         }
         csync();
       }
-      if (tid < kHd) {
-        const int i = u * kHd + tid;
+      if (tid < HD) {
+        const int i = u * HD + tid;
         const bf16 ob = __float2bfloat16_rn(o / l);
         a.x_att[i] = ob;
         if (i < half) lo = fmaxf(lo, fabsf(__bfloat162float(ob)));
@@ -639,7 +605,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_layer_kernel(
       a.amax_part[2 * blockIdx.x + 1] = hi;
     }
   }
-  grid_sync(a, 2);
+  grid_sync(a, target, 2);
 
   // 2: o, over x_att as it is
   {
@@ -647,11 +613,11 @@ __global__ void __launch_bounds__(kThreads, 1) decode_layer_kernel(
     float lo, hi;
     amax_of_parts(a, redf, &lo, &hi);
     stage_values(pr, a.x_att, vals);
-    expand_digits(pr, sm, vals, lo, hi);
+    expand_digits<FULL>(pr, sm, vals, lo, hi);
     stamp(a, 3);
-    run_product(pr, sm, it);
+    run_product<FULL>(pr, sm, it);
   }
-  grid_sync(a, 4);
+  grid_sync(a, target, 4);
 
   // 3: h32 = h + o (every CTA, whole row), gate_up over rms(h32) * g_post
   {
@@ -659,11 +625,11 @@ __global__ void __launch_bounds__(kThreads, 1) decode_layer_kernel(
     float lo, hi;
     residual_and_rms(a, a.pr[0], a.h, a.gpost, h32, scratch, vals, pr.din / 2, red64, redf,
                      &lo, &hi);
-    expand_digits(pr, sm, vals, lo, hi);
+    expand_digits<FULL>(pr, sm, vals, lo, hi);
     stamp(a, 5);
-    run_product(pr, sm, it);
+    run_product<FULL>(pr, sm, it);
   }
-  grid_sync(a, 6);
+  grid_sync(a, target, 6);
 
   // 4: gu = bf16(sum of partials) and silu(g) * u, each element once (this
   // CTA's columns of gate and up gathered first)
@@ -699,7 +665,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_layer_kernel(
       a.amax_part[2 * blockIdx.x + 1] = hi;
     }
   }
-  grid_sync(a, 7);
+  grid_sync(a, target, 7);
 
   // 5: down over the SiLU values
   {
@@ -707,11 +673,11 @@ __global__ void __launch_bounds__(kThreads, 1) decode_layer_kernel(
     float lo, hi;
     amax_of_parts(a, redf, &lo, &hi);
     stage_values(pr, a.m_act, vals);
-    expand_digits(pr, sm, vals, lo, hi);
+    expand_digits<FULL>(pr, sm, vals, lo, hi);
     stamp(a, 8);
-    run_product(pr, sm, it);
+    run_product<FULL>(pr, sm, it);
   }
-  grid_sync(a, 9);
+  grid_sync(a, target, 9);
 
   // 6: h32b = h32 + down (every CTA, whole row; h_new by slices), qkv over
   // rms(h32b) * g_in
@@ -724,11 +690,11 @@ __global__ void __launch_bounds__(kThreads, 1) decode_layer_kernel(
     for (int i = blockIdx.x * per + tid; i < min(D, ((int)blockIdx.x + 1) * per);
          i += kConsumers)
       a.h_out[i] = __float2bfloat16_rn(h32[i]);
-    expand_digits(pr, sm, vals, lo, hi);
+    expand_digits<FULL>(pr, sm, vals, lo, hi);
     stamp(a, 10);
-    run_product(pr, sm, it);
+    run_product<FULL>(pr, sm, it);
   }
-  grid_sync(a, 11);
+  grid_sync(a, target, 11);
 
   // 7: qkv = bf16(sum of partials + bias)
   {
@@ -747,15 +713,16 @@ __global__ void __launch_bounds__(kThreads, 1) decode_layer_kernel(
 // product's partials, the SiLU values, the amax partials
 inline size_t ws_layout(const int* in, size_t* off) {
   const int hkv = in[2], pad = in[3], nsplit = in[6], inter = in[8], n_cta = in[9];
+  const int hd = in[10];
   size_t o = 0;
   auto region = [&](int k, size_t floats) {  // 256-byte aligned
     off[k] = o;
     o += (floats + 63) & ~size_t(63);
   };
-  region(0, (size_t)hkv * pad * nsplit * kAttStride);  // attention partials
-  region(1, (size_t)hkv * pad * kHd / 2);             // x_att (bf16)
-  for (int p = 0; p < 4; ++p)                          // partials (ks, dout)
-    region(2 + p, (size_t)in[10 + 6 * p + 4] * in[10 + 6 * p + 1]);
+  region(0, (size_t)hkv * pad * nsplit * att_stride(hd));  // attention partials
+  region(1, (size_t)hkv * pad * hd / 2);                  // x_att (bf16)
+  for (int p = 0; p < 4; ++p)                              // partials (ks, dout)
+    region(2 + p, (size_t)in[11 + 7 * p + 5] * in[11 + 7 * p + 1]);
   region(6, (inter + 1) / 2);   // m_act (bf16)
   region(7, 2 * (size_t)n_cta);  // amax partials
   return o;
@@ -765,9 +732,9 @@ inline size_t ws_layout(const int* in, size_t* off) {
 
 // Plain C entry points (bound with ctypes).
 //
-// ints: n_rows, kv_ld, hkv, pad, grp, chunk, nsplit, D, inter, n_cta, then
-// per product (o, gate_up, down, qkv) din, dout, bout, s_rows, ks, gps,
-// then the device index.
+// ints: n_rows, kv_ld, hkv, pad, grp, chunk, nsplit, D, inter, n_cta, hd (64
+// or 128), then per product (o, gate_up, down, qkv) din, dout, bout, s_rows,
+// group (a multiple of 16 up to 128), ks, gps, then the device index.
 // decode_layer_ws_floats: the f32 workspace the plan needs.
 extern "C" long long decode_layer_ws_floats(const int* ints) {
   size_t off[8];
@@ -775,14 +742,14 @@ extern "C" long long decode_layer_ws_floats(const int* ints) {
 }
 
 // ptrs: q, k, v (layer l), mask, h, g_post, g_in, bias (or null), ws,
-// barrier words (2 zeroed u32, left as generations), h_out, qkv_out, stamps
+// barrier word (a zeroed u64, left counting arrivals), h_out, qkv_out, stamps
 // (or null: 13 u64 %globaltimer readings of CTA 0: start; after the grid
 // barriers 1, 2, 3, 4, 5, 6, 7 at 1, 2, 4, 6, 7, 9, 11; after the o,
 // gate_up, down and qkv prologues at 3, 5, 8, 10; end at 12), then
 // packed[4] and scales[4] of the products' layers. One CTA per
 // SM (n_cta), cooperative. Returns the launch's cudaError_t.
 extern "C" int decode_layer(void* const* ptrs, const int* ints, float eps, void* stream) {
-  static int granted = 0;
+  static int granted[2][2] = {{0, 0}, {0, 0}};  // [hd == 64][full]
   LayerArgs a;
   a.q = static_cast<const bf16*>(ptrs[0]);
   a.k = static_cast<const bf16*>(ptrs[1]);
@@ -793,7 +760,7 @@ extern "C" int decode_layer(void* const* ptrs, const int* ints, float eps, void*
   a.gin = static_cast<const bf16*>(ptrs[6]);
   a.bias = static_cast<const bf16*>(ptrs[7]);
   float* ws = static_cast<float*>(ptrs[8]);
-  a.bar = static_cast<unsigned*>(ptrs[9]);
+  a.bar = static_cast<unsigned long long*>(ptrs[9]);
   a.h_out = static_cast<bf16*>(ptrs[10]);
   a.qkv_out = static_cast<bf16*>(ptrs[11]);
   a.stamps = static_cast<unsigned long long*>(ptrs[12]);
@@ -806,14 +773,15 @@ extern "C" int decode_layer(void* const* ptrs, const int* ints, float eps, void*
   a.nsplit = ints[6];
   a.D = ints[7];
   a.inter = ints[8];
-  const int n_cta = ints[9];
+  const int n_cta = ints[9], hd = ints[10];
   a.eps = eps;
   // the device's context current in this thread before the descriptors
   // are encoded (a thread's first CUDA call may be this one)
-  const cudaError_t dev_err = cudaSetDevice(ints[34]);
+  const cudaError_t dev_err = cudaSetDevice(ints[39]);
   if (dev_err != cudaSuccess) return (int)dev_err;
   if (a.n_rows < 1 || a.pad > kMaxP || a.grp > a.pad || a.chunk < 1 || a.chunk > kMaxChunk ||
-      a.nsplit * a.chunk < a.n_rows || a.kv_ld < a.hkv * kHd || n_cta < 1 || a.D % 8)
+      a.nsplit * a.chunk < a.n_rows || (hd != 64 && hd != 128) || a.kv_ld < a.hkv * hd ||
+      n_cta < 1 || a.D % 8)
     return (int)cudaErrorInvalidValue;
   size_t off[8];
   ws_layout(ints, off);
@@ -824,9 +792,9 @@ extern "C" int decode_layer(void* const* ptrs, const int* ints, float eps, void*
   const EncodeTiled enc = encode_fn();
   if (!enc) return (int)cudaErrorSharedObjectInitFailed;
   CUtensorMap tm[4];
-  int max_din = 0;
+  int max_din = 0, max_hp = 0;
   for (int p = 0; p < 4; ++p) {
-    const int* d = ints + 10 + 6 * p;
+    const int* d = ints + 11 + 7 * p;
     Prod& pr = a.pr[p];
     pr.packed = static_cast<const uint8_t*>(ptrs[13 + p]);
     pr.scales = static_cast<const bf16*>(ptrs[17 + p]);
@@ -835,38 +803,36 @@ extern "C" int decode_layer(void* const* ptrs, const int* ints, float eps, void*
     pr.dout = d[1];
     pr.bout = d[2];
     pr.s_rows = d[3];
-    pr.ks = d[4];
-    pr.gps = d[5];
-    pr.ngh = pr.din / 2 / kGroup;
-    if (pr.din % (2 * kGroup) || pr.ngh > kMaxGroups || pr.bout % kTileN ||
+    pr.group = d[4];
+    pr.ks = d[5];
+    pr.gps = d[6];
+    if (pr.group < 16 || pr.group > kPGroup || pr.group % 16 || pr.din % (2 * pr.group))
+      return (int)cudaErrorInvalidValue;
+    pr.gp = (pr.group + 31) & ~31;
+    pr.ngh = pr.din / 2 / pr.group;
+    pr.hp = pr.ngh * pr.gp;
+    if (pr.ngh > kMaxGroups || pr.bout % kTileN ||
         pr.dout % pr.bout || pr.ks < 1 || pr.ks > kMaxSplits || pr.gps < 1 ||
         (pr.ks - 1) * pr.gps >= pr.ngh || pr.ks * pr.gps < pr.ngh)
       return (int)cudaErrorInvalidValue;
     if (pr.din > max_din) max_din = pr.din;
-    const int half = pr.din / 2;
-    const cuuint64_t dims[3] = {(cuuint64_t)pr.bout, (cuuint64_t)half,
-                                (cuuint64_t)(pr.dout / pr.bout)};
-    const cuuint64_t strides[2] = {(cuuint64_t)pr.bout, (cuuint64_t)half * pr.bout};
-    const cuuint32_t box[3] = {kTileN, kGroup, 1}, elem[3] = {1, 1, 1};
-    if (enc(&tm[p], CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<uint8_t*>(pr.packed), dims,
-            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    if (pr.hp > max_hp) max_hp = pr.hp;
+    if (!encode_weights(enc, &tm[p], pr.packed, pr.din, pr.dout, pr.bout, pr.gp))
       return (int)cudaErrorInvalidValue;
   }
   if (a.pr[1].dout != 2 * a.inter || a.pr[2].din != a.inter || a.pr[0].dout != a.D ||
       a.pr[2].dout != a.D || a.pr[1].din != a.D || a.pr[3].din != a.D ||
-      a.pr[0].din != a.hkv * a.pad * kHd)
+      a.pr[0].din != a.hkv * a.pad * hd)
     return (int)cudaErrorInvalidValue;
   if (a.pr[0].ks > kMaxResSplits || a.pr[2].ks > kMaxResSplits) return (int)cudaErrorInvalidValue;
-  a.dig_bytes = 2 * max_din;  // (plane, digit, din/2) int8
+  a.dig_bytes = 4 * max_hp;  // (plane, digit, ngh * gp) int8
   // vals: max_din bf16 values, or the attention's K and V chunk; with dig,
   // the scratch of the gathers: gamma, h and (o or down) partials; a merge
   // round of attention partials; the SiLU stage's columns
   int vals_bytes = 2 * max_din;
-  const int need[4] = {2 * kMaxChunk * kHd * 2,
+  const int need[4] = {2 * kMaxChunk * hd * 2,
                        4 * a.D + kMaxResSplits * a.D * 4 - a.dig_bytes,
-                       kMergeChunk * kAttStride * 4 - a.dig_bytes,
+                       kMergeChunk * att_stride(hd) * 4 - a.dig_bytes,
                        2 * a.pr[1].ks * (((a.inter + n_cta - 1) / n_cta + 3) & ~3) * 4 -
                            a.dig_bytes};
   for (int k = 0; k < 4; ++k) vals_bytes = vals_bytes > need[k] ? vals_bytes : need[k];
@@ -874,10 +840,16 @@ extern "C" int decode_layer(void* const* ptrs, const int* ints, float eps, void*
   a.vals_bytes = vals_bytes;
   if (a.dig_bytes < 2 * a.D) return (int)cudaErrorInvalidValue;  // gamma stays below vals
   const int smem = 1024 + kStages * kStageBytes + a.D * 4 + a.dig_bytes + vals_bytes;
-  const int st = allow_smem((const void*)decode_layer_kernel, smem, &granted);
+  bool full = true;
+  for (int p = 0; p < 4; ++p) full &= a.pr[p].gp == kPGroup;
+  const void* kernel =
+      hd == 64 ? (full ? (const void*)decode_layer_kernel<64, 1>
+                       : (const void*)decode_layer_kernel<64, 0>)
+               : (full ? (const void*)decode_layer_kernel<128, 1>
+                       : (const void*)decode_layer_kernel<128, 0>);
+  const int st = allow_smem(kernel, smem, &granted[hd == 64][full]);
   if (st) return st;
   void* args[] = {&tm[0], &tm[1], &tm[2], &tm[3], &a};
-  return (int)cudaLaunchCooperativeKernel((const void*)decode_layer_kernel, dim3(n_cta),
-                                          dim3(kThreads), args, smem,
+  return (int)cudaLaunchCooperativeKernel(kernel, dim3(n_cta), dim3(kThreads), args, smem,
                                           static_cast<cudaStream_t>(stream));
 }

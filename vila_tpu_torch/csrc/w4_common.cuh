@@ -1,5 +1,6 @@
-// Device helpers shared by the port's W4 GEMV kernels (w4_gemv.cu: K1, K4,
-// K5; w4_gemv_mma.cu: K6; decode_layer_sm90.cu: K3): the one definition of
+// Device helpers shared by the port's W4 kernels (w4_gemv.cu: K1;
+// w4_gemv_mma.cu: K6; decode_layer_sm90.cu: K3; w4_pair_sm90.cu: K4, K5):
+// the one definition of
 // the prologue value that the int8 digits expand, the digit expansion, and
 // the int8 tensor-core fragments of the packed nibble planes. Internal
 // linkage, like sm90_common.cuh.

@@ -32,8 +32,11 @@
 // warpgroups:
 //   WG 0  (setmaxnreg 40): warp 0 keeps a 3-stage mbarrier ring full by
 //         TMA: per stage the x tiles of both planes (64-byte swizzle, rows
-//         past M zero-filled), the packed 32 x 128 byte tile and its two
-//         scale rows. Warps 1-3 dequantise each stage's packed tile into a
+//         past M zero-filled), the packed 32 x 128 byte tile and the scale
+//         rows (lo, hi) of the groups its 32 k rows belong to: one group, or
+//         two where a group is not a multiple of 32 rows (112) or is 16 rows
+//         (a group is any multiple of 16). Warps 1-3 dequantise each stage's
+//         packed tile, each k row with its own group's scales, into a
 //         bf16 B tile per plane in shared memory, in the 128-byte-swizzled
 //         MN-major layout wgmma reads (the packed bytes are k-row by output
 //         column), into a ring of three B buffers.
@@ -77,8 +80,10 @@ constexpr int kScaleRow = kBN * 2;       // one bf16 scale row
 constexpr int kMaxSplits = 8;            // K splits
 
 __host__ __device__ constexpr int x_bytes(int ns) { return 2 * ns * kXBox; }
+// W4: the packed tile, then the scale rows lo(ga), hi(ga), lo(gb), hi(gb) of
+// the first and the last k row's groups
 __host__ __device__ constexpr int stage_bytes(int ns, int dots) {
-  return (x_bytes(ns) + (dots ? 2 * kBPlane : kPacked + 2 * kScaleRow) + 1023) & ~1023;
+  return (x_bytes(ns) + (dots ? 2 * kBPlane : kPacked + 4 * kScaleRow) + 1023) & ~1023;
 }
 __host__ __device__ constexpr int smem_bytes(int ns, int dots) {
   return 1024 + kStages * stage_bytes(ns, dots) + (dots ? 0 : kBBufs * 2 * kBPlane) + 256;
@@ -90,6 +95,7 @@ struct GemmArgs {
   float* ws;           // (ksplit, M, dout) partials when ksplit > 1
   int* counters;       // per (M tile, column tile): arrivals (left 0), generation
   int M, half, dout, bout, s_rows, group, ngh, spt, ksplit, kps;
+  int straddle;  // the group is not a multiple of 32: a k tile may hold two groups
   int n_main, parts;  // tail mode (parts > 0): CTAs past n_main share a tile's rows
 };
 
@@ -109,13 +115,38 @@ __device__ __forceinline__ uint32_t dequant2(uint32_t t, uint32_t s) {
   return *reinterpret_cast<uint32_t*>(&w);
 }
 
+// one stage's packed 32 x 128 tile into the bf16 B tiles of both planes (by
+// the dequant warps, thread dt of 96): k rows below kb take the first
+// group's scale rows, the others (TWO: the tile holds two groups) the second's
+template <bool TWO>
+__device__ __forceinline__ void dequant_tile(const uint8_t* pk, uint8_t* blo, int dt, int kb) {
+  const uint32_t* sc0 = reinterpret_cast<const uint32_t*>(pk + kPacked);
+  for (int c = dt; c < kPacked / 8; c += kDequantThreads) {
+    const int k = c >> 4, c8 = (c & 15) * 8;  // k row, first of 8 columns
+    const uint32_t* sc = TWO && k >= kb ? sc0 + kBN : sc0;  // (kBN words: two scale rows)
+    const uint2 w = *reinterpret_cast<const uint2*>(pk + k * kBN + c8);
+    uint32_t lo[4], hi[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // bytes of columns c8 + 2j, c8 + 2j + 1 in the two 16-bit halves
+      const uint32_t t = __byte_perm(j < 2 ? w.x : w.y, 0, (j & 1) ? 0x4342 : 0x4140);
+      lo[j] = dequant2(t, sc[c8 / 2 + j]);
+      hi[j] = dequant2(t >> 4, sc[kBN / 2 + c8 / 2 + j]);
+    }
+    // 16 bytes at (k, c8) of the swizzled MN-major tile: 64-column
+    // halves, 128-byte rows, 16-byte chunk ^ (k & 7)
+    const int off = (c8 >> 6) * (kBPlane / 2) + k * 128 + ((((c8 & 63) >> 3) ^ (k & 7)) << 4);
+    *reinterpret_cast<uint4*>(blo + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    *reinterpret_cast<uint4*>(blo + kBPlane + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  }
+}
+
 template <int DOTS, int SPW>
 __global__ void __launch_bounds__(kThreads, 1) w4_gemm_sm90_kernel(
     const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
     GemmArgs a) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  uint8_t* ring = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ring = align1024(smem_raw);
   const int sb = stage_bytes(a.spt, DOTS);
   uint8_t* bbuf = ring + kStages * sb;  // W4: the dequantised B tiles
   uint64_t* full = reinterpret_cast<uint64_t*>(bbuf + (DOTS ? 0 : kBBufs * 2 * kBPlane));
@@ -168,7 +199,9 @@ __global__ void __launch_bounds__(kThreads, 1) w4_gemm_sm90_kernel(
           const int s = i % kStages, k0 = (kt0 + i) * kBK;
           uint8_t* st = ring + s * sb;
           mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
-          mbar_expect_tx(&full[s], tx);
+          // the second group's scale rows only where the tile holds two groups
+          const int ga = k0 / a.group, gb = a.straddle ? (k0 + kBK - 1) / a.group : ga;
+          mbar_expect_tx(&full[s], tx + (!DOTS && gb != ga ? 2 * kScaleRow : 0));
           for (int p = 0; p < 2; ++p)
             for (int sl = 0; sl < ns; ++sl)
               tma_load_2d(st + (p * ns + sl) * kXBox, &tm_x, &full[s], p * a.half + k0,
@@ -179,11 +212,16 @@ __global__ void __launch_bounds__(kThreads, 1) w4_gemm_sm90_kernel(
                 tma_load_2d(st + xb + p * kBPlane + hh * (kBPlane / 2), &tm_w, &full[s],
                             n0 + 64 * hh, p * a.half + k0);
           } else {
-            const int g = k0 / a.group;
             tma_load_3d(st + xb, &tm_w, &full[s], oo0, k0, jb);
-            bulk_load(st + xb + kPacked, srow + (size_t)g * a.bout, kScaleRow, &full[s]);
-            bulk_load(st + xb + kPacked + kScaleRow, srow + (size_t)(a.ngh + g) * a.bout,
+            bulk_load(st + xb + kPacked, srow + (size_t)ga * a.bout, kScaleRow, &full[s]);
+            bulk_load(st + xb + kPacked + kScaleRow, srow + (size_t)(a.ngh + ga) * a.bout,
                       kScaleRow, &full[s]);
+            if (gb != ga) {
+              bulk_load(st + xb + kPacked + 2 * kScaleRow, srow + (size_t)gb * a.bout, kScaleRow,
+                        &full[s]);
+              bulk_load(st + xb + kPacked + 3 * kScaleRow, srow + (size_t)(a.ngh + gb) * a.bout,
+                        kScaleRow, &full[s]);
+            }
           }
         }
       }
@@ -191,28 +229,18 @@ __global__ void __launch_bounds__(kThreads, 1) w4_gemm_sm90_kernel(
       const int dt = threadIdx.x - 32;
       for (int i = 0; i < n; ++i) {
         const int s = i % kStages, b = i % kBBufs;
+        const int k0 = (kt0 + i) * kBK;
+        // k rows of the first group (all of them unless the group straddles)
+        const int kb = a.straddle ? (k0 / a.group + 1) * a.group - k0 : kBK;
         const uint8_t* pk = ring + s * sb + xb;
-        const uint32_t* sc = reinterpret_cast<const uint32_t*>(pk + kPacked);
         uint8_t* blo = bbuf + b * 2 * kBPlane;
         mbar_wait(&full[s], (i / kStages) & 1);
         mbar_wait(&bempty[b], ((i / kBBufs) & 1) ^ 1);
-        for (int c = dt; c < kPacked / 8; c += kDequantThreads) {
-          const int k = c >> 4, c8 = (c & 15) * 8;  // k row, first of 8 columns
-          const uint2 w = *reinterpret_cast<const uint2*>(pk + k * kBN + c8);
-          uint32_t lo[4], hi[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            // bytes of columns c8 + 2j, c8 + 2j + 1 in the two 16-bit halves
-            const uint32_t t = __byte_perm(j < 2 ? w.x : w.y, 0, (j & 1) ? 0x4342 : 0x4140);
-            lo[j] = dequant2(t, sc[c8 / 2 + j]);
-            hi[j] = dequant2(t >> 4, sc[kBN / 2 + c8 / 2 + j]);
-          }
-          // 16 bytes at (k, c8) of the swizzled MN-major tile: 64-column
-          // halves, 128-byte rows, 16-byte chunk ^ (k & 7)
-          const int off = (c8 >> 6) * (kBPlane / 2) + k * 128 + ((((c8 & 63) >> 3) ^ (k & 7)) << 4);
-          *reinterpret_cast<uint4*>(blo + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-          *reinterpret_cast<uint4*>(blo + kBPlane + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-        }
+        // (a stage-uniform branch: most tiles hold one group's rows)
+        if (kb >= kBK)
+          dequant_tile<false>(pk, blo, dt, kb);
+        else
+          dequant_tile<true>(pk, blo, dt, kb);
         fence_proxy_async();
         __syncwarp();
         mbar_arrive_if(&bfull[b], lane == 0);
@@ -369,8 +397,9 @@ int launch(const CUtensorMap& tx, const CUtensorMap& tw, const GemmArgs& a, int 
 // last whole wave of n_sm are each shared by tail_parts CTAs, each taking a
 // part of the slices; ws (ksplit, M, dout) f32 and counters (two zeroed ints per M tile
 // and column tile, left as arrivals 0 and a generation) when ksplit > 1;
-// then the grid must be co-resident (at most one CTA per SM). Needs din/2 and group multiples of 32, dout
-// and bout multiples of 128. Returns cudaGetLastError() after the launch.
+// then the grid must be co-resident (at most one CTA per SM). Needs din/2 a
+// multiple of 32, the group a multiple of 16, dout and bout multiples of
+// 128. Returns cudaGetLastError() after the launch.
 extern "C" int w4_gemm_sm90(const void* x, const void* w, const void* scales, void* out,
                             void* ws, void* counters, int M, int din, int dout, int bout,
                             int s_rows, int group, int spt, int ksplit, int kps,
@@ -380,7 +409,7 @@ extern "C" int w4_gemm_sm90(const void* x, const void* w, const void* scales, vo
       kps < 1 || (ksplit - 1) * kps >= nk || ksplit * kps < nk || ksplit > kMaxSplits ||
       (ksplit > 1 && !ws) || (tail_parts > 0 && (ksplit > 1 || M > spt * kSlice ||
                               tail_parts > (M + kSlice - 1) / kSlice)) ||
-      (!dots && (bout % kBN || dout % bout || group % kBK || half % group)))
+      (!dots && (bout % kBN || dout % bout || group < 16 || group % 16 || half % group)))
     return (int)cudaErrorInvalidValue;
   // the device's context current in this thread before the descriptors
   // are encoded (a thread's first CUDA call may be this one)
@@ -426,6 +455,7 @@ extern "C" int w4_gemm_sm90(const void* x, const void* w, const void* scales, vo
   a.s_rows = s_rows;
   a.group = group;
   a.ngh = dots ? 0 : half / group;
+  a.straddle = !dots && group % kBK != 0;
   a.spt = spt;
   a.ksplit = ksplit;
   a.kps = kps;

@@ -1,10 +1,10 @@
-// W4A16 GEMV for M <= 32 rows (decode-shaped), for Hopper (sm_90a).
+// W4A16 GEMV for M <= 32 rows (decode-shaped), for Hopper (sm_90a): K1.
 //
 // Replaces the TPU kernels vila_tpu/ops/quant.py:_w4_decode_manual_kernel
-// and :_w4_decode_kernel (behind w4_matmul_decode), and provides the two
-// weight streams each of vila_tpu/ops/fused_decode.py:_fused_o_gateup_kernel
-// and :_fused_down_qkv_kernel (K4, K5) through the prologue/epilogue
-// variants below.
+// and :_w4_decode_kernel (behind w4_matmul_decode): layer 0's qkv of a
+// decode step, the untied lm_head, and prefill projections of prompts of at
+// most 32 tokens. (The fused decode layers run their products on the tensor
+// cores: K3 decode_layer_sm90.cu, K4/K5 w4_pair_sm90.cu, K6 w4_gemv_mma.cu.)
 //
 // Arithmetic (identical to the TPU kernels, so greedy transcripts agree):
 //   * each activation row is expanded per half-plane into two int8 digits,
@@ -22,20 +22,16 @@
 // packed bytes once, coalesced: a warp reads 128 consecutive bytes of a
 // weight row (4 output columns per thread, one 32-bit load per row), four
 // rows at a time, transposes the 4x4 byte tile in registers (__byte_perm)
-// and feeds __dp4a. Eight warps split each 128-row group; the K dimension
-// is further split over blocks (`ksplit`) until the grid has ~2 blocks per
-// SM, and the last block of a column tile to finish sums the partials in a
-// fixed order (deterministic) and applies the epilogue. Each block redoes
-// the per-row prologue (norm statistics, amax) over the whole input row
-// from L2, which at D=3584 is cheap next to the weight stream.
-//
-// Variants (template arguments):
-//   prologue: none | RMSNorm(gamma) of an f32/bf16 row | SiLU(gate)*up of
-//             a (gate | up) bf16 row, each rounded to bf16 before the digit
-//             expansion, as the TPU kernel does (w4_common.cuh's definition:
-//             the RMS statistic and exp in f64, bit for bit the plain
-//             version's);
-//   epilogue: + f32 or bf16 residual, + bf16 bias, f32 and/or bf16 output.
+// and feeds __dp4a. Warp w takes rows 16w.. 16w + 15 of each group (a group
+// is any multiple of 16 rows up to 128: 112 takes seven warps); the K
+// dimension is further split over blocks
+// (`ksplit`) until the grid has ~2 blocks per SM, and the last block of a
+// column tile to finish sums the partials in a fixed order (deterministic)
+// and writes the bf16 output.
+// Each block expands the digits of its rows over the whole input row from
+// L2, which at D=3584 is cheap next to the weight stream. For M > 1 a block
+// takes 4 rows, so the weights are read once per 4 rows (the lm_head of the
+// batched serving routes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,21 +46,14 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTileN = 128;  // output columns per block: 32 lanes x 4
 
 struct GemvArgs {
-  const void* x;  // (M, ldx) prologue input, bf16 or f32
-  int ldx;
-  const __nv_bfloat16* gamma;  // (din,) RMSNorm scale
-  float eps;
+  const __nv_bfloat16* x;  // (M, din)
   const uint8_t* packed;        // (nj, din/2, bout) of the selected layer
   const __nv_bfloat16* scales;  // (nj, s_rows, bout) of the selected layer
   int M, din, dout, bout, s_rows, group;
   int ksplit, gps;  // K splits over blocks, groups per split
   float* ws;        // (ksplit, M, dout) partials when ksplit > 1
   int* counters;    // per (tile_x, tile_z) arrival counters, left zeroed
-  const float* res_f32;
-  const __nv_bfloat16* res_bf16;
-  const __nv_bfloat16* bias;
-  float* out_f32;
-  __nv_bfloat16* out_bf16;
+  __nv_bfloat16* out;  // (M, dout)
 };
 
 __device__ __forceinline__ float block_reduce(float v, bool is_max, float* red) {
@@ -83,19 +72,13 @@ __device__ __forceinline__ float block_reduce(float v, bool is_max, float* red) 
 }
 
 __device__ __forceinline__ void epilogue(const GemvArgs& a, int m, int col, float v) {
-  const size_t o = (size_t)m * a.dout + col;
-  if (a.res_f32) v = a.res_f32[o] + v;
-  if (a.res_bf16) v = __bfloat162float(a.res_bf16[o]) + v;
-  if (a.bias) v = v + __bfloat162float(a.bias[col]);
-  if (a.out_f32) a.out_f32[o] = v;
-  if (a.out_bf16) a.out_bf16[o] = __float2bfloat16_rn(v);
+  a.out[(size_t)m * a.dout + col] = __float2bfloat16_rn(v);
 }
 
-template <int NR, int PRO, typename TIn>
+template <int NR>
 __global__ void __launch_bounds__(kThreads) w4_gemv_kernel(GemvArgs a) {
   extern __shared__ __align__(16) int8_t qs[];  // [NR][plane][digit][kr]
   __shared__ float red[kWarps];
-  __shared__ double red64[kWarps];
   __shared__ float s_scale[NR][2][2];           // [row][plane][digit]
   __shared__ float s_part[kWarps][NR][kTileN];  // cross-warp reduction
   __shared__ int s_last;
@@ -110,16 +93,12 @@ __global__ void __launch_bounds__(kThreads) w4_gemv_kernel(GemvArgs a) {
   const int kr = a.gps * a.group;  // digit row length per plane in smem
   const int span = (g1 - g0) * a.group;
 
-  // ---- prologue: per-row stats over the whole row, digits for this split
+  // ---- each row's amax over the whole row, digits for this split
   for (int r = 0; r < rows; ++r) {
-    const TIn* xr = reinterpret_cast<const TIn*>(a.x) + (size_t)(m0 + r) * a.ldx;
-    float rms = 1.0f;
-    if (PRO == PRO_RMS)
-      rms = rms_scale(block_sum_f64<kWarps>(sumsq_part(xr, a.din, tid, kThreads), red64),
-                      a.din, a.eps);
+    const __nv_bfloat16* xr = a.x + (size_t)(m0 + r) * a.din;
     float am_lo = 0.f, am_hi = 0.f;
     for (int i = tid; i < a.din; i += kThreads) {
-      const float v = fabsf(pro_value<PRO>(xr, i, a.din, rms, a.gamma));
+      const float v = fabsf(__bfloat162float(xr[i]));
       if (i < half) am_lo = fmaxf(am_lo, v); else am_hi = fmaxf(am_hi, v);
     }
     am_lo = block_reduce(am_lo, true, red);
@@ -136,7 +115,7 @@ __global__ void __launch_bounds__(kThreads) w4_gemv_kernel(GemvArgs a) {
     for (int t = tid; t < span; t += kThreads) {
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
-        const float v = pro_value<PRO>(xr, p * half + g0 * a.group + t, a.din, rms, a.gamma);
+        const float v = __bfloat162float(xr[p * half + g0 * a.group + t]);
         const float q1 = fminf(fmaxf(rintf(v / s1[p]), -127.f), 127.f);
         const float res = __fsub_rn(v, __fmul_rn(q1, s1[p]));
         const float q2 = fminf(fmaxf(rintf(res / s2[p]), -127.f), 127.f);
@@ -154,7 +133,6 @@ __global__ void __launch_bounds__(kThreads) w4_gemv_kernel(GemvArgs a) {
   const int oo = col_ok ? col % a.bout : 0;
   const uint8_t* pcol = a.packed + (size_t)jb * half * a.bout + oo;
   const __nv_bfloat16* scol = a.scales + (size_t)jb * a.s_rows * a.bout + oo;
-  const int rpw = a.group / kWarps;  // rows per warp per group (multiple of 4)
 
   float acc[NR][4];
 #pragma unroll
@@ -162,7 +140,7 @@ __global__ void __launch_bounds__(kThreads) w4_gemv_kernel(GemvArgs a) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
 
-  if (col_ok) {
+  if (col_ok && warp * 16 < a.group) {  // (warp 7 has no band of a group of 112)
     for (int g = g0; g < g1; ++g) {
       int isum[NR][4][4];
       int cs[NR][2];
@@ -174,10 +152,9 @@ __global__ void __launch_bounds__(kThreads) w4_gemv_kernel(GemvArgs a) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) isum[r][c][e] = 0;
       }
-      const int ibase = g * a.group + warp * rpw;
-      const int tbase = (g - g0) * a.group + warp * rpw;
-#pragma unroll 4
-      for (int s = 0; s < rpw; s += 4) {
+      const int ibase = g * a.group + warp * 16, tbase = (g - g0) * a.group + warp * 16;
+#pragma unroll
+      for (int s = 0; s < 16; s += 4) {
         const uint8_t* prow = pcol + (size_t)(ibase + s) * a.bout;
         const uint32_t w0 = *reinterpret_cast<const uint32_t*>(prow);
         const uint32_t w1 = *reinterpret_cast<const uint32_t*>(prow + a.bout);
@@ -285,11 +262,11 @@ __global__ void __launch_bounds__(kThreads) w4_gemv_kernel(GemvArgs a) {
   if (tid == 0) *counter = 0;  // leave the counters zeroed for the next launch
 }
 
-template <int NR, int PRO, typename TIn>
+template <int NR>
 cudaError_t launch(const GemvArgs& a, cudaStream_t stream) {
   const dim3 grid((a.dout + kTileN - 1) / kTileN, a.ksplit, (a.M + NR - 1) / NR);
   const size_t smem = (size_t)NR * 4 * a.gps * a.group;
-  auto kernel = w4_gemv_kernel<NR, PRO, TIn>;
+  auto kernel = w4_gemv_kernel<NR>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -297,31 +274,21 @@ cudaError_t launch(const GemvArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int NR>
-cudaError_t dispatch(const GemvArgs& a, int prologue, int x_is_f32, cudaStream_t s) {
-  if (prologue == PRO_NONE && !x_is_f32) return launch<NR, PRO_NONE, __nv_bfloat16>(a, s);
-  if (prologue == PRO_RMS && !x_is_f32) return launch<NR, PRO_RMS, __nv_bfloat16>(a, s);
-  if (prologue == PRO_RMS && x_is_f32) return launch<NR, PRO_RMS, float>(a, s);
-  if (prologue == PRO_SILU && !x_is_f32) return launch<NR, PRO_SILU, __nv_bfloat16>(a, s);
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
-// Plain C entry point (bound with ctypes). Pointers may be null where the
-// argument is optional. Returns cudaGetLastError() after the launch.
-extern "C" int w4_gemv(const void* x, int x_is_f32, int ldx, int prologue,
-                       const void* gamma, float eps, const void* packed,
-                       const void* scales, int M, int din, int dout, int bout,
-                       int s_rows, int group, int ksplit, int gps, void* ws,
-                       void* counters, const void* res_f32, const void* res_bf16,
-                       const void* bias, void* out_f32, void* out_bf16,
-                       void* stream) {
+// Plain C entry point (bound with ctypes): x (M, din) bf16, packed (nj,
+// din/2, bout) uint8 and scales (nj, s_rows, bout) bf16 of the selected
+// layer, groups of `group` input rows (a multiple of 16 up to 128); out (M, dout)
+// bf16; ws (ksplit, M, dout) f32 when ksplit > 1; counters zeroed ints.
+// Returns cudaGetLastError() after the launch.
+extern "C" int w4_gemv(const void* x, const void* packed, const void* scales, int M, int din,
+                       int dout, int bout, int s_rows, int group, int ksplit, int gps, void* ws,
+                       void* counters, void* out, void* stream) {
+  if (M < 1 || M > 32 || group < 16 || group > 16 * kWarps || group % 16 ||
+      din % (2 * group) || bout % 4 || ksplit < 1 || gps < 1 || (ksplit > 1 && !ws))
+    return (int)cudaErrorInvalidValue;
   GemvArgs a;
-  a.x = x;
-  a.ldx = ldx;
-  a.gamma = static_cast<const __nv_bfloat16*>(gamma);
-  a.eps = eps;
+  a.x = static_cast<const __nv_bfloat16*>(x);
   a.packed = static_cast<const uint8_t*>(packed);
   a.scales = static_cast<const __nv_bfloat16*>(scales);
   a.M = M;
@@ -334,12 +301,7 @@ extern "C" int w4_gemv(const void* x, int x_is_f32, int ldx, int prologue,
   a.gps = gps;
   a.ws = static_cast<float*>(ws);
   a.counters = static_cast<int*>(counters);
-  a.res_f32 = static_cast<const float*>(res_f32);
-  a.res_bf16 = static_cast<const __nv_bfloat16*>(res_bf16);
-  a.bias = static_cast<const __nv_bfloat16*>(bias);
-  a.out_f32 = static_cast<float*>(out_f32);
-  a.out_bf16 = static_cast<__nv_bfloat16*>(out_bf16);
+  a.out = static_cast<__nv_bfloat16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M == 1) return (int)dispatch<1>(a, prologue, x_is_f32, s);
-  return (int)dispatch<4>(a, prologue, x_is_f32, s);
+  return M == 1 ? (int)launch<1>(a, s) : (int)launch<4>(a, s);
 }

@@ -13,7 +13,10 @@
 //                 s2 = s1/127, round half even: of its own values, bit for
 //                 bit quant._digits and the JAX package's _int8_digits /
 //                 _prequantize_plane) and the per-(row, group) digit sums
-//                 of the lo plane. On request it also writes the values.
+//                 of the lo plane. Each group (a multiple of 16 input rows,
+//                 up to 128) is stored padded with zero digits to gp, the
+//                 next multiple of 32 (quant.padded_group). On request it
+//                 also writes the values.
 //                 One block of 1024 threads per row; the row's values stay
 //                 in shared memory between the amax and the digits.
 //   w4_gemv_rows  one weight pass for all rows: the (row, digit) pairs are
@@ -21,7 +24,7 @@
 //                 16 pairs, per m16 tile); each packed byte tile gives the
 //                 B fragments of both planes (lo = p & 0x0F, h16 = (p & 0xF0)
 //                 ^ 0x80 == 16 * (hi - 8)), so both planes come from one load.
-//                 Each group of 128 input rows is summed whole in int32
+//                 Each group of input rows is summed whole in int32
 //                 (|sum| < 2^21), corrected for the lo plane's -8 zero point
 //                 with the group digit sum and scaled in f32 per (row, group,
 //                 column): the order of quant._w4_gemv_ref.
@@ -34,10 +37,12 @@
 // block of the tiled layout) and a run of whole groups; the host takes the
 // fewest K splits that give one CTA per SM (more, shorter CTAs measured
 // slower: each CTA's start and each split's partial cost more than they
-// hide). One producer warp keeps a 4-stage mbarrier ring full: per group of
-// 128 input rows, a TMA copy of the 128 x 128 packed bytes (a 3-D map over
-// the (nj, din/2, bout) slab) and one of the group's digits (a 2-D map over
-// the (plane, digit, row) x din/2 buffer), both with 128-byte swizzle, and
+// hide). One producer warp keeps a 4-stage mbarrier ring full: per group, a
+// TMA copy of its gp x 128 packed bytes (a 3-D map over the (nj, din/2,
+// bout) slab; gp = the group padded to a multiple of 32: the rows past the
+// group meet zero digits, and past the slab TMA fills zeros) and one of the
+// group's digits (a 2-D map over the (plane, digit, row) x ngh * gp buffer),
+// both with 128-byte swizzle, and
 // bulk copies of its two scale rows and its digit sums, so the consumers
 // read every operand from shared memory. Four consumer warps own 32
 // columns each. mma.sync wants, per thread, 4 consecutive k of one column
@@ -64,7 +69,7 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kGroup = 128;                   // input rows per scale group and per stage
+constexpr int kGroup = 128;                   // the largest group: input rows per stage
 constexpr int kTileN = 128;                   // output columns per CTA
 constexpr int kConsumers = 4;                 // warps of 32 columns
 constexpr int kThreads = 32 * (kConsumers + 1);
@@ -97,19 +102,19 @@ __device__ __forceinline__ float block_reduce(float v, bool is_max, float* red) 
 template <int PRO, typename TIn>
 __global__ void __launch_bounds__(kDigitThreads) w4_digits_kernel(
     const TIn* __restrict__ x, int ldx, const bf16* __restrict__ gamma, float eps, int M,
-    int din, int8_t* __restrict__ digits, float* __restrict__ dscale, int* __restrict__ gsum,
-    bf16* __restrict__ vout) {
+    int din, int group, int8_t* __restrict__ digits, float* __restrict__ dscale,
+    int* __restrict__ gsum, bf16* __restrict__ vout) {
   extern __shared__ float sv[];  // the row's din prologue values
   __shared__ float red[kDigitThreads / 32];
   __shared__ double red64[kDigitThreads / 32];
   const int m = blockIdx.x, m_pad = gridDim.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int half = din / 2, ngh = half / kGroup;
+  const int half = din / 2, ngh = half / group, gp = (group + 31) & ~31, hp = ngh * gp;
   // plane p, digit d of this row at dm + (2 p + d) * plane
-  int8_t* dm = digits + (size_t)m * half;
-  const size_t plane = (size_t)m_pad * half;
+  int8_t* dm = digits + (size_t)m * hp;
+  const size_t plane = (size_t)m_pad * hp;
   if (m >= M) {
-    for (int i = tid; i < 4 * half; i += kDigitThreads) dm[(i / half) * plane + i % half] = 0;
+    for (int i = tid; i < 4 * hp; i += kDigitThreads) dm[(i / hp) * plane + i % hp] = 0;
     if (tid < 4) dscale[m * 4 + tid] = 0.f;
     for (int i = tid; i < 2 * ngh; i += kDigitThreads) gsum[(size_t)i * m_pad + m] = 0;
     return;
@@ -153,18 +158,18 @@ __global__ void __launch_bounds__(kDigitThreads) w4_digits_kernel(
     dscale[m * 4 + 2] = s1h;
     dscale[m * 4 + 3] = s2h;
   }
-  // pass 2: one warp per group of 128 (both planes): a lane's digits go to
-  // their mma positions in the lane's 32-block (one 32-byte segment per
-  // store), and the lo plane's group sums are reduced across the warp
+  // pass 2: one warp per (group, plane): a lane's digits go to their mma
+  // positions in the lane's 32-block (one 32-byte segment per store), zero
+  // digits past the group's end, and the lo plane's group sums are reduced
+  // across the warp
   for (int gg = warp; gg < 2 * ngh; gg += kDigitThreads / 32) {
     const int p = gg >= ngh, gi = gg - p * ngh;
     const float s1 = p ? s1h : s1l, s2 = p ? s2h : s2l;
     int a = 0, b = 0;
-#pragma unroll
-    for (int b4 = 0; b4 < kGroup / 32; ++b4) {
-      const int ii = gi * kGroup + b4 * 32;
-      int q1, q2;
-      two_digits(sv[p * half + ii + lane], s1, s2, &q1, &q2);
+    for (int b4 = 0; b4 < gp / 32; ++b4) {
+      const int e = b4 * 32 + lane, ii = gi * gp + b4 * 32;
+      int q1 = 0, q2 = 0;
+      if (e < group) two_digits(sv[p * half + gi * group + e], s1, s2, &q1, &q2);
       dm[(2 * p) * plane + ii + kappa_of(lane)] = (int8_t)q1;
       dm[(2 * p + 1) * plane + ii + kappa_of(lane)] = (int8_t)q2;
       a += q1;
@@ -192,7 +197,7 @@ struct RowsArgs {
   const int* gsum;     // (ngh, 2, m_pad)
   const float* dscale; // (m_pad, 2, 2)
   const bf16* scales;  // (nj, s_rows, bout) of the selected layer
-  int M, m_pad, half, dout, bout, s_rows, ngh, ksplit, gps;
+  int M, m_pad, half, dout, bout, s_rows, group, gp, ngh, ksplit, gps;
   float* ws;      // (ksplit, M, dout) partials when ksplit > 1
   int* counters;  // per column tile, left zeroed
   const float* res_f32;
@@ -202,14 +207,20 @@ struct RowsArgs {
   bf16* out_bf16;
 };
 
-// one ring stage: packed weights (128 rows x 128 columns), the group's
-// digits ((plane, digit, row) x 128 k), its scale rows (lo, hi: 128 bf16
-// each) and digit sums ((digit, row) int32), each by one copy
+// one ring stage: packed weights (gp <= 128 rows x 128 columns), the
+// group's digits ((plane, digit, row) x 128 k: a box as wide as the
+// swizzle, of which the first gp are the group's), its scale rows (lo, hi:
+// 128 bf16 each) and digit sums ((digit, row) int32), each by one copy
 __host__ __device__ constexpr int stage_digits(int m_pad) { return 4 * m_pad * kGroup; }
 __host__ __device__ constexpr int stage_scales(int m_pad) { return kStageBytes + stage_digits(m_pad); }
 __host__ __device__ constexpr int stage_gsum(int m_pad) { return stage_scales(m_pad) + 2 * kTileN * 2; }
-__host__ __device__ constexpr int stage_tx(int m_pad) { return stage_gsum(m_pad) + 2 * m_pad * 4; }
-__host__ __device__ constexpr int stage_bytes(int m_pad) { return (stage_tx(m_pad) + 1023) & ~1023; }
+// bytes a stage receives: the weight box has gp rows
+__host__ __device__ constexpr int stage_tx(int m_pad, int gp) {
+  return stage_gsum(m_pad) + 2 * m_pad * 4 - (kGroup - gp) * kTileN;
+}
+__host__ __device__ constexpr int stage_bytes(int m_pad) {
+  return (stage_tx(m_pad, kGroup) + 1023) & ~1023;
+}
 __host__ __device__ constexpr int rows_smem(int m_pad) {
   return 1024 + kStages * stage_bytes(m_pad) + 2 * kStages * 8;
 }
@@ -241,8 +252,7 @@ __global__ void __launch_bounds__(kThreads, MT <= 2 ? 2 : 1) w4_gemv_rows_kernel
     RowsArgs a) {
   constexpr int kMPad = 8 * MT, kStage = stage_bytes(kMPad);
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  uint8_t* ring = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ring = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStage);
   uint64_t* empty = full + kStages;
   __shared__ int s_last;
@@ -276,9 +286,9 @@ __global__ void __launch_bounds__(kThreads, MT <= 2 ? 2 : 1) w4_gemv_rows_kernel
         const int s = i % kStages, gi = g0 + i;
         uint8_t* st = ring + s * kStage;
         mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
-        mbar_expect_tx(&full[s], stage_tx(kMPad));
-        tma_load_3d(st, &tm_w, &full[s], oo0, gi * kGroup, jb);
-        tma_load_2d(st + kStageBytes, &tm_d, &full[s], gi * kGroup, 0);
+        mbar_expect_tx(&full[s], stage_tx(kMPad, a.gp));
+        tma_load_3d(st, &tm_w, &full[s], oo0, gi * a.group, jb);
+        tma_load_2d(st + kStageBytes, &tm_d, &full[s], gi * a.gp, 0);
         bulk_load(st + stage_scales(kMPad), srow + (size_t)gi * a.bout, kTileN * 2, &full[s]);
         bulk_load(st + stage_scales(kMPad) + kTileN * 2, srow + (size_t)(a.ngh + gi) * a.bout,
                   kTileN * 2, &full[s]);
@@ -310,8 +320,8 @@ __global__ void __launch_bounds__(kThreads, MT <= 2 ? 2 : 1) w4_gemv_rows_kernel
         for (int q = 0; q < 4; ++q)
 #pragma unroll
           for (int e = 0; e < 4; ++e) ilo[q][e] = ihi[q][e] = 0;
-#pragma unroll
-        for (int ks = 0; ks < kGroup / 32; ++ks) {
+#pragma unroll 4
+        for (int ks = 0; ks < a.gp / 32; ++ks) {
           uint32_t alo[4], ahi[4];
           load_a(alo, dig, r, kMPad, ks * 32 + 4 * t);           // plane lo
           load_a(ahi, dig, 2 * kMPad + r, kMPad, ks * 32 + 4 * t);  // plane hi
@@ -405,14 +415,15 @@ __global__ void __launch_bounds__(kThreads, MT <= 2 ? 2 : 1) w4_gemv_rows_kernel
 
 template <int PRO, typename TIn>
 int launch_digits(const void* x, int ldx, const void* gamma, float eps, int M, int m_pad,
-                  int din, void* digits, void* dscale, void* gsum, void* vout, cudaStream_t s) {
+                  int din, int group, void* digits, void* dscale, void* gsum, void* vout,
+                  cudaStream_t s) {
   static int granted = 0;
   const int smem = din * 4;
   auto kernel = w4_digits_kernel<PRO, TIn>;
   const int st = allow_smem((const void*)kernel, smem, &granted);
   if (st) return st;
   kernel<<<m_pad, kDigitThreads, smem, s>>>(
-      static_cast<const TIn*>(x), ldx, static_cast<const bf16*>(gamma), eps, M, din,
+      static_cast<const TIn*>(x), ldx, static_cast<const bf16*>(gamma), eps, M, din, group,
       static_cast<int8_t*>(digits), static_cast<float*>(dscale), static_cast<int*>(gsum),
       static_cast<bf16*>(vout));
   return (int)cudaGetLastError();
@@ -436,54 +447,61 @@ int launch_rows(const CUtensorMap& tw, const CUtensorMap& td, const RowsArgs& a,
 // or cudaErrorInvalidValue for what it does not take.
 //
 // w4_digits: x holds M rows (ldx apart) of din values (SiLU: gate | up, 2 din
-// values); m_pad = 8 * ceil(M / 8) blocks write digits (2, 2, m_pad, din/2)
-// int8, dscale (m_pad, 2, 2) f32, gsum (din/256, 2, m_pad) int32 and, when
-// vout is not null, the M rows' bf16 prologue values (M, din).
+// values); groups of `group` input rows (a multiple of 16, at most 128),
+// ngh = din / 2 / group of them a plane, each padded to gp (the next
+// multiple of 32); m_pad = 8 * ceil(M / 8) blocks write digits (2, 2, m_pad,
+// ngh * gp) int8, dscale (m_pad, 2, 2) f32, gsum (ngh, 2, m_pad) int32 and,
+// when vout is not null, the M rows' bf16 prologue values (M, din).
 extern "C" int w4_digits(const void* x, int x_is_f32, int ldx, int prologue,
-                         const void* gamma, float eps, int M, int m_pad, int din,
+                         const void* gamma, float eps, int M, int m_pad, int din, int group,
                          void* digits, void* dscale, void* gsum, void* vout, void* stream) {
-  if (M < 1 || m_pad < M || m_pad > 32 || m_pad % 8 || din % (2 * kGroup) ||
-      din * 4 > kMaxDynSmem)
+  if (M < 1 || m_pad < M || m_pad > 32 || m_pad % 8 || group < 16 || group > kGroup ||
+      group % 16 || din % (2 * group) || din * 4 > kMaxDynSmem)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (prologue == PRO_NONE && !x_is_f32)
-    return launch_digits<PRO_NONE, bf16>(x, ldx, gamma, eps, M, m_pad, din, digits, dscale,
-                                         gsum, vout, s);
+    return launch_digits<PRO_NONE, bf16>(x, ldx, gamma, eps, M, m_pad, din, group, digits,
+                                         dscale, gsum, vout, s);
   if (prologue == PRO_RMS && !x_is_f32)
-    return launch_digits<PRO_RMS, bf16>(x, ldx, gamma, eps, M, m_pad, din, digits, dscale,
-                                        gsum, vout, s);
+    return launch_digits<PRO_RMS, bf16>(x, ldx, gamma, eps, M, m_pad, din, group, digits,
+                                        dscale, gsum, vout, s);
   if (prologue == PRO_RMS && x_is_f32)
-    return launch_digits<PRO_RMS, float>(x, ldx, gamma, eps, M, m_pad, din, digits, dscale,
-                                         gsum, vout, s);
+    return launch_digits<PRO_RMS, float>(x, ldx, gamma, eps, M, m_pad, din, group, digits,
+                                         dscale, gsum, vout, s);
   if (prologue == PRO_SILU && !x_is_f32)
-    return launch_digits<PRO_SILU, bf16>(x, ldx, gamma, eps, M, m_pad, din, digits, dscale,
-                                         gsum, vout, s);
+    return launch_digits<PRO_SILU, bf16>(x, ldx, gamma, eps, M, m_pad, din, group, digits,
+                                         dscale, gsum, vout, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // w4_gemv_rows: packed (nj, din/2, bout) uint8 and scales (nj, s_rows, bout)
-// bf16 of the selected layer; w4_digits' buffers for m_pad rows; grid of
-// dout / 128 column tiles x ksplit splits of gps groups of 128 input rows;
-// ws (ksplit, M, dout) f32 when ksplit > 1; counters dout / 128 zeroed ints.
+// bf16 of the selected layer, groups of `group` input rows (a multiple of
+// 16, at most 128); w4_digits' buffers for m_pad rows; grid of dout / 128
+// column tiles x ksplit splits of gps groups; ws (ksplit, M, dout) f32 when
+// ksplit > 1; counters dout / 128 zeroed ints.
 extern "C" int w4_gemv_rows(const void* digits, const void* dscale, const void* gsum,
                             const void* packed, const void* scales, int M, int m_pad, int din,
-                            int dout, int bout, int s_rows, int ksplit, int gps, void* ws,
-                            void* counters, const void* res_f32, const void* res_bf16,
-                            const void* bias, void* out_f32, void* out_bf16, void* stream) {
-  const int half = din / 2, ngh = half / kGroup;
-  if (M < 1 || m_pad < M || m_pad > 32 || m_pad % 8 || din % (2 * kGroup) || bout % kTileN ||
+                            int dout, int bout, int s_rows, int group, int ksplit, int gps,
+                            void* ws, void* counters, const void* res_f32,
+                            const void* res_bf16, const void* bias, void* out_f32,
+                            void* out_bf16, void* stream) {
+  if (group < 16 || group > kGroup || group % 16 || din % (2 * group))
+    return (int)cudaErrorInvalidValue;
+  const int half = din / 2, ngh = half / group, gp = (group + 31) & ~31;
+  if (M < 1 || m_pad < M || m_pad > 32 || m_pad % 8 || bout % kTileN ||
       dout % bout || ksplit < 1 || gps < 1 || (ksplit - 1) * gps >= ngh || ksplit * gps < ngh ||
       (ksplit > 1 && !ws))
     return (int)cudaErrorInvalidValue;
   const EncodeTiled enc = encode_fn();
   if (!enc) return (int)cudaErrorSharedObjectInitFailed;
-  // the packed slab as (bout, half, nj) bytes and the digits as (half, 4 m_pad)
+  // the packed slab as (bout, half, nj) bytes, gp rows a box, and the padded
+  // digits as (ngh * gp, 4 m_pad)
   CUtensorMap tw, td;
   const cuuint64_t wdims[3] = {(cuuint64_t)bout, (cuuint64_t)half, (cuuint64_t)(dout / bout)};
   const cuuint64_t wstrides[2] = {(cuuint64_t)bout, (cuuint64_t)half * bout};
-  const cuuint32_t wbox[3] = {kTileN, kGroup, 1};
-  const cuuint64_t ddims[2] = {(cuuint64_t)half, (cuuint64_t)(4 * m_pad)};
-  const cuuint64_t dstrides[1] = {(cuuint64_t)half};
+  const cuuint32_t wbox[3] = {kTileN, (cuuint32_t)gp, 1};
+  const cuuint64_t ddims[2] = {(cuuint64_t)ngh * gp, (cuuint64_t)(4 * m_pad)};
+  const cuuint64_t dstrides[1] = {(cuuint64_t)ngh * gp};
   const cuuint32_t dbox[2] = {kGroup, (cuuint32_t)(4 * m_pad)};
   const cuuint32_t elem[3] = {1, 1, 1};
   if (enc(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(packed), wdims, wstrides,
@@ -503,6 +521,8 @@ extern "C" int w4_gemv_rows(const void* digits, const void* dscale, const void* 
   a.dout = dout;
   a.bout = bout;
   a.s_rows = s_rows;
+  a.group = group;
+  a.gp = gp;
   a.ngh = ngh;
   a.ksplit = ksplit;
   a.gps = gps;

@@ -23,12 +23,16 @@ the stages, every weight tile streamed by TMA from the launch on; its plan:
 product the digit pass `w4_digits` and one tensor-core weight pass for all
 rows (`quant.launch_gemv_rows`, `csrc/w4_gemv_mma.cu`).
 
-K4 is stages 2-3 and K5 stages 4-5, two launches each of the W4 GEMV kernel
-(`csrc/w4_gemv.cu`); unlike the whole layer they hand h back rounded to h's
-dtype in between (K5 adds to K4's rounded h_new), while each RMSNorm still
-reads its unrounded f32 sum, as on the TPU. Every route keeps the TPU
-kernels' int8-digit arithmetic, with rows = the m tokens or batch rows, and
-the prologue values of `csrc/w4_common.cuh` (`quant._prologue_ref`).
+K4 is stages 2-3 and K5 stages 4-5, one persistent cooperative launch each
+(`csrc/w4_pair_sm90.cu`: both products' weights streamed by TMA from the
+launch on, each prologue computed once over the grid, one tensor-core weight
+pass for all m <= 32 rows; its plan: `pair_plan`); unlike the whole layer
+they hand h back rounded to h's dtype in between (K5 adds to K4's rounded
+h_new), while each RMSNorm still reads its unrounded f32 sum, as on the
+TPU. Every route keeps the TPU kernels' int8-digit arithmetic, with rows =
+the m tokens or batch rows, and the prologue values of `csrc/w4_common.cuh`
+(`quant._prologue_ref`). The W4 groups are any multiple of 16 up to 128
+(112 at Qwen2-0.5B's D = 896), the head dims 64 or 128.
 
 The TPU kernels spread the head outputs block-diagonally over 8 rows and
 pad the batch to 8 or 16 rows only to fill MXU rows; here each row's
@@ -61,6 +65,7 @@ _I = ctypes.c_int
 _ATTN_B_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
 _ATTN_B_CHUNK = 128  # cache rows per block of decode_attn.cu's batched kernel
 _ATTN_COUNTER_SLOTS = 1024  # (batch row, kv head) arrival counters
+HEAD_DIMS = (64, 128)  # the head dims of K3's and K6's attention
 _attn_counters: Dict[torch.device, torch.Tensor] = {}
 _rows_memo: Dict[torch.device, Tuple[Tuple[int, ...], torch.Tensor]] = {}
 _layer_ws: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -242,7 +247,7 @@ def _live_rows_on(dev: torch.device, n_rows: Tuple[int, ...]) -> torch.Tensor:
 
 
 def _launch_attn_batched(q32, k_cache, v_cache, mask, l, n_rows, hkv, hd, grp, out):
-    """Batched attention (`decode_attn_batched`, head dim 128): q32 (B,
+    """Batched attention (`decode_attn_batched`, head dim 64 or 128): q32 (B,
     Hkv*P, hd), mask (B, S), layer l of the (L, B, S, Hkv*hd) caches, host
     live rows `n_rows` (B,), out (B, Hkv*P*hd)."""
     dev = quant.require_cuda(q32, k_cache, v_cache, mask, out)
@@ -251,7 +256,7 @@ def _launch_attn_batched(q32, k_cache, v_cache, mask, l, n_rows, hkv, hd, grp, o
     q_b, q_rows, q_hd = q32.shape
     p_rows = q_rows // hkv
     if (q_b != b or len(n_rows) != b or mask.shape != (b, s_len) or q_hd != hd
-            or kv_ld != hkv * hd or hd != 128
+            or kv_ld != hkv * hd or hd not in HEAD_DIMS
             or not grp <= p_rows <= 8 or p_rows * hkv != q_rows
             or not all(0 < n <= s_len for n in n_rows) or not 0 <= l < L):
         raise ValueError(f"q {tuple(q32.shape)}, cache {tuple(k_cache.shape)}, "
@@ -271,38 +276,40 @@ def _launch_attn_batched(q32, k_cache, v_cache, mask, l, n_rows, hkv, hd, grp, o
 
 
 def _residual(h: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """The GEMV epilogue argument that adds residual rows h (bf16 rows, or
-    the f32 sum of the layer's previous stage)."""
+    """The rows GEMV's epilogue argument that adds residual rows h (bf16
+    rows, or the f32 sum of the layer's previous stage)."""
     return {"res_bf16": h} if h.dtype == torch.bfloat16 else {"res_f32": h}
 
 
-def _launch_o_gateup(x_att, h, l, o_slot, gu_slot, gpost, eps, h_new=None,
-                     gemv=quant.launch_gemv):
-    """Two GEMVs (`gemv`: `quant.launch_gemv` or `quant.launch_gemv_rows`):
-    h32 = h + x_att @ W_o[l] (f32, and rounded into `h_new` when given);
-    gu = rms(h32)*g @ W_gu[l]. Returns (h32, gu)."""
+def _launch_o_gateup(x_att, h, l, o_slot, gu_slot, gpost, eps, h_new=None):
+    """K6's o and gate_up stages, each a digit pass and a tensor-core rows
+    GEMV (`quant.launch_gemv_rows`): h32 = h + x_att @ W_o[l] (f32, and
+    rounded into `h_new` when given); gu = rms(h32)*g @ W_gu[l]. Returns
+    (h32, gu)."""
     m, dev = x_att.shape[0], x_att.device
     h32 = torch.empty((m, h.shape[1]), dtype=torch.float32, device=dev)
-    gemv(x_att, o_slot["packed"], o_slot["scales"], l, m=m,
-         out_f32=h32, out_bf16=h_new, **_residual(h))
+    quant.launch_gemv_rows(x_att, o_slot["packed"], o_slot["scales"], l, m=m,
+                           out_f32=h32, out_bf16=h_new, **_residual(h))
     gu = torch.empty((m, _dout(gu_slot)), dtype=torch.bfloat16, device=dev)
-    gemv(h32, gu_slot["packed"], gu_slot["scales"], l, m=m,
-         prologue=quant.PRO_RMS, gamma=gpost, eps=eps, out_bf16=gu)
+    quant.launch_gemv_rows(h32, gu_slot["packed"], gu_slot["scales"], l, m=m,
+                           prologue=quant.PRO_RMS, gamma=gpost, eps=eps, out_bf16=gu)
     return h32, gu
 
 
 def _launch_down_qkv(gu, h, l, l_next, down_slot, qkv_slot, gin, bias, eps,
-                     h_new=None, gemv=quant.launch_gemv):
-    """Two GEMVs (`gemv` as in `_launch_o_gateup`): h32 = h + (silu(g)*u)
-    @ W_d[l] (f32, and rounded into `h_new` when given); qkv = rms(h32)*g @
-    W_qkv[l+1] + b (bf16). Returns (h32, qkv)."""
+                     h_new=None):
+    """K6's down and qkv stages (as `_launch_o_gateup`): h32 = h +
+    (silu(g)*u) @ W_d[l] (f32, and rounded into `h_new` when given); qkv =
+    rms(h32)*g @ W_qkv[l+1] + b (bf16). Returns (h32, qkv)."""
     m, dev = gu.shape[0], gu.device
     h32 = torch.empty((m, h.shape[1]), dtype=torch.float32, device=dev)
-    gemv(gu, down_slot["packed"], down_slot["scales"], l, m=m,
-         prologue=quant.PRO_SILU, out_f32=h32, out_bf16=h_new, **_residual(h))
+    quant.launch_gemv_rows(gu, down_slot["packed"], down_slot["scales"], l, m=m,
+                           prologue=quant.PRO_SILU, out_f32=h32, out_bf16=h_new,
+                           **_residual(h))
     qkv = torch.empty((m, _dout(qkv_slot)), dtype=torch.bfloat16, device=dev)
-    gemv(h32, qkv_slot["packed"], qkv_slot["scales"], l_next, m=m,
-         prologue=quant.PRO_RMS, gamma=gin, eps=eps, bias=bias, out_bf16=qkv)
+    quant.launch_gemv_rows(h32, qkv_slot["packed"], qkv_slot["scales"], l_next, m=m,
+                           prologue=quant.PRO_RMS, gamma=gin, eps=eps, bias=bias,
+                           out_bf16=qkv)
     return h32, qkv
 
 
@@ -313,36 +320,198 @@ def _bf16_like(h: torch.Tensor) -> torch.Tensor:
     return torch.empty(h.shape, dtype=h.dtype, device=h.device)
 
 
-def _launch_layer_tail(x_att, h, l, l_next, slots, rows, eps, gemv):
-    """K6's four GEMV stages with rows = x_att's rows (`gemv`: the
-    tensor-core rows route `quant.launch_gemv_rows`, each stage a digit pass
-    and one weight pass for all rows); the residual stays f32 from o to
-    down. Returns (h_new bf16, qkv bf16)."""
+def _launch_layer_tail(x_att, h, l, l_next, slots, rows, eps):
+    """K6's four GEMV stages with rows = x_att's rows (each a digit pass
+    and one tensor-core weight pass for all rows); the residual stays f32
+    from o to down. Returns (h_new bf16, qkv bf16)."""
     o_slot, gu_slot, down_slot, qkv_slot = slots
     gpost, gin, bias = rows
     h_new = _bf16_like(h)
-    h32, gu = _launch_o_gateup(x_att, h, l, o_slot, gu_slot, gpost, eps, gemv=gemv)
+    h32, gu = _launch_o_gateup(x_att, h, l, o_slot, gu_slot, gpost, eps)
     _, qkv = _launch_down_qkv(gu, h32, l, l_next, down_slot, qkv_slot, gin, bias,
-                              eps, h_new=h_new, gemv=gemv)
+                              eps, h_new=h_new)
     return h_new, qkv
+
+
+# --------------------------------------------------------------------------
+# K4, K5: one persistent launch each (csrc/w4_pair_sm90.cu)
+# --------------------------------------------------------------------------
+
+# the most K splits of a product's column tiles: product 1's partials are
+# summed by each row's owner CTA, two splits a round (few), product 2's by a
+# pass spread over the grid
+PAIR_SPLIT_CAPS = (4, 16)
+_PAIR_PTRS = ctypes.c_void_p * 13
+_PAIR_INTS = ctypes.c_int * 23
+_pair_ws: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+_pair_ws_floats: Dict[Tuple[int, ...], int] = {}
+_pair_last: Dict[torch.device, ctypes.Array] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def pair_plan(dout: int, ngh: int, n_cta: int, cap: int = PAIR_SPLIT_CAPS[1]):
+    """(whole tiles, K splits, groups per split) of one product of K4/K5's
+    persistent launch: column tiles of 128 [0, whole) are units of their
+    own; each of the other tiles is cut into `splits` runs of `groups per
+    split` groups, dealt split-major after them; the units go round-robin
+    to the n_cta CTAs (one per SM). `whole` is 0 or the tiles of every full
+    wave of CTAs. The plan leaves the busiest CTA the fewest groups; ties go
+    to fewer partial sums, then fewer splits (each split is a partial to
+    write and sum)."""
+    tiles = dout // LAYER_TILE_N
+    best = None
+    for whole in sorted({0, tiles // n_cta * n_cta}):
+        rest = tiles - whole
+        for ks in (range(1, min(cap, ngh) + 1) if rest else (1,)):
+            gps = -(-ngh // ks)
+            ks = -(-ngh // gps)
+            load = [0] * n_cta
+            for u in range(whole):
+                load[u % n_cta] += ngh
+            for v in range(rest * ks):
+                z = v // rest
+                load[(whole + v) % n_cta] += min(ngh, (z + 1) * gps) - z * gps
+            key = (max(load), rest * ks if ks > 1 else 0, ks)
+            if best is None or key < best[0]:
+                best = (key, (whole, ks, gps))
+    return best[1]
+
+
+def pair_work(dims, n_cta: int):
+    """Every unit of K4's or K5's two products, (din, dout) or (din, dout,
+    group) each in `dims` (the group is the quantizer's, `quant.group_for`,
+    when not given), as the kernel deals them: (product, CTA, column tile,
+    split, columns range, groups range)."""
+    for p, dim in enumerate(dims):
+        din, dout = dim[:2]
+        gs = dim[2] if len(dim) > 2 else quant.group_for(din // 2)
+        ngh = din // 2 // gs
+        whole, ks, gps = pair_plan(dout, ngh, n_cta, PAIR_SPLIT_CAPS[p])
+        tiles = dout // LAYER_TILE_N
+        rest = tiles - whole
+        for u in range(whole + rest * ks):
+            if u < whole:
+                tile, z, g = u, 0, (0, ngh)
+            else:
+                z, t = divmod(u - whole, rest)
+                tile, g = whole + t, (z * gps, min(ngh, (z + 1) * gps))
+            yield (p, u % n_cta, tile, z,
+                   (tile * LAYER_TILE_N, (tile + 1) * LAYER_TILE_N), g)
+
+
+def _pair_workspace(dev: torch.device, ints) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The device's K4/K5 scratch (f32, grown to what the plan needs, else
+    made once) and its words (zeroed once): the grid barrier's 64-bit
+    arrival count, which every launch advances and none resets, then the two
+    products' (row, plane) amax words, which it leaves zeroed. Launches share
+    them, so they run on one stream."""
+    key = tuple(ints[:6]) + tuple(ints[7:])
+    with _state_lock:
+        floats = _pair_ws_floats.get(key)
+        if floats is None:
+            fn = getattr(_build.load("w4_pair_sm90.cu"), "w4_pair_ws_floats")
+            fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_longlong
+            floats = _pair_ws_floats[key] = int(fn(ctypes.cast(ints, ctypes.c_void_p)))
+        ws, bar = _pair_ws.get(dev, (None, None))
+        if bar is None:
+            bar = torch.zeros(2 + 4 * 32, dtype=torch.int32, device=dev)
+        if ws is None or ws.numel() < floats:
+            ws = torch.empty(floats, dtype=torch.float32, device=dev)
+        _pair_ws[dev] = (ws, bar)
+        return ws, bar
+
+
+def pair_first_digits(dev: torch.device):
+    """The digits (2, 2, m_pad, ngh * gp) int8 and lo-plane group sums (ngh,
+    2, m_pad) int32 of product 1 of the device's last K4/K5 launch, as the
+    launch left them in its workspace (for checks: `quant._w4_digits_ref`'s
+    layout)."""
+    ints = _pair_last[dev]
+    ws, _ = _pair_ws[dev]
+    fn = getattr(_build.load("w4_pair_sm90.cu"), "w4_pair_ws_offsets")
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], None
+    off = (ctypes.c_longlong * 6)()
+    fn(ctypes.cast(ints, ctypes.c_void_p), ctypes.cast(off, ctypes.c_void_p))
+    m_pad, din, gs = ints[1], ints[7], ints[11]
+    ngh = din // 2 // gs
+    hp = ngh * quant.padded_group(gs)
+    raw = ws.view(torch.uint8)
+    digits = raw[off[0] * 4:off[0] * 4 + 4 * m_pad * hp].view(torch.int8)
+    gsum = raw[off[2] * 4:off[2] * 4 + ngh * 2 * m_pad * 4].view(torch.int32)
+    return digits.reshape(2, 2, m_pad, hp), gsum.reshape(ngh, 2, m_pad)
+
+
+def launch_pair(x, h, gamma, bias, first, second, prologue, eps, h_out, out,
+                stamps=None) -> None:
+    """Launch K4 (prologue `quant.PRO_NONE`: x = attention rows) or K5
+    (`quant.PRO_SILU`: x = gate | up rows) on the current stream: first =
+    (slot, layer) of product 1 (o or down), second = (slot, layer) of
+    product 2 (gate_up or qkv); h (m, D) bf16 residual, gamma (D,) the RMS
+    scale of product 2's input, bias (dout2,) or None; h_out (m, D) and out
+    (m, dout2) bf16. `stamps`, nine int64 on the card, receives CTA 0's
+    %globaltimer at the start, after each grid barrier and at the end (for
+    checks). Counts nothing."""
+    dev = quant.require_cuda(x, h, gamma, h_out, out)
+    m, d_model = h.shape
+    if not 1 <= m <= 32 or x.shape[0] != m or h_out.shape != (m, d_model):
+        raise ValueError(f"K4/K5 take 1..32 rows: x {tuple(x.shape)}, h {tuple(h.shape)}")
+    for t in (x, h, gamma, h_out, out) + (() if bias is None else (bias,)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"K4/K5 take and return bf16, got {t.dtype}")
+    if bias is not None:
+        quant.require_cuda(x, bias)
+    if any(t.data_ptr() % 16 for t in (x, h, gamma, h_out, out)):
+        raise ValueError("K4/K5 take 16-byte aligned rows")
+    n_sm, _ = quant._device_state(dev)
+    dims, ptrs = [], []
+    for p, (slot, li) in enumerate((first, second)):
+        pk, sc = slot["packed"], slot["scales"]
+        quant.require_cuda(x, pk, sc)
+        quant._check_w4(pk, sc)
+        half, bout, nj, ngh, gs, din, dout = quant._tiled_meta(pk, sc)
+        quant.check_group(gs, "K4/K5")
+        if bout % LAYER_TILE_N:
+            raise ValueError(f"K4/K5 need bout % 128 == 0 ({bout})")
+        s_rows = sc.shape[-2]
+        _, _, l = quant._layer(pk, sc, li)
+        dims += [din, dout, bout, s_rows, gs, *pair_plan(dout, ngh, n_sm, PAIR_SPLIT_CAPS[p])]
+        ptrs += [pk.data_ptr() + l * nj * half * bout, sc.data_ptr() + l * nj * s_rows * bout * 2]
+    din1, dout1, din2, dout2 = dims[0], dims[1], dims[8], dims[9]
+    ldx = 2 * din1 if prologue == quant.PRO_SILU else din1
+    if (x.shape != (m, ldx) or dout1 != d_model or din2 != d_model or out.shape != (m, dout2)
+            or gamma.numel() != d_model or (bias is not None and bias.numel() != dout2)):
+        raise ValueError(f"x {tuple(x.shape)}, h {tuple(h.shape)}, out {tuple(out.shape)} "
+                         f"against products ({din1}, {dout1}) and ({din2}, {dout2})")
+    ints = _PAIR_INTS(m, 8 * -(-m // 8), ldx, d_model, n_sm, prologue,
+                      quant._device_index(dev), *dims)
+    ws, bar = _pair_workspace(dev, ints)
+    _pair_last[dev] = ints
+    args = _PAIR_PTRS(x.data_ptr(), h.data_ptr(), gamma.data_ptr(), quant._ptr(bias),
+                      h_out.data_ptr(), out.data_ptr(), ws.data_ptr(), bar.data_ptr(),
+                      quant._ptr(stamps), *ptrs)
+    fn = quant._fn("w4_pair_sm90.cu", "w4_pair",
+                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+    status = fn(ctypes.cast(args, ctypes.c_void_p), ctypes.cast(ints, ctypes.c_void_p),
+                float(eps), quant._stream(dev))
+    _build.check(status, "w4_pair")
 
 
 # --------------------------------------------------------------------------
 # K3: one persistent launch per layer (csrc/decode_layer_sm90.cu)
 # --------------------------------------------------------------------------
 
-LAYER_TILE_N, LAYER_GROUP, LAYER_MAX_CHUNK = 128, 128, 64
+LAYER_TILE_N, LAYER_MAX_CHUNK = 128, 64
 # the most K splits of each product (o, gate_up, down, qkv): o's and down's
 # partials are summed whole by every CTA (h32 and h32b feed an RMSNorm),
 # gate_up's and qkv's by one pass spread over the grid
 LAYER_SPLIT_CAPS = (4, 16, 4, 16)
 _LAYER_PTRS = ctypes.c_void_p * 21
-_LAYER_INTS = ctypes.c_int * 35
+_LAYER_INTS = ctypes.c_int * 40
 
 
 @functools.lru_cache(maxsize=None)
 def layer_plan(dout: int, ngh: int, n_cta: int, cap: int) -> Tuple[int, int]:
-    """(K splits, groups of 128 input rows per split) of one product of the
+    """(K splits, groups of input rows per split) of one product of the
     persistent layer: its (column tile of 128, split) units are dealt
     round-robin to the n_cta CTAs (one per SM); the split count that leaves
     the busiest CTA the fewest groups, at most `cap`, ties to fewer splits
@@ -368,11 +537,14 @@ def attn_plan(n_rows: int, hkv: int, n_cta: int) -> Tuple[int, int]:
 
 
 def layer_work(dims, n_cta: int):
-    """Every unit of the persistent layer's four products, (din, dout) each
-    in `dims` (o, gate_up, down, qkv), as the kernel deals them: (product,
-    CTA, column tile, split, columns range, groups range)."""
-    for p, (din, dout) in enumerate(dims):
-        ngh = din // 2 // LAYER_GROUP
+    """Every unit of the persistent layer's four products, (din, dout) or
+    (din, dout, group) each in `dims` (o, gate_up, down, qkv; the group is
+    the quantizer's, `quant.group_for`, when not given), as the kernel deals
+    them: (product, CTA, column tile, split, columns range, groups range)."""
+    for p, dim in enumerate(dims):
+        din, dout = dim[:2]
+        gs = dim[2] if len(dim) > 2 else quant.group_for(din // 2)
+        ngh = din // 2 // gs
         ks, gps = layer_plan(dout, ngh, n_cta, LAYER_SPLIT_CAPS[p])
         tiles = dout // LAYER_TILE_N
         for u in range(tiles * ks):  # split-major
@@ -384,10 +556,10 @@ def layer_work(dims, n_cta: int):
 
 def _layer_workspace(dev: torch.device, ints) -> Tuple[torch.Tensor, torch.Tensor]:
     """The device's persistent-layer scratch (f32, grown to what the plan
-    needs, else made once) and its two barrier words (zeroed once; the
-    kernel leaves them as generations). Launches share them, so they run on
-    one stream."""
-    key = tuple(ints[1:34])
+    needs, else made once) and its grid barrier's 64-bit arrival count
+    (zeroed once; every launch advances it, none resets it). Launches share
+    them, so they run on one stream."""
+    key = tuple(ints[1:-1])
     with _state_lock:
         floats = _layer_ws_floats.get(key)
         if floats is None:
@@ -418,7 +590,7 @@ def launch_layer(q32, k_cache, v_cache, mask, h_row, l, l_next, n_rows, hkv, hd,
     L, b, s_len, kv_ld = k_cache.shape
     p_rows = q32.shape[0] // hkv
     d_model = h_row.shape[-1]
-    if (b != 1 or hd != 128 or kv_ld != hkv * hd or not 0 < n_rows <= s_len
+    if (b != 1 or hd not in HEAD_DIMS or kv_ld != hkv * hd or not 0 < n_rows <= s_len
             or not grp <= p_rows <= 8 or q32.shape != (hkv * p_rows, hd)
             or not 0 <= l < L or h_row.numel() != d_model or mask.shape[-1] != s_len):
         raise ValueError(f"q {tuple(q32.shape)}, cache {tuple(k_cache.shape)}, rows "
@@ -436,22 +608,23 @@ def launch_layer(q32, k_cache, v_cache, mask, h_row, l, l_next, n_rows, hkv, hd,
         quant.require_cuda(q32, pk, sc)
         quant._check_w4(pk, sc)
         half, bout, nj, ngh, gs, din, dout = quant._tiled_meta(pk, sc)
-        if gs != LAYER_GROUP or bout % LAYER_TILE_N:
-            raise ValueError(f"the layer kernel needs group 128 and bout % 128 == 0 "
-                             f"({gs}, {bout})")
+        quant.check_group(gs, "the layer kernel")
+        if bout % LAYER_TILE_N:
+            raise ValueError(f"the layer kernel needs bout % 128 == 0 ({bout})")
         s_rows = sc.shape[-2]
-        dims += [din, dout, bout, s_rows,
+        dims += [din, dout, bout, s_rows, gs,
                  *layer_plan(dout, ngh, n_sm, LAYER_SPLIT_CAPS[p])]
         packed.append(pk.data_ptr() + li * nj * half * bout)
         scales.append(sc.data_ptr() + li * nj * s_rows * bout * 2)
-    inter = dims[7] // 2
-    if out.numel() != d_model + dims[19]:
+    inter = dims[8] // 2
+    dq = dims[22]
+    if out.numel() != d_model + dq:
         raise ValueError(f"out {tuple(out.shape)} does not hold h and qkv")
-    for t, n in ((gpost, d_model), (gin, d_model), (bias, dims[19])):
+    for t, n in ((gpost, d_model), (gin, d_model), (bias, dq)):
         if t is not None and (t.dtype != torch.bfloat16 or t.numel() != n):
             raise ValueError(f"layer vector {tuple(t.shape)} {t.dtype}")
     ints = _LAYER_INTS(n_rows, kv_ld, hkv, p_rows, grp, chunk, nsplit, d_model, inter,
-                       n_sm, *dims, quant._device_index(dev))
+                       n_sm, hd, *dims, quant._device_index(dev))
     ws, bar = _layer_workspace(dev, ints)
     layer_off = l * s_len * kv_ld * 2
     ptrs = _LAYER_PTRS(
@@ -541,8 +714,7 @@ def fused_layer_batched(
     x_att = torch.empty((b, hkv * p_rows * hd), dtype=torch.bfloat16, device=q32.device)
     _launch_attn_batched(q32, k_cache, v_cache, mask, l, n_rows, hkv, hd, grp, x_att)
     h_new, qkv = _launch_layer_tail(
-        x_att, h, l, l_next, (o_slot, gu_slot, down_slot, qkv_slot), rows, eps,
-        gemv=quant.launch_gemv_rows)
+        x_att, h, l, l_next, (o_slot, gu_slot, down_slot, qkv_slot), rows, eps)
     _build.count("fused_layer_batched")
     return h_new, qkv
 
@@ -563,8 +735,9 @@ def fused_o_gateup(
                                    gamma_post, eps)
     l = operator.index(layer_index)
     h_new = _bf16_like(h)
-    _, gu = _launch_o_gateup(attn_out, h, l, o_slot, gu_slot,
-                             gamma_post[l].to(torch.bfloat16), eps, h_new=h_new)
+    gu = torch.empty((h.shape[0], _dout(gu_slot)), dtype=torch.bfloat16, device=h.device)
+    launch_pair(attn_out, h, gamma_post[l].to(torch.bfloat16), None, (o_slot, l),
+                (gu_slot, l), quant.PRO_NONE, eps, h_new, gu)
     _build.count("fused_o_gateup")
     return h_new, gu
 
@@ -587,7 +760,8 @@ def fused_down_qkv(
     l, l_next, (_, gin, bias) = _layer_rows(
         down_slot, qkv_slot, gamma_in, gamma_in, layer_index)
     h_new = _bf16_like(h)
-    _, qkv = _launch_down_qkv(gu, h, l, l_next, down_slot, qkv_slot, gin, bias,
-                              eps, h_new=h_new)
+    qkv = torch.empty((h.shape[0], _dout(qkv_slot)), dtype=torch.bfloat16, device=h.device)
+    launch_pair(gu, h, gin, bias, (down_slot, l), (qkv_slot, l_next), quant.PRO_SILU, eps,
+                h_new, qkv)
     _build.count("fused_down_qkv")
     return h_new, qkv

@@ -8,16 +8,19 @@ is (no re-layout):
   * packed `(..., NJ, din/2, bout)` uint8: byte [i, o] of block j holds
     w[i, j*bout + o] (low nibble) and w[i + din/2, j*bout + o] (high
     nibble), symmetric int4 [-8, 7] stored +8;
-  * scales `(..., NJ, scale_rows(ngh), bout)` bf16, one per (group of 128
-    input rows, output): lo-half groups, then hi-half groups, then zero
-    rows up to a multiple of 8.
+  * scales `(..., NJ, scale_rows(ngh), bout)` bf16, one per (group of input
+    rows, output): lo-half groups, then hi-half groups, then zero rows up to
+    a multiple of 8. A group is 128 rows, or the largest size below that
+    divides din/2 (`group_for`: 112 at D = 896); the kernels take groups
+    that are multiples of 16 up to 128.
 
 Two kernels, dispatched by the number of rows M (as `w4_matmul`):
 
   * M <= 32, `w4_matmul_decode` (K1, `w4_gemv.cu`): the activations are
     expanded per row into two int8 digits and contracted with s8 x s8 ->
     s32 dot products, with the lo plane's zero point corrected by a group
-    row sum, exactly the TPU kernel's arithmetic;
+    row sum, exactly the TPU kernel's arithmetic (groups that are multiples
+    of 16: 128, or 112 where the quantizer takes it, `group_for`);
   * M > 32, `w4_matmul_prefill` (K2, `w4_gemm_sm90.cu`): the weight tile
     is dequantised to bf16 with the TPU kernel's roundings, by warps of its
     own while the previous tile's wgmma products run, and contracted on the
@@ -28,7 +31,9 @@ pair, `csrc/w4_gemv_mma.cu` (`launch_gemv_rows`): `w4_digits` expands the M
 rows once per product, `w4_gemv_rows` streams the weights once for all rows
 through the int8 tensor cores (`mma.sync` m16n8k32), summing whole groups in
 int32 before the f32 scale (plain versions `_w4_digits_ref`,
-`_w4_gemv_rows_ref`, together `_w4_rows_ref`).
+`_w4_gemv_rows_ref`, together `_w4_rows_ref`). The tensor-core kernels (K3,
+K4/K5, K6) keep each group's digits padded with zeros to a multiple of 32
+rows, the mma k step (`padded_group`).
 
 Each wrapper takes its plain PyTorch version (`_w4_gemv_ref`,
 `_w4_gemm_ref`) for CPU tensors only; a CUDA tensor launches the kernel or
@@ -140,11 +145,22 @@ def pad_o_heads(
     )
 
 
+def group_for(half: int, group_size: int = DEFAULT_GROUP) -> int:
+    """The quantizer's group: the largest size <= group_size that divides
+    the half-contraction (`quantize_llm_params`; 112 at D = 896)."""
+    g = group_size
+    while half % g != 0:
+        g -= 1
+    return g
+
+
 def _tiled_meta(packed: torch.Tensor, scales: torch.Tensor):
-    """(half, bout, nj, ngh, group_size, din, dout) from the tiled shapes."""
+    """(half, bout, nj, ngh, group_size, din, dout) from the tiled shapes:
+    the JAX package's candidate sizes first, then the quantizer's own rule
+    (`group_for`), which the candidates miss at D = 896 (group 112)."""
     *_, nj, half, bout = packed.shape
     rows = scales.shape[-2]
-    for gs in (DEFAULT_GROUP, 64, 256, 32, 16, 512):
+    for gs in (DEFAULT_GROUP, 64, 256, 32, 16, 512, group_for(half)):
         if half % gs:
             continue
         ngh = half // gs
@@ -277,24 +293,52 @@ def _prologue_ref(x, prologue, gamma=None, eps=0.0):
     return x32.to(torch.bfloat16).float()
 
 
+def padded_group(group: int) -> int:
+    """A group's length in the int8-digit buffers of the tensor-core kernels
+    (K3, K6, K4/K5): the next multiple of 32, the mma k step. The digits
+    past the group's end are zeros, so the weight rows a padded step reads
+    past the group (the next group's first rows, or zeros past the slab)
+    add nothing, and the lo plane's group sums are unchanged."""
+    return 32 * -(-group // 32)
+
+
+def check_group(group: int, name: str) -> None:
+    """The groups the tensor-core and GEMV kernels take: multiples of 16 up
+    to 128 (128, 112 and 64 among them)."""
+    if group % 16 or not 16 <= group <= 128:
+        raise ValueError(f"{name} takes W4 groups that are multiples of 16 up to 128, "
+                         f"got {group}")
+
+
 def _w4_digits_ref(x, prologue=PRO_NONE, gamma=None, eps=0.0, m_pad=None, group=128):
     """Plain version of the `w4_digits` kernel: (digits (2 planes, 2
-    digits, m_pad, din/2) int8 in w4_gemv_rows' k order, dscale (m_pad, 2,
-    2) f32 = (s1, s2) per plane, gsum (ngh, 2 digits, m_pad) int32 = the lo
+    digits, m_pad, ngh * gp) int8, each group padded with zeros to gp =
+    `padded_group(group)` and in w4_gemv_rows' k order, dscale (m_pad, 2, 2)
+    f32 = (s1, s2) per plane, gsum (ngh, 2 digits, m_pad) int32 = the lo
     plane's per-group digit sums); rows past x's are zeros. The digits and
     scales are `_digits`' per half-plane."""
     v = _prologue_ref(x, prologue, gamma, eps)
     m, din = v.shape
     half = din // 2
+    ngh, gp = half // group, padded_group(group)
     m_pad = m_pad or 8 * -(-m // 8)
-    digits = torch.zeros((2, 2, m_pad, half), dtype=torch.int8, device=x.device)
+    digits = torch.zeros((2, 2, m_pad, ngh, gp), dtype=torch.int8, device=x.device)
     dscale = torch.zeros((m_pad, 2, 2), dtype=torch.float32, device=x.device)
     for p in range(2):
         for d, (q, sx) in enumerate(_digits(v[:, p * half:(p + 1) * half])):
-            digits[p, d, :m] = _mma_order(q.to(torch.int8))
+            digits[p, d, :m, :, :group] = q.to(torch.int8).reshape(m, ngh, group)
             dscale[:m, p, d] = sx[:, 0]
-    gsum = digits[0].int().reshape(2, m_pad, half // group, group).sum(-1)
+    gsum = digits[0].int().sum(-1)  # (2, m_pad, ngh)
+    digits = _mma_order(digits.reshape(2, 2, m_pad, ngh * gp))
     return digits, dscale, gsum.permute(2, 0, 1).contiguous()
+
+
+def _unpad_digits(digits, group):
+    """(..., ngh * gp) padded digits in the kernels' k order -> (..., ngh *
+    group) in input order."""
+    gp = padded_group(group)
+    d = _plain_order(digits)
+    return d.reshape(*d.shape[:-1], -1, gp)[..., :group].reshape(*d.shape[:-1], -1)
 
 
 def _w4_gemv_rows_ref(digits, dscale, gsum, packed, scales, layer_index=None, m=None):
@@ -310,7 +354,7 @@ def _w4_gemv_rows_ref(digits, dscale, gsum, packed, scales, layer_index=None, m=
     h16 = ((p & 0xF0) ^ 0x80).view(torch.int8).double().reshape(ngh, gs, dout)
     s = _untile(scales, 2 * ngh).float()
     s_lo, s_hi = s[:ngh], s[ngh:] / 16.0
-    q = _plain_order(digits[:, :, :m].double()).reshape(2, 2, m, ngh, gs)
+    q = _unpad_digits(digits[:, :, :m].double(), gs).reshape(2, 2, m, ngh, gs)
     acc = torch.zeros((m, dout), dtype=torch.float32, device=digits.device)
     for d in range(2):
         d_lo = (torch.einsum("mgk,gkn->mgn", q[0, d], lo)
@@ -324,7 +368,8 @@ def _w4_gemv_rows_ref(digits, dscale, gsum, packed, scales, layer_index=None, m=
 def _w4_rows_ref(x, packed, scales, layer_index=None, prologue=PRO_NONE, gamma=None,
                  eps=0.0):
     """The digit pass and the rows GEMV in plain PyTorch: (m, dout) f32."""
-    digits, dscale, gsum = _w4_digits_ref(x, prologue, gamma, eps)
+    gs = _tiled_meta(packed, scales)[4]
+    digits, dscale, gsum = _w4_digits_ref(x, prologue, gamma, eps, group=gs)
     return _w4_gemv_rows_ref(digits, dscale, gsum, packed, scales, layer_index,
                              m=x.shape[0])
 
@@ -335,8 +380,8 @@ ROWS_TILE_N = 128
 @functools.lru_cache(maxsize=None)
 def rows_plan(dout: int, ngh: int, n_sm: int):
     """(column tiles, K splits, groups per split) of `w4_gemv_rows`: 128
-    output columns per CTA and the fewest splits of the groups of 128 input
-    rows that give the grid one CTA per SM. Fewer, longer CTAs win on the
+    output columns per CTA and the fewest splits of the ngh groups of input
+    rows (of any size the kernel takes) that give the grid one CTA per SM. Fewer, longer CTAs win on the
     H100: each CTA's start (barriers, the first loads) and each split's
     partial cost more than a second resident CTA per SM gains."""
     tiles = dout // ROWS_TILE_N
@@ -366,14 +411,10 @@ def rows_work(dout: int, bout: int, ngh: int, n_sm: int):
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_GEMV_ARGTYPES = [
-    _P, _I, _I, _I, _P, ctypes.c_float, _P, _P,
-    _I, _I, _I, _I, _I, _I, _I, _I,
-    _P, _P, _P, _P, _P, _P, _P, _P,
-]
+_GEMV_ARGTYPES = [_P, _P, _P] + [_I] * 8 + [_P] * 4
 _GEMM_ARGTYPES = [_P] * 6 + [_I] * 13 + [_P]
-_DIGITS_ARGTYPES = [_P, _I, _I, _I, _P, ctypes.c_float, _I, _I, _I, _P, _P, _P, _P, _P]
-_ROWS_ARGTYPES = [_P] * 5 + [_I] * 8 + [_P] * 8
+_DIGITS_ARGTYPES = [_P, _I, _I, _I, _P, ctypes.c_float, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+_ROWS_ARGTYPES = [_P] * 5 + [_I] * 9 + [_P] * 8
 _counters: Dict[int, torch.Tensor] = {}
 _gemm_counters: Dict[int, torch.Tensor] = {}
 _sm_count: Dict[int, int] = {}
@@ -415,39 +456,24 @@ def _check_w4(packed, scales):
         raise TypeError(f"W4 slot must be uint8/bf16, got {packed.dtype}/{scales.dtype}")
 
 
-def launch_gemv(x, packed, scales, layer_index, *, m, prologue=PRO_NONE,
-                gamma=None, eps=0.0, res_f32=None, res_bf16=None, bias=None,
-                out_f32=None, out_bf16=None) -> None:
-    """Launch the W4 GEMV kernel (any prologue/epilogue variant) on the
-    current stream. `x` holds m rows: (m, din) or, for the SiLU prologue,
-    (m, 2*din) gate|up. Counts nothing: the public wrappers count."""
-    dev = require_cuda(x, packed, scales)
+def launch_gemv(x, packed, scales, layer_index, out) -> None:
+    """Launch the W4 GEMV kernel (K1) on the current stream: out (m, dout)
+    bf16 = x (m <= 32, din) bf16 @ the W4 slot. Counts nothing: the public
+    wrapper counts."""
+    dev = require_cuda(x, packed, scales, out)
     _check_w4(packed, scales)
     half, bout, nj, ngh, gs, din, dout = _tiled_meta(packed, scales)
-    s_rows = scales.shape[-2]
-    ldx = 2 * din if prologue == PRO_SILU else din
-    if x.numel() != m * ldx or not 1 <= m <= 32:
-        raise ValueError(f"x {tuple(x.shape)} does not hold {m} rows of {ldx}")
-    x_f32 = x.dtype == torch.float32
-    if x.dtype not in (torch.bfloat16, torch.float32) or (
-        x_f32 and prologue != PRO_RMS
-    ):
-        raise TypeError(f"unsupported input dtype {x.dtype} for prologue {prologue}")
-    if gs % 32 or bout % 4:
-        raise ValueError(f"kernel needs group % 32 == 0 and bout % 4 == 0 ({gs}, {bout})")
-    for t, dt in ((gamma, torch.bfloat16), (bias, torch.bfloat16),
-                  (res_f32, torch.float32), (res_bf16, torch.bfloat16),
-                  (out_f32, torch.float32), (out_bf16, torch.bfloat16)):
-        if t is not None:
-            require_cuda(x, t)
-            if t.dtype != dt:
-                raise TypeError(f"expected {dt}, got {t.dtype}")
-    if prologue == PRO_RMS and (gamma is None or gamma.numel() != din):
-        raise ValueError("RMS prologue needs a (din,) gamma")
+    m = x.shape[0]
+    if x.shape != (m, din) or not 1 <= m <= 32 or out.shape != (m, dout):
+        raise ValueError(f"x {tuple(x.shape)} / out {tuple(out.shape)} against ({din}, "
+                         f"{dout}), m <= 32")
+    if x.dtype != torch.bfloat16 or out.dtype != torch.bfloat16:
+        raise TypeError(f"w4_gemv takes and returns bf16, got {x.dtype} / {out.dtype}")
+    check_group(gs, "w4_gemv")
+    if bout % 4:
+        raise ValueError(f"w4_gemv needs bout % 4 == 0 ({bout})")
     _, _, l = _layer(packed, scales, layer_index)
-    p_off = l * nj * half * bout
-    s_off = l * nj * s_rows * bout * 2
-
+    s_rows = scales.shape[-2]
     n_sm, counters = _device_state(dev)
     nr = 1 if m == 1 else 4
     tiles = -(-dout // GEMV_TILE_N) * -(-m // nr)
@@ -460,25 +486,29 @@ def launch_gemv(x, packed, scales, layer_index, *, m, prologue=PRO_NONE,
     if ksplit > 1:
         ws = torch.empty((ksplit, m, dout), dtype=torch.float32, device=dev)
     status = _fn("w4_gemv.cu", "w4_gemv", _GEMV_ARGTYPES)(
-        x.data_ptr(), int(x_f32), ldx, prologue, _ptr(gamma), float(eps),
-        packed.data_ptr() + p_off, scales.data_ptr() + s_off,
+        x.data_ptr(), packed.data_ptr() + l * nj * half * bout,
+        scales.data_ptr() + l * nj * s_rows * bout * 2,
         m, din, dout, bout, s_rows, gs, ksplit, gps,
-        _ptr(ws), counters.data_ptr(), _ptr(res_f32), _ptr(res_bf16),
-        _ptr(bias), _ptr(out_f32), _ptr(out_bf16), _stream(dev),
+        _ptr(ws), counters.data_ptr(), out.data_ptr(), _stream(dev),
     )
     _build.check(status, "w4_gemv")
 
 
-def launch_digits(x, *, m, prologue=PRO_NONE, gamma=None, eps=0.0, value_out=None):
+def launch_digits(x, *, m, prologue=PRO_NONE, gamma=None, eps=0.0, value_out=None,
+                  group=DEFAULT_GROUP):
     """Launch the `w4_digits` kernel on the current stream: (digits,
-    dscale, gsum) of `_w4_digits_ref`'s shapes for x's m rows (x as in
-    `launch_gemv`); `value_out`, an (m, din) bf16 tensor, also receives the
-    prologue values the digits expand (for checks). Counts nothing."""
+    dscale, gsum) of `_w4_digits_ref`'s shapes (groups of `group` padded to
+    `padded_group`) for x's m rows ((m, din) rows, f32 or bf16 for the RMS
+    prologue, bf16 otherwise; (m, 2 din) gate | up for SiLU); `value_out`, an
+    (m, din) bf16 tensor, also receives the prologue values the digits
+    expand (for checks). Counts nothing."""
     dev = require_cuda(x)
+    check_group(group, "w4_digits")
     din = x.numel() // m // (2 if prologue == PRO_SILU else 1)
     ldx = 2 * din if prologue == PRO_SILU else din
-    if x.numel() != m * ldx or not 1 <= m <= 32 or din % 256:
-        raise ValueError(f"x {tuple(x.shape)} does not hold {m} rows of {ldx} (din % 256)")
+    if x.numel() != m * ldx or not 1 <= m <= 32 or din % (2 * group):
+        raise ValueError(f"x {tuple(x.shape)} does not hold {m} rows of {ldx} "
+                         f"(din % {2 * group})")
     x_f32 = x.dtype == torch.float32
     if x.dtype not in (torch.bfloat16, torch.float32) or (x_f32 and prologue != PRO_RMS):
         raise TypeError(f"unsupported input dtype {x.dtype} for prologue {prologue}")
@@ -491,39 +521,45 @@ def launch_digits(x, *, m, prologue=PRO_NONE, gamma=None, eps=0.0, value_out=Non
         if value_out.dtype != torch.bfloat16 or value_out.numel() != m * din:
             raise ValueError(f"value_out {tuple(value_out.shape)} {value_out.dtype}")
     m_pad = 8 * -(-m // 8)
-    digits = torch.empty((2, 2, m_pad, din // 2), dtype=torch.int8, device=dev)
+    ngh = din // 2 // group
+    digits = torch.empty((2, 2, m_pad, ngh * padded_group(group)), dtype=torch.int8,
+                         device=dev)
     dscale = torch.empty((m_pad, 2, 2), dtype=torch.float32, device=dev)
-    gsum = torch.empty((din // 256, 2, m_pad), dtype=torch.int32, device=dev)
+    gsum = torch.empty((ngh, 2, m_pad), dtype=torch.int32, device=dev)
     status = _fn("w4_gemv_mma.cu", "w4_digits", _DIGITS_ARGTYPES)(
         x.data_ptr(), int(x_f32), ldx, prologue, _ptr(gamma), float(eps), m, m_pad, din,
-        digits.data_ptr(), dscale.data_ptr(), gsum.data_ptr(), _ptr(value_out), _stream(dev))
+        group, digits.data_ptr(), dscale.data_ptr(), gsum.data_ptr(), _ptr(value_out),
+        _stream(dev))
     _build.check(status, "w4_digits")
     return digits, dscale, gsum
 
 
 def launch_gemv_rows(x, packed, scales, layer_index, *, m, prologue=PRO_NONE,
                      gamma=None, eps=0.0, **epilogue) -> None:
-    """The tensor-core W4 GEMV for m <= 32 rows, `launch_gemv`'s signature
-    (epilogue: res_f32, res_bf16, bias, out_f32, out_bf16): two launches,
+    """The tensor-core W4 GEMV for m <= 32 rows with a prologue (x as in
+    `launch_digits`) and an epilogue (res_f32, res_bf16, bias, out_f32,
+    out_bf16; `launch_rows`): two launches,
     `w4_digits` (the prologue, once) and `w4_gemv_rows` (one weight pass for
     all rows). Counts nothing: the public wrappers count."""
     require_cuda(x, packed, scales)
-    expansion = launch_digits(x, m=m, prologue=prologue, gamma=gamma, eps=eps)
+    gs = _tiled_meta(packed, scales)[4]
+    expansion = launch_digits(x, m=m, prologue=prologue, gamma=gamma, eps=eps, group=gs)
     launch_rows(expansion, packed, scales, layer_index, m=m, **epilogue)
 
 
 def launch_rows(expansion, packed, scales, layer_index, *, m, res_f32=None,
                 res_bf16=None, bias=None, out_f32=None, out_bf16=None) -> None:
     """Launch `w4_gemv_rows` over `launch_digits`' expansion (digits,
-    dscale, gsum) of m rows. Needs groups of 128 and bout % 128 == 0.
-    Counts nothing."""
+    dscale, gsum) of m rows. Needs groups that are multiples of 16 up to
+    128 and bout % 128 == 0. Counts nothing."""
     digits, dscale, gsum = expansion
     dev = require_cuda(digits, dscale, gsum, packed, scales)
     _check_w4(packed, scales)
     half, bout, nj, ngh, gs, din, dout = _tiled_meta(packed, scales)
-    if gs != 128 or bout % ROWS_TILE_N:
-        raise ValueError(f"w4_gemv_rows needs group 128 and bout % 128 == 0 ({gs}, {bout})")
-    if digits.shape[-1] != half or digits.shape[2] != 8 * -(-m // 8):
+    check_group(gs, "w4_gemv_rows")
+    if bout % ROWS_TILE_N:
+        raise ValueError(f"w4_gemv_rows needs bout % 128 == 0 ({bout})")
+    if digits.shape[-1] != ngh * padded_group(gs) or digits.shape[2] != 8 * -(-m // 8):
         raise ValueError(f"digits {tuple(digits.shape)} against {m} rows of {din}")
     for t, dt in ((bias, torch.bfloat16), (res_f32, torch.float32),
                   (res_bf16, torch.bfloat16), (out_f32, torch.float32),
@@ -543,7 +579,7 @@ def launch_rows(expansion, packed, scales, layer_index, *, m, res_f32=None,
         digits.data_ptr(), dscale.data_ptr(), gsum.data_ptr(),
         packed.data_ptr() + l * nj * half * bout,
         scales.data_ptr() + l * nj * s_rows * bout * 2,
-        m, digits.shape[2], din, dout, bout, s_rows, ksplit, gps,
+        m, digits.shape[2], din, dout, bout, s_rows, gs, ksplit, gps,
         _ptr(ws), counters.data_ptr(), _ptr(res_f32), _ptr(res_bf16), _ptr(bias),
         _ptr(out_f32), _ptr(out_bf16), _stream(dev))
     _build.check(status, "w4_gemv_rows")
@@ -652,8 +688,9 @@ def launch_gemm(x, packed, scales, layer_index, out) -> None:
         raise TypeError("w4 GEMM takes and returns bf16")
     if x.shape != (m, din) or out.shape != (m, dout):
         raise ValueError(f"x {tuple(x.shape)} / out {tuple(out.shape)} vs ({din}, {dout})")
-    if bout % 128 or half % 32 or gs % 32:
-        raise ValueError(f"kernel needs bout % 128 == 0, group % 32 == 0 ({bout}, {gs})")
+    if bout % 128 or half % 32 or gs % 16:
+        raise ValueError(f"w4_gemm needs bout % 128 == 0, din/2 % 32 == 0 and group % 16 "
+                         f"== 0 ({bout}, {half}, {gs})")
     _, _, l = _layer(packed, scales, layer_index)
     s_rows = scales.shape[-2]
     _launch_gemm_sm90(x, packed.data_ptr() + l * nj * half * bout,
@@ -697,7 +734,7 @@ def w4_matmul_decode(
     if x.dtype != torch.bfloat16:
         raise TypeError("w4_matmul_decode takes bf16 activations")
     out = torch.empty((x.shape[0], dout), dtype=torch.bfloat16, device=x.device)
-    launch_gemv(x, packed, scales, layer_index, m=x.shape[0], out_bf16=out)
+    launch_gemv(x, packed, scales, layer_index, out)
     _build.count("w4_gemv")
     return out
 
@@ -770,18 +807,11 @@ def quantize_llm_params(
         "post_attention_layernorm": src["post_attention_layernorm"],
     }
 
-    def group_for(din):
-        half = din // 2
-        g = group_size
-        while half % g != 0:
-            g -= 1
-        return g
-
     def qslot(kernel, bias=None, bout_budget=None):
         bout = None
         if bout_budget is not None:
             bout = pick_bout(kernel.shape[-2], kernel.shape[-1], budget=bout_budget)
-        q = quantize_w4(kernel, group_for(kernel.shape[-2]), bout=bout)
+        q = quantize_w4(kernel, group_for(kernel.shape[-2] // 2, group_size), bout=bout)
         slot = {"packed": q["packed"], "scales": q["scales"]}
         if bias is not None:
             slot["bias"] = bias
@@ -825,6 +855,6 @@ def quantize_llm_params(
     out["layers"] = layers
     if "lm_head" in llm_params:
         kernel = llm_params["lm_head"]["kernel"]
-        q = quantize_w4(kernel, group_for(kernel.shape[-2]))
+        q = quantize_w4(kernel, group_for(kernel.shape[-2] // 2, group_size))
         out["lm_head"] = {"packed": q["packed"], "scales": q["scales"]}
     return out
