@@ -17,10 +17,18 @@ Phases:
                K3's stage times from inside its one launch and K6's
                launches one by one; K4/K5's product-1 digits bit for bit,
                a repeat launch bit for bit, stage times from inside the
-               launch and the same products through K6's rows route; K1 on
-               the lm_head at M = 1, 8 and 24; then K1-K6 at Qwen2-0.5B
-               widths (head dim 64, W4 groups of 112 and 128, then every
-               product in groups of 64);
+               launch and the same products through K6's rows route; K1
+               (the `k1` phase) on the lm_head at M = 1, 2, 8, 16, 17, 24
+               and 32, a stacked qkv at M = 1, 8 and 24 and one layer's
+               four projections at M = 24, its wgmma form's digits and
+               both forms' repeat launches bit for bit and the stream probe
+               (128- and 256-byte boxes, 16-byte loads); then K1-K6 at Qwen2-0.5B widths (head dim 64, W4
+               groups of 112 and 128, then every product in groups of 64);
+  k1           (only when named) K1 alone through its public wrapper, as
+               in `kernels`: it runs on an earlier tree of the port as well
+               (old-against-new calls);
+  k1_forms     (only when named) K1's digit, repeat and probe checks, as
+               in `kernels`;
   e2e          serve 3 image+prompt requests through `GenerationEngine` at
                the full NVILA-8B width (Qwen2-7B W4A16 LLM, 28 layers;
                SigLIP-SO400M-448 bf16; mlp_downsample projector), weights
@@ -87,7 +95,7 @@ OUT_DIR = "chiprun_out"
 
 KERNELS = {
     "w4_gemv": dict(
-        route="cuda", source="vila_tpu_torch/csrc/w4_gemv.cu",
+        route="cuda", source="vila_tpu_torch/csrc/w4_gemv_sm90.cu",
         replaces="vila_tpu/ops/quant.py:384 (_w4_decode_manual_kernel; "
                  "grid form quant.py:349)"),
     "w4_gemm": dict(
@@ -130,6 +138,9 @@ KERNELS = {
                  "flash_attention.py:465)"),
 }
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# K1's lm_head work on the batched routes, reported inside its entry:
+# (rows, the path that runs it)
+K1_BATCHED = ((8, "serve b8"), (24, "serve b24"))
 # the kernels the serial (bs=1) path must launch
 E2E_KERNELS = ("w4_gemv", "w4_gemm", "fused_layer")
 # (max_batch, requests, new tokens) of each serve run: K6, then K4/K5
@@ -391,9 +402,10 @@ def phase_build():
             f.write(f"==== {src}\n{rep}\n")
     log(f"[build] {len(reports)} sources compiled in {secs:.1f} s "
         f"(ptxas report: {OUT_DIR}/ptxas.txt)")
-    # the Hopper kernels' registers, spills and shared memory (K7-K9, K6, K2, K3, K4/K5)
+    # the Hopper kernels' registers, spills and shared memory (K7-K9, K6, K2, K3, K4/K5, K1)
     for src in ("flash_attn_sm90.cu", "w4_gemv_mma.cu", "decode_attn.cu",
-                "w4_gemm_sm90.cu", "decode_layer_sm90.cu", "w4_pair_sm90.cu"):
+                "w4_gemm_sm90.cu", "decode_layer_sm90.cu", "w4_pair_sm90.cu",
+                "w4_gemv_sm90.cu"):
         lines = reports.get(src, "").splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry function" in line:
@@ -520,7 +532,11 @@ def phase_kernels(torch, seed, dev="cuda", dims=DIMS_8B, m_prefill=320, cache=(2
     ok &= _check_k4_k5(torch, quant, fused_decode, results, slots, qkv_slot, gpost,
                        gin, gen, flush, dims)
     if dims == DIMS_8B:
-        ok &= _check_k1_rows(torch, quant, results, slots, seed, flush)
+        good, k1 = phase_k1(torch, seed, dev)
+        ok &= good
+        results.update(k1)
+        good, results["k1_forms"] = _check_k1_forms(torch, quant, seed, flush)
+        ok &= good
         ok &= _check_small(torch, quant, fused_decode, results, seed, flush)
         ok &= _check_small(torch, quant, fused_decode, results, seed, flush, group=64)
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -572,40 +588,150 @@ def _run_k3(torch, fused_decode, results, args, fill, flush, dims, model="NVILA-
     return good
 
 
-def _check_k1_rows(torch, quant, results, slots, seed, flush, rows=(24,)):
-    """K1 on the NVILA-8B lm_head at M = 24 (the lm_head of `serve b24`; M =
-    8, of `serve b8`, is timed with the other shapes), on a generator of its
-    own, beside cuBLAS bf16 over the dequantised weights and the bound."""
+K1_LM_ROWS = (1, 2, 8, 16, 17, 24, 32)  # the lm_head: bs=1, the batched routes, short prompts
+K1_QKV_ROWS = (1, 8, 24)
+
+
+def bf16_ulps(torch, got, want):
+    """The largest difference in bf16 ulps of the largest reference value
+    (2^(e - 7) for max|want| in [2^e, 2^(e+1))): the unit of the check's
+    tolerance, 2^-7 max|want|, rounded down to a power of two."""
+    w = want.float()
+    e = math.floor(math.log2(max(float(w.abs().max()), 2.0 ** -126)))
+    return float((got.float() - w).abs().max()) / 2.0 ** (e - 7)
+
+
+def phase_k1(torch, seed, dev="cuda", reps=30, dims=DIMS_8B):
+    """K1 through its public wrapper only (`quant.w4_matmul_decode`), so the
+    same phase also times an earlier tree's K1 in an old-against-new call:
+    the NVILA-8B lm_head at M = 1, 2, 8, 16, 17, 24 and 32 and layer 1 of a
+    stacked qkv at M = 1, 8 and 24, each against `quant._w4_gemv_ref` on
+    the card within 2^-7 max|ref| (one bf16 ulp of the largest output; the
+    largest difference is reported in those ulps), timed beside cuBLAS
+    bf16 `x @ w` over the weights dequantised once; the plain version
+    and dequantize + matmul at the batched routes' M = 8 and 24; one
+    layer's four projections at M = 24 (a short prompt's prefill) on K1; the
+    host's wall time of one call (the qkv at M = 1). On a generator of its
+    own."""
+    from vila_tpu_torch.ops import quant
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    D, I, hd, Hq, Hkv, V = dims
+    shapes = {"lm_head": (D, V, None, ()), "qkv": (D, (Hq + 2 * Hkv) * hd, None, (2,)),
+              "o": (Hkv * 8 * hd, D, None, (2,)), "gate_up": (D, 2 * I, None, (2,)),
+              "down": (I, D, 5 << 20, (2,))}
+    rows = {"lm_head": K1_LM_ROWS, "qkv": K1_QKV_ROWS, "o": (24,), "gate_up": (24,),
+            "down": (24,)}
+    recs, ok, layer, slots = [], True, [], {}
+    for name, (din, dout, budget, lead) in shapes.items():
+        slot = slots[name] = synth_w4_slot(torch, gen, lead, din, dout, budget)
+        packed, scales = slot["packed"], slot["scales"]
+        li = 1 if lead else None
+        w_l = quant.dequantize({"packed": packed[li] if lead else packed,
+                                "scales": scales[li] if lead else scales})
+        group = quant._tiled_meta(packed, scales)[4]
+        for m in rows[name]:
+            x = torch.randn((m, din), generator=gen, device=dev).to(torch.bfloat16)
+            fn = lambda: quant.w4_matmul_decode(x, packed, scales, layer_index=li)  # noqa: E731
+            ref = lambda: quant._w4_gemv_ref(x, packed, scales, li)  # noqa: E731
+            got, want = fn(), ref()
+            torch.cuda.synchronize()
+            err, scale = rel_err(torch, got, want)
+            tol = 2.0 ** -7 * scale
+            good = bool(torch.isfinite(got.float()).all()) and err <= tol
+            ok &= good
+            t = time_ms(torch, fn, reps, flush)
+            t_bf16 = time_ms(torch, lambda: x @ w_l, reps, flush)
+            b_ms, b_by = bound(m * din * 2 + w4_bytes(din, dout, group) + m * dout * 2,
+                               2 * 2 * m * din * dout, INT8_OPS)
+            rec = dict(shape=name, m=m, din=din, dout=dout, max_abs_err=err, tol=tol,
+                       max_ulps=bf16_ulps(torch, got, want), ok=good, ms=t, bound_ms=b_ms,
+                       bound_by=b_by, bf16_matmul_ms=t_bf16, plain_ms=None,
+                       library_ms=None)
+            if name == "lm_head" and m in (8, 24):
+                rec["plain_ms"] = time_ms(torch, ref, 5, flush)
+                rec["library_ms"] = time_ms(torch, lambda: x @ quant.dequantize(
+                    {"packed": packed, "scales": scales}), 5, flush)
+            if m == 24 and name != "lm_head":
+                layer.append(fn)
+            recs.append(rec)
+            log(f"[k1] {name:8s} M={m:<3d} err {err:.3e} (tol {tol:.3e}; "
+                f"{rec['max_ulps']:.2f} bf16 ulps of max|ref|) {'OK' if good else 'FAIL'}  kernel "
+                f"{t:.4f} ms  bf16 matmul {t_bf16:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+        del w_l
+    t_layer = time_ms(torch, lambda: [f() for f in layer], reps, flush)
+    log(f"[k1] one layer's four projections (qkv, o, gate_up, down) at M=24: {t_layer:.4f} ms")
+    # the host's side of a launch: wall time of the wrapper (output
+    # allocation, checks, the launch itself), the card kept busy meanwhile
+    x = torch.randn((1, D), generator=gen, device=dev).to(torch.bfloat16)
+    qkv = slots["qkv"]
+    for _ in range(20):
+        quant.w4_matmul_decode(x, qkv["packed"], qkv["scales"], layer_index=1)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        quant.w4_matmul_decode(x, qkv["packed"], qkv["scales"], layer_index=1)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    log(f"[k1] host time of one K1 call (stacked slot, M=1): {host_us:.1f} us")
+    return ok, dict(k1=recs, k1_layer_m24_ms=t_layer, k1_host_us=host_us)
+
+
+def _check_k1_forms(torch, quant, seed, flush, dims=DIMS_8B):
+    """What only this K1 has: the wgmma form's digits and lo-plane group
+    sums bit for bit against `_w4_digits_ref` run on the CPU (on the card
+    PyTorch divides by a scalar through its reciprocal), and a repeat
+    launch of each form bit for bit; the probe: the
+    NVILA-8B lm_head slab's byte sum through the stream ring's 128- and
+    256-byte boxes and through plain 16-byte loads, each equal to the sum
+    on the card, timed (GB/s over the 272 MB slab)."""
     dev = flush.device
-    gen = torch.Generator(device=dev).manual_seed(seed + 4)
-    slot = slots["lm_head"]
-    packed, scales = slot["packed"], slot["scales"]
-    din, dout = packed.shape[-2] * 2, packed.shape[-3] * packed.shape[-1]
-    w_l = quant.dequantize({"packed": packed, "scales": scales})
-    ok = True
-    for m in rows:
-        x = torch.randn((m, din), generator=gen, device=dev).to(torch.bfloat16)
-        fn = lambda: quant.w4_matmul_decode(x, packed, scales)  # noqa: E731
-        ref = lambda: quant._w4_gemv_ref(x, packed, scales)  # noqa: E731
-        got, want = fn(), ref()
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    D, I, hd, Hq, Hkv, V = dims
+    lm = synth_w4_slot(torch, gen, (), D, V)
+    qkv = synth_w4_slot(torch, gen, (2,), D, (Hq + 2 * Hkv) * hd)
+    ok, recs = True, []
+    for name, slot, li, m in (("lm_head", lm, None, 24), ("qkv", qkv, 1, 8),
+                              ("lm_head", lm, None, 1)):
+        x = torch.randn((m, D), generator=gen, device=dev).to(torch.bfloat16)
+        out = quant.w4_matmul_decode(x, slot["packed"], slot["scales"], layer_index=li)
+        again = quant.w4_matmul_decode(x, slot["packed"], slot["scales"], layer_index=li)
         torch.cuda.synchronize()
-        err, scale = rel_err(torch, got, want)
-        tol = 2.0 ** -7 * scale
-        good = bool(torch.isfinite(got.float()).all()) and err <= tol
+        repeat = torch.equal(out, again)
+        digits = None
+        if m > 1:
+            got = [t.cpu() for t in quant.k1_digits(dev)]
+            group = quant._tiled_meta(slot["packed"], slot["scales"])[4]
+            want = quant._w4_digits_ref(x.cpu(), group=group)
+            digits = torch.equal(got[0], want[0]) and torch.equal(got[1], want[2])
+        good = repeat and digits is not False
+        ok &= good
+        recs.append(dict(shape=name, m=m, repeat_bit_exact=repeat, digits_bit_exact=digits,
+                         ok=good))
+        form = quant.k1_form(m, D)
+        log(f"[kernels] w4_gemv {name:8s} M={m:<3d} {form} form: "
+            f"repeat launch bit-exact {repeat}"
+            + ("" if digits is None else f", digits and group sums bit-exact {digits}")
+            + f" {'OK' if good else 'FAIL'}")
+    packed = lm["packed"]
+    total = int(packed.sum(dtype=torch.int64))
+    nbytes = packed.numel()
+    for mode in (128, 256, "v4"):
+        fn = lambda: quant.launch_probe(packed, mode)  # noqa: E731
+        got = int(fn().to(torch.int64).remainder(1 << 32).sum())
+        good = got == total
         ok &= good
         t = time_ms(torch, fn, 30, flush)
-        t_bf16 = time_ms(torch, lambda: x @ w_l, 30, flush)
-        b_ms, b_by = bound(m * din * 2 + w4_bytes(din, dout) + m * dout * 2,
-                           2 * 2 * m * din * dout, INT8_OPS)
-        results["w4_gemv"].append(dict(
-            shape="lm_head", m=m, din=din, dout=dout, max_abs_err=err, tol=tol, ok=good,
-            ms=t, plain_ms=None, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            bf16_matmul_ms=t_bf16))
-        log(f"[kernels] w4_gemv  lm_head  M={m:<4d} err {err:.3e} (tol {tol:.3e}) "
-            f"{'OK' if good else 'FAIL'}  kernel {t:.4f} ms  bf16 matmul {t_bf16:.4f} ms  "
-            f"bound {b_ms:.4f} ms ({b_by})")
-    del w_l
-    return ok
+        recs.append(dict(probe=str(mode), ms=t, gb_per_s=nbytes / t / 1e6, bytes=nbytes,
+                         sum_ok=good, ok=good))
+        log(f"[kernels] K1 probe ({mode}{'-byte boxes' if mode != 'v4' else ' loads'}): "
+            f"{nbytes / 1e6:.1f} MB in {t:.4f} ms = {nbytes / t / 1e6:.1f} GB/s, byte sum "
+            f"{'OK' if good else 'FAIL'}")
+    del lm, qkv
+    return ok, recs
 
 
 def _small_slots(torch, quant, gen, dims, group=None):
@@ -628,10 +754,11 @@ def _check_small(torch, quant, fused_decode, results, seed, flush, dims=DIMS_0_5
                  m_prefill=320, cache=(2048, 1300), group=None):
     """K1-K6 at Qwen2-0.5B widths (head dim 64; D = 896, so the D-input
     products take groups of 112), on a generator of their own, with the
-    NVILA-8B checks' tolerances: K1 the layer-0 qkv at M = 1 and K2 one
-    layer's four projections at M = 320 within one bf16 ulp of the largest
-    output, K3 at cache 2048 / fill 1300 and K4/K5 at M = 24 within 1e-2 x
-    max|ref|, K6 at B = 8 within 2e-2 x max|ref|. With `group` (64: the
+    NVILA-8B checks' tolerances: K1 the layer-0 qkv at M = 1 and the four
+    projections at M = 24 (its two forms) and K2 one layer's four
+    projections at M = 320 within one bf16 ulp of the largest output, K3
+    at cache 2048 / fill 1300 and K4/K5 at M = 24 within 1e-2 x max|ref|,
+    K6 at B = 8 within 2e-2 x max|ref|. With `group` (64: the
     kernels' paths for groups padded to less than 128 rows) every product
     takes that group."""
     D, I, hd, Hq, Hkv, V = dims
@@ -642,8 +769,10 @@ def _check_small(torch, quant, fused_decode, results, seed, flush, dims=DIMS_0_5
     model = "Qwen2-0.5B" if group is None else f"Qwen2-0.5B, group {group}"
     log(f"[kernels] Qwen2-0.5B widths: groups {groups}, head dim {hd}")
     ok = True
-    # K1: layer 0's qkv at M = 1; K2: the four projections at M = 320
+    # K1: layer 0's qkv at M = 1 (the stream form), the four projections at
+    # M = 24 (the wgmma form); K2: the four projections at M = 320
     for kern, m, names in (("w4_gemv", 1, ("qkv",)),
+                           ("w4_gemv", 24, ("qkv", "o", "gate_up", "down")),
                            ("w4_gemm", m_prefill, ("qkv", "o", "gate_up", "down"))):
         for name in names:
             slot = slots[name]
@@ -1097,7 +1226,10 @@ def _layer_stages(torch, quant, fused_decode, args, fill, flush, hd, grp):
 
 def summarise(results, launches):
     """One entry per kernel, summed over the calls the main paths make per
-    unit of work: K1 one bs=1 decode step's layer-0 qkv and lm_head at M=1;
+    unit of work: K1 one bs=1 decode step's layer-0 qkv and lm_head at M=1
+    (and, under `batched`, timings only, the lm_head at M=8 and 24 of
+    `serve b8` and `serve b24`: those paths' K1 launches, layer 0's qkv
+    included, are in its `launches_by_path`);
     K2 one prefill layer's four projections at M=320; K3 one bs=1 decode
     layer; K6 one decode layer at B=8 (the max_batch=8 server); K4 and K5
     one layer's pair of GEMVs at M=24 (the max_batch=24 server).
@@ -1113,6 +1245,11 @@ def summarise(results, launches):
         "fused_layer_batched": lambda r: r["m"] == 8,
         **{name: (lambda r: r["main"]) for name in FLASH_KERNELS},
     }
+    batched = [dict(work=f"lm_head M={m} ({path})", m=m, path=path,
+                    **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "library_ms", "bf16_matmul_ms")})
+               for m, path in K1_BATCHED
+               for r in results.get("k1", []) if r["shape"] == "lm_head" and r["m"] == m]
     out = []
     for name, meta in KERNELS.items():
         # the NVILA-8B main-path shapes (the Qwen2-0.5B checks are reported apart)
@@ -1135,6 +1272,7 @@ def summarise(results, launches):
                if all("bf16_matmul_ms" in r for r in rows) else {}),
             work=", ".join(f"{r['shape']} M={r['m']}" for r in rows),
             checks_ok=all(r["ok"] for r in results[name]),
+            **({"batched": batched} if name == "w4_gemv" and batched else {}),
         ))
     return out
 
@@ -2264,6 +2402,17 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         good, results = phase_kernels(torch, args.seed)
         ok &= good
+    else:  # (only when named: the kernels phase runs them)
+        if "k1" in phases:
+            good, k1 = phase_k1(torch, args.seed)
+            results.update(k1)
+            ok &= good
+        if "k1_forms" in phases:
+            from vila_tpu_torch.ops import quant
+
+            flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+            good, results["k1_forms"] = _check_k1_forms(torch, quant, args.seed, flush)
+            ok &= good
     if "e2e" in phases:
         good, report["requests"], launches["e2e"] = phase_e2e(
             torch, engine(args.layers, args.seed), args.seed)

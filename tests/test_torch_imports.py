@@ -152,4 +152,4 @@ def test_kernel_build_needs_nvcc(no_cuda, monkeypatch, tmp_path):
     for src in _build.SOURCES:
         assert (_build.CSRC / src).exists()
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.load("w4_gemv.cu")
+        _build.load("w4_gemv_sm90.cu")

@@ -92,7 +92,7 @@ def test_dequantize_matches():
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("m", [1, 5, 32])
+@pytest.mark.parametrize("m", [1, 2, 5, 8, 17, 24, 32])
 def test_k1_plain_matches_jax_decode_kernel(m):
     """K1's plain version == the JAX decode kernel (interpret mode), two
     int8 digits. Both run in f32 on bf16-exact inputs so the comparison

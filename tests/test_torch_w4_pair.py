@@ -3,7 +3,7 @@
 every W4 route, on the CPU.
 
 What the host decides is checked here: the pair kernel's unit plan
-(`fused_decode.pair_plan` / `pair_work`) and the kernel's row stages, the
+(`quant.unit_plan` / `fused_decode.pair_work`) and the kernel's row stages, the
 plans of K2, K3 and K6 at group 112, and the padded digit layout of the
 tensor-core kernels (`quant.padded_group`). The plain versions of K3-K6 are
 held against the JAX package's kernels in interpret mode at a width where
@@ -234,6 +234,27 @@ def test_rows_plain_matches_jax_decode_kernel_at_group_112(jax_infers_group_112)
     want = np.asarray(jquant.w4_matmul_decode(jnp.asarray(x), jp, js))
     got = tquant._w4_rows_ref(torch.from_numpy(x), t["packed"], t["scales"])
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("m", [1, 2, 8, 17, 24])
+def test_k1_plain_matches_jax_decode_kernel_at_group_112(jax_infers_group_112, m):
+    """K1's plain version (`_w4_gemv_ref`, what both of K1's forms are held
+    to on the card) equals the JAX decode kernel (interpret mode) at group
+    112, flat and stacked (layer 1), f32 within 1e-4 (the order of f32 sums
+    over groups)."""
+    rng = np.random.default_rng(97 + m)
+    w = (0.05 * rng.standard_normal((2, 448, 384))).astype(np.float32)
+    q = jquant.quantize_w4(jnp.asarray(w), 112)
+    jp, js = np.asarray(q["packed"]), np.asarray(q["scales"])
+    t = weights.from_jax_params({"packed": jp, "scales": js}, device="cpu")
+    x = _bf16_np(rng, (m, 448))
+    want = np.asarray(jquant.w4_matmul_decode(jnp.asarray(x), jp, js,
+                                              layer_index=jnp.asarray(1, jnp.int32)))
+    got = tquant.w4_matmul_decode(torch.from_numpy(x), t["packed"], t["scales"], layer_index=1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    flat_want = np.asarray(jquant.w4_matmul_decode(jnp.asarray(x), jp[0], js[0]))
+    flat = tquant.w4_matmul_decode(torch.from_numpy(x), t["packed"][0], t["scales"][0])
+    np.testing.assert_allclose(flat.numpy(), flat_want, rtol=1e-4, atol=1e-4)
 
 
 # --------------------------------------------------------------------------

@@ -12,7 +12,7 @@
 //   qkv  = rms(h32b) * g_in[l+1] @ W_qkv[l+1] + b   (bf16)
 // Every product keeps the TPU kernel's int8-digit arithmetic (two digits
 // per half-plane, exact integer dots summed per group of input rows, f32
-// group scales), with the prologue values of w4_common.cuh, as w4_gemv.cu
+// group scales), with the prologue values of w4_common.cuh, as w4_gemv_sm90.cu
 // and w4_gemv_mma.cu compute them. A group is any multiple of 16 rows up to
 // 128 (112 at Qwen2-0.5B's D = 896): its digits are padded with zeros to the
 // next multiple of 32 (the mma k step), so the weight rows a padded step

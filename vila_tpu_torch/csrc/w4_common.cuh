@@ -1,4 +1,4 @@
-// Device helpers shared by the port's W4 kernels (w4_gemv.cu: K1;
+// Device helpers shared by the port's W4 kernels (w4_gemv_sm90.cu: K1;
 // w4_gemv_mma.cu: K6; decode_layer_sm90.cu: K3; w4_pair_sm90.cu: K4, K5):
 // the one definition of
 // the prologue value that the int8 digits expand, the digit expansion, and

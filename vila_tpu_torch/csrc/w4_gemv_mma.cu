@@ -48,7 +48,7 @@
 // columns each. mma.sync wants, per thread, 4 consecutive k of one column
 // in a register; the bytes lie column-contiguous, so each thread reads one
 // 32-bit word (4 columns) from 4 rows and transposes the 4 x 4 bytes
-// (__byte_perm, as w4_gemv.cu). The four columns of a word go to four n8
+// (__byte_perm, as w4_gemv_sm90.cu). The four columns of a word go to four n8
 // tiles (n-tile q holds columns 4n + q), and the k order inside each
 // 32-row step is permuted so that the 4 rows a thread reads differ in
 // (row & 7) by thread, which with the swizzle leaves no bank conflict: mma

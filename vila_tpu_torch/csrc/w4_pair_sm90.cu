@@ -57,8 +57,8 @@
 //     product 1's merge, the RMS and the digit pass run (the TPU kernel's
 //     eager issue of both streams);
 //   * deterministic sums: a product's column tiles are dealt whole where
-//     they fill whole waves of CTAs and split over K for the rest (pair_plan
-//     in fused_decode.py, at most four splits for product 1, whose partials
+//     they fill whole waves of CTAs and split over K for the rest
+//     (quant.unit_plan, at most four splits for product 1, whose partials
 //     the row stage sums); split partials are summed in split order, with
 //     no atomics but the order-free amax maxima.
 // Two consumer warpgroups take the ring's stages alternately (32 columns a
@@ -75,41 +75,16 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kConsumerWarps = 8;
-constexpr int kConsumers = 32 * kConsumerWarps;
-// + a producer warpgroup: the weight producer warp, the digit producer warp
-// and two idle warps (setmaxnreg works on whole warpgroups: the consumers
-// take 232 registers, the producers 40)
-constexpr int kThreads = kConsumers + 128;
+// the launch's shape (w4_persist.cuh): two consumer warpgroups and a
+// producer warpgroup (the consumers take 232 registers, the producers 40)
+constexpr int kConsumerWarps = kWConsumerWarps;
+constexpr int kConsumers = kWConsumers;
 constexpr int kTileN = kPTileN;
-constexpr int kMaxStages = 8;
-constexpr int kMaxRows = 32;
+constexpr int kMaxRows = kWMaxRows;
 constexpr int kMaxPieces = 128;  // (row, plane, group) pieces of one product a CTA
-constexpr int kMaxSplits = 16;   // K splits of a product's tile (fused_decode.PAIR_SPLIT_CAPS)
-constexpr int kMaxProductSplits = 4;  // those of product 1 (the row stage sums them)
+constexpr int kMaxProductSplits = 4;  // K splits of product 1 (the row stage sums them)
 constexpr int kStamps = 9;       // start; after each of the seven barriers; end
 constexpr int kStaticSmem = 8192;  // the kernel's static shared memory, rounded up
-
-// one ring stage (bytes): the weight box at 0, the digit tile (4 m_pad rows
-// x 128, 1024-aligned for the 128-byte swizzle) at 16384, the two scale rows,
-// the group's digit sums (2 x m_pad int32)
-__host__ __device__ constexpr int st_digits() { return kPWeightBytes; }
-__host__ __device__ constexpr int st_scales(int m_pad) { return kPWeightBytes + 4 * m_pad * 128; }
-__host__ __device__ constexpr int st_gsum(int m_pad) { return st_scales(m_pad) + 2 * kTileN * 2; }
-__host__ __device__ constexpr int stage_bytes(int m_pad) {
-  return (st_gsum(m_pad) + 2 * m_pad * 4 + 1023) & ~1023;
-}
-__host__ __device__ constexpr int digit_tx(int m_pad) { return 4 * m_pad * 128 + 2 * m_pad * 4; }
-
-struct PProd {
-  const uint8_t* packed;  // (nj, din/2, bout) of the layer
-  const bf16* scales;     // (nj, s_rows, bout) of the layer
-  int8_t* dig;            // (2 planes, 2 digits, m_pad, hp) int8
-  int* gsum;              // (ngh, 2 digits, m_pad) int32, lo plane
-  float* part;            // (splits, M, dout) f32
-  int din, dout, bout, s_rows, group, gp, hp, ngh, half;
-  int n_full, ks, gps;  // tiles [0, n_full) whole; the rest in ks splits of gps groups
-};
 
 struct PairArgs {
   const bf16* x;      // product 1's rows (M, ldx): x_att, or (gate | up) for SiLU
@@ -122,7 +97,7 @@ struct PairArgs {
                             // then per product the (row, plane) amax as int bits
                             // (2 x kMaxRows), zero between launches
   unsigned long long* stamps;  // (kStamps,) or null
-  PProd pr[2];
+  WProd pr[2];
   int M, m_pad, ldx, D, stages, sbytes;
   float eps;
 };
@@ -138,39 +113,12 @@ __device__ __forceinline__ void grid_sync(const PairArgs& a, unsigned long long&
   stamp(a, k);
 }
 
-// ---- the unit plan: units [0, n_full) are whole tiles; unit n_full + v is
-// split z = v / rest of tile n_full + v % rest; CTA c takes units c, c + N, ...
-__device__ __forceinline__ int n_units(const PProd& pr) {
-  return pr.n_full + (pr.dout / kTileN - pr.n_full) * pr.ks;
-}
-__device__ __forceinline__ void unit_of(const PProd& pr, int u, int& tile, int& z, int& g0,
-                                        int& g1) {
-  if (u < pr.n_full) {
-    tile = u, z = 0, g0 = 0, g1 = pr.ngh;
-    return;
-  }
-  const int rest = pr.dout / kTileN - pr.n_full, v = u - pr.n_full;
-  z = v / rest;
-  tile = pr.n_full + v % rest;
-  g0 = z * pr.gps;
-  g1 = min(pr.ngh, g0 + pr.gps);
-}
-__device__ __forceinline__ int splits_of(const PProd& pr, int tile) {
-  return tile < pr.n_full ? 1 : pr.ks;
-}
-
 // piece q of a product's input: row r, plane pl, group g (rows up to m_pad)
-__device__ __forceinline__ void piece_of(const PProd& pr, int q, int& r, int& pl, int& g) {
+__device__ __forceinline__ void piece_of(const WProd& pr, int q, int& r, int& pl, int& g) {
   r = q / (2 * pr.ngh);
   const int rem = q - r * 2 * pr.ngh;
   pl = rem / pr.ngh;
   g = rem - pl * pr.ngh;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
 }
 
 __device__ __forceinline__ int* amax_of(const PairArgs& a, int p) {
@@ -192,7 +140,7 @@ __device__ __forceinline__ void publish_amax(const PairArgs& a, const int* s_ama
 // into pbuf by cp.async, every copy in flight at once (as bf16: gate then up
 // for SiLU, in the bytes the piece's f32 values then take)
 template <int PRO1>
-__device__ __forceinline__ void values1(const PairArgs& a, const PProd& pr, float* pbuf,
+__device__ __forceinline__ void values1(const PairArgs& a, const WProd& pr, float* pbuf,
                                         int* s_amax) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, N = gridDim.x;
   constexpr int kParts = PRO1 == PRO_SILU ? 2 : 1;
@@ -243,20 +191,13 @@ __device__ __forceinline__ void values1(const PairArgs& a, const PProd& pr, floa
 // every row's digit scales (s1, s2 of each plane) from the grid's amax of
 // product p
 __device__ __forceinline__ void row_scales(const PairArgs& a, int p, float* s_sd) {
-  const int tid = threadIdx.x;
-  if (tid < 2 * a.m_pad) {
-    const float mm = __int_as_float(__ldcg(amax_of(a, p) + tid));
-    const float s1 = fmaxf(mm / 127.0f, 1e-20f);
-    s_sd[2 * tid] = s1;  // (row, plane) at 4 row + 2 plane: s1, s2
-    s_sd[2 * tid + 1] = s1 / 127.0f;
-  }
-  csync();
+  ::row_scales(amax_of(a, p), a.m_pad, s_sd);
 }
 
 // the digits and lo-plane group sums of this CTA's pieces, once, into the
 // workspace (w4_gemv_rows' layout: zero digits past the group, the k order
 // of kappa_of inside each 32-row step)
-__device__ __forceinline__ void pieces_digits(const PairArgs& a, const PProd& pr,
+__device__ __forceinline__ void pieces_digits(const PairArgs& a, const WProd& pr,
                                               const float* pbuf, const float* s_sd) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, N = gridDim.x;
   const int np = a.m_pad * 2 * pr.ngh;
@@ -296,38 +237,8 @@ __device__ __forceinline__ void pieces_digits(const PairArgs& a, const PProd& pr
   fence_proxy_async_global();  // the digits are read by TMA after the barrier
 }
 
-// the sum of nz partials at p, p + stride, ... in split order (the loads
-// issued together)
-__device__ __forceinline__ float part_sum(const float* p, int nz, size_t stride) {
-  float x[kMaxSplits];
-#pragma unroll
-  for (int z = 0; z < kMaxSplits; ++z) x[z] = z < nz ? __ldcg(p + z * stride) : 0.f;
-  float v = 0.f;
-#pragma unroll
-  for (int z = 0; z < kMaxSplits; ++z)
-    if (z < nz) v += x[z];
-  return v;
-}
-
 // ---- row stages: a row's whole prologue in the CTA that owns the row
 // (rows r = blockIdx.x, + N, ...; rows past M are zeros), no barrier inside
-
-// the largest |value| over the consumers, for two values at once
-__device__ __forceinline__ void cons_max2(float& lo, float& hi, float* red) {
-  lo = warp_max(lo);
-  hi = warp_max(hi);
-  if ((threadIdx.x & 31) == 0) {
-    red[2 * (threadIdx.x >> 5)] = lo;
-    red[2 * (threadIdx.x >> 5) + 1] = hi;
-  }
-  csync();
-  lo = red[0], hi = red[1];
-  for (int w = 1; w < kConsumerWarps; ++w) {
-    lo = fmaxf(lo, red[2 * w]);
-    hi = fmaxf(hi, red[2 * w + 1]);
-  }
-  csync();
-}
 
 // a row's half-plane amax for every CTA's row_scales (one owner: a store)
 __device__ __forceinline__ void publish_row_amax(const PairArgs& a, int p, int r, float lo,
@@ -336,90 +247,11 @@ __device__ __forceinline__ void publish_row_amax(const PairArgs& a, int p, int r
   amax_of(a, p)[2 * r + 1] = __float_as_int(hi);
 }
 
-// the digits and lo-plane group sums of row r of product p from its values
-// (bf16 in rowv) and its half-planes' amax, into the workspace: a warp per
-// (plane, group), zero digits past the group, kappa_of's k order; part
-// `part` of `parts` CTAs of the row takes every parts-th run of eight blocks
-__device__ __forceinline__ void row_digits(const PairArgs& a, const PProd& pr, int r,
-                                           const bf16* rowv, float am_lo, float am_hi, int part,
-                                           int parts) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int b = part * kConsumerWarps + warp; b < 2 * pr.ngh; b += kConsumerWarps * parts) {
-    const int pl = b / pr.ngh, g = b - pl * pr.ngh;
-    const float s1 = fmaxf((pl ? am_hi : am_lo) / 127.0f, 1e-20f), s2 = s1 / 127.0f;
-    int8_t* d0 = pr.dig + ((size_t)(2 * pl) * a.m_pad + r) * pr.hp + g * pr.gp;
-    int8_t* d1 = d0 + (size_t)a.m_pad * pr.hp;
-    const bf16* v = rowv + pl * pr.half + g * pr.group;
-    float vv[4];  // (the loads before the stores)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      vv[j] = 32 * j + lane < pr.group ? __bfloat162float(v[32 * j + lane]) : 0.f;
-    int a1 = 0, a2 = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (32 * j >= pr.gp) break;
-      int q1 = 0, q2 = 0;
-      if (32 * j + lane < pr.group) two_digits(vv[j], s1, s2, &q1, &q2);
-      d0[32 * j + kappa_of(lane)] = (int8_t)q1;
-      d1[32 * j + kappa_of(lane)] = (int8_t)q2;
-      a1 += q1;
-      a2 += q2;
-    }
-    if (pl == 0) {  // (warp-uniform)
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        a1 += __shfl_xor_sync(0xffffffffu, a1, o);
-        a2 += __shfl_xor_sync(0xffffffffu, a2, o);
-      }
-      if (lane == 0) {
-        pr.gsum[((size_t)g * 2 + 0) * a.m_pad + r] = a1;
-        pr.gsum[((size_t)g * 2 + 1) * a.m_pad + r] = a2;
-      }
-    }
-  }
-}
-
 // The row stages spread each row over `parts` = N / m_pad CTAs: each takes
 // the row's latency-bound values and amax whole (the same bits), and a share
 // of its digit blocks; part 0 writes h_new and the amax.
 __device__ __forceinline__ int row_parts(const PairArgs& a) {
   return max(1, (int)gridDim.x / a.m_pad);
-}
-
-// product 1's prologue when it is none (K4): the row's values as they are,
-// 8 a load, their amax, then the digits
-__device__ __forceinline__ void rows_prologue1(const PairArgs& a, bf16* rowv, float* red) {
-  const PProd& pr = a.pr[0];
-  const int parts = row_parts(a);
-  if ((int)blockIdx.x < a.m_pad * parts) {
-    const int r = blockIdx.x % a.m_pad, part = blockIdx.x / a.m_pad;
-    float lo = 0.f, hi = 0.f;
-    for (int i0 = 8 * threadIdx.x; i0 < pr.din; i0 += 4 * 8 * kConsumers) {
-      uint4 w[4];  // (the loads before the stores)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int i = i0 + k * 8 * kConsumers;
-        w[k] = make_uint4(0, 0, 0, 0);
-        if (r < a.M && i < pr.din)
-          w[k] = *reinterpret_cast<const uint4*>(a.x + (size_t)r * a.ldx + i);
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int i = i0 + k * 8 * kConsumers;
-        if (i >= pr.din) break;
-        *reinterpret_cast<uint4*>(rowv + i) = w[k];
-        const bf16* e = reinterpret_cast<const bf16*>(&w[k]);
-        float m = 0.f;
-#pragma unroll
-        for (int q = 0; q < 8; ++q) m = fmaxf(m, fabsf(__bfloat162float(e[q])));
-        if (i < pr.half) lo = fmaxf(lo, m); else hi = fmaxf(hi, m);  // (half % 8 == 0)
-      }
-    }
-    cons_max2(lo, hi, red);  // (its barriers publish rowv)
-    if (threadIdx.x == 0 && part == 0) publish_row_amax(a, 0, r, lo, hi);
-    row_digits(a, pr, r, rowv, lo, hi, part, parts);
-  }
-  fence_proxy_async_global();  // the digits are read by TMA after the barrier
 }
 
 // h32 = h + product 1's partials (split order) of the row, in registers
@@ -431,8 +263,8 @@ __device__ __forceinline__ void rows_prologue1(const PairArgs& a, bf16* rowv, fl
 template <int kMaxE>
 __device__ __forceinline__ void rows_merge(const PairArgs& a, bf16* rowv, float* red,
                                            double* red64) {
-  const PProd& p1 = a.pr[0];
-  const PProd& p2 = a.pr[1];
+  const WProd& p1 = a.pr[0];
+  const WProd& p2 = a.pr[1];
   const int tid = threadIdx.x, D = a.D;
   const size_t zs = (size_t)a.M * p1.dout;  // one split's partials
   const int parts = row_parts(a);
@@ -480,105 +312,15 @@ __device__ __forceinline__ void rows_merge(const PairArgs& a, bf16* rowv, float*
       rowv[i] = __float2bfloat16_rn(v);
       if (i < p2.half) lo = fmaxf(lo, fabsf(v)); else hi = fmaxf(hi, fabsf(v));
     }
-    cons_max2(lo, hi, red);  // (its barriers publish rowv, and red64 is read)
+    cons_max2<kConsumerWarps>(lo, hi, red);  // (its barriers publish rowv, and red64 is read)
     if (tid == 0 && part == 0) publish_row_amax(a, 1, r, lo, hi);
-    row_digits(a, p2, r, rowv, lo, hi, part, parts);
+    row_digits(p2, a.m_pad, r, rowv, lo, hi, part, parts);
   }
   fence_proxy_async_global();
 }
 
-// the units of product p; `it` counts ring positions as the producers do.
-// Product 1 writes f32 partials (split z of its tile); product 2 writes
-// bf16(sum (+ bias)) for a whole tile, else its partial.
-template <int MT>
-__device__ __forceinline__ void run_units(const PairArgs& a, int p, const float* s_sd,
-                                          uint8_t* ring, uint64_t* full, uint64_t* empty,
-                                          float* s_unit, int& it) {
-  constexpr int kMPad = 8 * MT;
-  const PProd& pr = a.pr[p];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int set = warp >> 2, cw = (warp & 3) * 32, g = lane >> 2, t = lane & 3;
-  const int nu = n_units(pr);
-  for (int u = blockIdx.x; u < nu; u += gridDim.x) {
-    int tile, z, g0, g1;
-    unit_of(pr, u, tile, z, g0, g1);
-    float acc[4][kMPad / 4];  // [column cw + 4g + c][row 8j + 2t + e at 2j + e]
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int k = 0; k < kMPad / 4; ++k) acc[c][k] = 0.f;
-    for (int gi = g0; gi < g1; ++gi, ++it) {
-      if ((it & 1) != set) continue;
-      const int s = it % a.stages;
-      const uint8_t* st = ring_stage(ring, it, a.stages, a.sbytes);
-      mbar_wait(&full[s], (it / a.stages) & 1);
-      const bf16* sc = reinterpret_cast<const bf16*>(st + st_scales(kMPad)) + cw + 4 * g;
-      float sl[4], sh[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        sl[c] = __bfloat162float(sc[c]);
-        sh[c] = __bfloat162float(sc[kTileN + c]) / 16.0f;
-      }
-      const int* gs = reinterpret_cast<const int*>(st + st_gsum(kMPad));
-      if (pr.gp == kPGroup)  // (groups of 112 and 128: four k steps)
-        group_product_wgmma<kMPad, 4>(st, st + st_digits(), 4, gs, s_sd, cw, g, t, sl, sh, acc);
-      else
-        group_product_wgmma<kMPad, 0>(st, st + st_digits(), pr.gp / 32, gs, s_sd, cw, g, t, sl,
-                                      sh, acc);
-      __syncwarp();
-      mbar_arrive_if(&empty[s], lane == 0);  // the warp's reads of the stage are done
-    }
-    // the two sets' sums: set 1 hands its own to set 0, which writes
-    const int slot = tid & 127;
-    if (set == 1)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int k = 0; k < kMPad / 4; ++k) s_unit[(c * (kMPad / 4) + k) * 128 + slot] = acc[c][k];
-    csync();
-    if (set == 0) {
-      const int col = tile * kTileN + cw + 4 * g;  // 4 consecutive columns
-      const bool whole = splits_of(pr, tile) == 1;
-#pragma unroll
-      for (int k = 0; k < kMPad / 4; ++k) {
-        const int r = 8 * (k >> 1) + 2 * t + (k & 1);
-        if (r >= a.M) continue;
-        float v[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) v[c] = acc[c][k] + s_unit[(c * (kMPad / 4) + k) * 128 + slot];
-        if (p == 1 && whole) {
-          if (a.bias)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) v[c] = v[c] + __bfloat162float(a.bias[col + c]);
-          __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-          __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-          *reinterpret_cast<uint2*>(a.out + (size_t)r * pr.dout + col) =
-              make_uint2(*reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
-        } else {
-          __stcg(reinterpret_cast<float4*>(pr.part + ((size_t)z * a.M + r) * pr.dout + col),
-                 make_float4(v[0], v[1], v[2], v[3]));
-        }
-      }
-    }
-    csync();  // s_unit is free for the next unit
-  }
-}
-
-// product 2's split tiles: bf16(sum of partials in split order (+ bias)),
-// spread over the grid
-__device__ __forceinline__ void final_sum(const PairArgs& a) {
-  const PProd& pr = a.pr[1];
-  const int rest = pr.dout / kTileN - pr.n_full, n = a.M * rest * kTileN;
-  for (int i = blockIdx.x * kConsumers + threadIdx.x; i < n; i += gridDim.x * kConsumers) {
-    const int r = i / (rest * kTileN), col = pr.n_full * kTileN + i % (rest * kTileN);
-    float v = part_sum(pr.part + (size_t)r * pr.dout + col, pr.ks, (size_t)a.M * pr.dout);
-    if (a.bias) v = v + __bfloat162float(a.bias[col]);
-    a.out[(size_t)r * pr.dout + col] = __float2bfloat16_rn(v);
-  }
-}
-
 template <int PRO1, int MT>
-__global__ void __launch_bounds__(kThreads, 1) w4_pair_kernel(
+__global__ void __launch_bounds__(kWThreads, 1) w4_pair_kernel(
     const __grid_constant__ CUtensorMap tm_w1, const __grid_constant__ CUtensorMap tm_w2,
     const __grid_constant__ CUtensorMap tm_d1, const __grid_constant__ CUtensorMap tm_d2,
     const __grid_constant__ PairArgs a) {
@@ -586,7 +328,7 @@ __global__ void __launch_bounds__(kThreads, 1) w4_pair_kernel(
   uint8_t* ring = align1024(smem_raw);
   float* s_unit = reinterpret_cast<float*>(ring + a.stages * a.sbytes);  // MT * 8 * 128
   float* pbuf = s_unit + MT * 8 * 128;  // this CTA's pieces' values
-  __shared__ uint64_t full[kMaxStages], empty[kMaxStages];
+  __shared__ uint64_t full[kWMaxStages], empty[kWMaxStages];
   __shared__ __align__(16) float s_sd[2][4 * kMaxRows];
   __shared__ float s_red[2 * kConsumerWarps];
   __shared__ int s_amax[2 * kMaxRows];
@@ -614,7 +356,7 @@ __global__ void __launch_bounds__(kThreads, 1) w4_pair_kernel(
       const bool weights = warp == kConsumerWarps;
       int it = 0;
       for (int p = 0; p < 2; ++p) {
-        const PProd& pr = a.pr[p];
+        const WProd& pr = a.pr[p];
         if (!weights) {  // the digits: after the barrier that follows their writes
           // (product 1's digits: after barrier 2 for K5, 1 for K4; product 2's two later)
           const int k = (PRO1 == PRO_SILU ? 2 : 1) + 2 * p;
@@ -622,30 +364,7 @@ __global__ void __launch_bounds__(kThreads, 1) w4_pair_kernel(
           fence_proxy_async_global();
         }
         const CUtensorMap* tm = weights ? (p ? &tm_w2 : &tm_w1) : (p ? &tm_d2 : &tm_d1);
-        for (int u = blockIdx.x; u < n_units(pr); u += gridDim.x) {
-          int tile, z, g0, g1;
-          unit_of(pr, u, tile, z, g0, g1);
-          const int n0 = tile * kTileN, jb = n0 / pr.bout, oo0 = n0 % pr.bout;
-          const bf16* srow = pr.scales + (size_t)jb * pr.s_rows * pr.bout + oo0;
-          for (int gi = g0; gi < g1; ++gi, ++it) {
-            const int s = it % a.stages;
-            uint8_t* st = ring_stage(ring, it, a.stages, a.sbytes);
-            mbar_wait(&empty[s], ((it / a.stages) & 1) ^ 1);
-            if (weights) {
-              mbar_expect_tx(&full[s], ring_stage_tx(pr.gp));
-              tma_load_3d(st, tm, &full[s], oo0, gi * pr.group, jb);
-              bulk_load(st + st_scales(a.m_pad), srow + (size_t)gi * pr.bout, kTileN * 2,
-                        &full[s]);
-              bulk_load(st + st_scales(a.m_pad) + kTileN * 2,
-                        srow + (size_t)(pr.ngh + gi) * pr.bout, kTileN * 2, &full[s]);
-            } else {
-              mbar_expect_tx(&full[s], digit_tx(a.m_pad));
-              tma_load_2d(st + st_digits(), tm, &full[s], gi * pr.gp, 0);
-              bulk_load(st + st_gsum(a.m_pad), pr.gsum + (size_t)gi * 2 * a.m_pad,
-                        2 * a.m_pad * 4, &full[s]);
-            }
-          }
-        }
+        produce(pr, a.m_pad, weights, tm, a.stages, a.sbytes, ring, full, empty, it);
       }
     }
   } else {
@@ -661,11 +380,13 @@ __global__ void __launch_bounds__(kThreads, 1) w4_pair_kernel(
       pieces_digits(a, a.pr[0], pbuf, s_sd[0]);
       grid_sync(a, target, ++nb);
     } else {
-      rows_prologue1(a, reinterpret_cast<bf16*>(pbuf), s_red);
+      rows_prologue(a.pr[0], a.x, a.ldx, a.M, a.m_pad, amax_of(a, 0),
+                    reinterpret_cast<bf16*>(pbuf), s_red);
       grid_sync(a, target, ++nb);
       row_scales(a, 0, s_sd[0]);
     }
-    run_units<MT>(a, 0, s_sd[0], ring, full, empty, s_unit, it);
+    run_units<MT>(a.pr[0], a.M, a.stages, a.sbytes, s_sd[0], ring, full, empty, s_unit, it,
+                  nullptr, nullptr);
     grid_sync(a, target, ++nb);
     // (every CTA has read product 1's amax words: zero them for K5's atomics)
     if (blockIdx.x == 0 && tid < 2 * a.m_pad) amax_of(a, 0)[tid] = 0;
@@ -676,10 +397,11 @@ __global__ void __launch_bounds__(kThreads, 1) w4_pair_kernel(
       rows_merge<32>(a, reinterpret_cast<bf16*>(pbuf), s_red, s_red64);
     grid_sync(a, target, ++nb);
     row_scales(a, 1, s_sd[1]);
-    run_units<MT>(a, 1, s_sd[1], ring, full, empty, s_unit, it);
+    run_units<MT>(a.pr[1], a.M, a.stages, a.sbytes, s_sd[1], ring, full, empty, s_unit, it,
+                  a.bias, a.out);
     if (a.pr[1].n_full < a.pr[1].dout / kTileN && a.pr[1].ks > 1) {
       grid_sync(a, target, ++nb);
-      final_sum(a);
+      final_sum(a.pr[1], a.M, a.bias, a.out);
     } else {
       stamp(a, ++nb);  // (no split tile: no last barrier)
     }
@@ -716,7 +438,7 @@ int launch(const CUtensorMap* tm, const PairArgs& a, int n_cta, int smem, cudaSt
   CUtensorMap t0 = tm[0], t1 = tm[1], t2 = tm[2], t3 = tm[3];
   PairArgs args = a;
   void* params[] = {&t0, &t1, &t2, &t3, &args};
-  return (int)cudaLaunchCooperativeKernel(kernel, dim3(n_cta), dim3(kThreads), params, smem, s);
+  return (int)cudaLaunchCooperativeKernel(kernel, dim3(n_cta), dim3(kWThreads), params, smem, s);
 }
 
 template <int PRO1>
@@ -794,7 +516,7 @@ extern "C" int w4_pair(void* const* ptrs, const int* ints, float eps, void* stre
   int buf_bytes = 0;  // K5's pieces or K4's row (product 1), then a row of h32 and values
   for (int p = 0; p < 2; ++p) {
     const int* d = ints + 7 + 8 * p;
-    PProd& pr = a.pr[p];
+    WProd& pr = a.pr[p];
     pr.packed = static_cast<const uint8_t*>(ptrs[9 + 2 * p]);
     pr.scales = static_cast<const bf16*>(ptrs[10 + 2 * p]);
     pr.dig = reinterpret_cast<int8_t*>(ws + off[p]);
@@ -816,7 +538,7 @@ extern "C" int w4_pair(void* const* ptrs, const int* ints, float eps, void* stre
     pr.hp = pr.ngh * pr.gp;
     const int tiles = pr.dout / kTileN;
     if (pr.bout % kTileN || pr.dout % pr.bout || pr.n_full < 0 || pr.n_full > tiles ||
-        pr.ks < 1 || pr.ks > (p == 0 ? kMaxProductSplits : kMaxSplits) || pr.gps < 1 ||
+        pr.ks < 1 || pr.ks > (p == 0 ? kMaxProductSplits : kWMaxSplits) || pr.gps < 1 ||
         (pr.ks - 1) * pr.gps >= pr.ngh ||
         pr.ks * pr.gps < pr.ngh ||
         (pr.n_full == tiles && pr.ks != 1))
@@ -845,8 +567,7 @@ extern "C" int w4_pair(void* const* ptrs, const int* ints, float eps, void* stre
   if (2 * a.D > buf_bytes) buf_bytes = 2 * a.D;  // the row stage's values
   a.sbytes = stage_bytes(a.m_pad);
   const int fixed = 1024 + (a.m_pad / 8) * 8 * 128 * 4 + ((buf_bytes + 15) & ~15);
-  a.stages = (kMaxDynSmem - kStaticSmem - fixed) / a.sbytes;
-  if (a.stages > kMaxStages) a.stages = kMaxStages;
+  a.stages = ring_stages(a.m_pad, fixed, kStaticSmem);  // (even: w4_persist.cuh)
   if (a.stages < 2) return (int)cudaErrorInvalidValue;
   const int smem = fixed + a.stages * a.sbytes;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

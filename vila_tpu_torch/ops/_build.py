@@ -11,7 +11,7 @@ descriptors) with `dlsym` from the `libcuda.so.1` the process already
 holds (`sm90_common.cuh`, which also holds the mbarrier, TMA and wgmma
 helpers; `w4_common.cuh` holds the W4 prologue and int8 fragments the GEMV
 kernels share, `w4_persist.cuh` the grid barrier, ring and group product of
-the persistent W4 kernels K3 and K4/K5).
+the persistent W4 kernels K1, K3 and K4/K5).
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("w4_gemv.cu", "w4_gemv_mma.cu", "w4_gemm_sm90.cu", "decode_layer_sm90.cu",
+SOURCES = ("w4_gemv_sm90.cu", "w4_gemv_mma.cu", "w4_gemm_sm90.cu", "decode_layer_sm90.cu",
            "w4_pair_sm90.cu", "decode_attn.cu", "flash_attn_sm90.cu")
 
 _libs: Dict[str, ctypes.CDLL] = {}

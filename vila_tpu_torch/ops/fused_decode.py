@@ -26,7 +26,7 @@ rows (`quant.launch_gemv_rows`, `csrc/w4_gemv_mma.cu`).
 K4 is stages 2-3 and K5 stages 4-5, one persistent cooperative launch each
 (`csrc/w4_pair_sm90.cu`: both products' weights streamed by TMA from the
 launch on, each prologue computed once over the grid, one tensor-core weight
-pass for all m <= 32 rows; its plan: `pair_plan`); unlike the whole layer
+pass for all m <= 32 rows; its plan: `quant.unit_plan`); unlike the whole layer
 they hand h back rounded to h's dtype in between (K5 adds to K4's rounded
 h_new), while each RMSNorm still reads its unrounded f32 sum, as on the
 TPU. Every route keeps the TPU kernels' int8-digit arithmetic, with rows =
@@ -348,35 +348,6 @@ _pair_ws_floats: Dict[Tuple[int, ...], int] = {}
 _pair_last: Dict[torch.device, ctypes.Array] = {}
 
 
-@functools.lru_cache(maxsize=None)
-def pair_plan(dout: int, ngh: int, n_cta: int, cap: int = PAIR_SPLIT_CAPS[1]):
-    """(whole tiles, K splits, groups per split) of one product of K4/K5's
-    persistent launch: column tiles of 128 [0, whole) are units of their
-    own; each of the other tiles is cut into `splits` runs of `groups per
-    split` groups, dealt split-major after them; the units go round-robin
-    to the n_cta CTAs (one per SM). `whole` is 0 or the tiles of every full
-    wave of CTAs. The plan leaves the busiest CTA the fewest groups; ties go
-    to fewer partial sums, then fewer splits (each split is a partial to
-    write and sum)."""
-    tiles = dout // LAYER_TILE_N
-    best = None
-    for whole in sorted({0, tiles // n_cta * n_cta}):
-        rest = tiles - whole
-        for ks in (range(1, min(cap, ngh) + 1) if rest else (1,)):
-            gps = -(-ngh // ks)
-            ks = -(-ngh // gps)
-            load = [0] * n_cta
-            for u in range(whole):
-                load[u % n_cta] += ngh
-            for v in range(rest * ks):
-                z = v // rest
-                load[(whole + v) % n_cta] += min(ngh, (z + 1) * gps) - z * gps
-            key = (max(load), rest * ks if ks > 1 else 0, ks)
-            if best is None or key < best[0]:
-                best = (key, (whole, ks, gps))
-    return best[1]
-
-
 def pair_work(dims, n_cta: int):
     """Every unit of K4's or K5's two products, (din, dout) or (din, dout,
     group) each in `dims` (the group is the quantizer's, `quant.group_for`,
@@ -386,7 +357,7 @@ def pair_work(dims, n_cta: int):
         din, dout = dim[:2]
         gs = dim[2] if len(dim) > 2 else quant.group_for(din // 2)
         ngh = din // 2 // gs
-        whole, ks, gps = pair_plan(dout, ngh, n_cta, PAIR_SPLIT_CAPS[p])
+        whole, ks, gps = quant.unit_plan(dout, ngh, n_cta, PAIR_SPLIT_CAPS[p])
         tiles = dout // LAYER_TILE_N
         rest = tiles - whole
         for u in range(whole + rest * ks):
@@ -474,7 +445,8 @@ def launch_pair(x, h, gamma, bias, first, second, prologue, eps, h_out, out,
             raise ValueError(f"K4/K5 need bout % 128 == 0 ({bout})")
         s_rows = sc.shape[-2]
         _, _, l = quant._layer(pk, sc, li)
-        dims += [din, dout, bout, s_rows, gs, *pair_plan(dout, ngh, n_sm, PAIR_SPLIT_CAPS[p])]
+        dims += [din, dout, bout, s_rows, gs,
+                 *quant.unit_plan(dout, ngh, n_sm, PAIR_SPLIT_CAPS[p])]
         ptrs += [pk.data_ptr() + l * nj * half * bout, sc.data_ptr() + l * nj * s_rows * bout * 2]
     din1, dout1, din2, dout2 = dims[0], dims[1], dims[8], dims[9]
     ldx = 2 * din1 if prologue == quant.PRO_SILU else din1

@@ -1,5 +1,5 @@
 """Weight-only W4A16 quantization with grouped scales, and the W4 matmul
-kernels (CUDA: `csrc/w4_gemv.cu`, `csrc/w4_gemm_sm90.cu`), as
+kernels (CUDA: `csrc/w4_gemv_sm90.cu`, `csrc/w4_gemm_sm90.cu`), as
 `vila_tpu/ops/quant.py`.
 
 Storage is the JAX package's, byte for byte, and the kernels read it as it
@@ -16,11 +16,16 @@ is (no re-layout):
 
 Two kernels, dispatched by the number of rows M (as `w4_matmul`):
 
-  * M <= 32, `w4_matmul_decode` (K1, `w4_gemv.cu`): the activations are
-    expanded per row into two int8 digits and contracted with s8 x s8 ->
-    s32 dot products, with the lo plane's zero point corrected by a group
-    row sum, exactly the TPU kernel's arithmetic (groups that are multiples
-    of 16: 128, or 112 where the quantizer takes it, `group_for`);
+  * M <= 32, `w4_matmul_decode` (K1, `w4_gemv_sm90.cu`): the activations
+    are expanded per row into two int8 digits and contracted with s8 x s8
+    -> s32 dot products, with the lo plane's zero point corrected by a
+    group row sum, exactly the TPU kernel's arithmetic (groups that are
+    multiples of 16: 128, or 112 where the quantizer takes it,
+    `group_for`). Two forms, picked by `k1_form`: M = 1 streams the weights
+    through a ring of TMA boxes into dp4a on the CUDA cores; M >= 2 is one
+    persistent launch that reads every weight byte once for all rows on
+    the int8 tensor cores (wgmma), over digits written once into a
+    workspace in `_w4_digits_ref`'s layout;
   * M > 32, `w4_matmul_prefill` (K2, `w4_gemm_sm90.cu`): the weight tile
     is dequantised to bf16 with the TPU kernel's roundings, by warps of its
     own while the previous tile's wgmma products run, and contracted on the
@@ -31,9 +36,9 @@ pair, `csrc/w4_gemv_mma.cu` (`launch_gemv_rows`): `w4_digits` expands the M
 rows once per product, `w4_gemv_rows` streams the weights once for all rows
 through the int8 tensor cores (`mma.sync` m16n8k32), summing whole groups in
 int32 before the f32 scale (plain versions `_w4_digits_ref`,
-`_w4_gemv_rows_ref`, together `_w4_rows_ref`). The tensor-core kernels (K3,
-K4/K5, K6) keep each group's digits padded with zeros to a multiple of 32
-rows, the mma k step (`padded_group`).
+`_w4_gemv_rows_ref`, together `_w4_rows_ref`). The tensor-core kernels (K1's
+wgmma form, K3, K4/K5, K6) keep each group's digits padded with zeros to a
+multiple of 32 rows, the mma k step (`padded_group`).
 
 Each wrapper takes its plain PyTorch version (`_w4_gemv_ref`,
 `_w4_gemm_ref`) for CPU tensors only; a CUDA tensor launches the kernel or
@@ -46,6 +51,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import operator
+import threading
 from typing import Any, Dict, Optional
 
 import torch
@@ -58,7 +64,6 @@ DEFAULT_GROUP = 128
 _BLOCK_BUDGET = (26 << 20) // 10
 
 PRO_NONE, PRO_RMS, PRO_SILU = 0, 1, 2
-GEMV_TILE_N = 128
 _COUNTER_SLOTS = 1 << 16
 
 
@@ -356,12 +361,14 @@ def _w4_gemv_rows_ref(digits, dscale, gsum, packed, scales, layer_index=None, m=
     s_lo, s_hi = s[:ngh], s[ngh:] / 16.0
     q = _unpad_digits(digits[:, :, :m].double(), gs).reshape(2, 2, m, ngh, gs)
     acc = torch.zeros((m, dout), dtype=torch.float32, device=digits.device)
-    for d in range(2):
-        d_lo = (torch.einsum("mgk,gkn->mgn", q[0, d], lo)
-                - 8.0 * gsum[:, d, :m].T[:, :, None])
-        d_hi = torch.einsum("mgk,gkn->mgn", q[1, d], h16)
-        acc = acc + (d_lo.float() * (dscale[:m, 0, d, None, None] * s_lo[None])).sum(1)
-        acc = acc + (d_hi.float() * (dscale[:m, 1, d, None, None] * s_hi[None])).sum(1)
+    # the terms in `_w4_gemv_ref`'s order (lo plane's digits, then the hi's),
+    # so that the two plain versions agree bit for bit
+    for p, (w, sc) in enumerate(((lo, s_lo), (h16, s_hi))):
+        for d in range(2):
+            dots = torch.einsum("mgk,gkn->mgn", q[p, d], w)
+            if p == 0:
+                dots = dots - 8.0 * gsum[:, d, :m].T[:, :, None]
+            acc = acc + (dots.float() * (dscale[:m, p, d, None, None] * sc[None])).sum(1)
     return acc
 
 
@@ -411,7 +418,6 @@ def rows_work(dout: int, bout: int, ngh: int, n_sm: int):
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_GEMV_ARGTYPES = [_P, _P, _P] + [_I] * 8 + [_P] * 4
 _GEMM_ARGTYPES = [_P] * 6 + [_I] * 13 + [_P]
 _DIGITS_ARGTYPES = [_P, _I, _I, _I, _P, ctypes.c_float, _I, _I, _I, _I, _P, _P, _P, _P, _P]
 _ROWS_ARGTYPES = [_P] * 5 + [_I] * 9 + [_P] * 8
@@ -456,42 +462,306 @@ def _check_w4(packed, scales):
         raise TypeError(f"W4 slot must be uint8/bf16, got {packed.dtype}/{scales.dtype}")
 
 
-def launch_gemv(x, packed, scales, layer_index, out) -> None:
-    """Launch the W4 GEMV kernel (K1) on the current stream: out (m, dout)
-    bf16 = x (m <= 32, din) bf16 @ the W4 slot. Counts nothing: the public
-    wrapper counts."""
-    dev = require_cuda(x, packed, scales, out)
+def k1_form(m: int, din: int) -> str:
+    """The form of K1 (`csrc/w4_gemv_sm90.cu`) for m rows of din inputs:
+    "stream" (dp4a on the CUDA cores, a ring of TMA boxes; one row's work
+    is bytes, and the tensor cores would waste 7 of every 8 columns of N)
+    for m = 1 where its consumers can hold the row in registers (din <=
+    K1_STREAM_MAX_DIN), "wgmma" (one persistent launch, every weight byte
+    read once for all rows on the tensor cores) otherwise; at m = 2 the
+    wgmma form read faster on the H100 (PERF.md). Decided here only: no
+    form gives way to another at run time."""
+    return "stream" if m == 1 and din <= K1_STREAM_MAX_DIN else "wgmma"
+
+
+# the stream form's TMA box width in bytes: the probe (`launch_probe`) read
+# the lm_head slab faster in 128-byte boxes than in 256-byte ones on the
+# H100 (PERF.md)
+K1_BOX = 128
+K1_STREAM_MAX_DIN = 20480  # the stream form's consumers hold a row of 8 x 256 x 10 inputs
+K1_SPLIT_CAP = 16
+
+
+@functools.lru_cache(maxsize=None)
+def unit_plan(dout: int, ngh: int, n_cta: int, cap: int = K1_SPLIT_CAP):
+    """(whole tiles, K splits, groups per split) of one product of a
+    persistent W4 launch (K1's wgmma form, K4/K5): column tiles of 128 [0,
+    whole) are units of their own; each of the other tiles is cut into
+    `splits` runs of `groups per split` groups, dealt split-major after
+    them; the units go round-robin to the n_cta CTAs (one per SM). `whole`
+    is 0 or the tiles of every full wave of CTAs. The plan leaves the
+    busiest CTA the fewest groups; ties go to fewer partial sums, then
+    fewer splits (each split is a partial to write and sum)."""
+    tiles = dout // ROWS_TILE_N
+    best = None
+    for whole in sorted({0, tiles // n_cta * n_cta}):
+        rest = tiles - whole
+        for ks in (range(1, min(cap, ngh) + 1) if rest else (1,)):
+            gps = -(-ngh // ks)
+            ks = -(-ngh // gps)
+            load = [0] * n_cta
+            for u in range(whole):
+                load[u % n_cta] += ngh
+            for v in range(rest * ks):
+                z = v // rest
+                load[(whole + v) % n_cta] += min(ngh, (z + 1) * gps) - z * gps
+            key = (max(load), rest * ks if ks > 1 else 0, ks)
+            if best is None or key < best[0]:
+                best = (key, (whole, ks, gps))
+    return best[1]
+
+
+def _spans(dout: int, bout: int, box: int):
+    """The stream form's column spans, as the kernel numbers them: (bout
+    block, first column in it, columns) of every whole `box`-wide span,
+    block by block, then the narrower last span of each block where box
+    does not divide bout (dealt last, so that round-robin evens the CTAs'
+    loads)."""
+    nfs, nj = bout // box, dout // bout
+    whole = [(jb, k * box, box) for jb in range(nj) for k in range(nfs)]
+    return whole + ([(jb, nfs * box, bout - nfs * box) for jb in range(nj)]
+                    if bout % box else [])
+
+
+# what a unit of the stream form costs besides its boxes (its K range's
+# digits, a split's partial and its last CTA's sum), in bytes of the weight
+# stream (~3 us at one SM's share of the HBM rate): on the H100, gate_up and
+# qkv at M = 1 read faster in 1 and 3 splits than in the 2 and 7 a smaller
+# cost picks
+K1_UNIT_BYTES = 64 << 10
+
+
+@functools.lru_cache(maxsize=None)
+def stream_plan(dout: int, bout: int, ngh: int, n_sm: int, group: int = 128,
+                box: int = K1_BOX):
+    """(K splits, groups per split, CTAs) of K1's stream form: each column
+    span (`_spans`) is cut into `splits` runs of `groups per split` groups;
+    the (span, split) units, split-major, go round-robin to min(units, n_sm)
+    persistent CTAs. The plan leaves the busiest CTA the fewest bytes: its
+    weight boxes' columns, a unit's fixed cost (`K1_UNIT_BYTES`) and, when
+    split, its partial written and read (8 bytes a column); ties go to fewer
+    splits."""
+    widths = [w for _, _, w in _spans(dout, bout, box)]
+    best = None
+    for ks in range(1, min(K1_SPLIT_CAP, ngh) + 1):
+        gps = -(-ngh // ks)
+        ks = -(-ngh // gps)
+        n_units = len(widths) * ks
+        n_cta = min(n_units, n_sm)
+        load = [0] * n_cta
+        for u in range(n_units):
+            z, sp = divmod(u, len(widths))
+            groups = min(ngh, (z + 1) * gps) - z * gps
+            load[u % n_cta] += (widths[sp] * (groups * group + (8 if ks > 1 else 0))
+                                + K1_UNIT_BYTES)
+        key = (max(load), ks)
+        if best is None or key < best[0]:
+            best = (key, (ks, gps, n_cta))
+    return best[1]
+
+
+def wgmma_plan(dout: int, ngh: int, n_sm: int):
+    """(whole tiles, K splits, groups per split) of K1's wgmma form:
+    `unit_plan`, with every tile whole when it takes no split."""
+    whole, ks, gps = unit_plan(dout, ngh, n_sm)
+    return (dout // ROWS_TILE_N, 1, ngh) if ks == 1 else (whole, ks, gps)
+
+
+def k1_work(m: int, dout: int, bout: int, ngh: int, n_sm: int, group: int = 128):
+    """Every unit of K1's launch for m rows, in the form `k1_form` picks, as
+    the kernel deals them: (CTA, columns range, groups range)."""
+    if k1_form(m, 2 * ngh * group) == "stream":
+        spans = _spans(dout, bout, K1_BOX)
+        ks, gps, n_cta = stream_plan(dout, bout, ngh, n_sm, group)
+        for u in range(len(spans) * ks):
+            z, sp = divmod(u, len(spans))
+            jb, o0, w = spans[sp]
+            yield (u % n_cta, (jb * bout + o0, jb * bout + o0 + w),
+                   (z * gps, min(ngh, (z + 1) * gps)))
+        return
+    whole, ks, gps = wgmma_plan(dout, ngh, n_sm)
+    tiles = dout // ROWS_TILE_N
+    rest = tiles - whole
+    for u in range(whole + rest * ks):
+        if u < whole:
+            tile, g = u, (0, ngh)
+        else:
+            z, t = divmod(u - whole, rest)
+            tile, g = whole + t, (z * gps, min(ngh, (z + 1) * gps))
+        yield (u % n_sm, (tile * ROWS_TILE_N, (tile + 1) * ROWS_TILE_N), g)
+
+
+_K1_PTRS = ctypes.c_void_p * 5
+_K1_INTS = ctypes.c_int * 11
+_K1_MAP = ctypes.c_ubyte * 128  # a CUtensorMap
+_K1_BAR_WORDS = 2 + 2 * 32  # the grid barrier's u64 count, then (row, plane) amax
+_k1_maps: Dict[tuple, ctypes.Array] = {}
+_k1_plans: Dict[tuple, tuple] = {}
+_k1_ws: Dict[int, tuple] = {}
+_k1_last: Dict[int, tuple] = {}
+_k1_lock = threading.Lock()
+
+
+def _k1_workspace(dev: torch.device, floats: int):
+    """K1's scratch on a device (f32, grown to what a plan needs, else made
+    once) and the wgmma form's barrier words (zeroed once: the grid
+    barrier's 64-bit arrival count, which every launch advances and none
+    resets, then the rows' amax, stored by each launch before its barrier).
+    K1's own: a persistent kernel's barrier count relies on every launch of
+    that kernel having the same grid. Launches share them, so they run on
+    one stream. Growing the scratch drops the plans that point into it."""
+    idx = _device_index(dev)
+    with _k1_lock:
+        ws, bar = _k1_ws.get(idx, (None, None))
+        if bar is None:
+            bar = torch.zeros(_K1_BAR_WORDS, dtype=torch.int32, device=dev)
+        if ws is None or ws.numel() < floats:
+            ws = torch.empty(max(floats, 1 << 18), dtype=torch.float32, device=dev)
+            for key in [k for k in _k1_plans if k[-1] == idx]:
+                del _k1_plans[key]
+        _k1_ws[idx] = (ws, bar)
+        return ws, bar
+
+
+def _k1_map(lib, kind: str, ptr: int, *dims) -> ctypes.Array:
+    """A TMA map of K1, encoded once per (kind, pointer, shape) and kept."""
+    key = (kind, ptr) + dims
+    tm = _k1_maps.get(key)
+    if tm is None:
+        tm = _K1_MAP()
+        if kind == "digits":
+            status = lib.w4_gemv_encode_digits(tm, ctypes.c_void_p(ptr), *dims)
+        else:
+            status = lib.w4_gemv_encode_weights(tm, ctypes.c_void_p(ptr), *dims)
+        _build.check(status, f"w4_gemv_encode_{kind}")
+        _k1_maps[key] = tm
+    return tm
+
+
+def _k1_lib():
+    lib = _build.load("w4_gemv_sm90.cu")
+    if lib.w4_gemv_stream.argtypes is None:
+        for name in ("w4_gemv_encode_weights", "w4_gemv_encode_digits"):
+            getattr(lib, name).restype = ctypes.c_int
+        lib.w4_gemv_stream.argtypes = [_P] * 6
+        lib.w4_gemv_wgmma.argtypes = [_P] * 7
+        lib.w4_gemv_probe_v4.argtypes = [_P, ctypes.c_longlong, _P, _I, _P]
+        for name in ("w4_gemv_stream", "w4_gemv_wgmma", "w4_gemv_probe_v4"):
+            getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _k1_plan(dev, packed, scales, l, m):
+    """What a K1 launch of m rows on this slot and layer needs besides x
+    and out, made once: (entry point, its maps, pointers, ints, din, dout)."""
     _check_w4(packed, scales)
     half, bout, nj, ngh, gs, din, dout = _tiled_meta(packed, scales)
+    check_group(gs, "w4_gemv")
+    idx = _device_index(dev)
+    n_sm, counters = _device_state(dev)
+    form = k1_form(m, din)
+    s_rows = scales.shape[-2]
+    p_ptr = packed.data_ptr() + l * nj * half * bout
+    s_ptr = scales.data_ptr() + l * nj * s_rows * bout * 2
+    lib = _k1_lib()
+    if form == "stream":
+        if bout % 16:
+            raise ValueError(f"K1's stream form needs bout % 16 == 0 ({bout})")
+        ks, gps, n_cta = stream_plan(dout, bout, ngh, n_sm, gs)
+        if len(_spans(dout, bout, K1_BOX)) > _COUNTER_SLOTS:
+            raise ValueError(f"{dout} columns exceed the counter buffer")
+        ws, _ = _k1_workspace(dev, ks * dout if ks > 1 else 0)
+        maps = (_k1_map(lib, "weights", p_ptr, din, dout, bout, gs, K1_BOX, 0, idx),)
+        ptrs = _K1_PTRS(s_ptr, ws.data_ptr() if ks > 1 else None, counters.data_ptr(), None,
+                        None)
+        ints = _K1_INTS(m, din, dout, bout, s_rows, gs, K1_BOX, ks, gps, n_cta, 0)
+        return lib.w4_gemv_stream, maps, ptrs, ints, din, dout
+    if bout % ROWS_TILE_N:
+        raise ValueError(f"K1's wgmma form needs bout % 128 == 0 ({bout})")
+    whole, ks, gps = wgmma_plan(dout, ngh, n_sm)
+    m_pad, gp = 8 * -(-m // 8), padded_group(gs)
+    hp = ngh * gp
+    dig_f = 64 * -(-(4 * m_pad * hp // 4) // 64)  # (floats, 256-byte aligned regions)
+    gsum_f = 64 * -(-(ngh * 2 * m_pad) // 64)
+    split = whole < dout // ROWS_TILE_N
+    ws, bar = _k1_workspace(dev, dig_f + gsum_f + (ks * m * dout if split else 0))
+    base = ws.data_ptr()
+    maps = (_k1_map(lib, "weights", p_ptr, din, dout, bout, gp, 128, 1, idx),
+            _k1_map(lib, "digits", base, hp, m_pad, idx))
+    ptrs = _K1_PTRS(s_ptr, base, base + 4 * dig_f,
+                    base + 4 * (dig_f + gsum_f) if split else None, bar.data_ptr())
+    ints = _K1_INTS(m, din, dout, bout, s_rows, gs, whole, ks, gps, n_sm, 0)
+    return lib.w4_gemv_wgmma, maps, ptrs, ints, din, dout
+
+
+def launch_gemv(x, packed, scales, layer_index, out) -> None:
+    """Launch K1 on the current stream: out (m, dout) bf16 = x (m <= 32,
+    din) bf16 @ the W4 slot, in the form `k1_form` picks. Counts nothing:
+    the public wrapper counts."""
+    dev = require_cuda(x, packed, scales, out)
     m = x.shape[0]
-    if x.shape != (m, din) or not 1 <= m <= 32 or out.shape != (m, dout):
-        raise ValueError(f"x {tuple(x.shape)} / out {tuple(out.shape)} against ({din}, "
-                         f"{dout}), m <= 32")
+    _, _, l = _layer(packed, scales, layer_index)
+    key = (packed.data_ptr(), tuple(packed.shape), scales.data_ptr(), tuple(scales.shape), l,
+           m, _device_index(dev))
+    plan = _k1_plans.get(key)
+    if plan is None:
+        if not 1 <= m <= 32:
+            raise ValueError(f"w4_gemv takes 1..32 rows, got {m}")
+        plan = _k1_plans[key] = _k1_plan(dev, packed, scales, l, m)
+    fn, maps, ptrs, ints, din, dout = plan
+    if x.shape != (m, din) or out.shape != (m, dout):
+        raise ValueError(f"x {tuple(x.shape)} / out {tuple(out.shape)} against ({din}, {dout})")
     if x.dtype != torch.bfloat16 or out.dtype != torch.bfloat16:
         raise TypeError(f"w4_gemv takes and returns bf16, got {x.dtype} / {out.dtype}")
-    check_group(gs, "w4_gemv")
-    if bout % 4:
-        raise ValueError(f"w4_gemv needs bout % 4 == 0 ({bout})")
-    _, _, l = _layer(packed, scales, layer_index)
-    s_rows = scales.shape[-2]
-    n_sm, counters = _device_state(dev)
-    nr = 1 if m == 1 else 4
-    tiles = -(-dout // GEMV_TILE_N) * -(-m // nr)
-    target = max(1, -(-2 * n_sm // tiles))
-    gps = min(32, -(-ngh // target))
-    ksplit = -(-ngh // gps)
-    if tiles > _COUNTER_SLOTS:
-        raise ValueError(f"{tiles} column tiles exceed the counter buffer")
-    ws = None
-    if ksplit > 1:
-        ws = torch.empty((ksplit, m, dout), dtype=torch.float32, device=dev)
-    status = _fn("w4_gemv.cu", "w4_gemv", _GEMV_ARGTYPES)(
-        x.data_ptr(), packed.data_ptr() + l * nj * half * bout,
-        scales.data_ptr() + l * nj * s_rows * bout * 2,
-        m, din, dout, bout, s_rows, gs, ksplit, gps,
-        _ptr(ws), counters.data_ptr(), out.data_ptr(), _stream(dev),
-    )
+    if x.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("w4_gemv takes 16-byte aligned rows")
+    if fn.__name__ == "w4_gemv_wgmma":
+        _k1_last[_device_index(dev)] = (ptrs, ints)
+    status = fn(*maps, ptrs, ints, x.data_ptr(), out.data_ptr(), _stream(dev))
     _build.check(status, "w4_gemv")
+
+
+def k1_digits(dev: torch.device):
+    """The digits (2, 2, m_pad, ngh * gp) int8 and lo-plane group sums (ngh,
+    2, m_pad) int32 of the device's last launch of K1's wgmma form, as it
+    left them in its workspace (for checks: `_w4_digits_ref`'s layout)."""
+    ptrs, ints = _k1_last[_device_index(dev)]
+    m, din, gs = ints[0], ints[1], ints[5]
+    m_pad, ngh = 8 * -(-m // 8), din // 2 // gs
+    hp = ngh * padded_group(gs)
+    ws, _ = _k1_ws[_device_index(dev)]
+    raw = ws.view(torch.uint8)
+    base = ws.data_ptr()
+    d0, g0 = ptrs[1] - base, ptrs[2] - base
+    digits = raw[d0:d0 + 4 * m_pad * hp].view(torch.int8)
+    gsum = raw[g0:g0 + ngh * 2 * m_pad * 4].view(torch.int32)
+    return digits.reshape(2, 2, m_pad, hp), gsum.reshape(ngh, 2, m_pad)
+
+
+def launch_probe(packed: torch.Tensor, mode) -> torch.Tensor:
+    """K1's stream yardstick, on no path: the byte sum (one int32 a CTA,
+    as unsigned) of a flat (nj, din/2, bout) slab, read by the stream form's
+    ring with `mode`-byte boxes (128 or 256) or, with mode "v4", by plain
+    16-byte loads. Counts nothing."""
+    dev = require_cuda(packed)
+    nj, half, bout = packed.shape
+    n_sm, _ = _device_state(dev)
+    lib = _k1_lib()
+    if mode == "v4":
+        sums = torch.zeros(8 * n_sm, dtype=torch.int32, device=dev)
+        status = lib.w4_gemv_probe_v4(packed.data_ptr(), packed.numel(), sums.data_ptr(),
+                                      8 * n_sm, _stream(dev))
+    else:
+        n_cta = min(n_sm, nj * -(-bout // mode))
+        sums = torch.zeros(n_cta, dtype=torch.int32, device=dev)
+        idx = _device_index(dev)
+        tm = _k1_map(lib, "weights", packed.data_ptr(), 2 * half, nj * bout, bout, 128, mode,
+                     0, idx)
+        ptrs = _K1_PTRS(None, None, None, sums.data_ptr(), None)
+        ints = _K1_INTS(1, 2 * half, nj * bout, bout, 0, 128, mode, 1, half // 128, n_cta, 1)
+        status = lib.w4_gemv_stream(tm, ptrs, ints, None, None, _stream(dev))
+    _build.check(status, "w4_gemv_probe")
+    return sums
 
 
 def launch_digits(x, *, m, prologue=PRO_NONE, gamma=None, eps=0.0, value_out=None,

@@ -8,7 +8,7 @@ bit for bit.
 The port's CUDA kernels read the W4 slots in the JAX package's own layout,
 so no re-layout is needed: packed bytes stay `(..., nj, din/2, bout)`
 uint8 and the `scale_rows`-padded scales stay `(..., nj, s_rows, bout)`
-bf16 (`ops/quant.py`, `csrc/w4_gemv.cu`, `csrc/w4_gemm_sm90.cu`). `cfg`, when
+bf16 (`ops/quant.py`, `csrc/w4_gemv_sm90.cu`, `csrc/w4_gemm_sm90.cu`). `cfg`, when
 given, is checked against the W4 slot shapes so that a tree quantized for
 another configuration (for example without the GQA-padded o layout) fails
 here rather than inside a kernel.
