@@ -43,6 +43,21 @@ Phases:
   small_consistency  every decode route (bs=1 K3, B = 3 K6, B = 20 K4/K5)
                at Qwen2-0.5B widths (head dim 64, W4 groups of 112), 4
                layers, text only, against the plain CPU forward;
+  load         the loader at full NVILA-8B width, LLM depth 4: unquantized
+               bf16 weights synthesised on the card from a seed of their
+               own, written with `entry.save` (≈ 9.9 GB of f32 safetensors
+               under `runs/`, removed at the end) and read back with
+               `entry.build_config` / `entry.load_params` (config equal,
+               every leaf bit for bit); `quantize_llm_params` on the card
+               (layer 0's slots and the lm_head bit for bit against the
+               CPU); the SigLIP tower to W8A8 (layer 0's six int8 products:
+               activations, int32 sums and outputs equal to the plain
+               version on the CPU; one image through the tower, bf16
+               against W8A8, timed); 2 image + prompt requests x 16 tokens
+               through the engine over the loaded W4 LLM and W8A8 tower
+               (exact K1-K3 launches, TTFT, decode tok/s; the first 8
+               greedy tokens against the argmax of a plain CPU forward);
+               then the quantizer's peak memory on a 28-layer bf16 LLM;
   train_kernels  hold the flash-attention kernels K7 (forward), K8 (dQ)
                and K9 (dK/dV) against their plain versions at the
                NVILA-Lite-2B training shape (B 1, S 2048, 12/2 heads of 128,
@@ -146,7 +161,7 @@ E2E_KERNELS = ("w4_gemv", "w4_gemm", "fused_layer")
 # (max_batch, requests, new tokens) of each serve run: K6, then K4/K5
 SERVE_RUNS = ((8, 12, 32), (24, 24, 16))
 DEFAULT_PHASES = ("build,kernels,e2e,serve,consistency,batched_consistency,"
-                  "small_consistency,http,train_kernels,train,train_consistency")
+                  "small_consistency,http,load,train_kernels,train,train_consistency")
 
 
 def log(*a):
@@ -1294,8 +1309,9 @@ def _no_launches():
     return {name: 0 for name in _build.LAUNCHES}
 
 
-def phase_e2e(torch, engine, seed, n_requests=3, new_tokens=32):
-    """The serial engine (bs=1: K2 prefill, K3 + K1 decode)."""
+def phase_e2e(torch, engine, seed, n_requests=3, new_tokens=32, tag="e2e"):
+    """The serial engine (bs=1: K2 prefill, K3 + K1 decode); each request's
+    ids are in its entry of the returned list."""
     from vila_tpu_torch.inference.generate import GenerationConfig
     from vila_tpu_torch.ops import _build
 
@@ -1324,21 +1340,21 @@ def phase_e2e(torch, engine, seed, n_requests=3, new_tokens=32):
         dec = (len(ids) - 1) / (times[-1] - times[0])
         reqs.append(dict(prompt_tokens=int(inputs["input_ids"].shape[0]),
                          new_tokens=len(ids), ttft_ms=ttft, inputs_ms=prep * 1e3,
-                         decode_tok_s=dec))
-        log(f"[e2e] request {i}: prompt {inputs['input_ids'].shape[0]} tokens, "
+                         decode_tok_s=dec, ids=ids))
+        log(f"[{tag}] request {i}: prompt {inputs['input_ids'].shape[0]} tokens, "
             f"{len(ids)} new, TTFT {ttft:.1f} ms (host inputs {prep * 1e3:.1f} ms), "
             f"decode {dec:.1f} tok/s, "
             f"text {tok.decode(ids, skip_special_tokens=True)[:40]!r}")
         ok_ids = len(ids) == new_tokens and all(0 <= t < cfg.llm.vocab_size for t in ids)
         if not ok_ids:
-            log(f"[e2e] FAIL: request {i} gave {len(ids)} ids, range check failed")
+            log(f"[{tag}] FAIL: request {i} gave {len(ids)} ids, range check failed")
             return False, reqs, dict(_build.LAUNCHES)
     launches = dict(_build.LAUNCHES)
     steps = sum(r["new_tokens"] - 1 for r in reqs)
     # the bs=1 path launches none of the batched kernels (K4-K6)
     want = dict(_no_launches(), w4_gemv=n_requests + 2 * steps,
                 w4_gemm=4 * layers * n_requests, fused_layer=layers * steps)
-    log(f"[e2e] launches {launches}, expected {want}")
+    log(f"[{tag}] launches {launches}, expected {want}")
     ok = all(launches[k] > 0 for k in E2E_KERNELS) and launches == want
     return ok, reqs, launches
 
@@ -1713,6 +1729,272 @@ def phase_http(torch, engine, n_requests=4, new_tokens=16):
         f"{wall:.2f} s: replies equal the batcher's own greedy answers: {ok}; "
         f"first reply {got[0][:40]!r}")
     return all(ok) and not thread.is_alive(), dict(wall_s=wall, equal=ok)
+
+
+def synth_bf16_params(torch, cfg, seed, device):
+    """Unquantized bf16 VLM params at `cfg`'s widths on `device` (what a
+    checkpoint holds): normal(0.02) kernels as `init_params` draws them,
+    norm scales around 1 and biases around 0 drawn too, so that a load
+    that drops or swaps a leaf shows."""
+    from vila_tpu_torch.models import vlm
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = vlm.init_params(gen, cfg, torch.bfloat16)
+
+    def perturb(tree, key=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                perturb(v, k)
+            elif k in ("scale", "bias"):
+                r = torch.randn(v.shape, generator=gen, device=device)
+                tree[k] = ((1.0 if k == "scale" else 0.0) + (0.1 if k == "scale" else 0.02)
+                           * r).to(torch.bfloat16)
+        return tree
+
+    return perturb(params)
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+def _w8a8_layer0(torch, quant, siglip, vt8, vcfg, pixels):
+    """Every layer-0 W8A8 product of the tower on its real inputs (one
+    image through layer 0), on the card against the plain version on the
+    CPU: activations, int32 accumulators and outputs must be equal."""
+    calls = []
+    real = siglip._linear
+    siglip._linear = lambda x, p, dtype: calls.append((x, p, dtype)) or real(x, p, dtype)
+    try:
+        siglip.forward(vt8, vcfg, pixels, feature_layer=1)
+    finally:
+        siglip._linear = real
+    calls = [c for c in calls if "w8" in c[1]]  # not the patch embedding's
+    if len(calls) != 6:
+        raise RuntimeError(f"layer 0 made {len(calls)} W8A8 products, not 6")
+    rows = []
+    for (x, p, dtype), name in zip(calls, ("q", "k", "v", "out", "fc1", "fc2")):
+        pc = {k: v.cpu() for k, v in p.items()}
+        xq, a = quant.w8a8_activations(x)
+        acc = quant.int8_matmul(xq.reshape(-1, xq.shape[-1]), p["w8"])
+        xq_c, a_c = quant.w8a8_activations(x.cpu())
+        acc_c = quant.int8_matmul(xq_c.reshape(-1, xq_c.shape[-1]), pc["w8"])
+        y = quant.w8a8_linear(x, p, dtype)
+        y_c = quant.w8a8_linear(x.cpu(), pc, dtype)
+        rows.append(dict(
+            product=name, m=int(acc.shape[0]), k=int(xq.shape[-1]), n=int(acc.shape[1]),
+            activations_equal=bool(torch.equal(xq.cpu(), xq_c) and torch.equal(a.cpu(), a_c)),
+            acc_equal=bool(torch.equal(acc.cpu(), acc_c)),
+            out_equal=bool(torch.equal(y.cpu(), y_c))))
+    return rows
+
+
+def phase_load(torch, seed, dev="cuda", layers=4, n_requests=2, new_tokens=16,
+               full_layers=28, steps=8, cfg=None):
+    """The loader on the card at NVILA-8B width (LLM depth cut to `layers`):
+    unquantized bf16 parameters synthesised from a seed of their own are
+    written with `entry.save` and read back with `entry.build_config` /
+    `entry.load_params` (config equal, every leaf bit for bit); the LLM is
+    quantized on the card (layer 0's fused slots and the lm_head bit for bit
+    against the CPU), the tower to W8A8 (layer 0's products against the
+    plain version, bf16 and W8A8 encode timed); the engine over them serves
+    `n_requests` image + prompt requests with exact K1-K3 launches, and one
+    request's first `steps` tokens must be the argmax of a cache-free plain
+    forward on the CPU. Last, the quantizer's peak memory on a
+    `full_layers`-deep bf16 LLM. The checkpoint goes under the git-ignored
+    `runs/` and is removed at the end, pass or fail."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from vila_tpu_torch import entry
+    from vila_tpu_torch.inference.generate import GenerationEngine
+    from vila_tpu_torch.models import qwen2, siglip, vlm
+    from vila_tpu_torch.ops import quant
+    from vila_tpu_torch.utils.weights import to_torch_tree
+
+    import numpy as np
+
+    cfg = cfg or nvila_8b_config(layers)
+    cpu = torch.device("cpu")
+    out, ok = {}, True
+    os.makedirs("runs", exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="load_ckpt_", dir="runs")
+    try:
+        # 1. write
+        t0 = time.time()
+        params = synth_bf16_params(torch, cfg, seed + 100, dev)
+        torch.cuda.synchronize()
+        t_synth = time.time() - t0
+        t0 = time.time()
+        nbytes = entry.save(params, cfg, None, ckpt)
+        out.update(write_s=time.time() - t0, bytes=nbytes, synth_s=t_synth)
+        log(f"[load] wrote {nbytes / 1e9:.3f} GB (f32) with entry.save in "
+            f"{out['write_s']:.1f} s ({nbytes / 1e9 / out['write_s']:.2f} GB/s; bf16 "
+            f"params synthesised on the card in {t_synth:.1f} s)")
+
+        # 2. load
+        got_cfg = entry.build_config(ckpt)
+        diff = [f.name for f in dataclasses.fields(cfg)
+                if getattr(got_cfg, f.name) != getattr(cfg, f.name)]
+        t0 = time.time()
+        loaded = entry.load_params(ckpt, got_cfg, device=dev)
+        out["load_s"] = time.time() - t0
+        want = dict(_leaves(params))
+        got = dict(_leaves(loaded))
+        bad = [k for k in want if k not in got or got[k].dtype != want[k].dtype
+               or not torch.equal(got[k], want[k])] + [k for k in got if k not in want]
+        out.update(config_equal=not diff, leaves=len(want), leaves_unequal=bad)
+        ok &= not diff and not bad
+        log(f"[load] build_config equals the written config: {not diff} {diff or ''}; "
+            f"load_params in {out['load_s']:.1f} s ({nbytes / 1e9 / out['load_s']:.2f} "
+            f"GB/s): {len(want) - len(bad)}/{len(want)} leaves bit-equal to the "
+            f"synthesised bf16 tree {'OK' if not bad else 'FAIL ' + str(bad[:4])}")
+        del params, want, got
+
+        # 3. quantize: on the card, and layer 0 + the lm_head on the CPU
+        t0 = time.time()
+        llm_q = quant.quantize_llm_params(loaded["llm"], fuse=True, cfg=got_cfg.llm)
+        torch.cuda.synchronize()
+        out["quantize_s"] = time.time() - t0
+        src = loaded["llm"]
+        l0 = {"embed_tokens": src["embed_tokens"], "norm": src["norm"],
+              "lm_head": {"kernel": src["lm_head"]["kernel"].cpu()},
+              "layers": {n: {k: v[:1].cpu() for k, v in slot.items()}
+                         for n, slot in src["layers"].items()}}
+        t0 = time.time()
+        q_cpu = quant.quantize_llm_params(l0, fuse=True, cfg=got_cfg.llm)
+        t_cpu = time.time() - t0
+        slots = [("layers", n) for n in ("qkv_proj", "o_proj", "gate_up_proj", "down_proj")]
+        q_bad = []
+        for where, n in slots + [(None, "lm_head")]:
+            card = llm_q[where][n] if where else llm_q[n]
+            plain = q_cpu[where][n] if where else q_cpu[n]
+            for k in ("packed", "scales"):
+                c = card[k][0] if where else card[k]
+                pl = plain[k][0] if where else plain[k]
+                if not torch.equal(c.cpu(), pl):
+                    q_bad.append(f"{n}.{k}")
+        out.update(quantize_cpu_s=t_cpu, quantized_unequal=q_bad)
+        ok &= not q_bad
+        log(f"[load] quantize_llm_params on the card in {out['quantize_s']:.2f} s; layer "
+            f"0's four fused slots and the lm_head on the CPU ({t_cpu:.1f} s): packed "
+            f"bytes and scales equal {'OK' if not q_bad else 'FAIL ' + str(q_bad)}")
+
+        # 4. the W8A8 tower
+        vt8 = siglip.quantize_siglip_w8a8(loaded["vision_tower"])
+        side = got_cfg.vision.image_size
+        img = torch.as_tensor(np.random.default_rng(seed + 8).integers(
+            0, 256, (1, side, side, 3), dtype=np.uint8), device=dev)
+        rows = _w8a8_layer0(torch, quant, siglip, vt8, got_cfg.vision, img)
+        w8_ok = all(r["activations_equal"] and r["acc_equal"] and r["out_equal"] for r in rows)
+        ok &= w8_ok
+
+        def tower(vp):
+            return siglip.forward(vp, got_cfg.vision, img,
+                                  feature_layer=got_cfg.vision_feature_layer,
+                                  select=got_cfg.vision_select)
+
+        bf16_ms = time_ms(torch, lambda: tower(loaded["vision_tower"]), 10)
+        w8_ms = time_ms(torch, lambda: tower(vt8), 10)
+        issue = {}
+        for tag, vp in (("bf16", loaded["vision_tower"]), ("w8a8", vt8)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tower(vp)  # the host's issue time: the call returns before the card ends
+            issue[tag] = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+        f_bf, f_w8 = tower(loaded["vision_tower"]), tower(vt8)
+        err, ref = rel_err(torch, f_w8, f_bf)
+        out.update(w8a8_products=rows, tower_bf16_ms=bf16_ms, tower_w8a8_ms=w8_ms,
+                   tower_issue_ms=issue, tower_rel_err=err / ref)
+        log(f"[load] W8A8 layer-0 products {[(r['product'], r['m'], r['k'], r['n']) for r in rows]}: "
+            f"int8 activations, int32 accumulators and outputs equal to the plain "
+            f"version on the CPU: {'OK' if w8_ok else 'FAIL ' + str(rows)}")
+        log(f"[load] one {side}x{side} image through the tower ({got_cfg.vision.num_hidden_layers} "
+            f"layers, feature layer {got_cfg.vision_feature_layer}): bf16 {bf16_ms:.3f} ms, "
+            f"W8A8 {w8_ms:.3f} ms (CUDA events; the host issues one call in "
+            f"{issue['bf16']:.1f} / {issue['w8a8']:.1f} ms); features max|W8A8 - bf16| / "
+            f"max|bf16| = {err / ref:.4f}")
+
+        # 5. serve the loaded W4 LLM + W8A8 tower
+        served = {"llm": llm_q, "vision_tower": vt8, "mm_projector": loaded["mm_projector"]}
+        engine = GenerationEngine(served, got_cfg, ByteTokenizer(), device=dev)
+        good, reqs, launches = phase_e2e(torch, engine, seed + 7, n_requests, new_tokens,
+                                         tag="load")
+        ok &= good
+        out["requests"] = reqs
+        images = _images(seed + 7, n_requests + 1)
+        inputs = engine.prepare_inputs([images[0], QUESTIONS[0]])
+        ids = reqs[0]["ids"][:steps]
+        llm_cpu = to_torch_tree(llm_q, cpu)
+        media = engine.encode_media(inputs["media"]).cpu()
+        prompt = torch.as_tensor(inputs["input_ids"])[None].long()
+        n = prompt.shape[1]
+        embeds = vlm.splice_media(qwen2.embed_tokens(llm_cpu, got_cfg.llm, prompt), media,
+                                  torch.as_tensor(inputs["media_pos"]).long())
+        full = torch.cat([embeds, qwen2.embed_tokens(llm_cpu, got_cfg.llm,
+                                                     torch.tensor([ids[:-1]]))], dim=1)
+        t0 = time.time()
+        h, _ = qwen2.forward(llm_cpu, got_cfg.llm, inputs_embeds=full, return_hidden=True)
+        logits = qwen2.compute_logits(llm_cpu, got_cfg.llm, h[:, n - 1:])[0].float()
+        plain = logits.argmax(-1).tolist()
+        # Both sides round the W4 lm_head's logits to bf16 after f32 sums in
+        # another order, so two tokens within one bf16 ulp of the top are a
+        # tie either side may break (ROADMAP §3): a served token counts if
+        # the plain forward puts it within K1's tolerance, 2^-7 max|logit|,
+        # of its top logit. The exact agreement is reported beside it.
+        tol = 2.0 ** -7 * float(logits.abs().max())
+        margin = (logits.max(-1).values - logits[torch.arange(len(ids)), ids]).tolist()
+        exact = sum(p == t for p, t in zip(plain, ids))
+        greedy_ok = all(m <= tol for m in margin)
+        ok &= greedy_ok
+        out.update(greedy_exact=exact, greedy_margins=margin, greedy_tol=tol,
+                   greedy_ok=greedy_ok, ttft_ms=[r["ttft_ms"] for r in reqs],
+                   decode_tok_s=[r["decode_tok_s"] for r in reqs])
+        log(f"[load] request 0's first {steps} greedy tokens {ids} against a cache-free "
+            f"plain forward on the CPU ({time.time() - t0:.1f} s): its argmax {plain} "
+            f"equal on {exact}/{steps} steps; top logit minus the served token's "
+            f"{[round(m, 4) for m in margin]} (tolerance 2^-7 max|logit| = {tol:.4f}) "
+            f"{'OK' if greedy_ok else 'FAIL'}")
+        del engine, served, llm_q, llm_cpu, vt8, loaded, src, l0, q_cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 6. the quantizer's peak memory at full depth
+        big_cfg = dataclasses.replace(cfg.llm, num_hidden_layers=full_layers)
+        gen = torch.Generator(device=dev).manual_seed(seed + 101)
+        big = qwen2.init_params(gen, big_cfg, torch.bfloat16)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        tree = sum(v.numel() * v.element_size() for _, v in _leaves(big))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        q = quant.quantize_llm_params(big, fuse=True, cfg=big_cfg)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        qbytes = sum(v.numel() * v.element_size() for k, v in _leaves(q)
+                     if "packed" in k or "scales" in k)
+        out.update(full_quantize_s=time.time() - t0, full_tree_gb=tree / 1e9,
+                   full_peak_gib=peak / 2**30, full_base_gib=base / 2**30,
+                   full_slots_gb=qbytes / 1e9)
+        fits = peak < 80e9
+        ok &= fits
+        log(f"[load] quantize_llm_params on a {full_layers}-layer bf16 LLM ({tree / 1e9:.2f} "
+            f"GB) on the card in {out['full_quantize_s']:.2f} s: peak "
+            f"{peak / 2**30:.2f} GiB allocated (of which {base / 2**30:.2f} GiB before it: "
+            f"the tree and the serving engines), W4 slots {qbytes / 1e9:.2f} GB "
+            f"{'OK' if fits else 'FAIL'}")
+        del big, q
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ok, out, launches
 
 
 def phase_profile(torch, engine, seed, new_tokens=17):
@@ -2436,6 +2718,9 @@ def main(argv=None) -> int:
         ok &= good
     if "http" in phases:
         good, report["http"] = phase_http(torch, engine(args.layers, args.seed))
+        ok &= good
+    if "load" in phases:
+        good, report["load"], launches["load"] = phase_load(torch, args.seed)
         ok &= good
     if "profile" in phases:  # not in the default run
         report["profile"] = phase_profile(torch, engine(args.layers, args.seed), args.seed)

@@ -1,6 +1,7 @@
 """Hygiene of the PyTorch/CUDA port (`vila_tpu_torch`).
 
-* Importing every module of the port loads neither JAX nor the JAX package.
+* Importing every module of the port loads neither JAX nor the JAX package,
+  nor `safetensors` or `transformers`.
 * No function body of the port loads an undefined global (the check of
   `tests/test_lint.py`, which walks only `vila_tpu`); a kernel wrapper that
   is never reached on the CPU is checked like everything else.
@@ -34,21 +35,33 @@ def _module_names():
     ]
 
 
-def test_port_imports_no_jax_and_no_jax_package():
+def _imported_by_port(roots):
+    """Modules under any of `roots` that importing every module of the
+    port loads, in a fresh interpreter."""
     code = (
         "import importlib, json, sys\n"
         f"for name in {_module_names()!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m.startswith('jaxlib') or m == 'vila_tpu'\n"
-        "             or m.startswith('vila_tpu.'))\n"
-        "print(json.dumps(bad))\n"
+        f"roots = {tuple(roots)!r}\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "                        if m.split('.')[0] in roots)))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "[]"
+    return out.stdout.strip().splitlines()[-1]
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    assert _imported_by_port(("jax", "jaxlib", "vila_tpu")) == "[]"
+
+
+def test_port_imports_neither_safetensors_nor_transformers():
+    """The loader reads and writes safetensors with numpy, and
+    `entry.load_tokenizer` imports `transformers` only when called: the
+    card's host has neither package."""
+    assert _imported_by_port(("safetensors", "transformers")) == "[]"
 
 
 def _walk_code(code):
@@ -98,6 +111,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(None, {}, [], None, TrainArgs())
+    from vila_tpu_torch import entry
+
+    # both raise before they read the (missing) checkpoint
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry.load("no-such-checkpoint")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry.load_params("no-such-checkpoint", None)
 
 
 def test_kernel_wrappers_never_fall_back(no_cuda):

@@ -16,3 +16,11 @@ its plain PyTorch version.
 __version__ = "0.1.0"
 
 from vila_tpu_torch.media import File, Image, Video  # noqa: F401
+
+
+def load(model_path: str, **kwargs):
+    """`entry.load`: a checkpoint directory -> a ready `GenerationEngine`
+    (on the card unless `device="cpu"`)."""
+    from vila_tpu_torch.entry import load as _load
+
+    return _load(model_path, **kwargs)

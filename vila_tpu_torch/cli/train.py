@@ -1,16 +1,22 @@
-"""`vila-train` flags, as `vila_tpu/cli/train.py`: the stage presets
-(align / stage15 / pretrain / sft tune flags and learning rates of
-scripts/NVILA-Lite/*.sh) and the parser over `TrainArgs`.
+"""`vila-train`, as `vila_tpu/cli/train.py`: the stage presets (align /
+stage15 / pretrain / sft tune flags and learning rates of
+scripts/NVILA-Lite/*.sh), the parser over `TrainArgs`, and `main`: load
+`--model-path` (tokenizer, config, weights), build the dataset mixture and
+the collator, train.
 
-`main` (load `--model-path`, build the dataset and collator, train) waits
-for the loader (`entry.load`); until then a caller builds a `Trainer` over
-its own parameters.
+    python -m vila_tpu_torch.cli.train --model-path ckpt/ --stage sft \
+        --data-mixture dummy_mix --max-steps 100 [--device cuda]
+
+The weights are loaded as f32 master weights (the `Trainer`'s contract);
+the compute dtype is the config's (bf16 on the card, f32 on the CPU).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+
+import torch
 
 from vila_tpu_torch.train.trainer import TrainArgs
 
@@ -49,6 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-path", required=True,
                    help="component checkpoint dir (llm/, vision_tower/, mm_projector/)")
     p.add_argument("--stage", choices=sorted(STAGE_PRESETS), default=None)
+    p.add_argument("--device", default="cuda", help="cuda, or cpu for the plain versions")
     for f in dataclasses.fields(TrainArgs):
         name = "--" + f.name.replace("_", "-")
         if f.type == "bool" or isinstance(f.default, bool):
@@ -77,3 +84,36 @@ def train_args(ns: argparse.Namespace) -> TrainArgs:
     if ns.stage:
         kw.update(STAGE_PRESETS[ns.stage])
     return TrainArgs(**kw)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+
+    from vila_tpu_torch.data.builder import build_dataset
+    from vila_tpu_torch.data.collate import Collator, PackingCollator
+    from vila_tpu_torch.entry import build_config, load_params, load_tokenizer
+    from vila_tpu_torch.train.trainer import Trainer
+
+    tokenizer = load_tokenizer(args.model_path)
+    cfg = build_config(args.model_path, device=args.device)
+    params = load_params(args.model_path, cfg, param_dtype=torch.float32,
+                         device=args.device)
+    targs = train_args(args)
+
+    dataset = build_dataset(targs.data_mixture, tokenizer, cfg)
+    # zigzag ring layout needs S % (2 * sp * su) == 0
+    seq_mult = max(targs.sp * targs.su, 1)
+    if targs.sp_attention and targs.ring_layout == "zigzag" and targs.sp > 1:
+        seq_mult *= 2
+    common = dict(seq_len=targs.seq_len, pad_token_id=tokenizer.pad_token_id or 0,
+                  seq_multiple=seq_mult, tile_size=cfg.vision.image_size)
+    if targs.pack_rows > 0:
+        collator = PackingCollator(rows=targs.pack_rows, **common)
+    else:
+        collator = Collator(**common)
+    Trainer(cfg, params, dataset, collator, targs, device=args.device).train()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -87,6 +87,33 @@ class LLMConfig:
         if self.remat not in (False, True, "dots"):
             raise ValueError(f"remat must be False, True or 'dots', got {self.remat!r}")
 
+    @classmethod
+    def from_hf_config(cls, hf: dict, **overrides) -> "LLMConfig":
+        """From an HF Qwen2/Llama config dict (config.json contents), as
+        the JAX package's `LLMConfig.from_hf_config`."""
+        rope_scaling = hf.get("rope_scaling") or {}
+        linear = 1.0
+        if rope_scaling.get("rope_type", rope_scaling.get("type")) == "linear":
+            linear = float(rope_scaling.get("factor", 1.0))
+        kw = dict(
+            vocab_size=hf["vocab_size"],
+            hidden_size=hf["hidden_size"],
+            intermediate_size=hf["intermediate_size"],
+            num_hidden_layers=hf["num_hidden_layers"],
+            num_attention_heads=hf["num_attention_heads"],
+            num_key_value_heads=hf.get("num_key_value_heads", hf["num_attention_heads"]),
+            head_dim=hf.get("head_dim"),
+            rope_theta=hf.get("rope_theta", 10000.0),
+            rope_linear_scaling=linear,
+            rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
+            tie_word_embeddings=hf.get("tie_word_embeddings", False),
+            qkv_bias=hf.get("model_type", "qwen2") == "qwen2"
+            or hf.get("attention_bias", False),
+            max_position_embeddings=hf.get("max_position_embeddings", 32768),
+        )
+        kw.update(overrides)
+        return cls(**kw)
+
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.hidden_size // self.num_attention_heads

@@ -1,5 +1,7 @@
-"""SigLIP vision tower, as `vila_tpu/models/siglip.py` (bf16 or f32; the
-W8A8 variant is not ported yet).
+"""SigLIP vision tower, as `vila_tpu/models/siglip.py`: bf16 or f32, or
+with its encoder's linear layers in W8A8 (`quantize_siglip_w8a8`, TinyChat's
+vision recipe: int8 weights and dynamic per-token int8 activations,
+`ops.quant.w8a8_linear`).
 
 The stride == kernel patch convolution is one matmul on pre-patchified
 pixels; `feature_layer=-2` runs the encoder only up to the requested layer.
@@ -16,6 +18,7 @@ import torch
 
 from vila_tpu_torch.ops.attention import multi_head_attention
 from vila_tpu_torch.ops.norms import layer_norm
+from vila_tpu_torch.ops.quant import quantize_w8a8, w8a8_linear
 from vila_tpu_torch.utils.device import host_to_device
 
 Params = Dict[str, Any]
@@ -34,6 +37,21 @@ class SigLIPConfig:
     dtype: str = "float32"
     image_mean: Tuple[float, ...] = (0.5, 0.5, 0.5)
     image_std: Tuple[float, ...] = (0.5, 0.5, 0.5)
+
+    @classmethod
+    def from_hf_config(cls, hf: dict, **overrides) -> "SigLIPConfig":
+        kw = dict(
+            hidden_size=hf["hidden_size"],
+            intermediate_size=hf["intermediate_size"],
+            num_hidden_layers=hf["num_hidden_layers"],
+            num_attention_heads=hf["num_attention_heads"],
+            image_size=hf["image_size"],
+            patch_size=hf["patch_size"],
+            num_channels=hf.get("num_channels", 3),
+            layer_norm_eps=hf.get("layer_norm_eps", 1e-6),
+        )
+        kw.update(overrides)
+        return cls(**kw)
 
     @property
     def head_dim(self) -> int:
@@ -95,10 +113,27 @@ def patchify(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
 
 
 def _linear(x, p, dtype):
+    if "w8" in p:  # W8A8 slot (quantize_siglip_w8a8)
+        return w8a8_linear(x, p, dtype)
     y = x @ p["kernel"].to(dtype)
     if "bias" in p:
         y = y + p["bias"].to(dtype)
     return y
+
+
+def quantize_siglip_w8a8(params: Params) -> Params:
+    """The encoder's linear layers (q, k, v, out, fc1, fc2) to W8A8 slots
+    {w8, w_scale[, bias]}, on the parameters' device; norms, the patch
+    matmul and the position embeddings stay in the compute dtype.
+    `_linear` dispatches on the slot's contents."""
+    src = params["layers"]
+    layers: Params = {"layer_norm1": src["layer_norm1"], "layer_norm2": src["layer_norm2"]}
+    for name in ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2"):
+        slot = quantize_w8a8(src[name]["kernel"])
+        if "bias" in src[name]:
+            slot["bias"] = src[name]["bias"]
+        layers[name] = slot
+    return {**params, "layers": layers}
 
 
 def resize_position_embedding(pos_embed: torch.Tensor, num_new: int) -> torch.Tensor:

@@ -11,7 +11,7 @@ vision features into those slots of the text embeddings.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -30,6 +30,14 @@ class VLMConfig:
     vision_select: str = "cls_patch"
     image_aspect_ratio: str = "resize"  # resize | pad
     vision_tower_type: str = "siglip"  # the other towers (PS3, ...) come later
+    # carried from the checkpoint's config.json and written back by
+    # `entry.save`; video and dynamic tiling are not ported yet
+    num_video_frames: int = 8
+    fps: float = 0.0
+    min_tiles: int = 1
+    max_tiles: int = 12
+    s2_scales: Tuple[int, ...] = (448, 896, 1344)
+    s2_resize_output_to_scale_idx: int = 0
 
     def __post_init__(self):
         if self.vision_tower_type != "siglip":

@@ -44,6 +44,12 @@ Each wrapper takes its plain PyTorch version (`_w4_gemv_ref`,
 `_w4_gemm_ref`) for CPU tensors only; a CUDA tensor launches the kernel or
 raises. Stacked `(L, ...)` weights are indexed by `layer_index` (a Python
 int) with a pointer offset: no per-layer copy.
+
+The vision tower's W8A8 linear (`quantize_w8a8`, `w8a8_linear`) is XLA
+code in the JAX package, not a Pallas kernel: its int8 product is
+`torch._int_mm` (cuBLASLt s8 x s8 -> s32) on the card and an exact int32
+matmul on the CPU. The quantizers divide as IEEE division on every device
+(`_div`), so card and CPU give the same bytes.
 """
 
 from __future__ import annotations
@@ -83,6 +89,13 @@ def pick_bout(din: int, dout: int, budget: int = _BLOCK_BUDGET) -> int:
     return best
 
 
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c, correctly rounded on every device: on the card PyTorch
+    multiplies by the reciprocal of a Python scalar divisor, which can be
+    one ulp off the quotient (the JAX package's and the CPU's)."""
+    return x / torch.full_like(x, c)
+
+
 def scale_rows(ngh: int) -> int:
     """Scale rows per block: 2*ngh (lo + hi groups) padded to a multiple of 8."""
     return ((2 * ngh + 7) // 8) * 8
@@ -103,7 +116,7 @@ def quantize_w4(
 
     g = w.float().reshape(*lead, din // group_size, group_size, dout)
     amax = g.abs().amax(dim=-2, keepdim=True)
-    scale = torch.clamp(amax / 7.0, min=1e-8)
+    scale = torch.clamp(_div(amax, 7.0), min=1e-8)
     q = torch.clamp(torch.round(g / scale), -8, 7).to(torch.int8)
     q = q.reshape(*lead, din, dout)
     lo = (q[..., :half, :] + 8).to(torch.uint8)
@@ -1059,6 +1072,22 @@ def quantized_linear(x, p: Dict[str, Any], dtype, act_digits: int = 2):
     return y
 
 
+def _quantize_stacked(layer, n_layers, group_size, bout=None) -> Dict[str, Any]:
+    """Tiled W4 slot of `n_layers` stacked kernels, quantized one layer at a
+    time (`layer(l)` gives layer l's (din, dout) kernel): the bytes of one
+    `quantize_w4` over the stack, with one layer's f32 temporaries instead
+    of the whole stack's."""
+    packed = scales = None
+    for l in range(n_layers):
+        w = layer(l)
+        q = quantize_w4(w, group_for(w.shape[-2] // 2, group_size), bout=bout)
+        if packed is None:
+            packed = q["packed"].new_empty((n_layers,) + tuple(q["packed"].shape))
+            scales = q["scales"].new_empty((n_layers,) + tuple(q["scales"].shape))
+        packed[l], scales[l] = q["packed"], q["scales"]
+    return {"packed": packed, "scales": scales}
+
+
 def quantize_llm_params(
     llm_params: Dict[str, Any],
     bits: int = 4,
@@ -1067,60 +1096,57 @@ def quantize_llm_params(
     cfg=None,  # optional qwen2.LLMConfig: enables the GQA-padded o layout
 ) -> Dict[str, Any]:
     """Quantize a qwen2 param tree to W4A16 slots, as
-    `vila_tpu.ops.quant.quantize_llm_params` (same bytes). With `fuse`,
-    q/k/v and gate/up merge into qkv_proj and gate_up_proj."""
+    `vila_tpu.ops.quant.quantize_llm_params` (same bytes), on the tree's
+    device. With `fuse`, q/k/v and gate/up merge into qkv_proj and
+    gate_up_proj. Stacked kernels are quantized one layer at a time, so the
+    peak memory is the tree plus its slots plus one layer's temporaries."""
     assert bits == 4, "W4 decode path"
     out = {"embed_tokens": llm_params["embed_tokens"], "norm": llm_params["norm"]}
     src = llm_params["layers"]
+    n_layers = src["input_layernorm"]["scale"].shape[0]
     layers: Dict[str, Any] = {
         "input_layernorm": src["input_layernorm"],
         "post_attention_layernorm": src["post_attention_layernorm"],
     }
 
-    def qslot(kernel, bias=None, bout_budget=None):
+    def qslot(names, bias=None, bout_budget=None, pad=None):
+        """One slot from the kernels `names`, concatenated on the output
+        axis (and repacked by `pad`) layer by layer."""
+        def layer(l):
+            parts = [src[n]["kernel"][l] for n in names]
+            w = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+            return w if pad is None else pad(w)
+
         bout = None
         if bout_budget is not None:
-            bout = pick_bout(kernel.shape[-2], kernel.shape[-1], budget=bout_budget)
-        q = quantize_w4(kernel, group_for(kernel.shape[-2] // 2, group_size), bout=bout)
-        slot = {"packed": q["packed"], "scales": q["scales"]}
+            w0 = layer(0)
+            bout = pick_bout(w0.shape[-2], w0.shape[-1], budget=bout_budget)
+        slot = _quantize_stacked(layer, n_layers, group_size, bout)
         if bias is not None:
             slot["bias"] = bias
         return slot
 
+    def bias_of(names):
+        if not all("bias" in src[n] for n in names):
+            return None
+        return torch.cat([src[n]["bias"] for n in names], dim=-1)
+
     if fuse:
-        qkv_k = torch.cat(
-            [src[n]["kernel"] for n in ("q_proj", "k_proj", "v_proj")], dim=-1
-        )
-        qkv_b = None
-        if "bias" in src["q_proj"]:
-            qkv_b = torch.cat(
-                [src[n]["bias"] for n in ("q_proj", "k_proj", "v_proj")], dim=-1
-            )
-        layers["qkv_proj"] = qslot(qkv_k, qkv_b)
-        gu_k = torch.cat(
-            [src["gate_proj"]["kernel"], src["up_proj"]["kernel"]], dim=-1
-        )
-        layers["gate_up_proj"] = qslot(gu_k)
-        o_kernel = src["o_proj"]["kernel"]
+        layers["qkv_proj"] = qslot(("q_proj", "k_proj", "v_proj"),
+                                   bias_of(("q_proj", "k_proj", "v_proj")))
+        layers["gate_up_proj"] = qslot(("gate_proj", "up_proj"))
+        pad = None
         if cfg is not None:
-            o_kernel = pad_o_heads(
-                o_kernel, cfg.num_attention_heads, cfg.num_key_value_heads,
-                cfg.head_dim_,
-            )
-        layers["o_proj"] = qslot(o_kernel, src["o_proj"].get("bias"))
-        layers["down_proj"] = qslot(
-            src["down_proj"]["kernel"], src["down_proj"].get("bias"),
-            bout_budget=5 << 20,
-        )
+            def pad(w):
+                return pad_o_heads(w, cfg.num_attention_heads,
+                                   cfg.num_key_value_heads, cfg.head_dim_)
+        layers["o_proj"] = qslot(("o_proj",), src["o_proj"].get("bias"), pad=pad)
+        layers["down_proj"] = qslot(("down_proj",), src["down_proj"].get("bias"),
+                                    bout_budget=5 << 20)
     else:
         for name in ("q_proj", "k_proj", "v_proj", "o_proj",
                      "gate_proj", "up_proj", "down_proj"):
-            slot = src[name]
-            layers[name] = qslot(slot["kernel"], slot.get("bias"))
-
-    for slot in layers.values():
-        if isinstance(slot, dict) and slot.get("bias") is None:
-            slot.pop("bias", None)
+            layers[name] = qslot((name,), src[name].get("bias"))
 
     out["layers"] = layers
     if "lm_head" in llm_params:
@@ -1128,3 +1154,62 @@ def quantize_llm_params(
         q = quantize_w4(kernel, group_for(kernel.shape[-2] // 2, group_size))
         out["lm_head"] = {"packed": q["packed"], "scales": q["scales"]}
     return out
+
+
+# --------------------------------------------------------------------------
+# W8A8 (the vision tower's linear layers)
+# --------------------------------------------------------------------------
+
+
+def quantize_w8a8(kernel: torch.Tensor) -> Dict[str, Any]:
+    """Per-output-channel symmetric int8 weights for the W8A8 path, as
+    `vila_tpu.ops.quant.quantize_w8a8` (same bytes): kernel (..., din,
+    dout) -> {w8 int8 same shape, w_scale f32 (..., dout)}. One scale per
+    output channel, so the whole din contraction sums in one int32."""
+    w32 = kernel.float()
+    amax = w32.abs().amax(dim=-2, keepdim=True)
+    scale = torch.clamp(_div(amax, 127.0), min=1e-8)
+    q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
+    return {"w8": q, "w_scale": scale[..., 0, :]}
+
+
+def w8a8_activations(x: torch.Tensor):
+    """Dynamic per-token int8 activations: (xq int8 (..., din), a f32
+    (..., 1)) with x ~= xq * a / 127 (max |x| of the row, round, clip)."""
+    xf = x.float()
+    a = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8)
+    xq = torch.clamp(torch.round(xf * (torch.full_like(a, 127.0) / a)), -127, 127)
+    return xq.to(torch.int8), a
+
+
+def int8_matmul(xq: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact. On the card it is
+    `torch._int_mm` (cuBLASLt), which takes M > 16 and K, N multiples of 8:
+    another shape raises, it is never computed another way. On the CPU the
+    plain version sums in int32."""
+    if xq.device.type == "cpu":
+        return xq.to(torch.int32) @ w8.to(torch.int32)
+    require_cuda(xq, w8)
+    m, k = xq.shape
+    n = w8.shape[1]
+    if m <= 16 or k % 8 or n % 8:
+        raise ValueError(
+            f"int8 product ({m}, {k}) x ({k}, {n}): the card takes M > 16 and "
+            f"K, N multiples of 8")
+    return torch._int_mm(xq, w8)
+
+
+def w8a8_linear(x: torch.Tensor, p: Dict[str, Any], dtype) -> torch.Tensor:
+    """W8A8 linear, as `vila_tpu.ops.quant.w8a8_linear`: dynamic per-token
+    int8 activations times per-channel int8 weights, the int32 sum scaled in
+    f32 in JAX's order, `acc * (a / 127) * w_scale`. x (..., din) any float
+    dtype; p {w8 (din, dout), w_scale (dout,)[, bias (dout,)]}. Output in
+    `dtype`."""
+    xq, a = w8a8_activations(x)
+    lead = x.shape[:-1]
+    acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), p["w8"])
+    acc = acc.reshape(*lead, acc.shape[-1])
+    y = (acc.float() * (a * (1.0 / 127.0)) * p["w_scale"]).to(dtype)
+    if "bias" in p:
+        y = y + p["bias"].to(dtype)
+    return y

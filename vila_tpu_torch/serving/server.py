@@ -8,12 +8,18 @@ binds one to a server object, so a process may run several.
 
 Image parts arrive as data URLs (decoded with PIL, imported only when an
 image part arrives) or as paths and URLs for the engine to open. Video
-parts are refused: video prompts are not ported yet. The command-line
-entry point waits for the model loader, which is not ported yet.
+parts are refused: video prompts are not ported yet.
+
+    python -m vila_tpu_torch.serving.server --model-path ckpt/ --port 8000 \
+        [--max-batch 8] [--device cuda]
+
+loads the checkpoint (`entry.load`) and serves it, through a
+`ContinuousBatcher` when `--max-batch` > 0.
 """
 
 from __future__ import annotations
 
+import argparse
 import base64
 import io
 import json
@@ -168,3 +174,55 @@ def serve(engine, host: str = "0.0.0.0", port: int = 8000) -> None:
     server = make_server(engine, host, port)
     print(f"vila_tpu_torch server listening on {host}:{server.server_address[1]}")
     server.serve_forever()
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("vila-torch-serve")
+    p.add_argument("--model-path", required=True)
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--max-batch", type=int, default=0,
+                   help="continuous batching with this many decode slots "
+                        "(0 = bs=1 serial serving)")
+    p.add_argument("--max-len", type=int, default=2048,
+                   help="per-request context cap under batching")
+    p.add_argument("--device", default="cuda", help="cuda, or cpu for the plain versions")
+    return p
+
+
+def load_server(argv=None) -> ThreadingHTTPServer:
+    """The bound, not yet serving, server of a command line: the loaded
+    engine (`entry.load`), behind a `ContinuousBatcher` when `--max-batch`
+    > 0. The caller runs `serve_forever`, then `close_server`."""
+    from vila_tpu_torch import entry
+
+    args = build_parser().parse_args(argv)
+    engine = entry.load(args.model_path, device=args.device)
+    if args.max_batch > 0:
+        from vila_tpu_torch.serving.batcher import ContinuousBatcher
+
+        engine = ContinuousBatcher(engine, max_batch=args.max_batch, max_len=args.max_len)
+    return make_server(engine, args.host, args.port)
+
+
+def close_server(server: ThreadingHTTPServer) -> None:
+    """Release the socket and stop the batcher's worker, if any."""
+    server.server_close()
+    shutdown = getattr(server.RequestHandlerClass.engine, "shutdown", None)
+    if shutdown is not None:
+        shutdown()
+
+
+def main(argv=None) -> int:
+    server = load_server(argv)
+    host, port = server.server_address[:2]
+    print(f"vila_tpu_torch server listening on {host}:{port}", flush=True)
+    try:
+        server.serve_forever()
+    finally:
+        close_server(server)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -24,10 +24,11 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def host_to_device(array, device: torch.device) -> torch.Tensor:
-    """A copy of a host array on `device`. On the card it goes through
-    pinned memory and an asynchronous copy, so the host does not wait for
-    the work already queued on the stream."""
-    t = torch.tensor(np.asarray(array))
+    """A host array (or CPU tensor) on `device`: a copy, but a CPU tensor
+    stays itself on the CPU. On the card it goes through pinned memory and
+    an asynchronous copy, so the host does not wait for the work already
+    queued on the stream."""
+    t = array if isinstance(array, torch.Tensor) else torch.tensor(np.asarray(array))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
