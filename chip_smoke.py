@@ -15,7 +15,9 @@ Phases:
                over those weights; K6's digit pass (prologue values, digits,
                scales and sums bit for bit) and rows GEMV also on their own;
                K3's stage times from inside its one launch and K6's
-               launches one by one; K4/K5's product-1 digits bit for bit,
+               launches one by one; K2 at M = 1536 and 8192 (the media
+               prompts' buckets) and K3 at cache 8192 / fill 4141 (the
+               video's cache); K4/K5's product-1 digits bit for bit,
                a repeat launch bit for bit, stage times from inside the
                launch and the same products through K6's rows route; K1
                (the `k1` phase) on the lm_head at M = 1, 2, 8, 16, 17, 24
@@ -43,6 +45,23 @@ Phases:
   small_consistency  every decode route (bs=1 K3, B = 3 K6, B = 20 K4/K5)
                at Qwen2-0.5B widths (head dim 64, W4 groups of 112), 4
                layers, text only, against the plain CPU forward;
+  s2           NVILA-8B with dynamic-S2 (scales 448, 896, 1344, max 12 tiles,
+               s2_resize_output_to_scale_idx -1, mlp_downsample_3x3_fix over
+               3 x 1152) through `entry.build_config`: one seeded 1344 x 1008
+               image gives 17 tiles and a 3 x 4 block grid, 1452 media tokens
+               (bucket 1536); the W4 LLM of `e2e`, the W8A8 tower; 2 requests
+               x 16 tokens with exact K1-K3 launches; the media embeddings
+               against the reference's formulation, layer 0's int8 products
+               exact, request 0's greedy tokens against the plain versions
+               on the card; the tower's time over the 17 tiles, bf16 and W8A8;
+  video        the NVILA-Video-8B TinyChat condition the same way: a TSP video
+               encoder (pool (4, 1, 1)) over 64 seeded 720 x 1280 frames
+               resized by the native library, ≈ 4.1k prompt tokens (bucket
+               8192: K2 at M = 8192, K3 over a cache of 8192 rows with ≈ 4.1k
+               live); 2 requests x 32 tokens;
+  media_profile  (only when named) torch.profiler traces of the s2 and
+               video requests' media encode and prefill: device busy time
+               and the operations by device time;
   load         the loader at full NVILA-8B width, LLM depth 4: unquantized
                bf16 weights synthesised on the card from a seed of their
                own, written with `entry.save` (≈ 9.9 GB of f32 safetensors
@@ -156,12 +175,13 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # K1's lm_head work on the batched routes, reported inside its entry:
 # (rows, the path that runs it)
 K1_BATCHED = ((8, "serve b8"), (24, "serve b24"))
-# the kernels the serial (bs=1) path must launch
+# the kernels the serial (bs=1) path must launch (e2e, load, s2, video)
 E2E_KERNELS = ("w4_gemv", "w4_gemm", "fused_layer")
 # (max_batch, requests, new tokens) of each serve run: K6, then K4/K5
 SERVE_RUNS = ((8, 12, 32), (24, 24, 16))
 DEFAULT_PHASES = ("build,kernels,e2e,serve,consistency,batched_consistency,"
-                  "small_consistency,http,load,train_kernels,train,train_consistency")
+                  "small_consistency,http,s2,video,load,train_kernels,train,"
+                  "train_consistency")
 
 
 def log(*a):
@@ -537,6 +557,9 @@ def phase_kernels(torch, seed, dev="cuda", dims=DIMS_8B, m_prefill=320, cache=(2
     args = (q32, mask, h, 0, kc, vc, slots["o"], slots["gate_up"], slots["down"],
             qkv_slot, gpost, gin)
     ok &= _run_k3(torch, fused_decode, results, args, fill, flush, dims)
+    if dims == DIMS_8B:
+        ok &= _check_media_shapes(torch, quant, fused_decode, results, slots, args, seed,
+                                  flush, dims)
     layer_w = (w4_bytes(Hkv * 8 * hd, D) + w4_bytes(D, 2 * I) + w4_bytes(I, D)
                + w4_bytes(D, (Hq + 2 * Hkv) * hd))
     layer_macs = Hkv * 8 * hd * D + D * 2 * I + I * D + D * (Hq + 2 * Hkv) * hd
@@ -560,7 +583,75 @@ def phase_kernels(torch, seed, dev="cuda", dims=DIMS_8B, m_prefill=320, cache=(2
     return ok, results
 
 
-def _run_k3(torch, fused_decode, results, args, fill, flush, dims, model="NVILA-8B"):
+# The media phases' new shapes: K2 at the prompt buckets of a dynamic-S2
+# image (1452 media tokens -> 1536) and of a 64-frame TSP video (≈ 4.1k ->
+# 8192); K3 over the video's cache (8192 rows, ≈ 4.1k live)
+MEDIA_PREFILL = ((1536, "s2"), (8192, "video"))
+MEDIA_CACHE = (8192, 4141)
+
+
+def _check_media_shapes(torch, quant, fused_decode, results, slots, k3_args, seed, flush,
+                        dims):
+    """K2 over one layer's four projections at M = 1536 and 8192 against
+    the plain version (one bf16 ulp of the largest output), timed beside
+    its bound, the plain version and `dequantize` + `torch.matmul`; K3 at
+    cache 8192 / fill 4141 (65 attention chunks a KV head: each CTA loops
+    over several units) against its plain version. Inputs from a generator
+    of their own; the weights are the `kernels` phase's."""
+    dev = flush.device
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+    D, I, hd, Hq, Hkv, V = dims
+    shapes = {"qkv": (D, (Hq + 2 * Hkv) * hd), "o": (Hkv * 8 * hd, D),
+              "gate_up": (D, 2 * I), "down": (I, D)}
+    ok = True
+    for m, path in MEDIA_PREFILL:
+        for name, (din, dout) in shapes.items():
+            packed, scales = slots[name]["packed"], slots[name]["scales"]
+            x = torch.randn((m, din), generator=gen, device=dev).to(torch.bfloat16)
+            fn = lambda: quant.w4_matmul_prefill(x, packed, scales, layer_index=1)  # noqa: E731
+            ref = lambda: quant._w4_gemm_ref(x, packed, scales, 1)  # noqa: E731
+            got, want = fn(), ref()
+            torch.cuda.synchronize()
+            err, scale = rel_err(torch, got, want)
+            tol = 2.0 ** -7 * scale
+            good = bool(torch.isfinite(got.float()).all()) and err <= tol
+            ok &= good
+            del got, want
+            t = time_ms(torch, fn, 10, flush)
+            t_plain = time_ms(torch, ref, 3, flush)
+            t_lib = time_ms(torch, lambda: x @ quant.dequantize(
+                {"packed": packed[1], "scales": scales[1]}), 3, flush)
+            b_ms, b_by = bound(m * din * 2 + w4_bytes(din, dout) + m * dout * 2,
+                               2 * m * din * dout, BF16_FLOPS)
+            plan = (quant.gemm_plan(m, dout, din // 2, quant._device_state(dev)[0])
+                    if dev.type == "cuda" else "-")
+            results["w4_gemm"].append(dict(
+                shape=name, m=m, din=din, dout=dout, max_abs_err=err, tol=tol, ok=good,
+                ms=t, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=t_lib,
+                media=path, plan=str(plan)))
+            log(f"[kernels] w4_gemm {path} {name:8s} M={m:<5d} plan {plan} err {err:.3e} "
+                f"(tol {tol:.3e}) {'OK' if good else 'FAIL'}  kernel {t:.4f} ms  plain "
+                f"{t_plain:.3f} ms  dequant+matmul {t_lib:.3f} ms  bound {b_ms:.4f} ms ({b_by})")
+            del x
+    S, fill = MEDIA_CACHE
+    kv_ld = Hkv * hd
+    kc = (0.5 * torch.randn((2, 1, S, kv_ld), generator=gen, device=dev)).to(torch.bfloat16)
+    vc = torch.randn((2, 1, S, kv_ld), generator=gen, device=dev).to(torch.bfloat16)
+    mask = torch.full((1, S), -1e30, device=dev)
+    mask[:, : fill + 1] = 0.0
+    q32 = hd ** -0.5 * torch.randn((Hkv, 8, hd), generator=gen, device=dev)
+    q32[:, Hq // Hkv:] = 0.0
+    q32 = q32.reshape(Hkv * 8, hd).to(torch.bfloat16)
+    args = (q32, mask) + tuple(k3_args[2:4]) + (kc, vc) + tuple(k3_args[6:])
+    if dev.type == "cuda":
+        nsplit = fused_decode.attn_plan(fill + 1, Hkv, quant._device_state(dev)[0])
+        log(f"[kernels] fused_layer video: attention plan at fill {fill}: {nsplit}")
+    ok &= _run_k3(torch, fused_decode, results, args, fill, flush, dims, media="video")
+    return ok
+
+
+def _run_k3(torch, fused_decode, results, args, fill, flush, dims, model="NVILA-8B",
+            media=None):
     """K3 (one bs=1 layer) on prepared inputs against its plain version,
     within 1e-2 x max|ref| (the one launch read 0.35 % on h and 0.71 % on
     qkv at NVILA-8B; NVIDIA H100 80GB HBM3, 700.00 W); timed beside its bound
@@ -590,8 +681,9 @@ def _run_k3(torch, fused_decode, results, args, fill, flush, dims, model="NVILA-
         model=model, shape=f"decode layer, cache {S}, fill {fill}", m=1,
         max_abs_err=max(err_h, err_q),
         tol=f"1e-2 x max|ref| (h {1e-2 * sc_h:.3e}, qkv {1e-2 * sc_q:.3e})",
-        ok=good, ms=t, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    log(f"[kernels] fused_layer {model} h err {err_h:.3e} (max {sc_h:.3e}) qkv err "
+        ok=good, ms=t, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        **({"media": media} if media else {})))
+    log(f"[kernels] fused_layer {model}{' ' + media if media else ''} cache {S} fill {fill} h err {err_h:.3e} (max {sc_h:.3e}) qkv err "
         f"{err_q:.3e} (max {sc_q:.3e}) {'OK' if good else 'FAIL'}  kernel {t:.4f} ms  "
         f"plain {t_plain:.3f} ms  bound {b_ms:.4f} ms ({b_by})")
     if flush.device.type == "cuda" and model == "NVILA-8B":
@@ -1245,16 +1337,17 @@ def summarise(results, launches):
     (and, under `batched`, timings only, the lm_head at M=8 and 24 of
     `serve b8` and `serve b24`: those paths' K1 launches, layer 0's qkv
     included, are in its `launches_by_path`);
-    K2 one prefill layer's four projections at M=320; K3 one bs=1 decode
-    layer; K6 one decode layer at B=8 (the max_batch=8 server); K4 and K5
+    K2 one prefill layer's four projections at M=320 (under `media`, the
+    same at M=1536 and 8192, the s2 and video prompts' buckets); K3 one
+    bs=1 decode layer (under `media`, over the video's cache); K6 one decode layer at B=8 (the max_batch=8 server); K4 and K5
     one layer's pair of GEMVs at M=24 (the max_batch=24 server).
     `launches` maps each path run to its counts; a kernel's `launches` is
     its sum over those runs."""
     picks = {
         "w4_gemv": lambda r: r["m"] == 1 and r["shape"] in ("qkv", "lm_head"),
-        "w4_gemm": lambda r: r["m"] > 32,
+        "w4_gemm": lambda r: r["m"] > 32 and "media" not in r,
         "w4_gemm_dots": lambda r: r["m"] > 32,
-        "fused_layer": lambda r: True,
+        "fused_layer": lambda r: "media" not in r,
         "fused_o_gateup": lambda r: r["m"] == 24,
         "fused_down_qkv": lambda r: r["m"] == 24,
         "fused_layer_batched": lambda r: r["m"] == 8,
@@ -1265,6 +1358,24 @@ def summarise(results, launches):
                                          "library_ms", "bf16_matmul_ms")})
                for m, path in K1_BATCHED
                for r in results.get("k1", []) if r["shape"] == "lm_head" and r["m"] == m]
+    # K2 at the media prompts' buckets (one layer's four projections) and K3
+    # over the video's cache, beside the main entries (timings only)
+    media = {}
+    for name in ("w4_gemm", "fused_layer"):
+        by_path = {}
+        for r in results.get(name, []):
+            if "media" in r:
+                by_path.setdefault((r["media"], r["m"]), []).append(r)
+        media[name] = [dict(
+            work=(f"one prefill layer's 4 projections M={m} ({path})" if name == "w4_gemm"
+                  else f"one bs=1 layer, {rows[0]['shape']} ({path})"),
+            m=m, path=path, max_abs_err=max(r["max_abs_err"] for r in rows),
+            **{k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")},
+            bound_by=rows[0]["bound_by"],
+            library_ms=None if rows[0]["library_ms"] is None else sum(
+                r["library_ms"] for r in rows),
+            checks_ok=all(r["ok"] for r in rows))
+            for (path, m), rows in by_path.items()]
     out = []
     for name, meta in KERNELS.items():
         # the NVILA-8B main-path shapes (the Qwen2-0.5B checks are reported apart)
@@ -1288,6 +1399,7 @@ def summarise(results, launches):
             work=", ".join(f"{r['shape']} M={r['m']}" for r in rows),
             checks_ok=all(r["ok"] for r in results[name]),
             **({"batched": batched} if name == "w4_gemv" and batched else {}),
+            **({"media": media[name]} if media.get(name) else {}),
         ))
     return out
 
@@ -1309,21 +1421,24 @@ def _no_launches():
     return {name: 0 for name in _build.LAUNCHES}
 
 
-def phase_e2e(torch, engine, seed, n_requests=3, new_tokens=32, tag="e2e"):
+def phase_e2e(torch, engine, seed, n_requests=3, new_tokens=32, tag="e2e", prompt=None):
     """The serial engine (bs=1: K2 prefill, K3 + K1 decode); each request's
-    ids are in its entry of the returned list."""
+    ids are in its entry of the returned list. `prompt(i)` gives request
+    i's prompt (default: a 448² image and a question)."""
     from vila_tpu_torch.inference.generate import GenerationConfig
     from vila_tpu_torch.ops import _build
 
     cfg, tok = engine.cfg, engine.tokenizer
     layers = cfg.llm.num_hidden_layers
-    images = _images(seed, n_requests + 1)
+    if prompt is None:
+        images = _images(seed, n_requests + 1)
+        prompt = lambda i: [images[i], QUESTIONS[i % len(QUESTIONS)]]  # noqa: E731
     # no stop token: every request decodes exactly `new_tokens`
     gc = GenerationConfig(max_new_tokens=new_tokens, stop_token_ids=(-1,))
 
     def serve(i):
         t_start = time.perf_counter()
-        inputs = engine.prepare_inputs([images[i], QUESTIONS[i % len(QUESTIONS)]])
+        inputs = engine.prepare_inputs(prompt(i))
         t_inputs = time.perf_counter()
         ids, times = [], []
         for chunk in engine.stream_ids(inputs, gc):
@@ -1731,6 +1846,362 @@ def phase_http(torch, engine, n_requests=4, new_tokens=16):
     return all(ok) and not thread.is_alive(), dict(wall_s=wall, equal=ok)
 
 
+# --------------------------------------------------------------------------
+# NVILA's media paths: dynamic-S2 and TSP video at NVILA-8B width
+# --------------------------------------------------------------------------
+
+TSP_TARGET = "llava.model.encoders.TSPVideoEncoder"
+# (top-level config.json fields, projector type, requests, new tokens) of
+# each media phase. s2: NVILA's scales with the aspect-ratio grid kept
+# (s2_resize_output_to_scale_idx -1, the multi-block merge; the JAX
+# default 0 gives one block) over the 3x3 projector; mm_hidden_size is
+# left to build_config (1152 x 3 scales). video: the NVILA-Video-8B
+# TinyChat condition, 64 frames (BASELINE.md:5) pooled 4 in time: 16 rows
+# of 256 tokens, ≈ 4.1k prompt tokens (bench.py:438-441's reckoning).
+MEDIA_PHASES = {
+    "s2": (dict(image_aspect_ratio="dynamic_s2", dynamic_s2=True,
+                s2_scales=[448, 896, 1344], max_tiles=12,
+                s2_resize_output_to_scale_idx=-1),
+           "mlp_downsample_3x3_fix", 2, 16),
+    "video": (dict(num_video_frames=64,
+                   video_encoder={"_target_": TSP_TARGET, "pool_sizes": [[4, 1, 1]]}),
+              "mlp_downsample", 2, 32),
+}
+S2_IMAGE = (1008, 1344, 3)  # 4:3: 1 + 4 + 12 tiles of 448², a 3 x 4 block grid
+VIDEO_FRAME = (720, 1280, 3)
+
+
+def media_config(kind, serving, dev="cuda"):
+    """The phase's VLMConfig through `entry.build_config`: the serving
+    configuration's (`serving`, the e2e engine's) component configs
+    (`entry.save_config`) under the git-ignored `runs/`, the top-level
+    config.json given the phase's fields, read back and removed."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from vila_tpu_torch import entry
+
+    fields, ptype, _, _ = MEDIA_PHASES[kind]
+    base = dataclasses.replace(
+        serving, projector=dataclasses.replace(serving.projector, projector_type=ptype))
+    os.makedirs("runs", exist_ok=True)
+    d = tempfile.mkdtemp(prefix=f"{kind}_cfg_", dir="runs")
+    try:
+        entry.save_config(base, d)
+        with open(os.path.join(d, "config.json")) as f:
+            top = json.load(f)
+        top.pop("mm_hidden_size")
+        top.update(fields)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(top, f)
+        cfg = entry.build_config(d, dtype=base.llm.dtype, device=dev)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if (cfg.llm, cfg.vision) != (base.llm, base.vision):
+        raise RuntimeError(f"build_config read back another model: {cfg}")
+    return cfg
+
+
+class plain_versions:
+    """The reference side of a comparison on the card: while active, the
+    W4 wrappers compute their plain versions (`quant._w4_gemv_ref`,
+    `_w4_gemm_ref`) on the card's tensors, and no kernel may launch. The
+    port's wrappers never do this themselves."""
+
+    def __enter__(self):
+        from vila_tpu_torch.ops import _build, quant
+
+        self.quant, self.saved = quant, (quant.w4_matmul_decode, quant.w4_matmul_prefill)
+        self.before = dict(_build.LAUNCHES)
+        quant.w4_matmul_decode = (lambda x, packed, scales, act_digits=2, layer_index=None:
+                                  quant._w4_gemv_ref(x, packed, scales, layer_index))
+        quant.w4_matmul_prefill = (lambda x, packed, scales, layer_index=None:
+                                   quant._w4_gemm_ref(x, packed, scales, layer_index))
+        return self
+
+    def __exit__(self, *exc):
+        from vila_tpu_torch.ops import _build
+
+        self.quant.w4_matmul_decode, self.quant.w4_matmul_prefill = self.saved
+        if exc[0] is None and dict(_build.LAUNCHES) != self.before:
+            raise RuntimeError("a kernel launched inside plain_versions")
+        return False
+
+
+def plain_media_embeds(torch, engine, entry):
+    """One media entry's embeddings through the reference's own
+    formulation, from the same tower and projector: the dynamic-S2 merge
+    as llava_arch.py:256-394 writes it (chessboard merge of NCHW maps,
+    `F.interpolate(mode="area")`, concatenated channels, chessboard split,
+    projector, merge), TSP as a 3-D average pool of the projected frames
+    (video/tsp.py:11-13)."""
+    from vila_tpu_torch.models import projector, siglip, vlm
+
+    F = torch.nn.functional
+    cfg, params = engine.cfg, engine.params
+    tiles = torch.as_tensor(entry["tiles"], device=engine.device)
+    if entry["kind"] == "tsp":
+        x = vlm.encode_images(params, cfg, tiles)  # (T, S, D)
+        t, n_tok, d = x.shape
+        nl = int(round(n_tok ** 0.5))
+        x = x.reshape(t, nl, nl, d).permute(3, 0, 1, 2)[None].float()
+        out = [F.avg_pool3d(x, tuple(ps))[0].permute(1, 2, 3, 0).reshape(-1, d)
+               for ps in entry["pool_sizes"]]
+        return torch.cat(out).to(cfg.projector.compute_dtype)
+    feats = siglip.forward(params["vision_tower"], cfg.vision, tiles,
+                           feature_layer=cfg.vision_feature_layer, select=cfg.vision_select)
+    n, n_tok, c = feats.shape
+    side = int(round(n_tok ** 0.5))
+
+    def merge(x, gh, gw):  # (gh*gw, C, side, side) -> (1, C, gh*side, gw*side)
+        return x.reshape(gh, gw, c, side, side).permute(2, 0, 3, 1, 4).reshape(
+            1, c, gh * side, gw * side)
+
+    chw = feats.reshape(n, side, side, c).permute(0, 3, 1, 2)
+    grids = [s // cfg.s2_scales[0] for s in cfg.s2_scales[:-1]]
+    maps, i = [], 0
+    for g in grids:
+        maps.append(merge(chw[i:i + g * g], g, g))
+        i += g * g
+    bh, bw = entry["block_size"]
+    maps.append(merge(chw[i:i + bh * bw], bh, bw))
+    out_idx = cfg.s2_resize_output_to_scale_idx
+    th, tw = maps[out_idx].shape[2:]
+    merged = torch.cat([F.interpolate(m.float(), size=(th, tw), mode="area").to(m.dtype)
+                        for m in maps], dim=1)[0]  # (C * scales, th, tw)
+    obh, obw = (bh, bw) if out_idx in (-1, len(cfg.s2_scales) - 1) else (grids[out_idx],) * 2
+    ch = merged.shape[0]
+    blocks = merged.reshape(ch, obh, th // obh, obw, tw // obw).permute(1, 3, 2, 4, 0)
+    blocks = blocks.reshape(obh * obw, (th // obh) * (tw // obw), ch)
+    proj = projector.forward(params["mm_projector"], cfg.projector, blocks)
+    k = int(round(proj.shape[1] ** 0.5))
+    return proj.reshape(obh, obw, k, k, -1).permute(0, 2, 1, 3, 4).reshape(-1, proj.shape[-1])
+
+
+def _int8_products_exact(torch, quant, siglip, vt8, vcfg, tiles):
+    """Layer 0's q and fc1 int8 products of the W8A8 tower at the phase's
+    row count (tiles x 1024), `torch._int_mm` against an f64 product on the
+    card (exact: every int8 x int8 sum is far below 2^53)."""
+    from vila_tpu_torch.ops.norms import layer_norm
+
+    lp = {k: {n: v[0] for n, v in slot.items()} for k, slot in vt8["layers"].items()}
+    h = siglip.embed_pixels(vt8, vcfg, tiles)
+    x = layer_norm(h, lp["layer_norm1"]["scale"], lp["layer_norm1"]["bias"], vcfg.layer_norm_eps)
+    out = {}
+    for name in ("q_proj", "fc1"):
+        xq, _ = quant.w8a8_activations(x)
+        xq = xq.reshape(-1, xq.shape[-1])
+        acc = quant.int8_matmul(xq, lp[name]["w8"])
+        want = (xq.double() @ lp[name]["w8"].double()).to(torch.int32)
+        out[f"{name} ({xq.shape[0]}x{xq.shape[1]}x{acc.shape[1]})"] = bool(torch.equal(acc, want))
+        del acc, want
+    return out
+
+
+def media_engine(torch, e2e, vt8, seed, kind, dev="cuda"):
+    """(engine, prompt(i), whether the config has the phase's widths) of a
+    media phase: the config through `media_config`, the e2e engine's W4
+    LLM, the W8A8 tower `vt8`, the phase's projector (s2: its own, seeded;
+    video: the e2e engine's) and its seeded media."""
+    import numpy as np
+
+    from vila_tpu_torch.inference.generate import GenerationEngine
+    from vila_tpu_torch.media import Video
+    from vila_tpu_torch.models import projector
+
+    n_requests = MEDIA_PHASES[kind][2]
+    cfg = media_config(kind, e2e.cfg, dev)
+    if kind == "s2":
+        gen = torch.Generator(device=dev).manual_seed(seed + 20)
+        proj = projector.init_params(gen, cfg.projector, torch.bfloat16)
+        want_cfg = (cfg.projector.mm_hidden_size == 3 * cfg.vision.hidden_size
+                    and cfg.tokens_per_image == 121 and cfg.image_aspect_ratio == "dynamic_s2")
+        rng = np.random.default_rng(seed + 21)
+        media = [rng.integers(0, 256, S2_IMAGE, dtype=np.uint8) for _ in range(n_requests + 1)]
+    else:
+        proj = e2e.params["mm_projector"]
+        want_cfg = (cfg.video_encoder == "tsp" and cfg.tsp_pool_sizes == ((4, 1, 1),)
+                    and cfg.num_video_frames == 64 and cfg.tokens_per_image == 256)
+        rng = np.random.default_rng(seed + 22)
+        frames = [rng.integers(0, 256, VIDEO_FRAME, dtype=np.uint8) for _ in range(64)]
+        media = [Video(frames)] * (n_requests + 1)
+    log(f"[{kind}] entry.build_config: aspect {cfg.image_aspect_ratio}, scales "
+        f"{cfg.s2_scales}, projector {cfg.projector.projector_type} over "
+        f"{cfg.projector.mm_hidden_size}, {cfg.tokens_per_image} tokens a tile, video "
+        f"{cfg.video_encoder} {cfg.tsp_pool_sizes} x {cfg.num_video_frames} frames "
+        f"{'OK' if want_cfg else 'FAIL'}")
+    engine = GenerationEngine({"llm": e2e.params["llm"], "vision_tower": vt8,
+                               "mm_projector": proj}, cfg, e2e.tokenizer, device=dev)
+    return engine, lambda i: [media[i], QUESTIONS[i % len(QUESTIONS)]], want_cfg
+
+
+def ttft_parts(torch, engine, inputs, new_tokens):
+    """(encode, prefill): the device parts of a request's TTFT as two
+    calls, the media encode (tower, merge or pooling, projector) and the
+    prefill (cache, K2, attention) over the padded prompt."""
+    from vila_tpu_torch.inference.generate import (PROMPT_BUCKETS, _bucket, _round_up,
+                                                   padded_prompt)
+    from vila_tpu_torch.models import qwen2
+
+    n_prompt = int(inputs["input_ids"].shape[0])
+    s_pad = _bucket(n_prompt, PROMPT_BUCKETS)
+    ids, valid, mpos = padded_prompt(inputs, s_pad, engine.device)
+    emb = engine.encode_media(inputs["media"])
+    cache_len = min(engine.max_cache_len, _round_up(s_pad + new_tokens, 256))
+
+    def prefill():
+        cache = qwen2.init_cache(engine.cfg.llm, 1, cache_len, device=engine.device)
+        return engine._prefill(ids, valid, emb, mpos, cache, n_prompt)
+
+    return (lambda: engine.encode_media(inputs["media"])), prefill
+
+
+def phase_media(torch, e2e, vt8, seed, kind, dev="cuda"):
+    """NVILA-8B's own media paths at full width and depth through the entry
+    points: `entry.build_config` (the phase's fields), `prepare_inputs`
+    (PIL dynamic-S2 tiling of a 1344 x 1008 image, or 64 seeded 720 x 1280
+    frames through the native resize), `encode_media` (the W8A8 tower,
+    TinyChat's: `vt8`, the e2e engine's tower quantized), K2 prefill, K3 +
+    K1 decode; the W4 LLM is the e2e engine's (`media_engine`). Checks: the
+    config's widths, the prompt's layout, exact K1-K3 launches, the media
+    embeddings against the reference's formulation (`plain_media_embeds`),
+    layer 0's int8 products exact, and request 0's greedy tokens against a
+    cache-free forward through the plain versions on the card. Times the
+    tower bf16 and W8A8 on the phase's tiles, and TTFT's device parts."""
+    from vila_tpu_torch.inference.generate import PROMPT_BUCKETS, _bucket
+    from vila_tpu_torch.models import siglip
+    from vila_tpu_torch.ops import quant
+
+    n_requests, new_tokens = MEDIA_PHASES[kind][2:]
+    out, ok = {}, True
+    torch.cuda.reset_peak_memory_stats()
+    engine, prompt, want_cfg = media_engine(torch, e2e, vt8, seed, kind, dev)
+    cfg = engine.cfg
+    ok &= want_cfg
+
+    # the prompt's layout
+    t0 = time.perf_counter()
+    inputs = engine.prepare_inputs(prompt(0))
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    entry = inputs["media"][0]
+    n_media, n_prompt = len(inputs["media_pos"]), int(inputs["input_ids"].shape[0])
+    s_pad = _bucket(n_prompt, PROMPT_BUCKETS)
+    if kind == "s2":
+        layout = (entry["kind"] == "s2" and entry["tiles"].shape == (17, 448, 448, 3)
+                  and tuple(entry["block_size"]) == (3, 4) and n_media == 12 * 121
+                  and s_pad == 1536)
+    else:
+        layout = (entry["kind"] == "tsp" and entry["tiles"].shape == (64, 448, 448, 3)
+                  and n_media == 16 * 256 and s_pad == 8192)
+    ok &= layout
+    out.update(prompt_tokens=n_prompt, media_tokens=n_media, bucket=s_pad,
+               tiles=list(entry["tiles"].shape), prepare_ms=prep_ms)
+    log(f"[{kind}] prepare_inputs in {prep_ms:.1f} ms: {entry['kind']} entry of "
+        f"{entry['tiles'].shape[0]} tiles {entry.get('block_size', '')}, {n_media} media "
+        f"tokens, prompt {n_prompt} tokens -> bucket {s_pad} {'OK' if layout else 'FAIL'}")
+
+    # media embeddings, the int8 products, the tower's time
+    got = engine.encode_media(inputs["media"])
+    want = plain_media_embeds(torch, engine, entry)
+    err, ref = rel_err(torch, got, want)
+    emb_ok = (got.shape == want.shape == (n_media, cfg.llm.hidden_size)
+              and bool(torch.isfinite(got.float()).all()) and err <= 1e-2 * ref)
+    ok &= emb_ok
+    tiles = torch.as_tensor(entry["tiles"], device=dev)
+    exact = _int8_products_exact(torch, quant, siglip, vt8, cfg.vision, tiles)
+    ok &= all(exact.values())
+
+    def tower(vp):
+        return siglip.forward(vp, cfg.vision, tiles, feature_layer=cfg.vision_feature_layer,
+                              select=cfg.vision_select)
+
+    bf16_ms = time_ms(torch, lambda: tower(e2e.params["vision_tower"]), 3)
+    w8_ms = time_ms(torch, lambda: tower(vt8), 3)
+    out.update(embeds_max_abs_err=err, embeds_max_abs=ref, embeds_tol_rel=1e-2,
+               int8_exact=exact, tower_bf16_ms=bf16_ms, tower_w8a8_ms=w8_ms)
+    log(f"[{kind}] encode_media {tuple(got.shape)} against the reference's formulation "
+        f"(plain_media_embeds): max |d| {err:.3e} of max |ref| {ref:.3e} (tolerance 1e-2 x "
+        f"max|ref|) {'OK' if emb_ok else 'FAIL'}; W8A8 layer-0 int8 products equal to f64: "
+        f"{exact}; tower over {tiles.shape[0]} tiles: bf16 {bf16_ms:.2f} ms, W8A8 "
+        f"{w8_ms:.2f} ms (CUDA events, median of 3)")
+    del got, want, tiles
+
+    # serve, with exact launches
+    good, reqs, launches = phase_e2e(torch, engine, seed, n_requests, new_tokens, tag=kind,
+                                     prompt=prompt)
+    ok &= good
+    out["requests"] = reqs
+
+    encode, prefill = ttft_parts(torch, engine, inputs, new_tokens)
+    out["encode_ms"] = time_ms(torch, encode, 2)
+    out["prefill_ms"] = time_ms(torch, prefill, 2)
+    del encode, prefill
+    log(f"[{kind}] TTFT parts for request 0's prompt: host inputs {reqs[0]['inputs_ms']:.1f} "
+        f"ms, encode_media {out['encode_ms']:.1f} ms, prefill over {s_pad} rows "
+        f"{out['prefill_ms']:.1f} ms (CUDA events, median of 2), TTFT {reqs[0]['ttft_ms']:.1f} ms")
+
+    # request 0's greedy tokens against the plain versions on the card
+    with plain_versions():
+        g = greedy_against_plain(torch, engine.params["llm"], cfg.llm, inputs,
+                                 engine.encode_media(inputs["media"]), reqs[0]["ids"],
+                                 attn_impl="blocked")
+    ok &= g["ok"]
+    out.update(greedy_exact=g["exact"], greedy_margins=g["margins"], greedy_tol=g["tol"],
+               greedy_ok=g["ok"], peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[{kind}] request 0's {len(reqs[0]['ids'])} greedy tokens against a cache-free "
+        f"forward through the plain versions on the card ({g['seconds']:.1f} s): argmax "
+        f"equal on {g['exact']}/{len(reqs[0]['ids'])} steps; largest top-minus-served margin "
+        f"{max(g['margins']):.4f} (tolerance 2^-7 max|logit| = {g['tol']:.4f}) "
+        f"{'OK' if g['ok'] else 'FAIL'}; peak {out['peak_gib']:.2f} GiB allocated")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, out, launches
+
+
+def phase_media_profile(torch, e2e, vt8, seed, kind, dev="cuda"):
+    """(only when named) torch.profiler traces of one media request's two
+    device parts of TTFT, the media encode and the prefill: device busy
+    time against the host clock, and the operations by device time
+    (tables in chiprun_out/media_profile_<kind>.txt)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine, prompt, _ = media_engine(torch, e2e, vt8, seed, kind, dev)
+    inputs = engine.prepare_inputs(prompt(0))
+    encode, prefill = ttft_parts(torch, engine, inputs, MEDIA_PHASES[kind][3])
+    out = {}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"media_profile_{kind}.txt"), "w") as f:
+        for part, fn in (("encode_media", encode), ("prefill", prefill)):
+            fn()  # warm-up
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            # the device's kernels and copies by name (the operators that
+            # launched them and the profiler's own markers not counted twice)
+            by_name = {}
+            for e in prof.events():
+                if (e.device_type == torch.autograd.DeviceType.CUDA
+                        and e.name != "Command Buffer Full"):
+                    by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+            ops = sorted(by_name.items(), key=lambda kv: -kv[1])
+            busy = sum(by_name.values())
+            out[part] = dict(wall_ms=wall, busy_ms=busy, top=ops[:12])
+            f.write(f"==== {kind} {part}: wall {wall:.1f} ms, device busy {busy:.1f} ms\n")
+            f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=30))
+            log(f"[media_profile] {kind} {part}: wall {wall:.1f} ms, device busy {busy:.1f} "
+                f"ms; kernels by device time: " + "; ".join(f"{k[:70]} {ms:.1f}"
+                                                             for k, ms in ops[:10]))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def synth_bf16_params(torch, cfg, seed, device):
     """Unquantized bf16 VLM params at `cfg`'s widths on `device` (what a
     checkpoint holds): normal(0.02) kernels as `init_params` draws them,
@@ -1791,6 +2262,36 @@ def _w8a8_layer0(torch, quant, siglip, vt8, vcfg, pixels):
             acc_equal=bool(torch.equal(acc.cpu(), acc_c)),
             out_equal=bool(torch.equal(y.cpu(), y_c))))
     return rows
+
+
+def greedy_against_plain(torch, llm, lcfg, inputs, media, ids, attn_impl="auto"):
+    """The served greedy tokens `ids` of a prepared request against the
+    argmax of one cache-free forward over the prompt (its media
+    embeddings `media` spliced in) plus `ids[:-1]`, on `llm`'s device.
+    Both sides round the W4 lm_head's logits to bf16 after f32 sums in
+    another order, so two tokens within one bf16 ulp of the top are a tie
+    either side may break (ROADMAP §3): a served token counts if the plain
+    forward puts it within K1's tolerance, 2^-7 max|logit|, of its top
+    logit. The exact agreement is reported beside it."""
+    from vila_tpu_torch.models import qwen2, vlm
+
+    dev = llm["embed_tokens"]["embedding"].device
+    prompt = torch.as_tensor(inputs["input_ids"], device=dev)[None].long()
+    n = prompt.shape[1]
+    embeds = vlm.splice_media(qwen2.embed_tokens(llm, lcfg, prompt), media.to(dev),
+                              torch.as_tensor(inputs["media_pos"], device=dev).long())
+    full = torch.cat([embeds, qwen2.embed_tokens(
+        llm, lcfg, torch.tensor([ids[:-1]], device=dev))], dim=1)
+    t0 = time.time()
+    h, _ = qwen2.forward(llm, lcfg, inputs_embeds=full, return_hidden=True,
+                         attn_impl=attn_impl)
+    logits = qwen2.compute_logits(llm, lcfg, h[:, n - 1:])[0].float().cpu()
+    plain = logits.argmax(-1).tolist()
+    tol = 2.0 ** -7 * float(logits.abs().max())
+    margins = (logits.max(-1).values - logits[torch.arange(len(ids)), ids]).tolist()
+    return dict(plain=plain, exact=sum(p == t for p, t in zip(plain, ids)), margins=margins,
+                tol=tol, ok=all(m <= tol for m in margins), seconds=time.time() - t0,
+                max_logit=float(logits.abs().max()))
 
 
 def phase_load(torch, seed, dev="cuda", layers=4, n_requests=2, new_tokens=16,
@@ -1932,35 +2433,17 @@ def phase_load(torch, seed, dev="cuda", layers=4, n_requests=2, new_tokens=16,
         inputs = engine.prepare_inputs([images[0], QUESTIONS[0]])
         ids = reqs[0]["ids"][:steps]
         llm_cpu = to_torch_tree(llm_q, cpu)
-        media = engine.encode_media(inputs["media"]).cpu()
-        prompt = torch.as_tensor(inputs["input_ids"])[None].long()
-        n = prompt.shape[1]
-        embeds = vlm.splice_media(qwen2.embed_tokens(llm_cpu, got_cfg.llm, prompt), media,
-                                  torch.as_tensor(inputs["media_pos"]).long())
-        full = torch.cat([embeds, qwen2.embed_tokens(llm_cpu, got_cfg.llm,
-                                                     torch.tensor([ids[:-1]]))], dim=1)
-        t0 = time.time()
-        h, _ = qwen2.forward(llm_cpu, got_cfg.llm, inputs_embeds=full, return_hidden=True)
-        logits = qwen2.compute_logits(llm_cpu, got_cfg.llm, h[:, n - 1:])[0].float()
-        plain = logits.argmax(-1).tolist()
-        # Both sides round the W4 lm_head's logits to bf16 after f32 sums in
-        # another order, so two tokens within one bf16 ulp of the top are a
-        # tie either side may break (ROADMAP §3): a served token counts if
-        # the plain forward puts it within K1's tolerance, 2^-7 max|logit|,
-        # of its top logit. The exact agreement is reported beside it.
-        tol = 2.0 ** -7 * float(logits.abs().max())
-        margin = (logits.max(-1).values - logits[torch.arange(len(ids)), ids]).tolist()
-        exact = sum(p == t for p, t in zip(plain, ids))
-        greedy_ok = all(m <= tol for m in margin)
-        ok &= greedy_ok
-        out.update(greedy_exact=exact, greedy_margins=margin, greedy_tol=tol,
-                   greedy_ok=greedy_ok, ttft_ms=[r["ttft_ms"] for r in reqs],
+        g = greedy_against_plain(torch, llm_cpu, got_cfg.llm, inputs,
+                                 engine.encode_media(inputs["media"]).cpu(), ids)
+        ok &= g["ok"]
+        out.update(greedy_exact=g["exact"], greedy_margins=g["margins"], greedy_tol=g["tol"],
+                   greedy_ok=g["ok"], ttft_ms=[r["ttft_ms"] for r in reqs],
                    decode_tok_s=[r["decode_tok_s"] for r in reqs])
         log(f"[load] request 0's first {steps} greedy tokens {ids} against a cache-free "
-            f"plain forward on the CPU ({time.time() - t0:.1f} s): its argmax {plain} "
-            f"equal on {exact}/{steps} steps; top logit minus the served token's "
-            f"{[round(m, 4) for m in margin]} (tolerance 2^-7 max|logit| = {tol:.4f}) "
-            f"{'OK' if greedy_ok else 'FAIL'}")
+            f"plain forward on the CPU ({g['seconds']:.1f} s): its argmax {g['plain']} "
+            f"equal on {g['exact']}/{steps} steps; top logit minus the served token's "
+            f"{[round(m, 4) for m in g['margins']]} (tolerance 2^-7 max|logit| = "
+            f"{g['tol']:.4f}) {'OK' if g['ok'] else 'FAIL'}")
         del engine, served, llm_q, llm_cpu, vt8, loaded, src, l0, q_cpu
         gc.collect()
         torch.cuda.empty_cache()
@@ -2719,6 +3202,21 @@ def main(argv=None) -> int:
     if "http" in phases:
         good, report["http"] = phase_http(torch, engine(args.layers, args.seed))
         ok &= good
+    if any(p in phases for p in ("s2", "video", "media_profile")):
+        from vila_tpu_torch.models import siglip
+
+        e2e = engine(args.layers, args.seed)
+        vt8 = siglip.quantize_siglip_w8a8(e2e.params["vision_tower"])
+        for kind in ("s2", "video"):
+            if kind in phases:
+                good, report[kind], launches[kind] = phase_media(torch, e2e, vt8, args.seed,
+                                                                 kind)
+                ok &= good
+        if "media_profile" in phases:  # not in the default run
+            report["media_profile"] = {kind: phase_media_profile(torch, e2e, vt8, args.seed,
+                                                                 kind)
+                                       for kind in ("s2", "video")}
+        del e2e, vt8
     if "load" in phases:
         good, report["load"], launches["load"] = phase_load(torch, args.seed)
         ok &= good

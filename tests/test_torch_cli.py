@@ -5,7 +5,9 @@ checkpoint `helpers.save_tiny_checkpoint(seed=0, **FLAVORS["base"])`:
   request with the loaded engine's own greedy text, serially
   (`--max-batch 0`) and through the continuous batcher (`--max-batch 2`);
 * `cli.infer.main` prints the text of `generate_content` for an image file
-  and a question, and refuses what is not ported yet;
+  and a question, and for a video file or frame directory (with time
+  tokens decoded against `--video-duration`), and refuses what is not
+  ported yet;
 * `cli.train.main` runs 2 steps of `dummy_mix` from the checkpoint and
   writes a checkpoint.
 """
@@ -29,7 +31,7 @@ from vila_tpu_torch import entry  # noqa: E402
 from vila_tpu_torch.cli import infer  # noqa: E402
 from vila_tpu_torch.cli import train as train_cli  # noqa: E402
 from vila_tpu_torch.inference.generate import GenerationConfig  # noqa: E402
-from vila_tpu_torch.media import Image  # noqa: E402
+from vila_tpu_torch.media import Image, Video  # noqa: E402
 from vila_tpu_torch.serving import server  # noqa: E402
 from vila_tpu_torch.train.checkpoint import CheckpointManager  # noqa: E402
 
@@ -98,11 +100,54 @@ def test_infer_main_prints_generate_content(ckpt, engine, tmp_path, capsys):
     assert capsys.readouterr().out == want + "\n"
 
 
-@pytest.mark.parametrize("extra", [["--json-mode"], ["--video-duration", "3"],
-                                   ["--media", "clip.mp4"]])
+@pytest.mark.parametrize("extra", [["--json-mode"], ["--json-schema", "schema.json"]])
 def test_infer_refuses_what_is_not_ported(ckpt, extra):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         infer.main(["--model-path", ckpt, "--text", "hi", "--device", "cpu", *extra])
+
+
+@pytest.mark.parametrize("as_dir", [False, True])
+def test_infer_main_takes_video_media(ckpt, engine, tmp_path, capsys, as_dir):
+    """A video by extension (decoded with cv2) or a directory of frames is
+    a `Video`; the printed text is `generate_content`'s."""
+    frames = [np.random.default_rng(i).integers(0, 256, (48, 64, 3), dtype=np.uint8)
+              for i in range(6)]
+    if as_dir:
+        from PIL import Image as PILImage
+
+        path = str(tmp_path / "frames")
+        os.makedirs(path)
+        for i, f in enumerate(frames):
+            PILImage.fromarray(f).save(os.path.join(path, f"{i:02d}.png"))
+    else:
+        cv2 = pytest.importorskip("cv2")
+        path = str(tmp_path / "clip.avi")
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 10.0, (64, 48))
+        for f in frames:
+            writer.write(f)
+        writer.release()
+    assert isinstance(infer.sniff_media(path), Video)
+    rc = infer.main(["--model-path", ckpt, "--media", path, "--text", "What happens?",
+                     "--max-new-tokens", str(NEW_TOKENS), "--device", "cpu"])
+    assert rc == 0
+    assert capsys.readouterr().out == _greedy(engine, [Video(path), "What happens?"]) + "\n"
+
+
+def test_video_duration_decodes_time_tokens(ckpt, engine, monkeypatch, capsys):
+    """`--video-duration` maps the answer's `<tN>` tokens to seconds, as
+    the JAX package's `decode_time_token` does."""
+    from vila_tpu.cli.infer import decode_time_token as jdecode
+
+    text = "from <t0> to <t5> and <t120> end <t99>"
+    for dur, n in ((12.5, 100), (3.0, 10), (60.0, 1)):
+        assert (infer.decode_time_token(text, duration=dur, num_time_tokens=n)
+                == jdecode(text, duration=dur, num_time_tokens=n))
+    monkeypatch.setattr(type(engine), "generate_content", lambda self, p, gc: text)
+    monkeypatch.setattr(entry, "load", lambda *a, **k: engine)
+    rc = infer.main(["--model-path", ckpt, "--text", "when?", "--video-duration", "12.5",
+                     "--num-time-tokens", "10", "--device", "cpu"])
+    assert rc == 0
+    assert capsys.readouterr().out == jdecode(text, duration=12.5, num_time_tokens=10) + "\n"
 
 
 def test_train_main_runs_two_steps_and_saves(ckpt, tmp_path):

@@ -11,11 +11,14 @@
 * `load(device="cpu")` gives the greedy transcript of `vila_tpu.load`'s
   engine on one image + prompt (f32, so no one-ulp bf16 tie can split the
   two);
-* the `dynamic_s2` and `video_tsp` flavors raise `NotImplementedError`
-  naming the field.
+* the `dynamic_s2` and `video_tsp` flavors build JAX's config (the
+  projector over every S2 scale's features, the TSP pool sizes), load
+  JAX's weights, and round-trip through the port's `save`;
+* another tower raises `NotImplementedError` naming the field.
 """
 
 import dataclasses
+import json
 import os
 import sys
 
@@ -133,12 +136,37 @@ def test_load_gives_the_jax_engines_transcript(ckpts):
     assert len(want) == NEW_TOKENS and got == want
 
 
-@pytest.mark.parametrize("name,field", [("dynamic_s2", "image_aspect_ratio='dynamic_s2'"),
-                                        ("video_tsp", "video_encoder=")])
-def test_unported_flavors_raise_naming_the_field(tmp_path, name, field):
+@pytest.mark.parametrize("name", ["dynamic_s2", "video_tsp"])
+def test_media_flavors_build_the_jax_config(tmp_path, name):
     d = str(tmp_path / name)
     helpers.save_tiny_checkpoint(d, seed=0, **FLAVORS[name])
-    with pytest.raises(NotImplementedError, match=field):
+    jcfg = jentry.build_config(d)
+    tcfg = tentry.build_config(d, device="cpu")
+    _assert_same_config(tcfg, jcfg)
+    if name == "dynamic_s2":
+        assert tcfg.image_aspect_ratio == "dynamic_s2" and tcfg.s2_scales == (56, 112)
+        assert tcfg.projector.mm_hidden_size == 2 * tcfg.vision.hidden_size
+    else:
+        assert tcfg.video_encoder == "tsp"
+        assert tcfg.tsp_pool_sizes == ((1, 1, 1), (2, 2, 2))
+    params = tentry.load_params(d, tcfg, device="cpu")
+    _assert_tree_equal(params, _jax_as_port(jentry.load_params(d, jcfg)))
+    out = str(tmp_path / "saved")
+    tentry.save(params, tcfg, None, out)
+    _assert_same_config(tentry.build_config(out, device="cpu"), tcfg)
+    _assert_tree_equal(tentry.load_params(out, tcfg, device="cpu"), params)
+
+
+def test_unported_tower_raises_naming_the_field(tmp_path):
+    d = str(tmp_path / "clip")
+    helpers.save_tiny_checkpoint(d, seed=0, **FLAVORS["base"])
+    path = os.path.join(d, "vision_tower", "config.json")
+    with open(path) as f:
+        vt = json.load(f)
+    vt["model_type"] = "clip_vision_model"
+    with open(path, "w") as f:
+        json.dump(vt, f)
+    with pytest.raises(NotImplementedError, match="model_type='clip_vision_model'"):
         tentry.build_config(d, device="cpu")
-    with pytest.raises(NotImplementedError, match=field):
+    with pytest.raises(NotImplementedError, match="model_type='clip_vision_model'"):
         tentry.load(d, device="cpu")

@@ -12,8 +12,11 @@ the bar `test_parity_goldens.py` holds the JAX package to
 * the greedy continuation of the single-image prompt matches the golden;
 * the W4 engine (the port's quantizer) gives a transcript.
 
-`gqa8b.npz` (7:1 GQA, qkv bias, untied head) runs under `slow`, as on the
-JAX side. The dynamic-S2 and TSP-video goldens wait for those media paths.
+`dynamic_s2.npz` (the single image through the dynamic-S2 tiling and
+multi-scale encode, two images as 1x1-block S2 entries) and
+`video_tsp.npz` (a TSP video entry beside the image prompts) run in the
+default set, as on the JAX side (`test_parity_goldens.py`); `gqa8b.npz`
+(7:1 GQA, qkv bias, untied head) runs under `slow`, as there.
 """
 
 import copy
@@ -30,7 +33,7 @@ import helpers  # noqa: E402
 from gen_goldens import FLAVORS, GOLDEN_DIR  # noqa: E402
 from vila_tpu_torch import entry  # noqa: E402
 from vila_tpu_torch.inference.generate import GenerationConfig  # noqa: E402
-from vila_tpu_torch.media import Image  # noqa: E402
+from vila_tpu_torch.media import Image, Video  # noqa: E402
 from vila_tpu_torch.models import qwen2, vlm  # noqa: E402
 from vila_tpu_torch.ops import quant  # noqa: E402
 
@@ -45,14 +48,20 @@ def _synth(shape, seed):
 
 
 def prompt_suite(engine):
-    """`parity_vs_hf.build_prompt_suite` for plain-image checkpoints."""
+    """`parity_vs_hf.build_prompt_suite`: with a dynamic-S2 checkpoint the
+    image prompts take the S2 path; with a TSP checkpoint a video prompt
+    of seeded frames is added."""
     img, img2 = Image(_synth((336, 448, 3), 0)), Image(_synth((280, 400, 3), 1))
-    return {
+    suite = {
         "text_only": engine.prepare_inputs("What is the capital of France?"),
         "single_image": engine.prepare_inputs([img, "Describe this image in detail."]),
         "multi_image": engine.prepare_inputs(
             [img, "and", img2, "Compare these two images."]),
     }
+    if engine.cfg.video_encoder == "tsp":
+        frames = [_synth((200, 300, 3), 10 + i) for i in range(engine.cfg.num_video_frames)]
+        suite["video"] = engine.prepare_inputs([Video(frames), "Describe the video."])
+    return suite
 
 
 def logits_of(engine, inputs) -> np.ndarray:
@@ -77,8 +86,9 @@ def _golden(name, tmp_path_factory):
     helpers.save_tiny_checkpoint(ckpt, seed=0, **FLAVORS[name])
     engine = entry.load(ckpt, device="cpu", dtype="float32")
     fix = np.load(os.path.join(GOLDEN_DIR, f"{name}.npz"))
-    assert sorted(str(s) for s in fix["suite"]) == sorted(SUITE)
-    return engine, prompt_suite(engine), fix
+    suite = prompt_suite(engine)
+    assert sorted(str(s) for s in fix["suite"]) == sorted(suite)
+    return engine, suite, fix
 
 
 @pytest.fixture(scope="module")
@@ -126,6 +136,45 @@ def test_base_golden_w4_transcript(base):
     d = np.abs(logits_of(q, suite[GREEDY_ENTRY])[rows]
                - logits_of(engine, suite[GREEDY_ENTRY])[rows])
     assert np.isfinite(d).all()
+
+
+@pytest.fixture(scope="module")
+def dynamic_s2(tmp_path_factory):
+    return _golden("dynamic_s2", tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def video_tsp(tmp_path_factory):
+    return _golden("video_tsp", tmp_path_factory)
+
+
+@pytest.mark.parametrize("name", SUITE)
+def test_dynamic_s2_golden_logits(dynamic_s2, name):
+    """single_image through the 1 + 4 + aspect-ratio tiles of scales
+    (56, 112) and the merge; multi_image as two 1x1-block S2 entries."""
+    engine, suite, _ = dynamic_s2
+    assert engine.cfg.image_aspect_ratio == "dynamic_s2"
+    kinds = [e["kind"] for e in suite[name]["media"]]
+    assert kinds == {"text_only": [], "single_image": ["s2"],
+                     "multi_image": ["s2", "s2"]}[name]
+    _check_entry(*dynamic_s2, name)
+
+
+def test_dynamic_s2_golden_greedy(dynamic_s2):
+    _check_greedy(*dynamic_s2)
+
+
+@pytest.mark.parametrize("name", SUITE + ("video",))
+def test_video_tsp_golden_logits(video_tsp, name):
+    engine, suite, _ = video_tsp
+    assert engine.cfg.video_encoder == "tsp"
+    if name == "video":
+        assert [e["kind"] for e in suite[name]["media"]] == ["tsp"]
+    _check_entry(*video_tsp, name)
+
+
+def test_video_tsp_golden_greedy(video_tsp):
+    _check_greedy(*video_tsp)
 
 
 @pytest.mark.slow

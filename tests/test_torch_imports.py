@@ -1,7 +1,11 @@
 """Hygiene of the PyTorch/CUDA port (`vila_tpu_torch`).
 
 * Importing every module of the port loads neither JAX nor the JAX package,
-  nor `safetensors` or `transformers`.
+  nor `safetensors` or `transformers`, nor PIL or cv2 (the media modules
+  import them when an image must be opened or a video file decoded); the
+  media modules (`models/{s2,encoders}`, `utils/{imageproc,media_loader}`)
+  are among those walked, and the native resize builds from the port's own
+  copy of its C++ source.
 * No function body of the port loads an undefined global (the check of
   `tests/test_lint.py`, which walks only `vila_tpu`); a kernel wrapper that
   is never reached on the CPU is checked like everything else.
@@ -19,6 +23,7 @@ import shutil
 import subprocess
 import sys
 import types
+from pathlib import Path
 
 import pytest
 import torch
@@ -62,6 +67,21 @@ def test_port_imports_neither_safetensors_nor_transformers():
     `entry.load_tokenizer` imports `transformers` only when called: the
     card's host has neither package."""
     assert _imported_by_port(("safetensors", "transformers")) == "[]"
+
+
+def test_port_imports_neither_pil_nor_cv2():
+    assert _imported_by_port(("PIL", "cv2")) == "[]"
+
+
+def test_media_modules_are_walked_and_own_their_native_source():
+    names = _module_names()
+    for mod in ("models.s2", "models.encoders", "utils.imageproc", "utils.media_loader"):
+        assert f"vila_tpu_torch.{mod}" in names
+    from vila_tpu_torch.utils import imageproc
+
+    src = imageproc.SOURCE
+    assert src.is_file() and src.parent == Path(vila_tpu_torch.__file__).resolve().parent / "native"
+    assert imageproc.BUILD_DIR.name == "_build"
 
 
 def _walk_code(code):

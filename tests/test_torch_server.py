@@ -7,6 +7,7 @@ ending in `[DONE]`, and the port's client module."""
 import base64
 import io
 import json
+import tempfile
 import threading
 import urllib.error
 import urllib.request
@@ -16,6 +17,7 @@ import pytest
 
 from test_torch_batcher import tiny_vlm
 from vila_tpu_torch.inference import generate as tgen
+from vila_tpu_torch.media import Video
 from vila_tpu_torch.serving import batcher as tbatcher
 from vila_tpu_torch.serving import client as C
 from vila_tpu_torch.serving import server as srv
@@ -90,18 +92,39 @@ def test_streaming_ends_with_done(served):
     assert text.strip() == _greedy(engine, ["hi"])
 
 
-def test_client_module_blocking_and_streamed(served):
+def test_client_module_blocking_and_streamed(served, monkeypatch, tmp_path):
     """The port's client: blocking and streamed completions give the same
-    text; a video part is refused with a 500 and a message."""
+    text; a video part reaches the engine through a temporary file, which
+    the server removes, and an undecodable one is answered on the
+    reference's black frames."""
     url, engine = served
     msgs = C.build_messages("hello")
     assert msgs == [{"role": "user", "content": [{"type": "text", "text": "hello"}]}]
     blocking = "".join(C.chat(url, msgs, max_tokens=4))
     streamed = "".join(C.chat(url, msgs, max_tokens=4, stream=True))
     assert blocking == streamed.strip() == _greedy(engine, ["hello"])
-    with pytest.raises(urllib.error.HTTPError) as e:
-        list(C.chat(url, C.build_messages("x", video="data:video/mp4;base64,AAAA")))
-    assert e.value.code == 500 and "not ported" in json.loads(e.value.read())["error"]
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    got = "".join(C.chat(url, C.build_messages("x", video="data:video/mp4;base64,AAAA"),
+                         max_tokens=4))
+    black = [np.zeros((720, 720, 3), np.uint8)] * engine.cfg.num_video_frames
+    assert got == _greedy(engine, [Video(black), "x"])
+    assert not list(tmp_path.iterdir())
+
+
+def test_video_parts(served, tmp_path):
+    """A video file sent as a data URL is decoded (cv2) from the server's
+    temporary copy: the answer is the engine's on the file itself."""
+    cv2 = pytest.importorskip("cv2")
+    url, engine = served
+    path = str(tmp_path / "clip.avi")
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 10.0, (64, 48))
+    for i in range(10):
+        writer.write(np.random.default_rng(i).integers(0, 255, (48, 64, 3), np.uint8))
+    writer.release()
+    msgs = C.build_messages("what happens?", video=path)
+    assert msgs[0]["content"][0]["video_url"]["url"].startswith("data:video/")
+    got = "".join(C.chat(url, msgs, max_tokens=4))
+    assert got == _greedy(engine, [Video(path), "what happens?"])
 
 
 def test_image_parts(served, tmp_path):

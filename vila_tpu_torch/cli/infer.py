@@ -1,31 +1,49 @@
 """`vila-infer`, as `vila_tpu/cli/infer.py`: load a checkpoint, answer one
-prompt of images and text, print the answer.
+prompt of images, videos and text, print the answer.
 
-    python -m vila_tpu_torch.cli.infer --model-path ckpt/ --media photo.jpg \\
-        --text "Describe the image." [--vision-int8] [--stream] [--device cuda]
+    python -m vila_tpu_torch.cli.infer --model-path ckpt/ --media clip.mp4 \\
+        --text "Describe the video." [--video-duration 12.5] [--vision-int8] \\
+        [--stream] [--device cuda]
 
-Media types are told apart by extension; video, JSON-constrained output and
-time-token decoding (`--json-mode`, `--json-schema`, `--video-duration`)
-are not ported yet and raise.
+Media types are told apart by extension (a directory is a video of frame
+images). With `--video-duration`, trained time tokens `<tN>` in the answer
+become timestamps (`decode_time_token`). JSON-constrained output
+(`--json-mode`, `--json-schema`) is not ported yet and raises.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import re
+
+
+def decode_time_token(text: str, *, duration: float, num_time_tokens: int,
+                      time_token_format: str = "<t{t}>") -> str:
+    """Replace trained time tokens with `<seconds>` timestamps
+    (llava/cli/infer.py:31); out-of-range tokens clamp to the end."""
+    for t in range(num_time_tokens):
+        token = time_token_format.format(t=t)
+        ts = round(t * duration / max(num_time_tokens - 1, 1), 2)
+        text = text.replace(token, f"<{ts}>")
+    for match in re.findall(r"<t(\d+)>", text):
+        if int(match) >= num_time_tokens:
+            text = text.replace(f"<t{match}>", f"<{round(duration, 2)}>")
+    return text
+
 
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp", ".gif")
 VIDEO_EXTS = (".mp4", ".avi", ".mov", ".mkv", ".webm")
 
 
 def sniff_media(path: str):
-    from vila_tpu_torch.media import Image
+    from vila_tpu_torch.media import Image, Video
 
     ext = os.path.splitext(path)[1].lower()
     if ext in IMAGE_EXTS:
         return Image(path)
     if ext in VIDEO_EXTS or os.path.isdir(path):
-        raise NotImplementedError(f"video media ({path!r}) is not ported yet")
+        return Video(path)
     raise ValueError(f"cannot infer media type of '{path}'")
 
 
@@ -41,7 +59,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stream", action="store_true")
     p.add_argument("--json-mode", action="store_true", help="not ported yet")
     p.add_argument("--json-schema", default=None, help="not ported yet")
-    p.add_argument("--video-duration", type=float, default=0.0, help="not ported yet")
+    p.add_argument("--video-duration", type=float, default=0.0,
+                   help="decode <tN> time tokens against this duration (seconds)")
+    p.add_argument("--num-time-tokens", type=int, default=100)
     p.add_argument("--vision-int8", action="store_true",
                    help="deploy the vision tower W8A8 (TinyChat's vision recipe)")
     p.add_argument("--device", default="cuda", help="cuda, or cpu for the plain versions")
@@ -50,8 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, value in (("--json-mode", args.json_mode), ("--json-schema", args.json_schema),
-                        ("--video-duration", args.video_duration)):
+    for flag, value in (("--json-mode", args.json_mode), ("--json-schema", args.json_schema)):
         if value:
             raise NotImplementedError(f"{flag} is not ported yet")
 
@@ -77,7 +96,11 @@ def main(argv=None) -> int:
             print(delta, end="", flush=True)
         print()
     else:
-        print(engine.generate_content(prompt, gc))
+        out = engine.generate_content(prompt, gc)
+        if args.video_duration > 0:
+            out = decode_time_token(out, duration=args.video_duration,
+                                    num_time_tokens=args.num_time_tokens)
+        print(out)
     return 0
 
 

@@ -1,6 +1,6 @@
 """Datasets: conversation -> tokenized, media-expanded training examples, as
 `vila_tpu/data/dataset.py` (images with the resize and pad aspect modes;
-video and the dynamic tilings come with their modules).
+video samples and the dynamic tilings in training are not ported yet).
 
 Examples are host-side dicts with **media markers already expanded** into
 fixed placeholder runs so the device path is shape-static:
@@ -115,7 +115,7 @@ class BaseDataset:
         cfg = self.cfg
         conversations = copy.deepcopy(instance["conversations"])
         if instance.get("video"):
-            raise NotImplementedError("video samples need the video loader, not ported yet")
+            raise NotImplementedError("video samples in training are not ported yet")
 
         images: List[Any] = []
         names = instance.get("image")
@@ -143,6 +143,9 @@ class BaseDataset:
             )
 
         aspect = cfg.image_aspect_ratio
+        if aspect not in ("resize", "pad", None):
+            raise NotImplementedError(
+                f"image_aspect_ratio={aspect!r} in training is not ported yet")
         tiles_list: List[np.ndarray] = []
         for img in images:
             tiles, _ = preprocess.process_image(

@@ -9,11 +9,11 @@ numpy by `utils.hf_import`, cast to the parameter dtype and placed on the
 device), `load` returns a ready `GenerationEngine`, and `save` writes the
 same layout back (tensors in f32).
 
-The port serves the SigLIP tower with plain images (`resize` or `pad`): a
-checkpoint that asks for another tower, dynamic or S2 tiling, an
-unported projector or a TSP video encoder raises `NotImplementedError`
-naming the field, rather than loading into a model that would serve it
-otherwise.
+The port serves the SigLIP tower with every aspect mode (plain, dynamic,
+dynamic-S2 with its multi-scale projector width), every projector type and
+basic or TSP video: a checkpoint that asks for another tower raises
+`NotImplementedError` naming the field, rather than loading into a model
+that would serve it otherwise.
 """
 
 from __future__ import annotations
@@ -32,6 +32,8 @@ from vila_tpu_torch.utils import hf_import
 from vila_tpu_torch.utils.device import host_to_device, resolve_device
 
 COMPONENTS = ("llm", "vision_tower", "mm_projector")
+# the reference's TSP video encoder class (its hydra `_target_`)
+TSP_TARGET = "llava.model.encoders.TSPVideoEncoder"
 
 
 def _default_dtype(device) -> str:
@@ -66,30 +68,23 @@ def build_config(model_path: str, dtype: Optional[str] = None, device="cuda",
         raise NotImplementedError(
             f"vision_tower model_type={vt_hf.get('model_type')!r} ({tower}) is "
             f"not ported yet")
-    aspect = top.get("image_aspect_ratio") or "resize"
-    if top.get("dynamic_s2") and "dynamic_s2" not in aspect:
-        aspect = "dynamic_s2"
-    if aspect not in ("resize", "pad"):
-        raise NotImplementedError(
-            f"image_aspect_ratio={aspect!r} (dynamic_s2={bool(top.get('dynamic_s2'))}) "
-            f"is not ported yet")
-    venc = top.get("video_encoder")
-    if isinstance(venc, dict) and "TSP" in venc.get("_target_", ""):
-        raise NotImplementedError(
-            f"video_encoder={venc['_target_']!r} (TSP) is not ported yet")
-
     llm_cfg = qwen2.LLMConfig.from_hf_config(llm_hf, dtype=dtype)
     vis_cfg = siglip.SigLIPConfig.from_hf_config(vt_hf, dtype=dtype)
     s2_scales = top.get("s2_scales") or (vis_cfg.image_size,)
     if isinstance(s2_scales, str):
         s2_scales = tuple(int(s) for s in s2_scales.split(","))
+    # under dynamic-S2 the projector takes every scale's features side by side
+    num_scales = len(s2_scales) if top.get("dynamic_s2") else 1
     proj_cfg = projector_lib.ProjectorConfig(
         projector_type=proj_hf.get("mm_projector_type", "mlp_downsample"),
-        mm_hidden_size=top.get("mm_hidden_size") or vis_cfg.hidden_size,
+        mm_hidden_size=top.get("mm_hidden_size") or vis_cfg.hidden_size * num_scales,
         hidden_size=llm_cfg.hidden_size,
         dtype=dtype,
     )
-    projector_lib.build_spec(proj_cfg)  # raises for an unported projector_type
+    projector_lib.build_spec(proj_cfg)  # raises for an unknown projector_type
+    aspect = top.get("image_aspect_ratio") or "resize"
+    if top.get("dynamic_s2") and "dynamic_s2" not in aspect:
+        aspect = "dynamic_s2"
     cfg = vlm.VLMConfig(
         llm=llm_cfg,
         vision=vis_cfg,
@@ -104,6 +99,12 @@ def build_config(model_path: str, dtype: Optional[str] = None, device="cuda",
         s2_scales=tuple(s2_scales),
         s2_resize_output_to_scale_idx=top.get("s2_resize_output_to_scale_idx", 0),
     )
+    # the reference stores the video encoder as a hydra _target_ dict
+    # (configuration_llava.py:67-68)
+    venc = top.get("video_encoder")
+    if isinstance(venc, dict) and "TSP" in venc.get("_target_", ""):
+        cfg = dataclasses.replace(cfg, video_encoder="tsp", tsp_pool_sizes=tuple(
+            tuple(p) for p in venc.get("pool_sizes", [(1, 1, 1)])))
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
@@ -253,17 +254,14 @@ def _write_json(obj: dict, path: str) -> None:
         json.dump(obj, f, indent=2)
 
 
-def save(params: Dict[str, Any], cfg: vlm.VLMConfig, tokenizer, out_dir: str) -> int:
-    """Save in the reference's component layout, with the JAX package's
-    config.json fields, so that checkpoints round-trip between the port,
-    the JAX package and HF tooling. Returns the weight bytes written."""
-    written = 0
+def save_config(cfg: vlm.VLMConfig, out_dir: str, tokenizer=None) -> None:
+    """The config.json files of the component layout (and the tokenizer,
+    when given), with the JAX package's fields; a TSP video encoder is
+    written as the reference's `video_encoder` dict (the JAX package's
+    `save` leaves it out), so `build_config` reads back `cfg`."""
     dirs = {name: os.path.join(out_dir, name) for name in COMPONENTS}
     for d in dirs.values():
         os.makedirs(d, exist_ok=True)
-
-    written += hf_import.save_safetensors(
-        llm_state_dict(params, cfg), os.path.join(dirs["llm"], "model.safetensors"))
     llm = cfg.llm
     _write_json({
         "model_type": "qwen2",
@@ -282,9 +280,6 @@ def save(params: Dict[str, Any], cfg: vlm.VLMConfig, tokenizer, out_dir: str) ->
     }, os.path.join(dirs["llm"], "config.json"))
     if tokenizer is not None:
         tokenizer.save_pretrained(dirs["llm"])
-
-    written += hf_import.save_safetensors(
-        vision_state_dict(params, cfg), os.path.join(dirs["vision_tower"], "model.safetensors"))
     vis = cfg.vision
     _write_json({
         "model_type": "siglip_vision_model",
@@ -296,13 +291,9 @@ def save(params: Dict[str, Any], cfg: vlm.VLMConfig, tokenizer, out_dir: str) ->
         "patch_size": vis.patch_size,
         "layer_norm_eps": vis.layer_norm_eps,
     }, os.path.join(dirs["vision_tower"], "config.json"))
-
-    written += hf_import.save_safetensors(
-        projector_state_dict(params), os.path.join(dirs["mm_projector"], "model.safetensors"))
     _write_json({"model_type": "v2l_projector",
                  "mm_projector_type": cfg.projector.projector_type},
                 os.path.join(dirs["mm_projector"], "config.json"))
-
     _write_json({
         "model_type": "llava",
         "image_aspect_ratio": cfg.image_aspect_ratio,
@@ -316,5 +307,22 @@ def save(params: Dict[str, Any], cfg: vlm.VLMConfig, tokenizer, out_dir: str) ->
         "dynamic_s2": cfg.image_aspect_ratio == "dynamic_s2",
         "s2_scales": list(cfg.s2_scales),
         "s2_resize_output_to_scale_idx": cfg.s2_resize_output_to_scale_idx,
+        **({"video_encoder": {"_target_": TSP_TARGET,
+                              "pool_sizes": [list(p) for p in cfg.tsp_pool_sizes]}}
+           if cfg.video_encoder == "tsp" else {}),
     }, os.path.join(out_dir, "config.json"))
+
+
+def save(params: Dict[str, Any], cfg: vlm.VLMConfig, tokenizer, out_dir: str) -> int:
+    """Save in the reference's component layout: the weights as f32
+    safetensors and `save_config`'s files, so that checkpoints round-trip
+    between the port, the JAX package and HF tooling. Returns the weight
+    bytes written."""
+    save_config(cfg, out_dir, tokenizer)
+    written = 0
+    for name, sd in (("llm", llm_state_dict(params, cfg)),
+                     ("vision_tower", vision_state_dict(params, cfg)),
+                     ("mm_projector", projector_state_dict(params))):
+        written += hf_import.save_safetensors(
+            sd, os.path.join(out_dir, name, "model.safetensors"))
     return written

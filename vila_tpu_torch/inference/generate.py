@@ -1,20 +1,27 @@
 """Generation engine: prompt assembly, bucketed prefill, chunked decode, as
-`vila_tpu/inference/generate.py` on its plain-image path.
+`vila_tpu/inference/generate.py` (capability parity: `generate` /
+`generate_content`, llava_arch.py:823-948, and `extract_media`,
+llava/utils/media.py:93).
 
 Prompt and token layouts are computed on the host; each media token expands
-into a fixed placeholder run (plus the encoder's "\\n" end-token ids). The
-prompt is padded to the JAX engine's length buckets, so the same prompt
-takes the same kernels (a padded prompt of more than 32 rows prefills
-through the W4 GEMM) and yields the same tokens. Decode runs in chunks of
-`decode_chunk` steps with one host read-back per chunk.
+into a fixed placeholder run (plus the encoder's "\\n" end-token ids). Media
+are plain images (resize, pad), dynamic tiles (a marker and "\\n" per tile),
+dynamic-S2 images (one entry of every scale's tiles, encoded by
+`models/s2.py`), and videos: every frame an image ("basic") or one
+temporal-spatial pooled entry ("tsp", `models/encoders.py`) whose frames
+are resized by the native library (`utils/imageproc.py`). The prompt is
+padded to the JAX engine's length buckets, so the same prompt takes the
+same kernels (a padded prompt of more than 32 rows prefills through the W4
+GEMM) and yields the same tokens. Decode runs in chunks of `decode_chunk`
+steps with one host read-back per chunk.
 
-Not ported yet: dynamic tiling, S2, TSP video, PS3, speculative and
-JSON-constrained decoding.
+Not ported yet: PS3, speculative and JSON-constrained decoding.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -24,8 +31,10 @@ from vila_tpu_torch.constants import MEDIA_TOKENS
 from vila_tpu_torch.data import preprocess
 from vila_tpu_torch.data.tokenizer_utils import infer_stop_tokens, tokenize_conversation
 from vila_tpu_torch.media import Video
-from vila_tpu_torch.models import qwen2, vlm
+from vila_tpu_torch.models import encoders, qwen2, s2, vlm
 from vila_tpu_torch.utils.device import host_to_device, resolve_device
+from vila_tpu_torch.utils.imageproc import resize_pil_batch
+from vila_tpu_torch.utils.media_loader import load_video_frames
 
 
 @dataclasses.dataclass
@@ -100,9 +109,14 @@ def expand_media_tokens(
     return np.asarray(out, dtype=np.int32), np.asarray(positions, dtype=np.int32)
 
 
-def extract_media(conversation: List[Dict[str, Any]]) -> Dict[str, List[Any]]:
-    """Flatten prompt parts into text + an image list (utils/media.py:93)."""
-    media: Dict[str, List[Any]] = {"image": []}
+def extract_media(conversation: List[Dict[str, Any]], num_video_frames: int = 8,
+                  fps: float = 0.0, group_videos: bool = False) -> Dict[str, List[Any]]:
+    """Flatten prompt parts into text + media lists (utils/media.py:93-130).
+
+    Videos expand to `num_video_frames` image markers and frames (the basic
+    video encoder), or with `group_videos` stay one `<vila/video>` marker
+    and a frame list (TSP pools the frames jointly)."""
+    media: Dict[str, List[Any]] = {"image": [], "video": []}
     for message in conversation:
         parts = message["value"]
         if not isinstance(parts, (list, tuple)):
@@ -114,7 +128,13 @@ def extract_media(conversation: List[Dict[str, Any]]) -> Dict[str, List[Any]]:
                     part = part.replace(token, "").strip() if token in part else part
                 text += part
             elif isinstance(part, Video):
-                raise NotImplementedError("video prompts are not ported yet")
+                frames = load_video_frames(part, num_frames=num_video_frames, fps=fps)
+                if group_videos:
+                    media["video"].append(frames)
+                    text += MEDIA_TOKENS["video"]
+                else:
+                    media["image"].extend(frames)
+                    text += MEDIA_TOKENS["image"] * len(frames)
             else:  # Image / PIL / ndarray
                 media["image"].append(preprocess.load_image(part))
                 text += MEDIA_TOKENS["image"]
@@ -153,37 +173,105 @@ class GenerationEngine:
     # ------------------------------------------------------------------
 
     def prepare_inputs(self, prompt: Union[str, List[Any]]) -> Dict[str, Any]:
-        """prompt -> {"input_ids", "media_pos", "media": [entries]}; each
-        entry is {"kind": "plain", "tiles": uint8 (1, S, S, 3)}."""
+        """prompt -> {"input_ids", "media_pos", "media": [entries]}.
+
+        Each media entry is {"kind": "plain", "tiles": uint8 (N, S, S, 3)},
+        {"kind": "s2", "tiles", "block_size": (rows, cols)} or {"kind":
+        "tsp", "tiles": the resized frames, "pool_sizes"}, in prompt-marker
+        order."""
         cfg = self.cfg
-        if cfg.image_aspect_ratio not in ("resize", "pad", None):
-            raise NotImplementedError(
-                f"image_aspect_ratio={cfg.image_aspect_ratio!r} is not ported yet")
         conversation = [{"from": "human", "value": prompt}]
-        media = extract_media(conversation)
+        media = extract_media(conversation, cfg.num_video_frames, cfg.fps,
+                              group_videos=cfg.video_encoder == "tsp")
         entries: List[Dict[str, Any]] = []
-        for img in media["image"]:
+        tokens_per_marker: List[int] = []
+        size = cfg.vision.image_size
+        aspect = cfg.image_aspect_ratio
+        # the reference tiles dynamically only for a single image
+        # (llava_arch.py:856-880); several images (or a basic video's
+        # frames) are resized
+        use_dynamic = aspect in ("dynamic", "dynamic_s2") and len(media["image"]) <= 1
+
+        def process_image(img) -> str:
+            """Appends the entry and its token counts; returns the marker text."""
+            if use_dynamic and aspect == "dynamic":
+                tiles, _ = preprocess.process_image(
+                    img, image_size=size, image_aspect_ratio="dynamic",
+                    min_tiles=cfg.min_tiles, max_tiles=cfg.max_tiles)
+                tokens_per_marker.extend([cfg.tokens_per_image] * tiles.shape[0])
+                entries.append({"kind": "plain", "tiles": tiles})
+                return f"{MEDIA_TOKENS['image']}\n" * tiles.shape[0]
+            if aspect == "dynamic_s2":
+                # several images under dynamic-S2 are not tiled, but the tower
+                # stays multi-scale (VisionTowerDynamicS2 runs every scale on
+                # the resized image): a 1x1-block S2 entry, the same math
+                tiles, block_size = preprocess.process_image(
+                    img, image_size=size, image_aspect_ratio="dynamic_s2",
+                    max_tiles=cfg.max_tiles if use_dynamic else 1,
+                    s2_scales=cfg.s2_scales)
+                tokens_per_marker.append(s2.tokens_for_block_size(cfg, block_size))
+                entries.append({"kind": "s2", "tiles": tiles, "block_size": block_size})
+                return MEDIA_TOKENS["image"]
             tiles, _ = preprocess.process_image(
-                img, image_size=cfg.vision.image_size,
-                image_aspect_ratio=cfg.image_aspect_ratio or "resize",
-            )
+                img, image_size=size,
+                image_aspect_ratio="resize" if aspect in ("dynamic", None) else aspect)
+            tokens_per_marker.append(cfg.tokens_per_image)
             entries.append({"kind": "plain", "tiles": tiles})
+            return MEDIA_TOKENS["image"]
+
+        def process_video(frames) -> str:
+            """TSP: one entry a video and one image marker per pooled row
+            (its end "\\n" added by the expansion), as TSPVideoEncoder's
+            concatenation over pool sizes (encoders/video/tsp.py:36-52)."""
+            # one native resize over the whole frame stack
+            tiles = resize_pil_batch(frames, size)
+            nl = int(round(cfg.tokens_per_image ** 0.5))
+            marker = ""
+            for pt, ph, pw in cfg.tsp_pool_sizes:
+                rows = tiles.shape[0] // pt
+                tokens_per_marker.extend([(nl // ph) * (nl // pw)] * rows)
+                marker += MEDIA_TOKENS["image"] * rows
+            entries.append({"kind": "tsp", "tiles": tiles,
+                            "pool_sizes": tuple(cfg.tsp_pool_sizes)})
+            return marker
+
+        text = conversation[0]["value"]
+        if media["image"] or media["video"]:
+            images, videos = iter(media["image"]), iter(media["video"])
+            pattern = "|".join(re.escape(MEDIA_TOKENS[k]) for k in ("image", "video"))
+            text = re.sub(pattern, lambda mo: process_image(next(images))
+                          if mo.group(0) == MEDIA_TOKENS["image"]
+                          else process_video(next(videos)), text)
+        conversation[0]["value"] = text
         ids = tokenize_conversation(conversation, self.tokenizer, add_generation_prompt=True)
         expanded, media_pos = expand_media_tokens(
-            ids, self.image_token_id, [cfg.tokens_per_image] * len(entries),
-            self._newline_ids,
-        )
+            ids, self.image_token_id, tokens_per_marker, self._newline_ids)
         return {"input_ids": expanded, "media_pos": media_pos, "media": entries}
 
     def encode_media(self, entries: List[Dict[str, Any]]) -> Optional[torch.Tensor]:
-        """Encode plain-image entries to a flat (M, D) embedding matrix."""
+        """Encode media entries to a flat (M, D) embedding matrix, in entry
+        order: plain tiles through the tower and projector, S2 entries
+        through `s2.encode_image_s2`, TSP entries through
+        `encoders.tsp_encode_video`."""
         if not entries:
             return None
-        if any(e["kind"] != "plain" for e in entries):
-            raise NotImplementedError("only plain image entries are ported")
-        tiles = np.concatenate([e["tiles"] for e in entries])
-        feats = vlm.encode_images(self.params, self.cfg, host_to_device(tiles, self.device))
-        return feats.reshape(-1, feats.shape[-1])
+        dev = self.device
+        if all(e["kind"] == "plain" for e in entries):
+            entries = [{"kind": "plain",
+                        "tiles": np.concatenate([e["tiles"] for e in entries])}]
+        parts = []
+        for e in entries:
+            tiles = host_to_device(e["tiles"], dev)
+            if e["kind"] == "s2":
+                parts.append(s2.encode_image_s2(self.params, self.cfg, tiles,
+                                                tuple(e["block_size"])))
+            elif e["kind"] == "tsp":
+                parts.append(encoders.tsp_encode_video(self.params, self.cfg, tiles,
+                                                       e["pool_sizes"]))
+            else:
+                feats = vlm.encode_images(self.params, self.cfg, tiles)
+                parts.append(feats.reshape(-1, feats.shape[-1]))
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     # ------------------------------------------------------------------
     # Generation

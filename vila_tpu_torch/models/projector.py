@@ -1,13 +1,20 @@
-"""Multimodal projector, as `vila_tpu/models/projector.py` (the
-`mlp_downsample` type; the other types are not ported yet).
+"""Multimodal projector, NVILA's token-compression module, as
+`vila_tpu/models/projector.py` (capability parity:
+llava/model/multimodal_projector/base_projector.py), every type:
+`identity`, `linear`, `mlp_downsample`, `mlp_downsample_2x2_fix`,
+`mlp_downsample_3x3_fix`, `mlp_downsample_3x3_s2`,
+`mlp_downsample_3x3_s2_new` and `mlp{N}x_gelu`.
 
-Parameters are keyed by the reference's nn.Sequential indices ("1", "2",
-...), as in the JAX package.
+The 2x2 / 3x3 "flat_square" downsample is a layout transform
+(pixel-unshuffle with the reference's channel order). Parameters are keyed
+by the reference's nn.Sequential indices ("1", "2", ...), as in the JAX
+package, so HF projector checkpoints map one to one (`utils/hf_import.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Dict, List, Tuple
 
 import torch
@@ -20,7 +27,7 @@ Params = Dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class ProjectorConfig:
     projector_type: str = "mlp_downsample"
-    mm_hidden_size: int = 1152  # vision feature dim
+    mm_hidden_size: int = 1152  # vision feature dim (x the number of scales for S2)
     hidden_size: int = 1536  # LLM embedding dim
     dtype: str = "float32"
 
@@ -30,7 +37,11 @@ class ProjectorConfig:
 
     @property
     def downsample_rate(self) -> int:
-        return 2 if self.projector_type == "mlp_downsample" else 1
+        if self.projector_type in ("mlp_downsample", "mlp_downsample_2x2_fix"):
+            return 2
+        if self.projector_type.startswith("mlp_downsample_3x3"):
+            return 3
+        return 1
 
 
 def flat_square(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -51,17 +62,53 @@ Spec = List[Tuple[str, int, int]]  # (op, dim_in, dim_out)
 
 
 def build_spec(cfg: ProjectorConfig) -> Spec:
-    if cfg.projector_type != "mlp_downsample":
-        raise NotImplementedError(
-            f"projector_type={cfg.projector_type!r} is not ported yet")
     m, h = cfg.mm_hidden_size, cfg.hidden_size
-    return [
-        ("down2", 0, 0),
-        ("ln", 4 * m, 4 * m),
-        ("linear", 4 * m, h),
-        ("gelu", 0, 0),
-        ("linear", h, h),
-    ]
+    t = cfg.projector_type
+    if t == "identity":
+        return []
+    if t == "linear":
+        return [("linear", m, h)]
+    if t in ("mlp_downsample", "mlp_downsample_2x2_fix"):
+        return [
+            ("down2", 0, 0),
+            ("ln", 4 * m, 4 * m),
+            ("linear", 4 * m, h),
+            ("gelu", 0, 0),
+            ("linear", h, h),
+        ]
+    if t == "mlp_downsample_3x3_fix":
+        return [
+            ("down3", 0, 0),
+            ("ln", 9 * m, 9 * m),
+            ("linear", 9 * m, 3 * m),
+            ("gelu", 0, 0),
+            ("ln", 3 * m, 3 * m),
+            ("linear", 3 * m, h),
+            ("gelu", 0, 0),
+            ("linear", h, h),
+        ]
+    if t == "mlp_downsample_3x3_s2":
+        dims = [9 * m, 3 * m, m, m // 3, h, h]
+    elif t == "mlp_downsample_3x3_s2_new":
+        dims = [9 * m, 4 * m, 2 * m, m, m // 3, h, h]
+    else:
+        match = re.match(r"^mlp(\d+)x_gelu$", t)
+        if match:
+            spec: Spec = [("linear", m, h)]
+            for _ in range(1, int(match.group(1))):
+                spec += [("gelu", 0, 0), ("linear", h, h)]
+            return spec
+        raise ValueError(f"unknown projector type: {t}")
+
+    # the *_s2 family: down3x3, then [ln, linear, gelu] blocks, ending with a
+    # plain linear (no gelu + ln before it)
+    spec = [("down3", 0, 0)]
+    for i in range(len(dims) - 2):
+        spec.append(("ln", dims[i], dims[i]))
+        spec.append(("linear", dims[i], dims[i + 1]))
+        spec.append(("gelu", 0, 0))
+    spec.append(("linear", dims[-2], dims[-1]))
+    return spec
 
 
 def init_params(generator: torch.Generator, cfg: ProjectorConfig,
@@ -84,15 +131,16 @@ def init_params(generator: torch.Generator, cfg: ProjectorConfig,
 
 
 def forward(params: Params, cfg: ProjectorConfig, x: torch.Tensor) -> torch.Tensor:
-    """x: (N, S, mm_hidden) with S a perfect square -> (N, S / r^2, hidden)."""
+    """x: (N, S, mm_hidden) with S a perfect square per tile -> (N, S',
+    hidden), S' = ceil(sqrt(S) / r)^2 for the downsampling types."""
     dtype = cfg.compute_dtype
     x = x.to(dtype)
     for i, (op, _, _) in enumerate(build_spec(cfg)):
-        if op == "down2":
+        if op in ("down2", "down3"):
             n, s, c = x.shape
             side = int(round(s ** 0.5))
             assert side * side == s, f"projector input not square: {s}"
-            x = flat_square(x.reshape(n, side, side, c), 2)
+            x = flat_square(x.reshape(n, side, side, c), 2 if op == "down2" else 3)
             x = x.reshape(n, -1, x.shape[-1])
         elif op == "ln":
             p = params[str(i)]

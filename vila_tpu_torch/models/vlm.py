@@ -1,7 +1,8 @@
 """VLM meta-architecture: vision tower + projector + LLM with media splice,
-as `vila_tpu/models/vlm.py` (the SigLIP tower with plain images; the
-other towers, S2, PS3 and video are not ported yet), and the training
-forward over a collated batch (`forward_batch`).
+as `vila_tpu/models/vlm.py` (the SigLIP tower; the other towers and PS3
+are not ported yet), and the training forward over a collated batch
+(`forward_batch`). Dynamic-S2 images encode through `models/s2.py`, TSP
+videos through `models/encoders.py`.
 
 The host expands each media token into a fixed run of placeholder positions
 (plus the encoder's end-token ids); the device scatters the flattened
@@ -28,14 +29,19 @@ class VLMConfig:
     projector: projector_lib.ProjectorConfig
     vision_feature_layer: int = -2
     vision_select: str = "cls_patch"
-    image_aspect_ratio: str = "resize"  # resize | pad
+    # resize | pad | crop | dynamic | dynamic_s2 | longest_edge
+    image_aspect_ratio: str = "resize"
     vision_tower_type: str = "siglip"  # the other towers (PS3, ...) come later
-    # carried from the checkpoint's config.json and written back by
-    # `entry.save`; video and dynamic tiling are not ported yet
     num_video_frames: int = 8
     fps: float = 0.0
+    # video token assembly (llava/model/encoders/video/): "basic" splices
+    # every frame as an image; "tsp" mean-pools frames (models/encoders.py)
+    video_encoder: str = "basic"
+    tsp_pool_sizes: Tuple[Tuple[int, int, int], ...] = ((1, 1, 1),)
+    # dynamic tiling (mm_utils.py:299-405)
     min_tiles: int = 1
     max_tiles: int = 12
+    # dynamic-S2
     s2_scales: Tuple[int, ...] = (448, 896, 1344)
     s2_resize_output_to_scale_idx: int = 0
 

@@ -8,7 +8,9 @@ binds one to a server object, so a process may run several.
 
 Image parts arrive as data URLs (decoded with PIL, imported only when an
 image part arrives) or as paths and URLs for the engine to open. Video
-parts are refused: video prompts are not ported yet.
+parts are paths, or data URLs that are written to a temporary file for the
+engine to decode (removed when the request ends); a 64-frame TSP video
+needs a cache of 8192 rows (`--max-len 8192` under batching).
 
     python -m vila_tpu_torch.serving.server --model-path ckpt/ --port 8000 \
         [--max-batch 8] [--device cuda]
@@ -23,6 +25,8 @@ import argparse
 import base64
 import io
 import json
+import os
+import tempfile
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -30,6 +34,7 @@ from typing import Any, Dict, List
 
 from vila_tpu_torch.inference.generate import GenerationConfig
 from vila_tpu_torch.media import Image as MediaImage
+from vila_tpu_torch.media import Video as MediaVideo
 
 MODEL_NAME = "vila-tpu"
 
@@ -44,8 +49,22 @@ def _load_image_part(url: str):
     return MediaImage(url)
 
 
-def parse_messages(messages: List[Dict[str, Any]]) -> List[Any]:
-    """OpenAI messages -> prompt part list (server.py:171-240)."""
+def _load_video_part(url: str, temp_files: List[str]):
+    """A video part: a path or URL as it is; a data URL's bytes go to a
+    temporary file, whose path is added to `temp_files`."""
+    if url.startswith("data:"):
+        _, payload = url.split(",", 1)
+        with tempfile.NamedTemporaryFile(suffix=".mp4", delete=False) as f:
+            f.write(base64.b64decode(payload))
+        temp_files.append(f.name)
+        return MediaVideo(f.name)
+    return MediaVideo(url)
+
+
+def parse_messages(messages: List[Dict[str, Any]], temp_files=None) -> List[Any]:
+    """OpenAI messages -> prompt part list (server.py:171-240); the
+    temporary files of data-URL videos are listed in `temp_files`."""
+    temp_files = [] if temp_files is None else temp_files
     prompt: List[Any] = []
     for message in messages:
         content = message.get("content")
@@ -59,7 +78,7 @@ def parse_messages(messages: List[Dict[str, Any]]) -> List[Any]:
             elif ptype == "image_url":
                 prompt.append(_load_image_part(part["image_url"]["url"]))
             elif ptype == "video_url":
-                raise NotImplementedError("video prompts are not ported yet")
+                prompt.append(_load_video_part(part["video_url"]["url"], temp_files))
             else:
                 raise ValueError(f"unsupported content part: {ptype}")
     return prompt
@@ -137,10 +156,11 @@ class Handler(BaseHTTPRequestHandler):
         if self.path not in ("/chat/completions", "/v1/chat/completions"):
             self._json(404, {"error": "not found"})
             return
+        temp_files: List[str] = []
         try:
             length = int(self.headers.get("Content-Length", 0))
             body = json.loads(self.rfile.read(length) or b"{}")
-            prompt = parse_messages(body.get("messages", []))
+            prompt = parse_messages(body.get("messages", []), temp_files)
             gc = _gen_config(body)
             rid = f"chatcmpl-{uuid.uuid4().hex[:12]}"
             if body.get("stream"):
@@ -160,6 +180,9 @@ class Handler(BaseHTTPRequestHandler):
             })
         except Exception as e:  # noqa: BLE001 - the server keeps serving
             self._json(500, {"error": f"{type(e).__name__}: {e}"})
+        finally:
+            for path in temp_files:
+                os.unlink(path)
 
 
 def make_server(engine, host: str = "0.0.0.0", port: int = 8000) -> ThreadingHTTPServer:
@@ -185,7 +208,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="continuous batching with this many decode slots "
                         "(0 = bs=1 serial serving)")
     p.add_argument("--max-len", type=int, default=2048,
-                   help="per-request context cap under batching")
+                   help="per-request context cap under batching (8192 for a "
+                        "64-frame TSP video)")
     p.add_argument("--device", default="cuda", help="cuda, or cpu for the plain versions")
     return p
 
