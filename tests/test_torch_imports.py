@@ -40,13 +40,17 @@ def _module_names():
     ]
 
 
-def _imported_by_port(roots):
+PROBE = os.path.join(REPO, "vila_tpu", "eval", "fixtures", "quant_probe")
+
+
+def _imported_by_port(roots, then=""):
     """Modules under any of `roots` that importing every module of the
-    port loads, in a fresh interpreter."""
+    port loads, in a fresh interpreter, after running the code `then`."""
     code = (
         "import importlib, json, sys\n"
         f"for name in {_module_names()!r}:\n"
         "    importlib.import_module(name)\n"
+        + then +
         f"roots = {tuple(roots)!r}\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "                        if m.split('.')[0] in roots)))\n"
@@ -63,10 +67,15 @@ def test_port_imports_no_jax_and_no_jax_package():
 
 
 def test_port_imports_neither_safetensors_nor_transformers():
-    """The loader reads and writes safetensors with numpy, and
-    `entry.load_tokenizer` imports `transformers` only when called: the
-    card's host has neither package."""
-    assert _imported_by_port(("safetensors", "transformers")) == "[]"
+    """The loader reads and writes safetensors with numpy and reads
+    `tokenizer.json` with the port's own reader: neither importing the port
+    nor `entry.load_tokenizer` and `entry.load` of a checkpoint (the
+    committed quant probe, on the CPU) loads `safetensors`, `transformers`
+    or `tokenizers`; the card's host has none of them."""
+    then = ("from vila_tpu_torch import entry\n"
+            f"entry.load_tokenizer({PROBE!r})\n"
+            f"entry.load({PROBE!r}, device='cpu')\n")
+    assert _imported_by_port(("safetensors", "transformers", "tokenizers"), then) == "[]"
 
 
 def test_port_imports_neither_pil_nor_cv2():

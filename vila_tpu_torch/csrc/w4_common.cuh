@@ -95,10 +95,17 @@ __device__ __forceinline__ float pro_value(const TIn* xr, int i, int din, float 
   return silu_value(ld_f(xr, i), ld_f(xr, (size_t)din + i));
 }
 
+// the first int8 digit of v, round(v / s1) in [-127, 127]: the one-digit
+// expansion v ~= q1 s1 (K1 at act_digits = 1), and the first digit of the
+// two-digit one (IEEE quotient: the plain version's rounding)
+__device__ __forceinline__ float first_digit(float v, float s1) {
+  return fminf(fmaxf(rintf(v / s1), -127.f), 127.f);
+}
+
 // the two int8 digits of v, v ~= q1 s1 + q2 s2 (IEEE quotients, no FMA
 // contraction: the plain version's roundings)
 __device__ __forceinline__ void two_digits(float v, float s1, float s2, int* q1, int* q2) {
-  const float a = fminf(fmaxf(rintf(v / s1), -127.f), 127.f);
+  const float a = first_digit(v, s1);
   const float r = __fsub_rn(v, __fmul_rn(a, s1));
   *q1 = (int)a;
   *q2 = (int)fminf(fmaxf(rintf(r / s2), -127.f), 127.f);

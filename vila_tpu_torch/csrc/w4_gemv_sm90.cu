@@ -5,7 +5,12 @@
 //
 // Arithmetic (the TPU kernel's, so greedy transcripts agree): each input
 // row is expanded per half-plane into two int8 digits, x ~= q1 s1 + q2 s2
-// (s1 = amax / 127, s2 = s1 / 127, round half even); packed byte [i, o]
+// (s1 = amax / 127, s2 = s1 / 127, round half even), or, at act_digits = 1
+// (the TPU kernel's static `act_digits`), into the first alone, x ~= q1 s1
+// (~7 bits: the first digit of the two-digit expansion is the one-digit
+// expansion, so the prologue is shared and the one-digit form skips the
+// second digit's residual, its dots and its lo-plane group-sum
+// correction; a template parameter ND, picked per launch); packed byte [i, o]
 // holds w[i, o] in its low nibble and w[i + din/2, o] in its high one; the
 // lo plane (p & 0x0F, weight + 8) and the h16 plane ((p & 0xF0) ^ 0x80 ==
 // 16 (hi - 8) as s8) meet the digits in exact s8 x s8 -> s32 dots, each
@@ -111,13 +116,15 @@ __device__ __forceinline__ void span_of(const StreamArgs& a, int u, int& sp, int
 }
 
 // The row's digits, once a CTA, into shared memory, for the groups its units
-// take: sdig[k4] = {q1 lo, q2 lo, q1 hi, q2 hi} of input rows 4 k4..
+// take (the q2 words unwritten and unread at ND = 1):
+// sdig[k4] = {q1 lo, q2 lo, q1 hi, q2 hi} of input rows 4 k4..
 // 4 k4 + 3 of each half-plane (4 bytes a word, the dp4a operands), sgs[g]
 // the lo plane's group digit sums (q1, q2), s_sd = s1, s2 of the lo plane,
 // then of the hi (from the whole row's amax). xv holds the thread's 16-byte
 // chunks of the row (elements 8 (tid + 256 j)..), loaded before the weight
 // stream starts: loads issued behind every SM's first TMA boxes would wait
 // for them.
+template <int ND>
 __device__ __forceinline__ void stream_digits(const StreamArgs& a, const uint4 (&xv)[kSChunks],
                                               int4* sdig, int* sgs, float* s_sd, float* red) {
   const int tid = threadIdx.x, gw = a.group / 4;
@@ -151,16 +158,21 @@ __device__ __forceinline__ void stream_digits(const StreamArgs& a, const uint4 (
     uint32_t w1[2] = {0u, 0u}, w2[2] = {0u, 0u};
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
-      int q1, q2;
-      two_digits(__bfloat162float(e[q]), s_sd[2 * pl], s_sd[2 * pl + 1], &q1, &q2);
+      int q1, q2 = 0;
+      if (ND == 2)
+        two_digits(__bfloat162float(e[q]), s_sd[2 * pl], s_sd[2 * pl + 1], &q1, &q2);
+      else
+        q1 = (int)first_digit(__bfloat162float(e[q]), s_sd[2 * pl]);
       w1[q >> 2] |= ((uint32_t)q1 & 0xFFu) << (8 * (q & 3));
       w2[q >> 2] |= ((uint32_t)q2 & 0xFFu) << (8 * (q & 3));
     }
     int* d = reinterpret_cast<int*>(sdig + ip / 4) + 2 * pl;
     d[0] = (int)w1[0];
-    d[1] = (int)w2[0];
     d[4] = (int)w1[1];
-    d[5] = (int)w2[1];
+    if (ND == 2) {
+      d[1] = (int)w2[0];
+      d[5] = (int)w2[1];
+    }
   }
   csync<kSConsumers>();
   for (int g = tid; g < a.ngh; g += kSConsumers) {  // a thread per group
@@ -170,7 +182,7 @@ __device__ __forceinline__ void stream_digits(const StreamArgs& a, const uint4 (
     for (int k = 0; k < gw; ++k) {
       const int4 e = d[k];
       s1 = __dp4a(e.x, 0x01010101, s1);
-      s2 = __dp4a(e.y, 0x01010101, s2);
+      if (ND == 2) s2 = __dp4a(e.y, 0x01010101, s2);
     }
     sgs[2 * g] = s1;
     sgs[2 * g + 1] = s2;
@@ -180,8 +192,8 @@ __device__ __forceinline__ void stream_digits(const StreamArgs& a, const uint4 (
 
 // the integer dots of `rows` rows (a multiple of 4) of one group for the
 // thread's column word: 4 rows x 4 bytes a step, transposed (byte j of
-// wc[c] = row 4 k4 + j of column c)
-template <int WBOX>
+// wc[c] = row 4 k4 + j of column c; the second digit's at ND = 2 only)
+template <int WBOX, int ND>
 __device__ __forceinline__ void group_dp4a(const uint8_t* wp, int rows, const int4* dq,
                                            int (&isum)[4][4]) {
 #pragma unroll
@@ -199,9 +211,11 @@ __device__ __forceinline__ void group_dp4a(const uint8_t* wp, int rows, const in
     for (int c = 0; c < 4; ++c) {
       const int lo = (int)lo_plane(wc[c]), hi = (int)hi_plane(wc[c]);
       isum[c][0] = __dp4a(d.x, lo, isum[c][0]);
-      isum[c][1] = __dp4a(d.y, lo, isum[c][1]);
       isum[c][2] = __dp4a(d.z, hi, isum[c][2]);
-      isum[c][3] = __dp4a(d.w, hi, isum[c][3]);
+      if (ND == 2) {
+        isum[c][1] = __dp4a(d.y, lo, isum[c][1]);
+        isum[c][3] = __dp4a(d.w, hi, isum[c][3]);
+      }
     }
   }
 }
@@ -209,8 +223,9 @@ __device__ __forceinline__ void group_dp4a(const uint8_t* wp, int rows, const in
 // A team of kWpt = WBOX / 128 warps takes a stage, 32 column words a warp,
 // and scales each group into the team's sum of the unit, in shared memory.
 // The teams' sums meet once a round (maxu units, all of the CTA's where they
-// fit), in team order, so no team waits for another at a unit's end.
-template <int WBOX, bool PROBE>
+// fit), in team order, so no team waits for another at a unit's end. ND
+// digits a row.
+template <int WBOX, bool PROBE, int ND>
 __global__ void __launch_bounds__(kSThreads, 1)
     w4_stream_kernel(const __grid_constant__ CUtensorMap tm, const __grid_constant__ StreamArgs a) {
   constexpr int kWpt = WBOX / 128;           // warps a stage
@@ -261,7 +276,7 @@ __global__ void __launch_bounds__(kSThreads, 1)
     return;
   }
 
-  if (!PROBE) stream_digits(a, xv, sdig, sgs, s_sd, s_red2);
+  if (!PROBE) stream_digits<ND>(a, xv, sdig, sgs, s_sd, s_red2);
   const int team = warp / kWpt, cword = (warp - team * kWpt) * 32 + lane;
   const int my_units = (a.n_units - (int)blockIdx.x + gridDim.x - 1) / gridDim.x;
   unsigned psum = 0;
@@ -298,7 +313,7 @@ __global__ void __launch_bounds__(kSThreads, 1)
         }
         mbar_wait(&full[s], (it / a.stages) & 1);
         int isum[4][4];
-        group_dp4a<WBOX>(wp, col_ok ? a.group : 0, sdig + g * (a.group / 4), isum);
+        group_dp4a<WBOX, ND>(wp, col_ok ? a.group : 0, sdig + g * (a.group / 4), isum);
         __syncwarp();
         mbar_arrive_if(&empty[s], lane == 0);  // the warp's reads of the stage are done
         const bf16* scl = reinterpret_cast<const bf16*>(&gl);
@@ -311,9 +326,9 @@ __global__ void __launch_bounds__(kSThreads, 1)
         for (int c = 0; c < 4; ++c) {
           const float sl = __bfloat162float(scl[c]), sh = __bfloat162float(sch[c]) / 16.0f;
           v[c] += (float)(isum[c][0] - 8 * gs0) * (s_sd[0] * sl);
-          v[c] += (float)(isum[c][1] - 8 * gs1) * (s_sd[1] * sl);
+          if (ND == 2) v[c] += (float)(isum[c][1] - 8 * gs1) * (s_sd[1] * sl);
           v[c] += (float)isum[c][2] * (s_sd[2] * sh);
-          v[c] += (float)isum[c][3] * (s_sd[3] * sh);
+          if (ND == 2) v[c] += (float)isum[c][3] * (s_sd[3] * sh);
         }
         *reinterpret_cast<float4*>(ap) = v4;
       }
@@ -417,7 +432,7 @@ struct WgArgs {
   int M, m_pad, stages, sbytes;
 };
 
-template <int MT>
+template <int MT, int ND>
 __global__ void __launch_bounds__(kWThreads, 1)
     w4_wgmma_kernel(const __grid_constant__ CUtensorMap tm_w,
                     const __grid_constant__ CUtensorMap tm_d, const __grid_constant__ WgArgs a) {
@@ -453,18 +468,18 @@ __global__ void __launch_bounds__(kWThreads, 1)
         fence_proxy_async_global();
       }
       int it = 0;
-      produce(a.pr, a.m_pad, weights, weights ? &tm_w : &tm_d, a.stages, a.sbytes, ring, full,
-              empty, it);
+      produce<ND>(a.pr, a.m_pad, weights, weights ? &tm_w : &tm_d, a.stages, a.sbytes, ring,
+                  full, empty, it);
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     int* amax = reinterpret_cast<int*>(a.bar + 1);
-    rows_prologue(a.pr, a.x, a.pr.din, a.M, a.m_pad, amax, rowv, s_red);
+    rows_prologue<ND>(a.pr, a.x, a.pr.din, a.M, a.m_pad, amax, rowv, s_red);
     grid_sync<kWConsumers>(a.bar, target);
     row_scales(amax, a.m_pad, s_sd);
     int it = 0;
-    run_units<MT>(a.pr, a.M, a.stages, a.sbytes, s_sd, ring, full, empty, s_unit, it, nullptr,
-                  a.out);
+    run_units<MT, ND>(a.pr, a.M, a.stages, a.sbytes, s_sd, ring, full, empty, s_unit, it,
+                      nullptr, a.out);
     if (a.pr.n_full < a.pr.dout / kPTileN) {
       grid_sync<kWConsumers>(a.bar, target);
       final_sum(a.pr, a.M, nullptr, a.out);
@@ -472,11 +487,11 @@ __global__ void __launch_bounds__(kWThreads, 1)
   }
 }
 
-template <int MT>
+template <int MT, int ND>
 int launch_wgmma(const CUtensorMap* tw, const CUtensorMap* td, const WgArgs& a, int n_cta,
                  int smem, cudaStream_t s) {
   static int granted = 0;
-  const void* kernel = (const void*)w4_wgmma_kernel<MT>;
+  const void* kernel = (const void*)w4_wgmma_kernel<MT, ND>;
   const int st = allow_smem(kernel, smem, &granted);
   if (st) return st;
   CUtensorMap t0 = *tw, t1 = *td;
@@ -485,7 +500,25 @@ int launch_wgmma(const CUtensorMap* tw, const CUtensorMap* td, const WgArgs& a, 
   return (int)cudaLaunchCooperativeKernel(kernel, dim3(n_cta), dim3(kWThreads), params, smem, s);
 }
 
-template <int WBOX, bool PROBE>
+// the wgmma form's ring for ND digits a row, then the launch at m_pad rows
+template <int ND>
+int launch_wgmma_nd(const CUtensorMap* tw, const CUtensorMap* td, WgArgs a, int n_cta,
+                    cudaStream_t s) {
+  a.sbytes = stage_bytes<ND>(a.m_pad);
+  const int fixed = 1024 + (a.m_pad / 8) * 8 * 128 * 4 + ((2 * a.pr.din + 15) & ~15);
+  a.stages = ring_stages<ND>(a.m_pad, fixed, kStaticSmem);
+  if (a.stages < 2) return (int)cudaErrorInvalidValue;
+  const int smem = fixed + a.stages * a.sbytes;
+  switch (a.m_pad / 8) {
+    case 1: return launch_wgmma<1, ND>(tw, td, a, n_cta, smem, s);
+    case 2: return launch_wgmma<2, ND>(tw, td, a, n_cta, smem, s);
+    case 3: return launch_wgmma<3, ND>(tw, td, a, n_cta, smem, s);
+    case 4: return launch_wgmma<4, ND>(tw, td, a, n_cta, smem, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int WBOX, bool PROBE, int ND>
 int launch_stream(const CUtensorMap* tm, StreamArgs a, int n_cta, cudaStream_t s) {
   static int granted = 0;
   constexpr int kTeams = kSWarps / (WBOX / 128);
@@ -504,7 +537,7 @@ int launch_stream(const CUtensorMap* tm, StreamArgs a, int n_cta, cudaStream_t s
   a.stages = stages(a.maxu);
   if (a.stages < kTeams) return (int)cudaErrorInvalidValue;
   const int smem = fixed(a.maxu) + a.stages * a.sbytes;
-  auto kernel = w4_stream_kernel<WBOX, PROBE>;
+  auto kernel = w4_stream_kernel<WBOX, PROBE, ND>;
   const int st = allow_smem((const void*)kernel, smem, &granted);
   if (st) return st;
   kernel<<<n_cta, kSThreads, smem, s>>>(*tm, a);
@@ -545,20 +578,22 @@ extern "C" int w4_gemv_encode_weights(void* map, const void* packed, int din, in
              : (int)cudaErrorInvalidValue;
 }
 
-// w4_gemv_encode_digits: the TMA map of the wgmma form's digit workspace,
-// (hp, 4 m_pad) bytes, boxes of 128 k x all rows, 128-byte swizzle (a box
-// past a padded group of less than 128 reads the next group's digits, or
-// zeros past the row, which no k step of the group reads).
-extern "C" int w4_gemv_encode_digits(void* map, void* dig, int hp, int m_pad, int device) {
-  if (hp < 32 || hp % 32 || m_pad < 8 || m_pad > kWMaxRows || m_pad % 8)
+// w4_gemv_encode_digits: the TMA map of the wgmma form's digit workspace of
+// nd digits a row, (hp, 2 nd m_pad) bytes, boxes of 128 k x all rows,
+// 128-byte swizzle (a box past a padded group of less than 128 reads the
+// next group's digits, or zeros past the row, which no k step of the group
+// reads).
+extern "C" int w4_gemv_encode_digits(void* map, void* dig, int hp, int m_pad, int nd,
+                                     int device) {
+  if (hp < 32 || hp % 32 || m_pad < 8 || m_pad > kWMaxRows || m_pad % 8 || nd < 1 || nd > 2)
     return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   const EncodeTiled enc = encode_fn();
   if (!enc) return (int)cudaErrorSharedObjectInitFailed;
-  const cuuint64_t ddims[2] = {(cuuint64_t)hp, (cuuint64_t)(4 * m_pad)};
+  const cuuint64_t ddims[2] = {(cuuint64_t)hp, (cuuint64_t)(2 * nd * m_pad)};
   const cuuint64_t dstrides[1] = {(cuuint64_t)hp};
-  const cuuint32_t dbox[2] = {128, (cuuint32_t)(4 * m_pad)}, elem[2] = {1, 1};
+  const cuuint32_t dbox[2] = {128, (cuuint32_t)(2 * nd * m_pad)}, elem[2] = {1, 1};
   return enc(static_cast<CUtensorMap*>(map), CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, dig, ddims,
              dstrides, dbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
@@ -567,12 +602,13 @@ extern "C" int w4_gemv_encode_digits(void* map, void* dig, int hp, int m_pad, in
 }
 
 // w4_gemv_wgmma (M = 2..32): maps of the weights (w4_gemv_encode_weights,
-// swizzled, rows = the padded group) and of the digits; ptrs: x (M, din),
-// scales of the layer, out (M, dout), digits, group sums, partials (ks, M,
-// dout) f32 or null, barrier words (2 + 2 kWMaxRows zeroed u32: the grid
-// barrier's u64 arrival count, left counting, then the rows' amax);
-// ints: M, din, dout, bout, s_rows, group, n_full, ks, gps (quant.unit_plan),
-// n_cta (one CTA per SM). Returns the launch's cudaError_t.
+// swizzled, rows = the padded group) and of the digits; ptrs: scales of the
+// layer, digits, group sums, partials (ks, M, dout) f32 or null, barrier
+// words (2 + 2 kWMaxRows zeroed u32: the grid barrier's u64 arrival count,
+// left counting, then the rows' amax); ints: M, din, dout, bout, s_rows,
+// group, n_full, ks, gps (quant.unit_plan), n_cta (one CTA per SM), unused,
+// digits a row (1 or 2); x (M, din), out (M, dout). Returns the launch's
+// cudaError_t.
 extern "C" int w4_gemv_wgmma(const void* tm_w, const void* tm_d, void* const* ptrs,
                              const int* ints, const void* x, void* out, void* stream) {
   WgArgs a;
@@ -594,10 +630,11 @@ extern "C" int w4_gemv_wgmma(const void* tm_w, const void* tm_d, void* const* pt
   pr.n_full = ints[6];
   pr.ks = ints[7];
   pr.gps = ints[8];
-  const int n_cta = ints[9];
+  const int n_cta = ints[9], nd = ints[11];
   a.m_pad = 8 * ((a.M + 7) / 8);
   pr.half = pr.din / 2;
-  if (a.M < 1 || a.M > kWMaxRows || n_cta < 1 || pr.group < 16 || pr.group > kPGroup ||
+  if (a.M < 1 || a.M > kWMaxRows || n_cta < 1 || (nd != 1 && nd != 2) || pr.group < 16 ||
+      pr.group > kPGroup ||
       pr.group % 16 || pr.din % (2 * pr.group) || pr.bout % kPTileN || pr.dout % pr.bout)
     return (int)cudaErrorInvalidValue;
   pr.gp = (pr.group + 31) & ~31;
@@ -608,21 +645,10 @@ extern "C" int w4_gemv_wgmma(const void* tm_w, const void* tm_d, void* const* pt
       (pr.ks - 1) * pr.gps >= pr.ngh || pr.ks * pr.gps < pr.ngh ||
       (pr.n_full == tiles && pr.ks != 1) || (pr.n_full < tiles && !pr.part))
     return (int)cudaErrorInvalidValue;
-  a.sbytes = stage_bytes(a.m_pad);
-  const int fixed = 1024 + (a.m_pad / 8) * 8 * 128 * 4 + ((2 * pr.din + 15) & ~15);
-  a.stages = ring_stages(a.m_pad, fixed, kStaticSmem);
-  if (a.stages < 2) return (int)cudaErrorInvalidValue;
-  const int smem = fixed + a.stages * a.sbytes;
   const CUtensorMap* tw = static_cast<const CUtensorMap*>(tm_w);
   const CUtensorMap* td = static_cast<const CUtensorMap*>(tm_d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (a.m_pad / 8) {
-    case 1: return launch_wgmma<1>(tw, td, a, n_cta, smem, s);
-    case 2: return launch_wgmma<2>(tw, td, a, n_cta, smem, s);
-    case 3: return launch_wgmma<3>(tw, td, a, n_cta, smem, s);
-    case 4: return launch_wgmma<4>(tw, td, a, n_cta, smem, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return nd == 1 ? launch_wgmma_nd<1>(tw, td, a, n_cta, s) : launch_wgmma_nd<2>(tw, td, a, n_cta, s);
 }
 
 // w4_gemv_stream (M = 1) and the probe's ring (probe != 0: the consumers
@@ -630,7 +656,8 @@ extern "C" int w4_gemv_wgmma(const void* tm_w, const void* tm_d, void* const* pt
 // weights (w4_gemv_encode_weights, unswizzled, rows = the group, width =
 // the box); ptrs: scales of the layer, partials (ks, dout) f32 or null, span counters (zeroed ints, left zeroed), probe_out or null;
 // ints: M, din, dout, bout, s_rows, group, box width (128; the probe also
-// 256), ks, gps, n_cta, probe. Returns the launch's cudaError_t.
+// 256), ks, gps, n_cta, probe, digits a row (1 or 2; the probe 2). Returns
+// the launch's cudaError_t.
 extern "C" int w4_gemv_stream(const void* tm, void* const* ptrs, const int* ints, const void* x,
                               void* out, void* stream) {
   StreamArgs a;
@@ -649,9 +676,9 @@ extern "C" int w4_gemv_stream(const void* tm, void* const* ptrs, const int* ints
   const int wbox = ints[6];
   a.ks = ints[7];
   a.gps = ints[8];
-  const int n_cta = ints[9], probe = ints[10];
+  const int n_cta = ints[9], probe = ints[10], nd = ints[11];
   a.half = a.din / 2;
-  if (m != 1 || (probe && !a.probe) || n_cta < 1 || a.group < 16 ||
+  if (m != 1 || (probe && !a.probe) || n_cta < 1 || (nd != 1 && nd != 2) || a.group < 16 ||
       (!probe && a.din > kSMaxDin) ||
       a.group > kPGroup || a.group % 16 || a.din % (2 * a.group) || a.bout % 16 ||
       a.dout % a.bout || (wbox != 128 && wbox != 256))
@@ -667,10 +694,11 @@ extern "C" int w4_gemv_stream(const void* tm, void* const* ptrs, const int* ints
   const CUtensorMap* t = static_cast<const CUtensorMap*>(tm);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (probe)
-    return wbox == 128 ? launch_stream<128, true>(t, a, n_cta, s)
-                       : launch_stream<256, true>(t, a, n_cta, s);
+    return wbox == 128 ? launch_stream<128, true, 2>(t, a, n_cta, s)
+                       : launch_stream<256, true, 2>(t, a, n_cta, s);
   if (wbox != 128) return (int)cudaErrorInvalidValue;
-  return launch_stream<128, false>(t, a, n_cta, s);
+  return nd == 1 ? launch_stream<128, false, 1>(t, a, n_cta, s)
+                 : launch_stream<128, false, 2>(t, a, n_cta, s);
 }
 
 // w4_gemv_probe_v4: the plain-load yardstick: the byte sum of `bytes` (a

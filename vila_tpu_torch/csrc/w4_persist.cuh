@@ -176,8 +176,8 @@ __device__ __forceinline__ void group_scale(float (&acc)[8], const int (&ilo)[4]
     }
 }
 
-// The group product on wgmma (K4, K5): one group (nks = gp / 32 k steps, NKS
-// of them when NKS > 0) for
+// The group product on wgmma (K4, K5, K1): one group (nks = gp / 32 k steps,
+// NKS of them when NKS > 0) for
 // all m_pad = MPAD rows, swap-AB. A = the weights, 64 output columns a
 // wgmma, from registers: thread (g, t) of warp w reads word column cw + 4g
 // of the stage's weight tile at rows 8j + 2t (+ 1) of each 32-row k step and
@@ -186,21 +186,23 @@ __device__ __forceinline__ void group_scale(float (&acc)[8], const int (&ilo)[4]
 // rows g and g + 8 of warp w are columns cw + 4g + 2T and + 1 in tile T (two
 // tiles a warpgroup's 128 columns), masked to the lo or the hi nibble plane.
 // B = the digit tile (rows (plane, digit, row), 128 bytes of k, swizzled): a
-// plane's 2 MPAD rows, N = 2 MPAD. The planes run one after the other, each
+// plane's ND MPAD rows, N = ND MPAD (ND = 2 digits a row; K1 also takes 1,
+// which halves N and skips the second digit's terms). The planes run one
+// after the other, each
 // plane's s32 sums (two tiles) in registers for the group (so that nothing
 // spills); two A register sets alternate between k steps, each kept until
 // the wgmmas that read it are done. acc[c][2j + e] gains the
 // scaled sums of row 8j + 2t + e, column cw + 4g + c (the order of
 // quant._w4_gemv_ref); sl, sh: the stage's lo scales and hi scales / 16 of
 // those columns; sd the rows' digit scales (4 a row, 16-byte aligned); gs
-// the group's lo-plane digit sums (2 x MPAD).
-template <int MPAD, int NKS>
+// the group's lo-plane digit sums (ND x MPAD).
+template <int MPAD, int NKS, int ND = 2>
 __device__ __forceinline__ void group_product_wgmma(const uint8_t* st, const uint8_t* dig,
                                                     int nks, const int* gs, const float* sd,
                                                     int cw, int g, int t,
                                                     const float (&sl)[4], const float (&sh)[4],
                                                     float (&acc)[4][MPAD / 4]) {
-  constexpr int N = 2 * MPAD;
+  constexpr int N = ND * MPAD;
   const int bch = (cw >> 4) + (g >> 2), bw = 4 * (g & 3);
   const int boff0 = 2 * t * 128 + ((bch ^ (2 * t)) << 4) + bw;
   const int boff1 = (2 * t + 1) * 128 + ((bch ^ (2 * t + 1)) << 4) + bw;
@@ -223,7 +225,7 @@ __device__ __forceinline__ void group_product_wgmma(const uint8_t* st, const uin
   // (two tiles) are live at a time
 #pragma unroll
   for (int pl = 0; pl < 2; ++pl) {
-    int d[2][MPAD];        // [tile][register]
+    int d[2][N / 2];       // [tile][register]
     uint32_t a[2][2][4];   // [set][tile][register]
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
@@ -241,7 +243,7 @@ __device__ __forceinline__ void group_product_wgmma(const uint8_t* st, const uin
           const uint32_t w = b[ks][r >> 1][2 * T + (r & 1)];
           a[s][T][r] = pl ? hi_plane(w) : lo_plane(w);
         }
-      const uint64_t db = desc_sw128_b8(dig + 2 * pl * MPAD * 128 + ks * 32);
+      const uint64_t db = desc_sw128_b8(dig + ND * pl * MPAD * 128 + ks * 32);
       wg_fence();
       wgmma_s8_rs<N>(d[0], a[s][0], db, ks > 0);
       wgmma_s8_rs<N>(d[1], a[s][1], db, ks > 0);
@@ -255,21 +257,21 @@ __device__ __forceinline__ void group_product_wgmma(const uint8_t* st, const uin
       reg_fence(a[1][T]);
     }
     // D register i of a tile: A row g + 8 ((i >> 1) & 1), B row 8 (i >> 2) +
-    // 2t + (i & 1); B rows MPAD.. are digit 1 of rows 0..
+    // 2t + (i & 1); B rows MPAD.. are digit 1 of rows 0.. (ND = 2)
 #pragma unroll
     for (int j = 0; j < MPAD / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int n = 8 * j + 2 * t + e;
-        const int z0 = pl ? 0 : 8 * gs[n], z1 = pl ? 0 : 8 * gs[MPAD + n];
+        const int z0 = pl ? 0 : 8 * gs[n], z1 = pl || ND == 1 ? 0 : 8 * gs[MPAD + n];
         const float2 s2 = *reinterpret_cast<const float2*>(sd + 4 * n + 2 * pl);
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          const int T = c >> 1, i0 = 4 * j + 2 * (c & 1) + e, i1 = i0 + MPAD / 2;
+          const int T = c >> 1, i0 = 4 * j + 2 * (c & 1) + e;
           const float sc = pl ? sh[c] : sl[c];
           float v = acc[c][2 * j + e];
           v += (float)(d[T][i0] - z0) * (s2.x * sc);
-          v += (float)(d[T][i1] - z1) * (s2.y * sc);
+          if (ND == 2) v += (float)(d[T][i0 + MPAD / 2] - z1) * (s2.y * sc);
           acc[c][2 * j + e] = v;
         }
       }
@@ -308,21 +310,33 @@ constexpr int kWMaxStages = 8;
 constexpr int kWMaxRows = 32;
 constexpr int kWMaxSplits = 16;  // K splits of a product's tile
 
-// one ring stage (bytes): the weight box at 0, the digit tile (4 m_pad rows
-// x 128, 1024-aligned for the 128-byte swizzle) at 16384, the two scale
-// rows, the group's digit sums (2 x m_pad int32)
+// one ring stage (bytes) of a product with ND int8 digits a row (2; K1 also
+// 1): the weight box at 0, the digit tile (2 ND m_pad rows x 128,
+// 1024-aligned for the 128-byte swizzle) at 16384, the two scale rows, the
+// group's digit sums (ND x m_pad int32)
 __host__ __device__ constexpr int st_digits() { return kPWeightBytes; }
-__host__ __device__ constexpr int st_scales(int m_pad) { return kPWeightBytes + 4 * m_pad * 128; }
-__host__ __device__ constexpr int st_gsum(int m_pad) { return st_scales(m_pad) + 2 * kPTileN * 2; }
-__host__ __device__ constexpr int stage_bytes(int m_pad) {
-  return (st_gsum(m_pad) + 2 * m_pad * 4 + 1023) & ~1023;
+template <int ND = 2>
+__host__ __device__ constexpr int st_scales(int m_pad) {
+  return kPWeightBytes + 2 * ND * m_pad * 128;
 }
-__host__ __device__ constexpr int digit_tx(int m_pad) { return 4 * m_pad * 128 + 2 * m_pad * 4; }
+template <int ND = 2>
+__host__ __device__ constexpr int st_gsum(int m_pad) {
+  return st_scales<ND>(m_pad) + 2 * kPTileN * 2;
+}
+template <int ND = 2>
+__host__ __device__ constexpr int stage_bytes(int m_pad) {
+  return (st_gsum<ND>(m_pad) + ND * m_pad * 4 + 1023) & ~1023;
+}
+template <int ND = 2>
+__host__ __device__ constexpr int digit_tx(int m_pad) {
+  return 2 * ND * m_pad * 128 + ND * m_pad * 4;
+}
 
 // the ring's stages in what shared memory `fixed` bytes leave: even, at most
 // kWMaxStages, 0 where fewer than 2 fit
+template <int ND = 2>
 inline int ring_stages(int m_pad, int fixed, int static_smem) {
-  int st = (kMaxDynSmem - static_smem - fixed) / stage_bytes(m_pad);
+  int st = (kMaxDynSmem - static_smem - fixed) / stage_bytes<ND>(m_pad);
   if (st > kWMaxStages) st = kWMaxStages;
   st &= ~1;
   return st;
@@ -331,8 +345,8 @@ inline int ring_stages(int m_pad, int fixed, int static_smem) {
 struct WProd {
   const uint8_t* packed;         // (nj, din/2, bout) of the layer
   const __nv_bfloat16* scales;   // (nj, s_rows, bout) of the layer
-  int8_t* dig;                   // (2 planes, 2 digits, m_pad, hp) int8
-  int* gsum;                     // (ngh, 2 digits, m_pad) int32, lo plane
+  int8_t* dig;                   // (2 planes, ND digits, m_pad, hp) int8
+  int* gsum;                     // (ngh, ND digits, m_pad) int32, lo plane
   float* part;                   // (splits, M, dout) f32
   int din, dout, bout, s_rows, group, gp, hp, ngh, half;
   int n_full, ks, gps;  // tiles [0, n_full) whole; the rest in ks splits of gps groups
@@ -384,10 +398,11 @@ __device__ __forceinline__ void cons_max2(float& lo, float& hi, float* red) {
   csync<32 * NW>();
 }
 
-// the digits and lo-plane group sums of row r from its values (bf16 in
+// the ND digits and lo-plane group sums of row r from its values (bf16 in
 // rowv) and its half-planes' amax, into the workspace: a warp per (plane,
 // group), zero digits past the group, kappa_of's k order; part `part` of
 // `parts` CTAs of the row takes every parts-th run of eight blocks
+template <int ND = 2>
 __device__ __forceinline__ void row_digits(const WProd& pr, int m_pad, int r,
                                            const __nv_bfloat16* rowv, float am_lo, float am_hi,
                                            int part, int parts) {
@@ -395,8 +410,8 @@ __device__ __forceinline__ void row_digits(const WProd& pr, int m_pad, int r,
   for (int b = part * kWConsumerWarps + warp; b < 2 * pr.ngh; b += kWConsumerWarps * parts) {
     const int pl = b / pr.ngh, g = b - pl * pr.ngh;
     const float s1 = fmaxf((pl ? am_hi : am_lo) / 127.0f, 1e-20f), s2 = s1 / 127.0f;
-    int8_t* d0 = pr.dig + ((size_t)(2 * pl) * m_pad + r) * pr.hp + g * pr.gp;
-    int8_t* d1 = d0 + (size_t)m_pad * pr.hp;
+    int8_t* d0 = pr.dig + ((size_t)(ND * pl) * m_pad + r) * pr.hp + g * pr.gp;
+    int8_t* d1 = d0 + (size_t)m_pad * pr.hp;  // (ND = 2)
     const __nv_bfloat16* v = rowv + pl * pr.half + g * pr.group;
     float vv[4];  // (the loads before the stores)
 #pragma unroll
@@ -407,9 +422,14 @@ __device__ __forceinline__ void row_digits(const WProd& pr, int m_pad, int r,
     for (int j = 0; j < 4; ++j) {
       if (32 * j >= pr.gp) break;
       int q1 = 0, q2 = 0;
-      if (32 * j + lane < pr.group) two_digits(vv[j], s1, s2, &q1, &q2);
+      if (32 * j + lane < pr.group) {
+        if (ND == 2)
+          two_digits(vv[j], s1, s2, &q1, &q2);
+        else
+          q1 = (int)first_digit(vv[j], s1);
+      }
       d0[32 * j + kappa_of(lane)] = (int8_t)q1;
-      d1[32 * j + kappa_of(lane)] = (int8_t)q2;
+      if (ND == 2) d1[32 * j + kappa_of(lane)] = (int8_t)q2;
       a1 += q1;
       a2 += q2;
     }
@@ -420,8 +440,8 @@ __device__ __forceinline__ void row_digits(const WProd& pr, int m_pad, int r,
         a2 += __shfl_xor_sync(0xffffffffu, a2, o);
       }
       if (lane == 0) {
-        pr.gsum[((size_t)g * 2 + 0) * m_pad + r] = a1;
-        pr.gsum[((size_t)g * 2 + 1) * m_pad + r] = a2;
+        pr.gsum[((size_t)g * ND + 0) * m_pad + r] = a1;
+        if (ND == 2) pr.gsum[((size_t)g * ND + 1) * m_pad + r] = a2;
       }
     }
   }
@@ -432,7 +452,9 @@ __device__ __forceinline__ void row_digits(const WProd& pr, int m_pad, int r,
 // past M are zeros) is taken by parts = N / m_pad CTAs, each reading the row
 // whole, 8 values a load, for its half-planes' amax (latency-bound: the same
 // bits in every part) and writing a share of its digit blocks; part 0
-// publishes the amax (a store: one owner) into amax[2 r], amax[2 r + 1]
+// publishes the amax (a store: one owner) into amax[2 r], amax[2 r + 1];
+// ND digits a row
+template <int ND = 2>
 __device__ __forceinline__ void rows_prologue(const WProd& pr, const __nv_bfloat16* x, int ldx,
                                               int M, int m_pad, int* amax,
                                               __nv_bfloat16* rowv, float* red) {
@@ -465,7 +487,7 @@ __device__ __forceinline__ void rows_prologue(const WProd& pr, const __nv_bfloat
       amax[2 * r] = __float_as_int(lo);
       amax[2 * r + 1] = __float_as_int(hi);
     }
-    row_digits(pr, m_pad, r, rowv, lo, hi, part, parts);
+    row_digits<ND>(pr, m_pad, r, rowv, lo, hi, part, parts);
   }
   fence_proxy_async_global();  // the digits are read by TMA after the barrier
 }
@@ -485,7 +507,9 @@ __device__ __forceinline__ void row_scales(const int* amax, int m_pad, float* s_
 
 // a producer's boxes of one product, in the order the consumers take them
 // (`it` counts ring positions across products): the weight warp's weight
-// box and scale rows, or the digit warp's digit tile and group sums
+// box and scale rows, or the digit warp's digit tile and group sums (ND
+// digits a row)
+template <int ND = 2>
 __device__ __forceinline__ void produce(const WProd& pr, int m_pad, bool weights,
                                         const CUtensorMap* tm, int stages, int sbytes,
                                         uint8_t* ring, uint64_t* full, uint64_t* empty, int& it) {
@@ -501,13 +525,14 @@ __device__ __forceinline__ void produce(const WProd& pr, int m_pad, bool weights
       if (weights) {
         mbar_expect_tx(&full[s], ring_stage_tx(pr.gp));
         tma_load_3d(st, tm, &full[s], oo0, gi * pr.group, jb);
-        bulk_load(st + st_scales(m_pad), srow + (size_t)gi * pr.bout, kPTileN * 2, &full[s]);
-        bulk_load(st + st_scales(m_pad) + kPTileN * 2, srow + (size_t)(pr.ngh + gi) * pr.bout,
-                  kPTileN * 2, &full[s]);
+        bulk_load(st + st_scales<ND>(m_pad), srow + (size_t)gi * pr.bout, kPTileN * 2, &full[s]);
+        bulk_load(st + st_scales<ND>(m_pad) + kPTileN * 2,
+                  srow + (size_t)(pr.ngh + gi) * pr.bout, kPTileN * 2, &full[s]);
       } else {
-        mbar_expect_tx(&full[s], digit_tx(m_pad));
+        mbar_expect_tx(&full[s], digit_tx<ND>(m_pad));
         tma_load_2d(st + st_digits(), tm, &full[s], gi * pr.gp, 0);
-        bulk_load(st + st_gsum(m_pad), pr.gsum + (size_t)gi * 2 * m_pad, 2 * m_pad * 4, &full[s]);
+        bulk_load(st + st_gsum<ND>(m_pad), pr.gsum + (size_t)gi * ND * m_pad, ND * m_pad * 4,
+                  &full[s]);
       }
     }
   }
@@ -516,8 +541,8 @@ __device__ __forceinline__ void produce(const WProd& pr, int m_pad, bool weights
 // the units of one product (`it` counts ring positions as the producers
 // do): a split tile's unit writes its f32 partial (split z); a whole tile's
 // writes bf16(sum (+ bias)) into out (M, dout) where out is given, else its
-// partial
-template <int MT>
+// partial; ND digits a row
+template <int MT, int ND = 2>
 __device__ __forceinline__ void run_units(const WProd& pr, int M, int stages, int sbytes,
                                           const float* s_sd, uint8_t* ring, uint64_t* full,
                                           uint64_t* empty, float* s_unit, int& it,
@@ -540,19 +565,20 @@ __device__ __forceinline__ void run_units(const WProd& pr, int M, int stages, in
       const uint8_t* st = ring_stage(ring, it, stages, sbytes);
       mbar_wait(&full[s], (it / stages) & 1);
       const __nv_bfloat16* sc =
-          reinterpret_cast<const __nv_bfloat16*>(st + st_scales(kMPad)) + cw + 4 * g;
+          reinterpret_cast<const __nv_bfloat16*>(st + st_scales<ND>(kMPad)) + cw + 4 * g;
       float sl[4], sh[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         sl[c] = __bfloat162float(sc[c]);
         sh[c] = __bfloat162float(sc[kPTileN + c]) / 16.0f;
       }
-      const int* gs = reinterpret_cast<const int*>(st + st_gsum(kMPad));
+      const int* gs = reinterpret_cast<const int*>(st + st_gsum<ND>(kMPad));
       if (pr.gp == kPGroup)  // (groups of 112 and 128: four k steps)
-        group_product_wgmma<kMPad, 4>(st, st + st_digits(), 4, gs, s_sd, cw, g, t, sl, sh, acc);
+        group_product_wgmma<kMPad, 4, ND>(st, st + st_digits(), 4, gs, s_sd, cw, g, t, sl, sh,
+                                          acc);
       else
-        group_product_wgmma<kMPad, 0>(st, st + st_digits(), pr.gp / 32, gs, s_sd, cw, g, t, sl,
-                                      sh, acc);
+        group_product_wgmma<kMPad, 0, ND>(st, st + st_digits(), pr.gp / 32, gs, s_sd, cw, g, t,
+                                          sl, sh, acc);
       __syncwarp();
       mbar_arrive_if(&empty[s], lane == 0);  // the warp's reads of the stage are done
     }

@@ -142,11 +142,13 @@ def load_params(model_path: str, cfg: vlm.VLMConfig, param_dtype=None,
 
 
 def load_tokenizer(model_path: str):
-    from transformers import AutoTokenizer
-
+    """The checkpoint's tokenizer (`llm/tokenizer.json`) read by the port's
+    own reader (`data.tokenizer_json`: the forms the repository holds; any
+    other raises), with the media tokens added. No `transformers`."""
+    from vila_tpu_torch.data.tokenizer_json import JsonTokenizer
     from vila_tpu_torch.data.tokenizer_utils import add_media_tokens
 
-    tokenizer = AutoTokenizer.from_pretrained(os.path.join(model_path, "llm"))
+    tokenizer = JsonTokenizer.from_pretrained(os.path.join(model_path, "llm"))
     add_media_tokens(tokenizer)
     return tokenizer
 

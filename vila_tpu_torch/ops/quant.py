@@ -17,7 +17,8 @@ is (no re-layout):
 Two kernels, dispatched by the number of rows M (as `w4_matmul`):
 
   * M <= 32, `w4_matmul_decode` (K1, `w4_gemv_sm90.cu`): the activations
-    are expanded per row into two int8 digits and contracted with s8 x s8
+    are expanded per row into two int8 digits (one at `act_digits=1`, the
+    first of the two) and contracted with s8 x s8
     -> s32 dot products, with the lo plane's zero point corrected by a
     group row sum, exactly the TPU kernel's arithmetic (groups that are
     multiples of 16: 128, or 112 where the quantizer takes it,
@@ -45,10 +46,11 @@ Each wrapper takes its plain PyTorch version (`_w4_gemv_ref`,
 raises. Stacked `(L, ...)` weights are indexed by `layer_index` (a Python
 int) with a pointer offset: no per-layer copy.
 
-The vision tower's W8A8 linear (`quantize_w8a8`, `w8a8_linear`) is XLA
-code in the JAX package, not a Pallas kernel: its int8 product is
-`torch._int_mm` (cuBLASLt s8 x s8 -> s32) on the card and an exact int32
-matmul on the CPU. The quantizers divide as IEEE division on every device
+The W8A16 flat slot (`quantize_w8`; `quantized_linear` dequantizes it and
+multiplies with `torch.matmul`) and the vision tower's W8A8 linear
+(`quantize_w8a8`, `w8a8_linear`) are XLA code in the JAX package, not
+Pallas kernels: the W8A8 int8 product is `torch._int_mm` (cuBLASLt s8 x
+s8 -> s32) on the card and an exact int32 matmul on the CPU. The quantizers divide as IEEE division on every device
 (`_div`), so card and CPU give the same bytes.
 """
 
@@ -198,10 +200,33 @@ def _untile(t: torch.Tensor, rows: int) -> torch.Tensor:
     return t[..., :rows, :].permute(perm).reshape(*lead, rows, nj * bout)
 
 
+def quantize_w8(w: torch.Tensor, group_size: int = DEFAULT_GROUP) -> Dict[str, Any]:
+    """W8A16 flat slot, as `vila_tpu.ops.quant.quantize_w8` (same bytes):
+    w (..., din, dout) -> {packed (..., din, dout) int8, scales (...,
+    din/group, dout) bf16}, symmetric [-128, 127] per (group of input rows,
+    output), scale max(amax / 127, 1e-8). Read by dequantize + matmul."""
+    *lead, din, dout = w.shape
+    g = w.float().reshape(*lead, din // group_size, group_size, dout)
+    amax = g.abs().amax(dim=-2, keepdim=True)
+    scale = torch.clamp(_div(amax, 127.0), min=1e-8)
+    q = torch.clamp(torch.round(g / scale), -128, 127).to(torch.int8)
+    return {
+        "packed": q.reshape(*lead, din, dout),
+        "scales": scale[..., 0, :].reshape(*lead, din // group_size, dout).to(torch.bfloat16),
+        "group_size": group_size,
+        "bits": 8,
+    }
+
+
 def dequantize(qdict: Dict[str, Any]) -> torch.Tensor:
-    """Tiled W4 slot back to flat (..., din, dout) bf16."""
-    if qdict.get("bits", 4) != 4:
-        raise NotImplementedError("only W4 slots are ported")
+    """A W4 (tiled) or W8 (flat) slot back to flat (..., din, dout) bf16."""
+    if qdict.get("bits", 4) == 8:
+        g = qdict["group_size"]
+        q = qdict["packed"].to(torch.int32)
+        *lead, din, dout = q.shape
+        qg = q.reshape(*lead, din // g, g, dout).float()
+        w = qg * qdict["scales"][..., :, None, :].float()
+        return w.reshape(*lead, din, dout).to(torch.bfloat16)
     packed, scales = qdict["packed"], qdict["scales"]
     half, bout, nj, ngh, g, din, dout = _tiled_meta(packed, scales)
     lead = packed.shape[:-3]
@@ -229,21 +254,33 @@ def _layer(packed, scales, layer_index):
 # --------------------------------------------------------------------------
 
 
-def _digits(x32: torch.Tensor):
-    """Per-row two-digit int8 expansion x ~= q1*s1 + q2*s2 (values as f32)."""
+def _digits(x32: torch.Tensor, n: int = 2):
+    """Per-row int8 expansion (values as f32), as the JAX package's
+    `_int8_digits`: n = 1, x ~= q1*s1 (s1 = amax / 127, ~7 bits); n = 2,
+    x ~= q1*s1 + q2*s2 (s2 = s1 / 127, ~14 bits). The first digit is the
+    same in both. Quotients by 127 are IEEE on every device (`_div`)."""
     a = x32.abs().amax(dim=1, keepdim=True)
-    s1 = torch.clamp(a / 127.0, min=1e-20)
+    s1 = torch.clamp(_div(a, 127.0), min=1e-20)
     q1 = torch.clamp(torch.round(x32 / s1), -127, 127)
+    if n == 1:
+        return [(q1, s1)]
     r = x32 - q1 * s1
-    s2 = s1 / 127.0
+    s2 = _div(s1, 127.0)
     q2 = torch.clamp(torch.round(r / s2), -127, 127)
     return [(q1, s1), (q2, s2)]
 
 
-def _w4_gemv_ref(x, packed, scales, layer_index=None, out_f32=False):
-    """Plain version of the K1 kernel: int8-digit activations against the
-    lo / h16 nibble planes, exact integer dots, f32 scaling. `out_f32`
-    returns the f32 sum unrounded, as the fused layer's epilogues use it."""
+def check_digits(act_digits: int) -> None:
+    """The activation expansions K1 takes: one or two int8 digits a row."""
+    if act_digits not in (1, 2):
+        raise ValueError(f"act_digits must be 1 or 2, got {act_digits}")
+
+
+def _w4_gemv_ref(x, packed, scales, layer_index=None, out_f32=False, act_digits=2):
+    """Plain version of the K1 kernel: int8-digit activations (`act_digits`
+    of them a row) against the lo / h16 nibble planes, exact integer dots,
+    f32 scaling. `out_f32` returns the f32 sum unrounded, as the fused
+    layer's epilogues use it."""
     packed, scales, _ = _layer(packed, scales, layer_index)
     half, bout, nj, ngh, gs, din, dout = _tiled_meta(packed, scales)
     m = x.shape[0]
@@ -258,7 +295,7 @@ def _w4_gemv_ref(x, packed, scales, layer_index=None, out_f32=False):
     planes = ((x32[:, :half], lo, s_lo, True), (x32[:, half:], h16, s_hi, False))
     for xp, w, sc, zero_fix in planes:
         wg = w.reshape(ngh, gs, dout)
-        for q, sx in _digits(xp):
+        for q, sx in _digits(xp, act_digits):
             qg = q.reshape(m, ngh, gs)
             d = torch.einsum("mgk,gkn->mgn", qg, wg)
             if zero_fix:
@@ -328,26 +365,29 @@ def check_group(group: int, name: str) -> None:
                          f"got {group}")
 
 
-def _w4_digits_ref(x, prologue=PRO_NONE, gamma=None, eps=0.0, m_pad=None, group=128):
-    """Plain version of the `w4_digits` kernel: (digits (2 planes, 2
-    digits, m_pad, ngh * gp) int8, each group padded with zeros to gp =
-    `padded_group(group)` and in w4_gemv_rows' k order, dscale (m_pad, 2, 2)
-    f32 = (s1, s2) per plane, gsum (ngh, 2 digits, m_pad) int32 = the lo
-    plane's per-group digit sums); rows past x's are zeros. The digits and
-    scales are `_digits`' per half-plane."""
+def _w4_digits_ref(x, prologue=PRO_NONE, gamma=None, eps=0.0, m_pad=None, group=128,
+                   n_digits=2):
+    """Plain version of the `w4_digits` kernel (and of K1's wgmma-form
+    digit workspace): (digits (2 planes, n_digits, m_pad, ngh * gp) int8,
+    each group padded with zeros to gp = `padded_group(group)` and in
+    w4_gemv_rows' k order, dscale (m_pad, 2, n_digits) f32 = (s1[, s2]) per
+    plane, gsum (ngh, n_digits, m_pad) int32 = the lo plane's per-group
+    digit sums); rows past x's are zeros. The digits and scales are
+    `_digits`' per half-plane."""
     v = _prologue_ref(x, prologue, gamma, eps)
     m, din = v.shape
     half = din // 2
     ngh, gp = half // group, padded_group(group)
     m_pad = m_pad or 8 * -(-m // 8)
-    digits = torch.zeros((2, 2, m_pad, ngh, gp), dtype=torch.int8, device=x.device)
-    dscale = torch.zeros((m_pad, 2, 2), dtype=torch.float32, device=x.device)
+    nd = n_digits
+    digits = torch.zeros((2, nd, m_pad, ngh, gp), dtype=torch.int8, device=x.device)
+    dscale = torch.zeros((m_pad, 2, nd), dtype=torch.float32, device=x.device)
     for p in range(2):
-        for d, (q, sx) in enumerate(_digits(v[:, p * half:(p + 1) * half])):
+        for d, (q, sx) in enumerate(_digits(v[:, p * half:(p + 1) * half], nd)):
             digits[p, d, :m, :, :group] = q.to(torch.int8).reshape(m, ngh, group)
             dscale[:m, p, d] = sx[:, 0]
-    gsum = digits[0].int().sum(-1)  # (2, m_pad, ngh)
-    digits = _mma_order(digits.reshape(2, 2, m_pad, ngh * gp))
+    gsum = digits[0].int().sum(-1)  # (nd, m_pad, ngh)
+    digits = _mma_order(digits.reshape(2, nd, m_pad, ngh * gp))
     return digits, dscale, gsum.permute(2, 0, 1).contiguous()
 
 
@@ -605,7 +645,7 @@ def k1_work(m: int, dout: int, bout: int, ngh: int, n_sm: int, group: int = 128)
 
 
 _K1_PTRS = ctypes.c_void_p * 5
-_K1_INTS = ctypes.c_int * 11
+_K1_INTS = ctypes.c_int * 12
 _K1_MAP = ctypes.c_ubyte * 128  # a CUtensorMap
 _K1_BAR_WORDS = 2 + 2 * 32  # the grid barrier's u64 count, then (row, plane) amax
 _k1_maps: Dict[tuple, ctypes.Array] = {}
@@ -664,9 +704,10 @@ def _k1_lib():
     return lib
 
 
-def _k1_plan(dev, packed, scales, l, m):
-    """What a K1 launch of m rows on this slot and layer needs besides x
-    and out, made once: (entry point, its maps, pointers, ints, din, dout)."""
+def _k1_plan(dev, packed, scales, l, m, nd=2):
+    """What a K1 launch of m rows on this slot and layer, with nd int8
+    digits a row, needs besides x and out, made once: (entry point, its
+    maps, pointers, ints, din, dout)."""
     _check_w4(packed, scales)
     half, bout, nj, ngh, gs, din, dout = _tiled_meta(packed, scales)
     check_group(gs, "w4_gemv")
@@ -687,40 +728,42 @@ def _k1_plan(dev, packed, scales, l, m):
         maps = (_k1_map(lib, "weights", p_ptr, din, dout, bout, gs, K1_BOX, 0, idx),)
         ptrs = _K1_PTRS(s_ptr, ws.data_ptr() if ks > 1 else None, counters.data_ptr(), None,
                         None)
-        ints = _K1_INTS(m, din, dout, bout, s_rows, gs, K1_BOX, ks, gps, n_cta, 0)
+        ints = _K1_INTS(m, din, dout, bout, s_rows, gs, K1_BOX, ks, gps, n_cta, 0, nd)
         return lib.w4_gemv_stream, maps, ptrs, ints, din, dout
     if bout % ROWS_TILE_N:
         raise ValueError(f"K1's wgmma form needs bout % 128 == 0 ({bout})")
     whole, ks, gps = wgmma_plan(dout, ngh, n_sm)
     m_pad, gp = 8 * -(-m // 8), padded_group(gs)
     hp = ngh * gp
-    dig_f = 64 * -(-(4 * m_pad * hp // 4) // 64)  # (floats, 256-byte aligned regions)
-    gsum_f = 64 * -(-(ngh * 2 * m_pad) // 64)
+    dig_f = 64 * -(-(2 * nd * m_pad * hp // 4) // 64)  # (floats, 256-byte aligned regions)
+    gsum_f = 64 * -(-(ngh * nd * m_pad) // 64)
     split = whole < dout // ROWS_TILE_N
     ws, bar = _k1_workspace(dev, dig_f + gsum_f + (ks * m * dout if split else 0))
     base = ws.data_ptr()
     maps = (_k1_map(lib, "weights", p_ptr, din, dout, bout, gp, 128, 1, idx),
-            _k1_map(lib, "digits", base, hp, m_pad, idx))
+            _k1_map(lib, "digits", base, hp, m_pad, nd, idx))
     ptrs = _K1_PTRS(s_ptr, base, base + 4 * dig_f,
                     base + 4 * (dig_f + gsum_f) if split else None, bar.data_ptr())
-    ints = _K1_INTS(m, din, dout, bout, s_rows, gs, whole, ks, gps, n_sm, 0)
+    ints = _K1_INTS(m, din, dout, bout, s_rows, gs, whole, ks, gps, n_sm, 0, nd)
     return lib.w4_gemv_wgmma, maps, ptrs, ints, din, dout
 
 
-def launch_gemv(x, packed, scales, layer_index, out) -> None:
+def launch_gemv(x, packed, scales, layer_index, out, act_digits=2) -> None:
     """Launch K1 on the current stream: out (m, dout) bf16 = x (m <= 32,
-    din) bf16 @ the W4 slot, in the form `k1_form` picks. Counts nothing:
-    the public wrapper counts."""
+    din) bf16 @ the W4 slot, each row expanded into `act_digits` (1 or 2)
+    int8 digits, in the form `k1_form` picks. Counts nothing: the public
+    wrapper counts."""
     dev = require_cuda(x, packed, scales, out)
+    check_digits(act_digits)
     m = x.shape[0]
     _, _, l = _layer(packed, scales, layer_index)
     key = (packed.data_ptr(), tuple(packed.shape), scales.data_ptr(), tuple(scales.shape), l,
-           m, _device_index(dev))
+           m, act_digits, _device_index(dev))
     plan = _k1_plans.get(key)
     if plan is None:
         if not 1 <= m <= 32:
             raise ValueError(f"w4_gemv takes 1..32 rows, got {m}")
-        plan = _k1_plans[key] = _k1_plan(dev, packed, scales, l, m)
+        plan = _k1_plans[key] = _k1_plan(dev, packed, scales, l, m, act_digits)
     fn, maps, ptrs, ints, din, dout = plan
     if x.shape != (m, din) or out.shape != (m, dout):
         raise ValueError(f"x {tuple(x.shape)} / out {tuple(out.shape)} against ({din}, {dout})")
@@ -735,20 +778,21 @@ def launch_gemv(x, packed, scales, layer_index, out) -> None:
 
 
 def k1_digits(dev: torch.device):
-    """The digits (2, 2, m_pad, ngh * gp) int8 and lo-plane group sums (ngh,
-    2, m_pad) int32 of the device's last launch of K1's wgmma form, as it
-    left them in its workspace (for checks: `_w4_digits_ref`'s layout)."""
+    """The digits (2, nd, m_pad, ngh * gp) int8 and lo-plane group sums
+    (ngh, nd, m_pad) int32 of the device's last launch of K1's wgmma form
+    (nd digits a row), as it left them in its workspace (for checks:
+    `_w4_digits_ref`'s layout)."""
     ptrs, ints = _k1_last[_device_index(dev)]
-    m, din, gs = ints[0], ints[1], ints[5]
+    m, din, gs, nd = ints[0], ints[1], ints[5], ints[11]
     m_pad, ngh = 8 * -(-m // 8), din // 2 // gs
     hp = ngh * padded_group(gs)
     ws, _ = _k1_ws[_device_index(dev)]
     raw = ws.view(torch.uint8)
     base = ws.data_ptr()
     d0, g0 = ptrs[1] - base, ptrs[2] - base
-    digits = raw[d0:d0 + 4 * m_pad * hp].view(torch.int8)
-    gsum = raw[g0:g0 + ngh * 2 * m_pad * 4].view(torch.int32)
-    return digits.reshape(2, 2, m_pad, hp), gsum.reshape(ngh, 2, m_pad)
+    digits = raw[d0:d0 + 2 * nd * m_pad * hp].view(torch.int8)
+    gsum = raw[g0:g0 + ngh * nd * m_pad * 4].view(torch.int32)
+    return digits.reshape(2, nd, m_pad, hp), gsum.reshape(ngh, nd, m_pad)
 
 
 def launch_probe(packed: torch.Tensor, mode) -> torch.Tensor:
@@ -771,7 +815,7 @@ def launch_probe(packed: torch.Tensor, mode) -> torch.Tensor:
         tm = _k1_map(lib, "weights", packed.data_ptr(), 2 * half, nj * bout, bout, 128, mode,
                      0, idx)
         ptrs = _K1_PTRS(None, None, None, sums.data_ptr(), None)
-        ints = _K1_INTS(1, 2 * half, nj * bout, bout, 0, 128, mode, 1, half // 128, n_cta, 1)
+        ints = _K1_INTS(1, 2 * half, nj * bout, bout, 0, 128, mode, 1, half // 128, n_cta, 1, 2)
         status = lib.w4_gemv_stream(tm, ptrs, ints, None, None, _stream(dev))
     _build.check(status, "w4_gemv_probe")
     return sums
@@ -1007,17 +1051,16 @@ def w4_matmul_decode(
     act_digits: int = 2,
     layer_index: Optional[int] = None,
 ) -> torch.Tensor:
-    """Decode-shaped W4 matmul (K1). Only the two-digit activation
-    expansion (the JAX default) is implemented."""
-    if act_digits != 2:
-        raise NotImplementedError("only act_digits=2 is ported")
+    """Decode-shaped W4 matmul (K1): each row expanded into `act_digits`
+    int8 digits, two (the JAX default, ~14 bits) or one (~7 bits)."""
+    check_digits(act_digits)
     if x.device.type == "cpu":
-        return _w4_gemv_ref(x, packed, scales, layer_index)
+        return _w4_gemv_ref(x, packed, scales, layer_index, act_digits=act_digits)
     _, _, _, _, _, _, dout = _tiled_meta(packed, scales)
     if x.dtype != torch.bfloat16:
         raise TypeError("w4_matmul_decode takes bf16 activations")
     out = torch.empty((x.shape[0], dout), dtype=torch.bfloat16, device=x.device)
-    launch_gemv(x, packed, scales, layer_index, out)
+    launch_gemv(x, packed, scales, layer_index, out, act_digits)
     _build.count("w4_gemv")
     return out
 
@@ -1060,12 +1103,21 @@ def w4_matmul(x, packed, scales, act_digits: int = 2, layer_index=None):
 
 
 def quantized_linear(x, p: Dict[str, Any], dtype, act_digits: int = 2):
-    """Linear layer over a W4 slot {packed, scales[, bias]} of one layer."""
-    if p["packed"].dtype != torch.uint8:
-        raise NotImplementedError("only W4 slots are ported")
+    """Linear layer over a quantized slot {packed, scales[, bias]} of one
+    layer: a tiled W4 slot (uint8) through the W4 kernels, or a flat W8
+    slot (int8) dequantized and multiplied by `torch.matmul`, as the JAX
+    package leaves that product to XLA."""
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    y = w4_matmul(x2.to(torch.bfloat16), p["packed"], p["scales"], act_digits).to(dtype)
+    din = x.shape[-1]
+    x2 = x.reshape(-1, din)
+    packed, scales = p["packed"], p["scales"]
+    if packed.dtype == torch.uint8:  # W4, tiled
+        y = w4_matmul(x2.to(torch.bfloat16), packed, scales, act_digits).to(dtype)
+    else:  # W8, flat: dequantize, then the product in x's and dtype's common type
+        w = dequantize({"packed": packed, "scales": scales,
+                        "group_size": din // scales.shape[-2], "bits": 8})
+        ct = torch.promote_types(x2.dtype, dtype)
+        y = torch.matmul(x2.to(ct), w.to(dtype).to(ct))
     y = y.reshape(*lead, y.shape[-1])
     if "bias" in p:
         y = y + p["bias"].to(dtype)
