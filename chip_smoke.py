@@ -65,6 +65,23 @@ Phases:
                resized by the native library, ≈ 4.1k prompt tokens (bucket
                8192: K2 at M = 8192, K3 over a cache of 8192 rows with ≈ 4.1k
                live); 2 requests x 32 tokens;
+  ps3          VILA-HD (PS3) at the repository's defaults through
+               `entry.build_config`: a SigLIP-SO400M trunk, scales 378 / 756 /
+               1512, 64 selected a high scale (857 tokens an image), an
+               mlp2x_gelu projector, the W4 LLM of `e2e`, "after_prompt": 2
+               requests x 32 tokens on a seeded 1512 x 1134 image, each in
+               two passes (the low-res encode and a cache-free LLM forward
+               over the unpadded prompt, K2 at its M, give the top-down
+               prompt; the steered selection, pass 2, prefill, decode), with
+               exact K1-K3 launches; the TTFT in parts; K2 at the pass-1 M;
+               request 0's teacher-forced path call by call against the plain
+               versions (which take the kernel pass's selection); the card's
+               top-k order against the CPU's; one "after_image" request;
+  towers       CLIP ViT-L/14-336, InternViT-6B-448px-V1-5 and RADIO ViT-H/16
+               at 432² through `entry.build_config`, seeded bf16 weights and
+               `quantize_vit_w8a8`: one image through `encode_images` in bf16
+               and W8A8, the W8A8 features against bf16, and one 16-token
+               request through the W8A8 tower and the W4 LLM of `e2e`;
   media_profile  (only when named) torch.profiler traces of the s2 and
                video requests' media encode and prefill: device busy time
                and the operations by device time;
@@ -195,13 +212,14 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # K1's lm_head work on the batched routes, reported inside its entry:
 # (rows, the path that runs it)
 K1_BATCHED = ((8, "serve b8"), (24, "serve b24"))
-# the kernels the serial (bs=1) path must launch (e2e, load, s2, video)
+# the kernels the serial (bs=1) path must launch (e2e, load, s2, video, ps3,
+# towers)
 E2E_KERNELS = ("w4_gemv", "w4_gemm", "fused_layer")
 # (max_batch, requests, new tokens) of each serve run: K6, then K4/K5
 SERVE_RUNS = ((8, 12, 32), (24, 24, 16))
 DEFAULT_PHASES = ("build,kernels,e2e,serve,consistency,batched_consistency,"
-                  "small_consistency,http,s2,video,load,w8,awq,quant_acc,train_kernels,train,"
-                  "train_consistency")
+                  "small_consistency,http,s2,video,ps3,towers,load,w8,awq,quant_acc,"
+                  "train_kernels,train,train_consistency")
 
 
 def log(*a):
@@ -613,49 +631,58 @@ MEDIA_PREFILL = ((1536, "s2"), (8192, "video"))
 MEDIA_CACHE = (8192, 4141)
 
 
+K2_REPS = 10  # timed launches of K2 a row; its plain version and dequant+matmul take 3
+
+
+def _k2_row(torch, quant, gen, packed, scales, layer_index, m, name, path, flush, tag):
+    """(ok, row): K2 over one stacked W4 slot's layer at M = `m` on seeded
+    inputs against its plain version (one bf16 ulp of the largest output),
+    timed beside its bound, the plain version and `dequantize` +
+    `torch.matmul`; the row in the `kernels` phase's form, under `media` =
+    `path`."""
+    dev = flush.device
+    *_, din, dout = quant._tiled_meta(packed, scales)
+    x = torch.randn((m, din), generator=gen, device=dev).to(torch.bfloat16)
+    fn = lambda: quant.w4_matmul_prefill(x, packed, scales, layer_index=layer_index)  # noqa: E731
+    ref = lambda: quant._w4_gemm_ref(x, packed, scales, layer_index)  # noqa: E731
+    got, want = fn(), ref()
+    torch.cuda.synchronize()
+    err, scale = rel_err(torch, got, want)
+    tol = 2.0 ** -7 * scale
+    good = bool(torch.isfinite(got.float()).all()) and err <= tol
+    del got, want
+    t = time_ms(torch, fn, K2_REPS, flush)
+    t_plain = time_ms(torch, ref, 3, flush)
+    t_lib = time_ms(torch, lambda: x @ quant.dequantize(
+        {"packed": packed[layer_index], "scales": scales[layer_index]}), 3, flush)
+    b_ms, b_by = bound(m * din * 2 + w4_bytes(din, dout) + m * dout * 2,
+                       2 * m * din * dout, BF16_FLOPS)
+    plan = (quant.gemm_plan(m, dout, din // 2, quant._device_state(dev)[0])
+            if dev.type == "cuda" else "-")
+    log(f"[{tag}] w4_gemm {path} {name:8s} M={m:<5d} plan {plan} err {err:.3e} "
+        f"(tol {tol:.3e}) {'OK' if good else 'FAIL'}  kernel {t:.4f} ms  plain "
+        f"{t_plain:.3f} ms  dequant+matmul {t_lib:.3f} ms  bound {b_ms:.4f} ms ({b_by})")
+    return good, dict(shape=name, m=m, din=din, dout=dout, max_abs_err=err, tol=tol, ok=good,
+                      ms=t, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=t_lib,
+                      media=path, plan=str(plan))
+
+
 def _check_media_shapes(torch, quant, fused_decode, results, slots, k3_args, seed, flush,
                         dims):
-    """K2 over one layer's four projections at M = 1536 and 8192 against
-    the plain version (one bf16 ulp of the largest output), timed beside
-    its bound, the plain version and `dequantize` + `torch.matmul`; K3 at
-    cache 8192 / fill 4141 (65 attention chunks a KV head: each CTA loops
-    over several units) against its plain version. Inputs from a generator
-    of their own; the weights are the `kernels` phase's."""
+    """K2 (`_k2_row`) over one layer's four projections at M = 1536 and
+    8192; K3 at cache 8192 / fill 4141 (65 attention chunks a KV head: each
+    CTA loops over several units) against its plain version. Inputs from a
+    generator of their own; the weights are the `kernels` phase's."""
     dev = flush.device
     gen = torch.Generator(device=dev).manual_seed(seed + 10)
     D, I, hd, Hq, Hkv, V = dims
-    shapes = {"qkv": (D, (Hq + 2 * Hkv) * hd), "o": (Hkv * 8 * hd, D),
-              "gate_up": (D, 2 * I), "down": (I, D)}
     ok = True
     for m, path in MEDIA_PREFILL:
-        for name, (din, dout) in shapes.items():
-            packed, scales = slots[name]["packed"], slots[name]["scales"]
-            x = torch.randn((m, din), generator=gen, device=dev).to(torch.bfloat16)
-            fn = lambda: quant.w4_matmul_prefill(x, packed, scales, layer_index=1)  # noqa: E731
-            ref = lambda: quant._w4_gemm_ref(x, packed, scales, 1)  # noqa: E731
-            got, want = fn(), ref()
-            torch.cuda.synchronize()
-            err, scale = rel_err(torch, got, want)
-            tol = 2.0 ** -7 * scale
-            good = bool(torch.isfinite(got.float()).all()) and err <= tol
+        for name in ("qkv", "o", "gate_up", "down"):
+            good, row = _k2_row(torch, quant, gen, slots[name]["packed"],
+                                slots[name]["scales"], 1, m, name, path, flush, "kernels")
             ok &= good
-            del got, want
-            t = time_ms(torch, fn, 10, flush)
-            t_plain = time_ms(torch, ref, 3, flush)
-            t_lib = time_ms(torch, lambda: x @ quant.dequantize(
-                {"packed": packed[1], "scales": scales[1]}), 3, flush)
-            b_ms, b_by = bound(m * din * 2 + w4_bytes(din, dout) + m * dout * 2,
-                               2 * m * din * dout, BF16_FLOPS)
-            plan = (quant.gemm_plan(m, dout, din // 2, quant._device_state(dev)[0])
-                    if dev.type == "cuda" else "-")
-            results["w4_gemm"].append(dict(
-                shape=name, m=m, din=din, dout=dout, max_abs_err=err, tol=tol, ok=good,
-                ms=t, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=t_lib,
-                media=path, plan=str(plan)))
-            log(f"[kernels] w4_gemm {path} {name:8s} M={m:<5d} plan {plan} err {err:.3e} "
-                f"(tol {tol:.3e}) {'OK' if good else 'FAIL'}  kernel {t:.4f} ms  plain "
-                f"{t_plain:.3f} ms  dequant+matmul {t_lib:.3f} ms  bound {b_ms:.4f} ms ({b_by})")
-            del x
+            results["w4_gemm"].append(row)
     S, fill = MEDIA_CACHE
     kv_ld = Hkv * hd
     kc = (0.5 * torch.randn((2, 1, S, kv_ld), generator=gen, device=dev)).to(torch.bfloat16)
@@ -1442,7 +1469,8 @@ def summarise(results, launches):
     `serve b8` and `serve b24`: those paths' K1 launches, layer 0's qkv
     included, are in its `launches_by_path`);
     K2 one prefill layer's four projections at M=320 (under `media`, the
-    same at M=1536 and 8192, the s2 and video prompts' buckets); K3 one
+    same at M=1536 and 8192, the s2 and video prompts' buckets, and at the
+    ps3 phase's unpadded pass-1 M); K3 one
     bs=1 decode layer (under `media`, over the video's cache); K6 one decode layer at B=8 (the max_batch=8 server); K4 and K5
     one layer's pair of GEMVs at M=24 (the max_batch=24 server).
     `launches` maps each path run to its counts; a kernel's `launches` is
@@ -1542,10 +1570,13 @@ def _no_launches():
     return {name: 0 for name in _build.LAUNCHES}
 
 
-def phase_e2e(torch, engine, seed, n_requests=3, new_tokens=32, tag="e2e", prompt=None):
+def phase_e2e(torch, engine, seed, n_requests=3, new_tokens=32, tag="e2e", prompt=None,
+              prefill_passes=1):
     """The serial engine (bs=1: K2 prefill, K3 + K1 decode); each request's
     ids are in its entry of the returned list. `prompt(i)` gives request
-    i's prompt (default: a 448² image and a question)."""
+    i's prompt (default: a 448² image and a question); `prefill_passes`
+    counts the LLM's forwards over a prompt before the decode (2 for PS3's
+    top-down mode: the pass-1 forward, then the prefill)."""
     from vila_tpu_torch.inference.generate import GenerationConfig
     from vila_tpu_torch.ops import _build
 
@@ -1589,7 +1620,7 @@ def phase_e2e(torch, engine, seed, n_requests=3, new_tokens=32, tag="e2e", promp
     steps = sum(r["new_tokens"] - 1 for r in reqs)
     # the bs=1 path launches none of the batched kernels (K4-K6)
     want = dict(_no_launches(), w4_gemv=n_requests + 2 * steps,
-                w4_gemm=4 * layers * n_requests, fused_layer=layers * steps)
+                w4_gemm=4 * layers * n_requests * prefill_passes, fused_layer=layers * steps)
     log(f"[{tag}] launches {launches}, expected {want}")
     ok = all(launches[k] > 0 for k in E2E_KERNELS) and launches == want
     return ok, reqs, launches
@@ -1992,36 +2023,48 @@ S2_IMAGE = (1008, 1344, 3)  # 4:3: 1 + 4 + 12 tiles of 448², a 3 x 4 block grid
 VIDEO_FRAME = (720, 1280, 3)
 
 
-def media_config(kind, serving, dev="cuda"):
-    """The phase's VLMConfig through `entry.build_config`: the serving
-    configuration's (`serving`, the e2e engine's) component configs
-    (`entry.save_config`) under the git-ignored `runs/`, the top-level
-    config.json given the phase's fields, read back and removed."""
-    import dataclasses
+def config_from_files(base, top_fields, vision_tower=None, dev="cuda"):
+    """A VLMConfig through `entry.build_config` from config.json files alone:
+    `base`'s component configs (`entry.save_config`) under the git-ignored
+    `runs/`, the vision tower's config.json replaced by `vision_tower` when
+    given, the top-level config.json given `top_fields` (its mm_hidden_size
+    left to build_config), read back and removed."""
     import shutil
     import tempfile
 
     from vila_tpu_torch import entry
 
-    fields, ptype, _, _ = MEDIA_PHASES[kind]
-    base = dataclasses.replace(
-        serving, projector=dataclasses.replace(serving.projector, projector_type=ptype))
     os.makedirs("runs", exist_ok=True)
-    d = tempfile.mkdtemp(prefix=f"{kind}_cfg_", dir="runs")
+    d = tempfile.mkdtemp(prefix="cfg_", dir="runs")
     try:
         entry.save_config(base, d)
+        if vision_tower is not None:
+            with open(os.path.join(d, "vision_tower", "config.json"), "w") as f:
+                json.dump(vision_tower, f)
         with open(os.path.join(d, "config.json")) as f:
             top = json.load(f)
         top.pop("mm_hidden_size")
-        top.update(fields)
+        top.update(top_fields)
         with open(os.path.join(d, "config.json"), "w") as f:
             json.dump(top, f)
         cfg = entry.build_config(d, dtype=base.llm.dtype, device=dev)
     finally:
         shutil.rmtree(d, ignore_errors=True)
-    if (cfg.llm, cfg.vision) != (base.llm, base.vision):
+    if cfg.llm != base.llm or (vision_tower is None and cfg.vision != base.vision):
         raise RuntimeError(f"build_config read back another model: {cfg}")
     return cfg
+
+
+def media_config(kind, serving, dev="cuda"):
+    """The phase's VLMConfig through `config_from_files`: the serving
+    configuration's (`serving`, the e2e engine's) with the phase's
+    projector type and top-level fields."""
+    import dataclasses
+
+    fields, ptype, _, _ = MEDIA_PHASES[kind]
+    base = dataclasses.replace(
+        serving, projector=dataclasses.replace(serving.projector, projector_type=ptype))
+    return config_from_files(base, fields, dev=dev)
 
 
 class plain_versions:
@@ -2397,6 +2440,316 @@ def phase_media_profile(torch, e2e, vt8, seed, kind, dev="cuda"):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# VILA-HD's PS3 tower at the repository's defaults (`PS3Config.from_hf_config`
+# with no fields of its own: a SigLIP-SO400M trunk, scales 378 / 756 / 1512,
+# 64 tokens a high scale, one look-close pass; VILA-HD's own config.json is
+# not in the repository): 27² + 2 x 64 = 857 tokens an image
+PS3_TOWER = dict(model_type="ps3_vision_model", hidden_size=1152, intermediate_size=4304,
+                 num_hidden_layers=27, num_attention_heads=16, patch_size=14,
+                 ps3_scales=[378, 756, 1512], num_hires_select=64, num_look_close=1)
+PS3_IMAGE = (1134, 1512, 3)  # 4:3, resized to each scale's square
+PS3_RUN = (2, 32, 16)  # top-down requests x new tokens, then one one-pass request's tokens
+
+
+def ps3_engine(torch, e2e, seed, tower, mode, dev="cuda", params=None):
+    """(engine, want_cfg): VILA-HD through `config_from_files` (the e2e
+    engine's LLM config, `tower` as the vision tower's config.json, an
+    mlp2x_gelu projector, `mode` as the top config's ps3_look_close_mode),
+    the e2e engine's W4 LLM, a seeded bf16 PS3 tower and projector, or
+    `params` when given."""
+    import dataclasses
+
+    from vila_tpu_torch.inference.generate import GenerationEngine
+    from vila_tpu_torch.models import projector, ps3
+
+    base = dataclasses.replace(e2e.cfg, projector=dataclasses.replace(
+        e2e.cfg.projector, projector_type="mlp2x_gelu"))
+    cfg = config_from_files(base, {"ps3_look_close_mode": mode}, vision_tower=tower, dev=dev)
+    vis = cfg.vision
+    side = vis.low_grid
+    want_cfg = (cfg.vision_tower_type == "ps3" and cfg.ps3_look_close_mode == mode
+                and vis.s3_scales == tuple(tower["ps3_scales"])
+                and vis.k_per_scale == tower["num_hires_select"]
+                and vis.prompt_dim == cfg.llm.hidden_size
+                and vis.vit.intermediate_size == tower["intermediate_size"]
+                and cfg.projector.mm_hidden_size == tower["hidden_size"]
+                and cfg.tokens_per_image == side * side + 2 * vis.k_per_scale
+                and cfg.ps3_tokens_low == side * side)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(seed + 50)
+        params = {"llm": e2e.params["llm"],
+                  "vision_tower": ps3.init_params(gen, vis, torch.bfloat16),
+                  "mm_projector": projector.init_params(gen, cfg.projector, torch.bfloat16)}
+    return GenerationEngine(params, cfg, e2e.tokenizer, device=dev), want_cfg
+
+
+def phase_ps3(torch, e2e, seed, dev="cuda", tower=PS3_TOWER, run=PS3_RUN):
+    """VILA-HD's two-pass top-down serving at full width through the entry
+    points: `config_from_files` (a PS3 tower config.json, mlp2x_gelu,
+    "after_prompt"), `prepare_inputs` (one resized view a scale of a seeded
+    1512 x 1134 image, and the pass-1 prompt with the low-res tokens alone),
+    `_ps3_top_down_prompt` (pass-1 encode, then the cache-free LLM forward
+    over the unpadded prompt: K2 at its M), `encode_media` (the selection
+    steered by that prompt, pass 2), K2 prefill, K3 + K1 decode; the W4 LLM
+    is the e2e engine's. Checks: the config's widths; the prompt's layout;
+    exact K1-K3 launches (K2 twice a request); every K1, K2 and K3 call of
+    request 0's teacher-forced path against its plain version on its own
+    inputs, with the served tokens in K1's band of the plain lm_head
+    (`served_against_plain`; the plain pass takes the kernel pass's
+    selection, and the overlap of its own is reported) and, end to end, of
+    the plain pass's own top at every step (at this cell's depth and
+    draw; the `awq` phase reports it instead: PERF.md §6); the card's top-k
+    order equal to the CPU's on the same scores; one "after_image" request
+    (one pass) with exact launches. Times the TTFT's parts and K2 at the
+    pass-1 M."""
+    import numpy as np
+
+    from vila_tpu_torch.inference.generate import (PROMPT_BUCKETS, _bucket, _round_up,
+                                                   padded_prompt, sample_token)
+    from vila_tpu_torch.models import ps3, qwen2
+    from vila_tpu_torch.ops import quant
+    from vila_tpu_torch.utils.device import host_to_device
+
+    n_requests, new_tokens, one_pass_tokens = run
+    out, ok = {}, True
+    torch.cuda.reset_peak_memory_stats()
+    engine, want_cfg = ps3_engine(torch, e2e, seed, tower, "after_prompt", dev)
+    cfg, vis = engine.cfg, engine.cfg.vision
+    ok &= want_cfg
+    rng = np.random.default_rng(seed + 51)
+    images = [rng.integers(0, 256, PS3_IMAGE, dtype=np.uint8) for _ in range(n_requests + 1)]
+    prompt = lambda i: [images[i], QUESTIONS[i % len(QUESTIONS)]]  # noqa: E731
+    log(f"[ps3] entry.build_config: tower {cfg.vision_tower_type}, trunk "
+        f"{vis.vit.hidden_size} x {vis.vit.num_hidden_layers} layers, scales {vis.s3_scales}, "
+        f"{vis.k_per_scale} selected a high scale, prompt head {vis.prompt_dim} -> "
+        f"{vis.hidden_size}, projector {cfg.projector.projector_type}, "
+        f"{cfg.tokens_per_image} tokens an image ({cfg.ps3_tokens_low} in pass 1), mode "
+        f"{cfg.ps3_look_close_mode} {'OK' if want_cfg else 'FAIL'}")
+
+    # the prompt's layout
+    t0 = time.perf_counter()
+    inputs = engine.prepare_inputs(prompt(0))
+    views_ms = (time.perf_counter() - t0) * 1e3
+    entry, low = inputs["media"][0], inputs["ps3_low"]
+    n_prompt, m1 = int(inputs["input_ids"].shape[0]), int(low["input_ids"].shape[0])
+    s_pad = _bucket(n_prompt, PROMPT_BUCKETS)
+    scales = vis.s3_scales
+    layout = (entry["kind"] == "ps3" and entry["tiles"].shape == (1, scales[0], scales[0], 3)
+              and [h.shape for h in entry["tiles_high"]] == [(1, s, s, 3) for s in scales[1:]]
+              and len(inputs["media_pos"]) == cfg.tokens_per_image
+              and len(low["media_pos"]) == cfg.ps3_tokens_low
+              and n_prompt - m1 == cfg.tokens_per_image - cfg.ps3_tokens_low)
+    ok &= layout
+    out.update(prompt_tokens=n_prompt, pass1_tokens=m1, bucket=s_pad, views_ms=views_ms)
+    sides = [entry["tiles"].shape[1]] + [h.shape[1] for h in entry["tiles_high"]]
+    log(f"[ps3] prepare_inputs in {views_ms:.1f} ms: views {sides}, prompt {n_prompt} tokens "
+        f"-> bucket {s_pad}, pass-1 prompt {m1} tokens (unpadded) {'OK' if layout else 'FAIL'}")
+
+    # serve, with exact launches: the top-down requests, then one in one pass
+    good, reqs, launches = phase_e2e(torch, engine, seed, n_requests, new_tokens, tag="ps3",
+                                     prompt=prompt, prefill_passes=2)
+    ok &= good
+    out["requests"] = reqs
+    one, want_one = ps3_engine(torch, e2e, seed, tower, "after_image", dev, engine.params)
+    ok &= want_one
+    good, out["one_pass"], one_launches = phase_e2e(
+        torch, one, seed, 1, one_pass_tokens, tag="ps3 one-pass", prompt=prompt)
+    ok &= good and "ps3_low" not in one.prepare_inputs(prompt(0))
+
+    # the TTFT's device parts, each as its own calls
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ids1 = host_to_device(np.asarray(low["input_ids"], np.int64)[None], engine.device)
+    mp1 = host_to_device(np.asarray(low["media_pos"], np.int64), engine.device)
+    pass1_encode = lambda: engine.encode_media(inputs["media"], ps3_num_look_close=0)  # noqa
+    low_emb = pass1_encode()
+    pass1_llm = lambda: engine._prompt_hidden(ids1, low_emb, mp1)  # noqa: E731
+    top_down = pass1_llm()
+    pass2_encode = lambda: engine.encode_media(inputs["media"], ps3_prompt=top_down)  # noqa
+    emb = pass2_encode()
+    ids, valid, mpos = padded_prompt(inputs, s_pad, engine.device)
+    cache_len = min(engine.max_cache_len, _round_up(s_pad + new_tokens, 256))
+
+    def prefill():
+        cache = qwen2.init_cache(cfg.llm, 1, cache_len, device=engine.device)
+        return engine._prefill(ids, valid, emb, mpos, cache, n_prompt)
+
+    logits, _ = prefill()
+    first = lambda: sample_token(logits, None, False, 1.0, 1.0, 0)  # noqa: E731
+    parts = {name: time_ms(torch, fn, 3) for name, fn in (
+        ("pass1_encode", pass1_encode), ("pass1_llm", pass1_llm),
+        ("pass2_encode", pass2_encode), ("prefill", prefill), ("first_token", first))}
+    feats_ok = (tuple(emb.shape) == (cfg.tokens_per_image, cfg.llm.hidden_size)
+                and tuple(top_down.shape) == (1, cfg.llm.hidden_size)
+                and bool(torch.isfinite(emb.float()).all())
+                and bool(torch.isfinite(top_down.float()).all()))
+    ok &= feats_ok
+    out["ttft_parts_ms"] = dict(views=views_ms, **parts)
+    log(f"[ps3] TTFT parts of request 0 (CUDA events, median of 3; views on the host "
+        f"clock): views {views_ms:.1f} ms, pass-1 encode {parts['pass1_encode']:.2f}, pass-1 "
+        f"LLM forward over {m1} rows {parts['pass1_llm']:.2f}, pass-2 encode "
+        f"{parts['pass2_encode']:.2f}, prefill over {s_pad} rows {parts['prefill']:.2f}, "
+        f"first token {parts['first_token']:.3f}; served TTFT {reqs[0]['ttft_ms']:.1f} ms; "
+        f"embeddings {tuple(emb.shape)} finite {'OK' if feats_ok else 'FAIL'}")
+    del low_emb, emb, logits
+
+    # K2 at the pass-1 M (no bucket), on the served LLM's layer 0
+    gen = torch.Generator(device=dev).manual_seed(seed + 52)
+    lay, k2_rows = e2e.params["llm"]["layers"], []
+    for name in ("qkv", "o", "gate_up", "down"):
+        key = name + "_proj"
+        good, row = _k2_row(torch, quant, gen, lay[key]["packed"], lay[key]["scales"], 0, m1,
+                            name, "ps3 pass 1", flush, "ps3")
+        ok &= good
+        k2_rows.append(row)
+    del flush
+
+    # request 0's teacher-forced path, kernels and plain versions, call by call
+    g = served_against_plain(torch, engine, inputs, reqs[0]["ids"])
+    sk = g["selection"]
+    order_ok = len(sk.own) == len(scales) - 1 and all(
+        torch.equal(ps3.top_k_indices(sc.cpu(), vis.k_per_scale), ix.cpu())
+        for sc, ix in zip(sk.scores, sk.own))
+    tie_ok = g["tie_held"] == len(reqs[0]["ids"])
+    ok &= g["ok"] and order_ok and tie_ok
+    out.update(greedy_ok=g["ok"], checks=g["checks"], order_equal_cpu=order_ok,
+               selection_overlap=g["selection_overlap"],
+               **{k: g[k] for k in ("exact", "tie_held", "band", "margins", "local_margins",
+                                    "max_dlogit", "max_logit", "local_max", "layer_gap",
+                                    "layer_local", "k2_calls")})
+    log(f"[ps3] request 0's {len(reqs[0]['ids'])} greedy tokens, the serving path (pass 1 "
+        f"included: {g['k2_calls']} K2 calls) fed them through the kernels and through the "
+        f"plain versions on the card ({g['seconds']:.1f} s): checks {g['checks']}; every "
+        f"call against its plain version on its own inputs, largest |d| / max|ref| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in g["local_max"].items())
+        + f"; top-k order on the card equal to the CPU's on the same scores "
+        f"{'OK' if order_ok else 'FAIL'}; the plain pass's own selection overlaps the "
+        f"kernel pass's by {[round(v, 4) for v in g['selection_overlap']]} (reported)")
+    log(f"[ps3] request 0, end to end: argmax equal on {g['exact']}/{len(reqs[0]['ids'])} "
+        f"(reported); served tokens within K1's band ({g['band']:.4f}) of the plain pass's top "
+        f"on {g['tie_held']}/{len(reqs[0]['ids'])} {'OK' if tie_ok else 'FAIL'}, largest margin "
+        f"{max(g['margins']):.4f}; max |dlogit| {g['max_dlogit']:.4f} of max|logit| "
+        f"{g['max_logit']:.3f}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del engine, one, g, sk
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, out, {"ps3": launches, "ps3 one-pass": one_launches}, k2_rows
+
+
+# The generic ViT towers at their published widths, as the vision tower's
+# config.json (the form `entry.build_config` reads): CLIP ViT-L/14-336
+# (openai/clip-vit-large-patch14-336), InternViT-6B-448px-V1-5 (VILA1.5-40B's
+# tower: OpenGVLab's config.json), RADIO at timm's vit_huge_patch16 widths and
+# its preferred 432² (radio_encoder.py)
+VIT_TOWERS = {
+    "clip": dict(model_type="clip_vision_model", hidden_size=1024, intermediate_size=4096,
+                 num_hidden_layers=24, num_attention_heads=16, image_size=336, patch_size=14,
+                 hidden_act="quick_gelu", layer_norm_eps=1e-5),
+    "internvit": dict(model_type="intern_vit_6b", hidden_size=3200, intermediate_size=12800,
+                      num_hidden_layers=45, num_attention_heads=25, image_size=448,
+                      patch_size=14, hidden_act="gelu", qk_normalization=True,
+                      layer_norm_eps=1e-6),
+    "radio": dict(model_type="radio", args={"model": "vit_huge_patch16_224"},
+                  preferred_resolution=[432, 432]),
+}
+# (tokens through the tower, LLM tokens an image after the 2x2 downsample)
+VIT_TOKENS = {"clip": (577, 144), "internvit": (1025, 256), "radio": (730, 196)}
+W8A8_COS = 0.995  # the W8A8 tower's features against bf16, per token (tests/test_quant.py:310-330)
+TOWER_TOKENS_NEW = 16
+
+
+def phase_towers(torch, e2e, seed, dev="cuda", towers=VIT_TOWERS, tokens=VIT_TOKENS):
+    """Each generic ViT tower at full width through the entry points:
+    `config_from_files` (the tower's config.json, an mlp_downsample
+    projector over its width, select "patch" at layer -2), seeded bf16
+    weights (drawn one layer at a time), `quantize_vit_w8a8`; one image
+    through `encode_images` in bf16 and W8A8 (CUDA events), the W8A8
+    features against bf16 (cosine per token at JAX's bar, and max |d| /
+    max|ref|); then one 16-token request through the W8A8 tower and the e2e
+    engine's W4 LLM with exact K1-K3 launches. Each tower is freed before
+    the next."""
+    import numpy as np
+
+    from vila_tpu_torch.inference.generate import GenerationEngine
+    from vila_tpu_torch.models import projector, vit, vlm
+
+    out, ok, launches = {}, True, {}
+    rng = np.random.default_rng(seed + 61)
+    images = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(2)]
+    for i, (name, tower) in enumerate(towers.items()):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        cfg = config_from_files(e2e.cfg, {"mm_vision_select_feature": "patch",
+                                          "mm_vision_select_layer": -2},
+                                vision_tower=tower, dev=dev)
+        vis = cfg.vision
+        n_tok, n_llm = tokens[name]
+        want_cfg = (cfg.vision_tower_type == name and vis.num_positions == n_tok
+                    and cfg.tokens_per_image == n_llm
+                    and cfg.projector.mm_hidden_size == vis.hidden_size)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(seed + 60 + i)
+        vp = vit.init_params(gen, vis, torch.bfloat16)
+        proj = projector.init_params(gen, cfg.projector, torch.bfloat16)
+        torch.cuda.synchronize()
+        synth_s = time.perf_counter() - t0
+        tree_gib = (torch.cuda.memory_allocated() - base_mem) / 2**30
+        t0 = time.perf_counter()
+        vt8 = vit.quantize_vit_w8a8(vp)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        engine = GenerationEngine({"llm": e2e.params["llm"], "vision_tower": vt8,
+                                   "mm_projector": proj}, cfg, e2e.tokenizer, device=dev)
+        inputs = engine.prepare_inputs([images[0], QUESTIONS[0]])
+        tiles = torch.as_tensor(inputs["media"][0]["tiles"], device=dev)
+        want_cfg &= len(inputs["media_pos"]) == n_llm
+        ok &= want_cfg
+
+        def encode(tree):
+            return vlm.encode_images({"vision_tower": tree, "mm_projector": proj}, cfg, tiles)
+
+        def feats(tree):
+            return vit.forward(tree, vis, tiles, feature_layer=cfg.vision_feature_layer,
+                               select=cfg.vision_select).float()
+
+        bf16_ms = time_ms(torch, lambda: encode(vp), 5)
+        w8_ms = time_ms(torch, lambda: encode(vt8), 5)
+        ref, got = feats(vp), feats(vt8)
+        cos = float(((got * ref).sum(-1) / (got.norm(dim=-1) * ref.norm(dim=-1) + 1e-9)).min())
+        err, scale = rel_err(torch, got, ref)
+        emb = encode(vt8)
+        feats_ok = (tuple(got.shape) == (1, n_tok - 1, vis.hidden_size)
+                    and tuple(emb.shape) == (1, n_llm, cfg.llm.hidden_size)
+                    and bool(torch.isfinite(got).all()) and bool(torch.isfinite(emb.float()).all())
+                    and cos > W8A8_COS)
+        ok &= feats_ok
+        del ref, got, emb
+        good, reqs, launches[f"towers {name}"] = phase_e2e(
+            torch, engine, seed, 1, TOWER_TOKENS_NEW, tag=f"towers {name}",
+            prompt=lambda j: [images[j], QUESTIONS[j]])
+        ok &= good
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+        out[name] = dict(hidden=vis.hidden_size, layers=vis.num_hidden_layers,
+                         heads=vis.num_attention_heads, tokens=n_tok, llm_tokens=n_llm,
+                         synth_s=synth_s, quantize_s=quant_s, tree_gib=tree_gib,
+                         encode_bf16_ms=bf16_ms, encode_w8a8_ms=w8_ms, w8a8_cos_min=cos,
+                         w8a8_max_abs_err=err, w8a8_max_abs=scale, peak_above_gib=peak,
+                         request=reqs[0] if reqs else None, ok=bool(want_cfg and feats_ok))
+        log(f"[towers] {name}: {vis.hidden_size} wide, {vis.num_hidden_layers} layers, "
+            f"{vis.num_attention_heads} heads of {vis.head_dim}, {n_tok} tokens -> {n_llm} LLM "
+            f"tokens {'OK' if want_cfg else 'FAIL'}; seeded bf16 tree {tree_gib:.2f} GiB in "
+            f"{synth_s:.1f} s, quantize_vit_w8a8 {quant_s:.1f} s; encode_images of one image "
+            f"(CUDA events, median of 5): bf16 {bf16_ms:.2f} ms, W8A8 {w8_ms:.2f} ms; W8A8 "
+            f"features against bf16: cosine min {cos:.5f} (bar {W8A8_COS}), max |d| {err:.3e} "
+            f"of max |ref| {scale:.3e} {'OK' if feats_ok else 'FAIL'}; peak {peak:.2f} GiB "
+            f"above the {base_mem / 2**30:.2f} GiB before")
+        del engine, vp, vt8, proj, tiles
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ok, out, launches
 
 
 def phase_w8(torch, seed, dev="cuda", rows=(1, 24, 320)):
@@ -2868,7 +3221,11 @@ def _forced_logits(torch, engine, inputs, ids=None, steps=None):
     s_pad = _bucket(prompt_len, PROMPT_BUCKETS)
     p_ids, valid, media_pos = padded_prompt(inputs, s_pad, dev)
     cache = qwen2.init_cache(cfg.llm, batch=1, device=dev, max_len=_round_up(s_pad + n, 256))
-    logits, cache = engine._prefill(p_ids, valid, engine.encode_media(inputs["media"]),
+    # PS3's top-down mode: the pass-1 forward gives the prompt of the selection
+    ps3_prompt = (engine._ps3_top_down_prompt(inputs) if inputs.get("ps3_low") is not None
+                  else None)
+    logits, cache = engine._prefill(p_ids, valid,
+                                    engine.encode_media(inputs["media"], ps3_prompt=ps3_prompt),
                                     media_pos, cache, prompt_len)
     rows = [logits[0].float()]
     fed = list(ids) if ids is not None else [int(rows[0].argmax())]
@@ -2892,6 +3249,43 @@ def _by_layer(rows, layers):
     return [max(rows[i::layers]) for i in range(layers)]
 
 
+class record_selection:
+    """While active, PS3's top-k (`ps3.top_k_indices`) records each
+    selection it makes, its scores and indices (`scores`, `own`); given
+    `feed` (another record of the same path), it returns that record's
+    selections in their order in place of its own. So a plain-version pass
+    takes the kernel pass's selection (integers: they cross as they are)
+    while its own is kept for the overlap."""
+
+    def __init__(self, feed=None):
+        self.feed = feed
+        self.scores, self.own = [], []
+
+    def __enter__(self):
+        from vila_tpu_torch.models import ps3
+
+        self.ps3, self.real = ps3, ps3.top_k_indices
+
+        def top_k(score, k):
+            own = self.real(score, k)
+            self.scores.append(score)
+            self.own.append(own)
+            return own if self.feed is None else self.feed.own[len(self.own) - 1]
+
+        ps3.top_k_indices = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.ps3.top_k_indices = self.real
+        return False
+
+    def overlap(self):
+        """Per selection, the share of the fed (kernel) indices that this
+        pass's own top-k also chose."""
+        return [len(set(a.flatten().tolist()) & set(b.flatten().tolist())) / b.numel()
+                for a, b in zip(self.own, self.feed.own)]
+
+
 def served_against_plain(torch, engine, inputs, ids):
     """The served greedy tokens `ids` of a prepared request against the same
     engine's serving path fed `ids` twice on the card, once through the
@@ -2910,13 +3304,17 @@ def served_against_plain(torch, engine, inputs, ids):
     steps, grows from ~0.7 % after layer 0 to ~3.5 % after layer 27 on the
     H100, while `layer_local`, each K3 call's gap from its plain version on
     the same inputs, stays at 0.3-0.7 %), so the end-to-end top can move by
-    two bf16 ulps, more than K1's band (PERF.md §6)."""
+    two bf16 ulps, more than K1's band (PERF.md §6). A PS3 engine in
+    top-down mode runs its pass-1 forward (K2 at the unpadded prompt's M)
+    in both passes, and the plain pass takes the kernel pass's selection
+    (`record_selection`): `selection_overlap` says how much of it the plain
+    pass's own top-k would have chosen."""
     layers = engine.cfg.llm.num_hidden_layers
     vocab = engine.cfg.llm.vocab_size
     t0 = time.time()
-    with tap_calls(vocab, check=True) as tk:
+    with tap_calls(vocab, check=True) as tk, record_selection() as sk:
         got, _ = _forced_logits(torch, engine, inputs, ids)
-    with plain_versions(), tap_calls(vocab) as tp:
+    with plain_versions(), tap_calls(vocab) as tp, record_selection(feed=sk) as sp:
         want, _ = _forced_logits(torch, engine, inputs, ids)
     steps = torch.arange(len(ids))
     scale = float(want.abs().max())
@@ -2941,7 +3339,9 @@ def served_against_plain(torch, engine, inputs, ids):
                 local_max={k: max((e / s for e, s in v), default=0.0)
                            for k, v in tk.local.items()},
                 layer_gap=_by_layer(gap, layers), layer_local=_by_layer(k3_local, layers),
-                ok=all(checks.values()), seconds=time.time() - t0)
+                ok=all(checks.values()), seconds=time.time() - t0,
+                selection=sk, selection_overlap=sp.overlap(),
+                k2_calls=len(tk.local["w4_gemm"]))
 
 
 def phase_load(torch, seed, dev="cuda", layers=4, n_requests=2, new_tokens=16,
@@ -3874,6 +4274,17 @@ def main(argv=None) -> int:
                                                                  kind)
                                        for kind in ("s2", "video")}
         del e2e, vt8
+    if "ps3" in phases:
+        good, report["ps3"], ps3_launches, k2_rows = phase_ps3(
+            torch, engine(args.layers, args.seed), args.seed)
+        launches.update(ps3_launches)
+        results.setdefault("w4_gemm", []).extend(k2_rows)
+        ok &= good
+    if "towers" in phases:
+        good, report["towers"], tower_launches = phase_towers(
+            torch, engine(args.layers, args.seed), args.seed)
+        launches.update(tower_launches)
+        ok &= good
     if "load" in phases:
         good, report["load"], launches["load"] = phase_load(torch, args.seed)
         ok &= good

@@ -14,7 +14,8 @@
 * the `dynamic_s2` and `video_tsp` flavors build JAX's config (the
   projector over every S2 scale's features, the TSP pool sizes), load
   JAX's weights, and round-trip through the port's `save`;
-* another tower raises `NotImplementedError` naming the field.
+* a tower JAX refuses raises JAX's error naming the field (the other
+  towers' loading: test_torch_tower_load.py).
 """
 
 import dataclasses
@@ -158,6 +159,10 @@ def test_media_flavors_build_the_jax_config(tmp_path, name):
 
 
 def test_unported_tower_raises_naming_the_field(tmp_path):
+    """Every tower of the JAX package is ported now: a `clip_vision_model`
+    tower builds JAX's config (its loading is in test_torch_tower_load.py),
+    and a tower JAX refuses, a RADIO config naming a timm model of unknown
+    widths, raises JAX's `ValueError` naming the field's value."""
     d = str(tmp_path / "clip")
     helpers.save_tiny_checkpoint(d, seed=0, **FLAVORS["base"])
     path = os.path.join(d, "vision_tower", "config.json")
@@ -166,7 +171,15 @@ def test_unported_tower_raises_naming_the_field(tmp_path):
     vt["model_type"] = "clip_vision_model"
     with open(path, "w") as f:
         json.dump(vt, f)
-    with pytest.raises(NotImplementedError, match="model_type='clip_vision_model'"):
+    tcfg = tentry.build_config(d, device="cpu")
+    assert tcfg.vision_tower_type == "clip"
+    _assert_same_config(tcfg, jentry.build_config(d))
+    with open(path, "w") as f:
+        json.dump({"model_type": "radio", "args": {"model": "eva02_large_patch14"}}, f)
+    with pytest.raises(ValueError, match="eva02_large_patch14") as want:
+        jentry.build_config(d)
+    with pytest.raises(ValueError, match="eva02_large_patch14") as got:
         tentry.build_config(d, device="cpu")
-    with pytest.raises(NotImplementedError, match="model_type='clip_vision_model'"):
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="eva02_large_patch14"):
         tentry.load(d, device="cpu")

@@ -4,7 +4,8 @@ against `safetensors.safe_open` on files that `safetensors.torch.save_file`
 wrote (F32, BF16, F16, I64, two shards, a `__metadata__`), the writer read
 back by `safe_open` bit for bit, the LLM, SigLIP and projector converters
 against the JAX package's on the same state dicts bit for bit, and the
-towers not ported yet raising."""
+other towers' converters raising as JAX's do on a state dict without their
+keys (their parity: test_torch_tower_load.py)."""
 
 import os
 import sys
@@ -148,11 +149,36 @@ def test_projector_converter_matches_jax(hf_models):
 
 
 @pytest.mark.parametrize("fn,tower", [
-    (lambda: thf.convert_vit_state_dict({}, None), "CLIP / InternViT"),
-    (lambda: thf.convert_radio_state_dict({}, None), "RADIO"),
-    (lambda: thf.radio_image_stats({}), "RADIO"),
-    (lambda: thf.convert_ps3_state_dict({}, None), "PS3"),
+    ("convert_vit_state_dict", "CLIP / InternViT"),
+    ("convert_radio_state_dict", "RADIO"),
+    ("radio_image_stats", "RADIO"),
+    ("convert_ps3_state_dict", "PS3"),
 ])
-def test_unported_towers_raise(fn, tower):
-    with pytest.raises(NotImplementedError, match=tower):
-        fn()
+def test_unported_towers_raise(hf_models, fn, tower):
+    """Every tower is ported now (their converters' parity is in
+    test_torch_tower_load.py): given a state dict without the tower's keys
+    (a SigLIP one), each converter does what the JAX package's does: raise
+    the same exception with the same message, or (radio_image_stats)
+    return None."""
+    from vila_tpu.models import ps3 as jps3
+    from vila_tpu.models import vit as jvit
+    from vila_tpu_torch.models import ps3 as tps3
+    from vila_tpu_torch.models import vit as tvit
+
+    _, vit, _, _, vis_hf = hf_models
+    sd = vit.state_dict()
+    cfgs = {"convert_vit_state_dict": (jvit.ViTConfig.from_hf_config(vis_hf),
+                                       tvit.ViTConfig.from_hf_config(vis_hf)),
+            "convert_radio_state_dict": (jvit.ViTConfig.from_hf_config(vis_hf),
+                                         tvit.ViTConfig.from_hf_config(vis_hf)),
+            "convert_ps3_state_dict": (jps3.PS3Config.from_hf_config(vis_hf),
+                                       tps3.PS3Config.from_hf_config(vis_hf))}
+    if fn == "radio_image_stats":
+        assert thf.radio_image_stats(sd) is None and jhf.radio_image_stats(sd) is None
+        return
+    jcfg, tcfg = cfgs[fn]
+    with pytest.raises(Exception) as want:
+        getattr(jhf, fn)(sd, jcfg)
+    with pytest.raises(want.type) as got:
+        getattr(thf, fn)(sd, tcfg)
+    assert str(got.value) == str(want.value), tower

@@ -10,8 +10,10 @@
   `tests/test_lint.py`, which walks only `vila_tpu`); a kernel wrapper that
   is never reached on the CPU is checked like everything else.
 * Without CUDA nothing falls back to the CPU: entry points default to the
-  card and raise, and a kernel wrapper given a tensor that is not on the
-  CPU launches its kernel or raises, never takes its plain version.
+  card and raise (the loader's tower branches too: CLIP, InternViT, RADIO,
+  PS3), and a kernel wrapper given a tensor that is not on the CPU launches
+  its kernel or raises, never takes its plain version. A PS3 tower refuses
+  W8A8 as the JAX package does.
 """
 
 import builtins
@@ -91,6 +93,14 @@ def test_media_modules_are_walked_and_own_their_native_source():
     src = imageproc.SOURCE
     assert src.is_file() and src.parent == Path(vila_tpu_torch.__file__).resolve().parent / "native"
     assert imageproc.BUILD_DIR.name == "_build"
+
+
+def test_tower_modules_are_walked():
+    """The other towers' modules are among those the import and globals
+    checks walk."""
+    names = _module_names()
+    for mod in ("models.vit", "models.ps3", "models.siglip", "utils.hf_import"):
+        assert f"vila_tpu_torch.{mod}" in names
 
 
 def _walk_code(code):
@@ -202,3 +212,39 @@ def test_kernel_build_needs_nvcc(no_cuda, monkeypatch, tmp_path):
         assert (_build.CSRC / src).exists()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("w4_gemv_sm90.cu")
+
+
+TOWERS = ("clip", "internvit", "radio", "ps3")
+
+
+@pytest.mark.parametrize("kind", TOWERS)
+def test_tower_loading_defaults_to_cuda(no_cuda, tmp_path, kind):
+    """`build_config` of a tower checkpoint picks the card's bf16, and
+    `load_params` / `load` (W8A8 or not) default to the card and raise."""
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_torch_tower_load import write_tower_ckpt
+
+    from vila_tpu_torch import entry
+
+    d = write_tower_ckpt(str(tmp_path / kind), kind)
+    cfg = entry.build_config(d)
+    assert cfg.vision_tower_type == kind and cfg.vision.dtype == "bfloat16"
+    for call in (lambda: entry.load_params(d, cfg), lambda: entry.load(d),
+                 lambda: entry.load(d, vision_int8=True)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_vision_int8_refuses_ps3_as_jax(tmp_path):
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_torch_tower_load import write_tower_ckpt
+
+    from vila_tpu import entry as jentry
+    from vila_tpu_torch import entry
+
+    d = write_tower_ckpt(str(tmp_path / "ps3"), "ps3")
+    with pytest.raises(ValueError, match="vision_int8 unsupported for tower 'ps3'") as want:
+        jentry.load(d, vision_int8=True)
+    with pytest.raises(ValueError, match="vision_int8 unsupported for tower 'ps3'") as got:
+        entry.load(d, device="cpu", vision_int8=True)
+    assert str(got.value) == str(want.value)

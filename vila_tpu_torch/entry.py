@@ -9,11 +9,13 @@ numpy by `utils.hf_import`, cast to the parameter dtype and placed on the
 device), `load` returns a ready `GenerationEngine`, and `save` writes the
 same layout back (tensors in f32).
 
-The port serves the SigLIP tower with every aspect mode (plain, dynamic,
-dynamic-S2 with its multi-scale projector width), every projector type and
-basic or TSP video: a checkpoint that asks for another tower raises
-`NotImplementedError` naming the field, rather than loading into a model
-that would serve it otherwise.
+Every tower of the JAX package loads: SigLIP (with every aspect mode,
+dynamic-S2's multi-scale projector width, every projector type, basic or
+TSP video), CLIP, InternViT, RADIO (its input-conditioner statistics read
+from the weights) and PS3 (its top-down head as wide as the LLM). `save`
+writes each tower in the layout its converter reads (the reference's:
+HF CLIP, InternViT, RADIO's and PS3's timm trunks), so every tower
+round-trips.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 
 from vila_tpu_torch.conversation import auto_set_conversation_mode
 from vila_tpu_torch.models import projector as projector_lib
-from vila_tpu_torch.models import qwen2, siglip, vlm
+from vila_tpu_torch.models import ps3, qwen2, siglip, vit, vlm
 from vila_tpu_torch.utils import hf_import
 from vila_tpu_torch.utils.device import host_to_device, resolve_device
 
@@ -64,12 +66,24 @@ def build_config(model_path: str, dtype: Optional[str] = None, device="cuda",
     proj_hf = hf_import.load_hf_config(os.path.join(model_path, "mm_projector"))
 
     tower = _tower_type(vt_hf)
-    if tower != "siglip":
-        raise NotImplementedError(
-            f"vision_tower model_type={vt_hf.get('model_type')!r} ({tower}) is "
-            f"not ported yet")
     llm_cfg = qwen2.LLMConfig.from_hf_config(llm_hf, dtype=dtype)
-    vis_cfg = siglip.SigLIPConfig.from_hf_config(vt_hf, dtype=dtype)
+    if tower == "radio":
+        vis_cfg = vit.ViTConfig.from_radio_config(vt_hf, dtype=dtype)
+        # the input conditioner's statistics live in the weights
+        # (radio_encoder.py's make_preprocessor_external)
+        stats = hf_import.radio_image_stats(hf_import.peek_safetensors(
+            os.path.join(model_path, "vision_tower"),
+            [f"{pre}input_conditioner.norm_{k}" for pre in ("radio_model.", "")
+             for k in ("mean", "std")]))
+        if stats is not None:
+            vis_cfg = dataclasses.replace(vis_cfg, image_mean=stats[0], image_std=stats[1])
+    elif tower == "ps3":
+        vis_cfg = ps3.PS3Config.from_hf_config(vt_hf, dtype=dtype,
+                                               prompt_dim=llm_cfg.hidden_size)
+    elif tower in ("clip", "internvit"):
+        vis_cfg = vit.ViTConfig.from_hf_config(vt_hf, dtype=dtype)
+    else:
+        vis_cfg = siglip.SigLIPConfig.from_hf_config(vt_hf, dtype=dtype)
     s2_scales = top.get("s2_scales") or (vis_cfg.image_size,)
     if isinstance(s2_scales, str):
         s2_scales = tuple(int(s) for s in s2_scales.split(","))
@@ -89,6 +103,8 @@ def build_config(model_path: str, dtype: Optional[str] = None, device="cuda",
         llm=llm_cfg,
         vision=vis_cfg,
         projector=proj_cfg,
+        vision_tower_type=tower,
+        ps3_look_close_mode=top.get("ps3_look_close_mode", "after_image"),
         vision_feature_layer=top.get("mm_vision_select_layer", -2),
         vision_select=top.get("mm_vision_select_feature", "cls_patch"),
         image_aspect_ratio=aspect,
@@ -125,9 +141,14 @@ def load_params(model_path: str, cfg: vlm.VLMConfig, param_dtype=None,
     dtype = param_dtype or cfg.llm.compute_dtype
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
+    tower = {"radio": hf_import.convert_radio_state_dict,
+             "ps3": hf_import.convert_ps3_state_dict,
+             "clip": hf_import.convert_vit_state_dict,
+             "internvit": hf_import.convert_vit_state_dict,
+             }.get(cfg.vision_tower_type, hf_import.convert_siglip_state_dict)
     convert = {
         "llm": lambda sd: hf_import.convert_llm_state_dict(sd, cfg.llm),
-        "vision_tower": lambda sd: hf_import.convert_siglip_state_dict(sd, cfg.vision),
+        "vision_tower": lambda sd: tower(sd, cfg.vision),
         "mm_projector": hf_import.convert_projector_state_dict,
     }
     params = {}
@@ -157,16 +178,21 @@ def load(model_path: str, device="cuda", dtype: Optional[str] = None,
          vision_int8: bool = False, **kwargs):
     """A checkpoint loaded into a ready `GenerationEngine` on `device`
     (default the card; without CUDA it raises). `vision_int8` quantizes the
-    SigLIP tower to W8A8 (TinyChat's vision deployment recipe). Other
-    keyword arguments go to the engine."""
+    SigLIP, CLIP, InternViT or RADIO tower to W8A8 (TinyChat's vision
+    deployment recipe; a PS3 tower raises `ValueError`, as in the JAX
+    package). Other keyword arguments go to the engine."""
     from vila_tpu_torch.inference.generate import GenerationEngine
 
     dev = resolve_device(device)
     auto_set_conversation_mode(model_path)
     cfg = build_config(model_path, dtype=dtype, device=dev)
+    if vision_int8 and cfg.vision_tower_type not in ("siglip", "clip", "internvit", "radio"):
+        raise ValueError(f"vision_int8 unsupported for tower {cfg.vision_tower_type!r}")
     params = load_params(model_path, cfg, device=dev)
     if vision_int8:
-        params["vision_tower"] = siglip.quantize_siglip_w8a8(params["vision_tower"])
+        quantize = (siglip.quantize_siglip_w8a8 if cfg.vision_tower_type == "siglip"
+                    else vit.quantize_vit_w8a8)
+        params["vision_tower"] = quantize(params["vision_tower"])
     tokenizer = load_tokenizer(model_path)
     return GenerationEngine(params, cfg, tokenizer, device=dev, **kwargs)
 
@@ -207,34 +233,180 @@ def llm_state_dict(params: Dict[str, Any], cfg: vlm.VLMConfig) -> Dict[str, torc
     return sd
 
 
-def vision_state_dict(params: Dict[str, Any], cfg: vlm.VLMConfig) -> Dict[str, torch.Tensor]:
-    """The SigLIP tree -> a stock `SiglipVisionModel` state dict (f32)."""
-    if cfg.vision_tower_type != "siglip":
-        raise NotImplementedError(
-            f"vision_tower_type={cfg.vision_tower_type!r} is not ported yet")
-    vp, vcfg = params["vision_tower"], cfg.vision
-    p, d = vcfg.patch_size, vcfg.hidden_size
-    pk = _f32(vp["patch_embedding"]["kernel"])  # (P*P*3, D)
-    vsd = {
-        "vision_model.embeddings.patch_embedding.weight":
-            pk.reshape(p, p, 3, d).permute(3, 2, 0, 1).contiguous(),
-        "vision_model.embeddings.patch_embedding.bias": _f32(vp["patch_embedding"]["bias"]),
-        "vision_model.embeddings.position_embedding.weight":
-            _f32(vp["position_embedding"]["embedding"]),
-    }
-    L = vp["layers"]
-    for i in range(vcfg.num_hidden_layers):
-        pre = f"vision_model.encoder.layers.{i}."
+def _stacked(L: Dict[str, Any], name: str, key: str, i: int, t: bool = False):
+    return (_f32t if t else _f32)(L[name][key][i])
+
+
+_HF_LINEARS = (("q_proj", "self_attn.q_proj"), ("k_proj", "self_attn.k_proj"),
+               ("v_proj", "self_attn.v_proj"), ("out_proj", "self_attn.out_proj"),
+               ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2"))
+
+
+def _hf_layers(L: Dict[str, Any], layers: int, pre: str) -> Dict[str, torch.Tensor]:
+    """Stacked layers in HF SigLIP's and CLIP's names."""
+    sd = {}
+    for i in range(layers):
+        lp = f"{pre}encoder.layers.{i}."
         for ln in ("layer_norm1", "layer_norm2"):
-            vsd[pre + f"{ln}.weight"] = _f32(L[ln]["scale"][i])
-            vsd[pre + f"{ln}.bias"] = _f32(L[ln]["bias"][i])
-        for name, hf in (("q_proj", "self_attn.q_proj"), ("k_proj", "self_attn.k_proj"),
-                         ("v_proj", "self_attn.v_proj"), ("out_proj", "self_attn.out_proj"),
-                         ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
-            vsd[pre + hf + ".weight"] = _f32t(L[name]["kernel"][i])
-            vsd[pre + hf + ".bias"] = _f32(L[name]["bias"][i])
-    vsd["vision_model.post_layernorm.weight"] = _f32(vp["post_layernorm"]["scale"])
-    vsd["vision_model.post_layernorm.bias"] = _f32(vp["post_layernorm"]["bias"])
+            sd[lp + f"{ln}.weight"] = _stacked(L, ln, "scale", i)
+            sd[lp + f"{ln}.bias"] = _stacked(L, ln, "bias", i)
+        for name, hf in _HF_LINEARS:
+            sd[lp + hf + ".weight"] = _stacked(L, name, "kernel", i, True)
+            sd[lp + hf + ".bias"] = _stacked(L, name, "bias", i)
+    return sd
+
+
+def _fused_layers(L: Dict[str, Any], layers: int, fmt: str,
+                  ls: str = "{}.gamma") -> Dict[str, torch.Tensor]:
+    """Stacked layers in timm's and InternViT's names (`fmt` the layer
+    prefix): norm1/norm2, one fused attn.qkv, attn.proj, mlp.fc1/fc2, the
+    layer scales under `ls` (timm's `ls1.gamma`, InternViT's `ls1`) and
+    InternViT's q/k norms."""
+    sd = {}
+    for i in range(layers):
+        lp = fmt.format(i)
+        for src, dst in (("layer_norm1", "norm1"), ("layer_norm2", "norm2")):
+            sd[lp + dst + ".weight"] = _stacked(L, src, "scale", i)
+            sd[lp + dst + ".bias"] = _stacked(L, src, "bias", i)
+        for key, hf in (("kernel", "weight"), ("bias", "bias")):
+            sd[lp + "attn.qkv." + hf] = torch.cat(
+                [_stacked(L, n, key, i, key == "kernel") for n in ("q_proj", "k_proj", "v_proj")])
+        for src, dst in (("out_proj", "attn.proj"), ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            sd[lp + dst + ".weight"] = _stacked(L, src, "kernel", i, True)
+            sd[lp + dst + ".bias"] = _stacked(L, src, "bias", i)
+        for name in ("ls1", "ls2"):
+            if name in L:
+                sd[lp + ls.format(name)] = _stacked(L, name, "scale", i)
+        for name in ("q_norm", "k_norm"):
+            if name in L:
+                sd[lp + f"attn.{name}.weight"] = _stacked(L, name, "scale", i)
+    return sd
+
+
+def _conv(kernel: torch.Tensor, p: int) -> torch.Tensor:
+    """The (P*P*3, D) patch matmul weight -> the (D, 3, P, P) convolution."""
+    return _f32(kernel).reshape(p, p, 3, -1).permute(3, 2, 0, 1).contiguous()
+
+
+def _ln(tree: Dict[str, Any], name: str) -> Dict[str, torch.Tensor]:
+    return {f"{name}.weight": _f32(tree["scale"]), f"{name}.bias": _f32(tree["bias"])}
+
+
+def _siglip_layout(vp: Dict[str, Any], vcfg) -> Dict[str, torch.Tensor]:
+    """A SigLIP tree -> a stock `SiglipVisionModel` state dict (f32)."""
+    pre = "vision_model."
+    return {
+        pre + "embeddings.patch_embedding.weight": _conv(vp["patch_embedding"]["kernel"],
+                                                          vcfg.patch_size),
+        pre + "embeddings.patch_embedding.bias": _f32(vp["patch_embedding"]["bias"]),
+        pre + "embeddings.position_embedding.weight": _f32(vp["position_embedding"]["embedding"]),
+        **_hf_layers(vp["layers"], vcfg.num_hidden_layers, pre),
+        **_ln(vp["post_layernorm"], pre + "post_layernorm"),
+    }
+
+
+def _vit_layout(vp: Dict[str, Any], cfg: vlm.VLMConfig) -> Dict[str, torch.Tensor]:
+    """A `models.vit` tree -> the checkpoint layout `hf_import` reads for
+    its tower: HF CLIP; InternViT (no post-LayerNorm: it loads as
+    identity); or RADIO's timm ViT under `radio_model.model.` with its input
+    conditioner."""
+    vcfg, tower = cfg.vision, cfg.vision_tower_type
+    n = vcfg.num_hidden_layers
+    patch = _conv(vp["patch_embedding"]["kernel"], vcfg.patch_size)
+    pos = _f32(vp["position_embedding"]["embedding"])
+    cls = _f32(vp["class_embedding"])
+    if tower == "radio":
+        pre = "radio_model.model."
+        sd = {**_fused_layers(vp["layers"], n, pre + "blocks.{}."),
+              **_ln(vp["post_layernorm"], pre + "norm"),
+              pre + "patch_embed.proj.weight": patch, pre + "pos_embed": pos[None],
+              pre + "cls_token": cls.reshape(1, 1, -1)}
+        if "bias" in vp["patch_embedding"]:
+            sd[pre + "patch_embed.proj.bias"] = _f32(vp["patch_embedding"]["bias"])
+        for k, v in (("mean", vcfg.image_mean), ("std", vcfg.image_std)):
+            sd[f"radio_model.input_conditioner.norm_{k}"] = torch.tensor(
+                v, dtype=torch.float32).reshape(-1, 1, 1)
+        return sd
+    pre = "vision_model."
+    if tower == "internvit":
+        return {**_fused_layers(vp["layers"], n, pre + "encoder.layers.{}.", ls="{}"),
+                pre + "embeddings.patch_embedding.weight": patch,
+                pre + "embeddings.position_embedding": pos[None],
+                pre + "embeddings.class_embedding": cls.reshape(1, 1, -1)}
+    sd = {**_hf_layers(vp["layers"], n, pre),
+          **_ln(vp["post_layernorm"], pre + "post_layernorm"),
+          pre + "embeddings.patch_embedding.weight": patch,
+          pre + "embeddings.position_embedding.weight": pos,
+          pre + "embeddings.class_embedding": cls}
+    if "pre_layernorm" in vp:  # HF's spelling of CLIP's pre-LayerNorm
+        sd.update(_ln(vp["pre_layernorm"], pre + "pre_layrnorm"))
+    return sd
+
+
+def _ps3_layout(vp: Dict[str, Any], cfg: vlm.VLMConfig) -> Dict[str, torch.Tensor]:
+    """A `models.ps3` tree -> the PS3 layout `hf_import` reads: the SigLIP
+    trunk in timm's layout under `vision_model.trunk.`, the scale
+    embeddings, and the selection heads as HF Linear weights (which the
+    reference's checkpoints lack)."""
+    pre, trunk = "vision_model.trunk.", vp["vit"]
+    sd = {**_fused_layers(trunk["layers"], cfg.vision.vit.num_hidden_layers,
+                          pre + "blocks.{}."),
+          **_ln(trunk["post_layernorm"], pre + "norm"),
+          pre + "patch_embed.proj.weight": _conv(trunk["patch_embedding"]["kernel"],
+                                                 cfg.vision.patch_size),
+          pre + "patch_embed.proj.bias": _f32(trunk["patch_embedding"]["bias"]),
+          pre + "pos_embed": _f32(trunk["position_embedding"]["embedding"])[None],
+          hf_import.PS3_SCALE_KEYS[0]: _f32(vp["scale_embedding"])}
+    for name in ("select_head", "top_down_prompt_head"):
+        if name in vp:
+            sd[f"{name}.weight"] = _f32t(vp[name]["kernel"])
+            sd[f"{name}.bias"] = _f32(vp[name]["bias"])
+    return sd
+
+
+def vision_state_dict(params: Dict[str, Any], cfg: vlm.VLMConfig) -> Dict[str, torch.Tensor]:
+    """The tower's tree -> the state dict its converter reads back (f32):
+    a stock `SiglipVisionModel`'s for SigLIP, `_vit_layout`'s for CLIP,
+    InternViT and RADIO, `_ps3_layout`'s for PS3."""
+    vp = params["vision_tower"]
+    if cfg.vision_tower_type in ("clip", "internvit", "radio"):
+        return _vit_layout(vp, cfg)
+    if cfg.vision_tower_type == "ps3":
+        return _ps3_layout(vp, cfg)
+    return _siglip_layout(vp, cfg.vision)
+
+
+def generic_vit_state_dict(vp: Dict[str, Any], num_layers: int) -> Dict[str, torch.Tensor]:
+    """A `models.vit` tree -> the state dict of the single-repo HF export's
+    VILAGenericViT module (JAX's export/modeling_vila.py; the reference's
+    remote_code/modeling_vila.py:506), CLIP, InternViT and RADIO alike."""
+    vsd = {
+        "patch_embed.weight": _f32t(vp["patch_embedding"]["kernel"]),
+        "pos_embed": _f32(vp["position_embedding"]["embedding"]),
+        "post_ln.weight": _f32(vp["post_layernorm"]["scale"]),
+        "post_ln.bias": _f32(vp["post_layernorm"]["bias"]),
+    }
+    if "class_embedding" in vp:
+        vsd["class_embedding"] = _f32(vp["class_embedding"])
+    if "pre_layernorm" in vp:
+        vsd["pre_ln.weight"] = _f32(vp["pre_layernorm"]["scale"])
+        vsd["pre_ln.bias"] = _f32(vp["pre_layernorm"]["bias"])
+    L = vp["layers"]
+    for i in range(num_layers):
+        pre = f"blocks.{i}."
+        for src, dst in (("layer_norm1", "ln1"), ("layer_norm2", "ln2")):
+            vsd[pre + dst + ".weight"] = _stacked(L, src, "scale", i)
+            vsd[pre + dst + ".bias"] = _stacked(L, src, "bias", i)
+        for src, dst in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"),
+                         ("out_proj", "out"), ("fc1", "fc1"), ("fc2", "fc2")):
+            vsd[pre + dst + ".weight"] = _stacked(L, src, "kernel", i, True)
+            vsd[pre + dst + ".bias"] = _stacked(L, src, "bias", i)
+        for opt in ("ls1", "ls2"):
+            if opt in L:
+                vsd[pre + opt] = _stacked(L, opt, "scale", i)
+        for opt in ("q_norm", "k_norm"):
+            if opt in L:
+                vsd[pre + opt + ".weight"] = _stacked(L, opt, "scale", i)
     return vsd
 
 
@@ -254,6 +426,38 @@ def projector_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 def _write_json(obj: dict, path: str) -> None:
     with open(path, "w") as f:
         json.dump(obj, f, indent=2)
+
+
+# the vision tower's config.json model_type, by tower (what `_tower_type` reads)
+TOWER_MODEL_TYPES = {"siglip": "siglip_vision_model", "clip": "clip_vision_model",
+                     "internvit": "intern_vit_6b", "radio": "radio",
+                     "ps3": "ps3_vision_model"}
+
+
+def vision_config(cfg: vlm.VLMConfig) -> Dict[str, Any]:
+    """The vision tower's config.json, from which `build_config` reads the
+    tower's config back (PS3: its trunk's widths, scales and selection)."""
+    tower = cfg.vision_tower_type
+    vis = cfg.vision.vit if tower == "ps3" else cfg.vision
+    out = {
+        "model_type": TOWER_MODEL_TYPES[tower],
+        "hidden_size": vis.hidden_size,
+        "intermediate_size": vis.intermediate_size,
+        "num_hidden_layers": vis.num_hidden_layers,
+        "num_attention_heads": vis.num_attention_heads,
+        "image_size": vis.image_size,
+        "patch_size": vis.patch_size,
+        "layer_norm_eps": vis.layer_norm_eps,
+    }
+    if tower in ("clip", "internvit"):
+        out["hidden_act"] = vis.hidden_act
+    if tower == "internvit":
+        out["qk_normalization"] = vis.qk_norm
+    if tower == "ps3":
+        out.update(ps3_scales=list(cfg.vision.s3_scales),
+                   num_hires_select=cfg.vision.num_hires_select,
+                   num_look_close=cfg.vision.num_look_close)
+    return out
 
 
 def save_config(cfg: vlm.VLMConfig, out_dir: str, tokenizer=None) -> None:
@@ -282,17 +486,7 @@ def save_config(cfg: vlm.VLMConfig, out_dir: str, tokenizer=None) -> None:
     }, os.path.join(dirs["llm"], "config.json"))
     if tokenizer is not None:
         tokenizer.save_pretrained(dirs["llm"])
-    vis = cfg.vision
-    _write_json({
-        "model_type": "siglip_vision_model",
-        "hidden_size": vis.hidden_size,
-        "intermediate_size": vis.intermediate_size,
-        "num_hidden_layers": vis.num_hidden_layers,
-        "num_attention_heads": vis.num_attention_heads,
-        "image_size": vis.image_size,
-        "patch_size": vis.patch_size,
-        "layer_norm_eps": vis.layer_norm_eps,
-    }, os.path.join(dirs["vision_tower"], "config.json"))
+    _write_json(vision_config(cfg), os.path.join(dirs["vision_tower"], "config.json"))
     _write_json({"model_type": "v2l_projector",
                  "mm_projector_type": cfg.projector.projector_type},
                 os.path.join(dirs["mm_projector"], "config.json"))
@@ -309,6 +503,8 @@ def save_config(cfg: vlm.VLMConfig, out_dir: str, tokenizer=None) -> None:
         "dynamic_s2": cfg.image_aspect_ratio == "dynamic_s2",
         "s2_scales": list(cfg.s2_scales),
         "s2_resize_output_to_scale_idx": cfg.s2_resize_output_to_scale_idx,
+        **({"ps3_look_close_mode": cfg.ps3_look_close_mode}
+           if cfg.vision_tower_type == "ps3" else {}),
         **({"video_encoder": {"_target_": TSP_TARGET,
                               "pool_sizes": [list(p) for p in cfg.tsp_pool_sizes]}}
            if cfg.video_encoder == "tsp" else {}),

@@ -7,15 +7,23 @@ Prompt and token layouts are computed on the host; each media token expands
 into a fixed placeholder run (plus the encoder's "\\n" end-token ids). Media
 are plain images (resize, pad), dynamic tiles (a marker and "\\n" per tile),
 dynamic-S2 images (one entry of every scale's tiles, encoded by
-`models/s2.py`), and videos: every frame an image ("basic") or one
-temporal-spatial pooled entry ("tsp", `models/encoders.py`) whose frames
-are resized by the native library (`utils/imageproc.py`). The prompt is
+`models/s2.py`), PS3 images (one resized view a scale, encoded by
+`vlm.encode_images_ps3`), and videos: every frame an image ("basic") or
+one temporal-spatial pooled entry ("tsp", `models/encoders.py`) whose
+frames are resized by the native library (`utils/imageproc.py`).
+
+PS3's "after_prompt" mode generates in two passes (llava_arch.py:1611-
+1652): the low-res views alone are encoded, the LLM runs cache-free over
+the prompt built with only their tokens (unpadded), and its hidden state
+at the prompt's end is the top-down prompt that steers the selection of
+the high-res patches; then the full encode, the prefill and the decode
+follow as for any prompt. The prompt is
 padded to the JAX engine's length buckets, so the same prompt takes the
 same kernels (a padded prompt of more than 32 rows prefills through the W4
 GEMM) and yields the same tokens. Decode runs in chunks of `decode_chunk`
 steps with one host read-back per chunk.
 
-Not ported yet: PS3, speculative and JSON-constrained decoding.
+Not ported yet: speculative and JSON-constrained decoding.
 """
 
 from __future__ import annotations
@@ -176,9 +184,12 @@ class GenerationEngine:
         """prompt -> {"input_ids", "media_pos", "media": [entries]}.
 
         Each media entry is {"kind": "plain", "tiles": uint8 (N, S, S, 3)},
-        {"kind": "s2", "tiles", "block_size": (rows, cols)} or {"kind":
-        "tsp", "tiles": the resized frames, "pool_sizes"}, in prompt-marker
-        order."""
+        {"kind": "s2", "tiles", "block_size": (rows, cols)}, {"kind":
+        "tsp", "tiles": the resized frames, "pool_sizes"} or {"kind": "ps3",
+        "tiles": the low-res view (1, s0, s0, 3), "tiles_high": one (1, s,
+        s, 3) view a high scale}, in prompt-marker order. In PS3's
+        "after_prompt" mode, "ps3_low" holds the pass-1 prompt: each image
+        marker expanded to the low-res tokens alone."""
         cfg = self.cfg
         conversation = [{"from": "human", "value": prompt}]
         media = extract_media(conversation, cfg.num_video_frames, cfg.fps,
@@ -194,6 +205,15 @@ class GenerationEngine:
 
         def process_image(img) -> str:
             """Appends the entry and its token counts; returns the marker text."""
+            if cfg.vision_tower_type == "ps3":
+                # one resized view a scale; the device selects K high-res patches
+                views = [preprocess.process_image(img, image_size=scale,
+                                                  image_aspect_ratio="resize")[0]
+                         for scale in cfg.vision.s3_scales]
+                tokens_per_marker.append(cfg.tokens_per_image)
+                entries.append({"kind": "ps3", "tiles": views[0],
+                                "tiles_high": views[1:]})
+                return MEDIA_TOKENS["image"]
             if use_dynamic and aspect == "dynamic":
                 tiles, _ = preprocess.process_image(
                     img, image_size=size, image_aspect_ratio="dynamic",
@@ -246,16 +266,38 @@ class GenerationEngine:
         ids = tokenize_conversation(conversation, self.tokenizer, add_generation_prompt=True)
         expanded, media_pos = expand_media_tokens(
             ids, self.image_token_id, tokens_per_marker, self._newline_ids)
-        return {"input_ids": expanded, "media_pos": media_pos, "media": entries}
+        out = {"input_ids": expanded, "media_pos": media_pos, "media": entries}
+        if (cfg.vision_tower_type == "ps3" and cfg.ps3_look_close_mode == "after_prompt"
+                and entries):
+            low_ids, low_pos = expand_media_tokens(
+                ids, self.image_token_id, [cfg.ps3_tokens_low] * len(tokens_per_marker),
+                self._newline_ids)
+            out["ps3_low"] = {"input_ids": low_ids, "media_pos": low_pos}
+        return out
 
-    def encode_media(self, entries: List[Dict[str, Any]]) -> Optional[torch.Tensor]:
+    def encode_media(self, entries: List[Dict[str, Any]],
+                     ps3_prompt: Optional[torch.Tensor] = None,
+                     ps3_num_look_close: Optional[int] = None) -> Optional[torch.Tensor]:
         """Encode media entries to a flat (M, D) embedding matrix, in entry
         order: plain tiles through the tower and projector, S2 entries
         through `s2.encode_image_s2`, TSP entries through
-        `encoders.tsp_encode_video`."""
+        `encoders.tsp_encode_video`, PS3 entries (which take no other
+        media) through `vlm.encode_images_ps3`, steered by `ps3_prompt`
+        when given, and with `ps3_num_look_close=0` their low-res pass
+        alone."""
         if not entries:
             return None
         dev = self.device
+        if any(e["kind"] == "ps3" for e in entries):
+            parts = []
+            for e in entries:
+                assert e["kind"] == "ps3", "PS3 towers take only PS3 media"
+                feats, _, _ = vlm.encode_images_ps3(
+                    self.params, self.cfg, host_to_device(e["tiles"], dev),
+                    [host_to_device(h, dev) for h in e["tiles_high"]],
+                    prompt=ps3_prompt, num_look_close=ps3_num_look_close)
+                parts.append(feats.reshape(-1, feats.shape[-1]))
+            return torch.cat(parts)
         if all(e["kind"] == "plain" for e in entries):
             entries = [{"kind": "plain",
                         "tiles": np.concatenate([e["tiles"] for e in entries])}]
@@ -291,6 +333,30 @@ class GenerationEngine:
         # rows are invalid, and decode overwrites them
         cache["fill"] = prompt_len
         return logits[:, 0], cache
+
+    def _prompt_hidden(self, ids, media_embeds, media_pos):
+        """(1, llm_hidden): the LLM's final hidden state at the last row of
+        the unpadded prompt `ids` (1, S), one cache-free forward with the
+        media spliced in (llava_arch.py:1640-1652)."""
+        embeds = vlm.splice_media(qwen2.embed_tokens(self.params["llm"], self.cfg.llm, ids),
+                                  media_embeds, media_pos)
+        h, _ = qwen2.forward(
+            self.params["llm"], self.cfg.llm, inputs_embeds=embeds,
+            gather_position=host_to_device(np.asarray([ids.shape[1] - 1]), self.device),
+            return_hidden=True)
+        return h[:, 0]
+
+    def _ps3_top_down_prompt(self, inputs: Dict[str, Any]) -> torch.Tensor:
+        """PS3's pass 1: the low-res views alone encoded, the LLM run over
+        the prompt built with their tokens, and its hidden state at the
+        prompt's end returned: the top-down prompt that steers pass 2's
+        selection (the reference's `get_top_down_prompts_only` forward; the
+        user prompt ends with the generation prompt here)."""
+        low = inputs["ps3_low"]
+        low_embeds = self.encode_media(inputs["media"], ps3_num_look_close=0)
+        ids = host_to_device(np.asarray(low["input_ids"], np.int64)[None], self.device)
+        media_pos = host_to_device(np.asarray(low["media_pos"], np.int64), self.device)
+        return self._prompt_hidden(ids, low_embeds, media_pos)
 
     def _decode(self, tok, cache, pos, gen, steps, gc):
         """`steps` decode steps from token `tok` (1,) at position `pos`;
@@ -330,7 +396,10 @@ class GenerationEngine:
         s_pad = _bucket(prompt_len, PROMPT_BUCKETS)
         cache_len = min(self.max_cache_len, _round_up(s_pad + gc.max_new_tokens, 256))
         ids, valid, media_pos = padded_prompt(inputs, s_pad, dev)
-        media_embeds = self.encode_media(inputs["media"])
+        ps3_prompt = None
+        if inputs.get("ps3_low") is not None:
+            ps3_prompt = self._ps3_top_down_prompt(inputs)
+        media_embeds = self.encode_media(inputs["media"], ps3_prompt=ps3_prompt)
         cache = qwen2.init_cache(cfg.llm, batch=1, max_len=cache_len, device=dev)
         logits, cache = self._prefill(ids, valid, media_embeds, media_pos, cache,
                                       prompt_len)

@@ -149,16 +149,24 @@ def resize_position_embedding(pos_embed: torch.Tensor, num_new: int) -> torch.Te
     return (pos_embed[hi] * frac + pos_embed[lo] * (1.0 - frac)).to(pos_embed.dtype)
 
 
-def embed_pixels(params: Params, cfg: SigLIPConfig, pixel_values: torch.Tensor):
-    """(B, H, W, C) pixels -> (B, N, D) patch plus position embeddings;
-    uint8 pixels are rescaled and normalized here."""
+def normalize_pixels(pixel_values: torch.Tensor, cfg) -> torch.Tensor:
+    """Pixels in `cfg`'s compute dtype: uint8 ones rescaled and normalized
+    with its `image_mean` / `image_std` (any tower's config), float ones
+    taken as already normalized."""
     dtype = cfg.compute_dtype
     if pixel_values.dtype == torch.uint8:
         dev = pixel_values.device
         mean = host_to_device(np.asarray(cfg.image_mean, np.float32), dev).to(dtype) * 255.0
         std = host_to_device(np.asarray(cfg.image_std, np.float32), dev).to(dtype) * 255.0
-        pixel_values = (pixel_values.to(dtype) - mean) / std
-    x = patchify(pixel_values.to(dtype), cfg.patch_size)
+        return (pixel_values.to(dtype) - mean) / std
+    return pixel_values.to(dtype)
+
+
+def embed_pixels(params: Params, cfg: SigLIPConfig, pixel_values: torch.Tensor):
+    """(B, H, W, C) pixels -> (B, N, D) patch plus position embeddings;
+    uint8 pixels are rescaled and normalized here."""
+    dtype = cfg.compute_dtype
+    x = patchify(normalize_pixels(pixel_values, cfg), cfg.patch_size)
     h = _linear(x, params["patch_embedding"], dtype)
     pos = params["position_embedding"]["embedding"]
     if pos.shape[0] != h.shape[1]:

@@ -1,8 +1,10 @@
 """VLM meta-architecture: vision tower + projector + LLM with media splice,
-as `vila_tpu/models/vlm.py` (the SigLIP tower; the other towers and PS3
-are not ported yet), and the training forward over a collated batch
-(`forward_batch`). Dynamic-S2 images encode through `models/s2.py`, TSP
-videos through `models/encoders.py`.
+as `vila_tpu/models/vlm.py`, and the training forward over a collated batch
+(`forward_batch`). The tower is SigLIP (`models/siglip.py`), CLIP,
+InternViT or RADIO (`models/vit.py`), or PS3 (`models/ps3.py`, VILA-HD's
+selective high-resolution tower, encoded by `encode_images_ps3`).
+Dynamic-S2 images encode through `models/s2.py`, TSP videos through
+`models/encoders.py`.
 
 The host expands each media token into a fixed run of placeholder positions
 (plus the encoder's end-token ids); the device scatters the flattened
@@ -17,7 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from vila_tpu_torch.models import projector as projector_lib
-from vila_tpu_torch.models import qwen2, siglip
+from vila_tpu_torch.models import ps3, qwen2, siglip, vit
 
 Params = Dict[str, Any]
 
@@ -25,13 +27,19 @@ Params = Dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class VLMConfig:
     llm: qwen2.LLMConfig
-    vision: siglip.SigLIPConfig
+    vision: Any  # SigLIPConfig | vit.ViTConfig | ps3.PS3Config (vision_tower_type)
     projector: projector_lib.ProjectorConfig
     vision_feature_layer: int = -2
     vision_select: str = "cls_patch"
     # resize | pad | crop | dynamic | dynamic_s2 | longest_edge
     image_aspect_ratio: str = "resize"
-    vision_tower_type: str = "siglip"  # the other towers (PS3, ...) come later
+    # the tower (build_vision_tower, multimodal_encoder/builder.py:30):
+    # siglip | clip | internvit | radio | ps3
+    vision_tower_type: str = "siglip"
+    # PS3's look-close mode (llava_arch.py:1627): "after_image" selects
+    # bottom-up; "after_prompt" runs the two-pass top-down generation (a
+    # low-res pass gives the prompt embedding that steers the selection)
+    ps3_look_close_mode: str = "after_image"
     num_video_frames: int = 8
     fps: float = 0.0
     # video token assembly (llava/model/encoders/video/): "basic" splices
@@ -45,35 +53,79 @@ class VLMConfig:
     s2_scales: Tuple[int, ...] = (448, 896, 1344)
     s2_resize_output_to_scale_idx: int = 0
 
-    def __post_init__(self):
-        if self.vision_tower_type != "siglip":
-            raise NotImplementedError(
-                f"vision_tower_type={self.vision_tower_type!r} is not ported yet")
-
     @property
     def tokens_per_image(self) -> int:
         """LLM tokens contributed by one vision-tower forward of one tile."""
+        if self.vision_tower_type == "ps3":
+            assert self.projector.downsample_rate == 1, (
+                "PS3 output mixes grid and selected tokens; use a "
+                "non-downsampling projector (linear / mlpNx_gelu)")
+            return self.vision.n_output_tokens
         side = self.vision.image_size // self.vision.patch_size
         r = self.projector.downsample_rate
         return ((side + r - 1) // r) ** 2
+
+    @property
+    def ps3_tokens_low(self) -> int:
+        """Tokens of PS3's low-res pass alone (num_look_close == 0)."""
+        return self.vision.low_grid ** 2
+
+
+def vision_module(cfg: VLMConfig):
+    """The tower's module (multimodal_encoder/builder.py:30-68): RADIO's
+    backbone is a plain ViT, served by the generic tower."""
+    if cfg.vision_tower_type in ("clip", "internvit", "radio"):
+        return vit
+    if cfg.vision_tower_type == "ps3":
+        return ps3
+    return siglip
 
 
 def init_params(generator: torch.Generator, cfg: VLMConfig,
                 param_dtype=torch.float32) -> Params:
     return {
         "llm": qwen2.init_params(generator, cfg.llm, param_dtype),
-        "vision_tower": siglip.init_params(generator, cfg.vision, param_dtype),
+        "vision_tower": vision_module(cfg).init_params(generator, cfg.vision, param_dtype),
         "mm_projector": projector_lib.init_params(generator, cfg.projector, param_dtype),
     }
 
 
 def encode_images(params: Params, cfg: VLMConfig, pixel_values: torch.Tensor):
-    """(N, H, W, 3) pixels -> (N, tokens_per_image, llm_hidden)."""
-    feats = siglip.forward(
+    """(N, H, W, 3) pixels -> (N, tokens_per_image, llm_hidden); PS3 towers
+    take two pixel scales and encode through `encode_images_ps3`."""
+    if cfg.vision_tower_type == "ps3":
+        raise ValueError("PS3 towers use encode_images_ps3 (two pixel scales)")
+    feats = vision_module(cfg).forward(
         params["vision_tower"], cfg.vision, pixel_values,
         feature_layer=cfg.vision_feature_layer, select=cfg.vision_select,
     )
     return projector_lib.forward(params["mm_projector"], cfg.projector, feats)
+
+
+def encode_images_ps3(
+    params: Params,
+    cfg: VLMConfig,
+    pixels_low: torch.Tensor,  # (N, s0, s0, 3)
+    pixels_high: Optional[Any] = None,  # (N, s1, s1, 3) or a list, one per high scale
+    *,
+    prompt: Optional[torch.Tensor] = None,  # (N, llm_hidden) top-down prompt
+    num_look_close: Optional[int] = None,
+    gt_selection_maps: Optional[torch.Tensor] = None,
+    smooth_selection_prob: bool = False,
+):
+    """PS3's selective encode and the projector (encode_images_ps3,
+    llava_arch.py:967). Returns (projected features, selection
+    probabilities, selection maps)."""
+    if pixels_high is not None and not isinstance(pixels_high, (list, tuple)):
+        pixels_high = [pixels_high]
+    feats, probs, maps = ps3.forward(
+        params["vision_tower"], cfg.vision, pixels_low, pixels_high,
+        prompt=prompt, num_look_close=num_look_close,
+        gt_selection_maps=gt_selection_maps,
+        smooth_selection_prob=smooth_selection_prob,
+        feature_layer=cfg.vision_feature_layer,
+    )
+    return projector_lib.forward(params["mm_projector"], cfg.projector, feats), probs, maps
 
 
 def splice_media(
@@ -130,6 +182,8 @@ def forward_batch(params: Params, cfg: VLMConfig, batch: Dict[str, torch.Tensor]
     (B, T, s, s, 3) per-sample tiles; media_positions (B, M) row-local flat
     indices with an out-of-range sentinel for padding, M = T *
     tokens_per_image. `attn_impl` picks the LLM's attention route."""
+    if cfg.vision_tower_type == "ps3":
+        raise NotImplementedError("forward_batch_ps3 (PS3 training) is not ported yet")
     input_ids = batch["input_ids"]
     b, s = input_ids.shape
     embeds = qwen2.embed_tokens(params["llm"], cfg.llm, input_ids)

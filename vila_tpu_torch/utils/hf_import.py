@@ -15,8 +15,13 @@ afterwards, as the JAX package does. The converters run on whatever device
 the state dict is on (`load_params` moves it to the card first) and return
 contiguous tensors, transposes included.
 
-The CLIP / InternViT, RADIO and PS3 towers are not ported yet: their
-converters raise.
+Every tower of the JAX package converts: SigLIP (HF `SiglipVisionModel`),
+CLIP (HF `CLIPVisionModel`) and InternViT (fused qkv, layer scale, qk
+norm), RADIO (a timm ViT, or its CPE patch generator) and PS3 (its SigLIP
+trunk in timm's layout). Each converter's output equals the JAX package's
+on the same state dict; PS3's selection heads, which the reference's
+checkpoints do not hold and JAX sets to zeros, are read when stored (the
+port's `entry.save` writes them).
 """
 
 from __future__ import annotations
@@ -249,30 +254,262 @@ def convert_siglip_state_dict(state: Dict[str, Any], cfg) -> Dict[str, Any]:
 
 
 # --------------------------------------------------------------------------
-# Towers not ported yet
+# CLIP / InternViT vision towers
 # --------------------------------------------------------------------------
 
 
-def _not_ported(tower: str):
-    raise NotImplementedError(
-        f"the {tower} vision tower is not ported yet (its converter comes with "
-        f"its model)")
+def _conv_kernel(conv_w: torch.Tensor) -> torch.Tensor:
+    """A patch convolution (D, 3, P, P) -> the (P*P*3, D) matmul weight,
+    pixels flattened as (row, column, channel)."""
+    return conv_w.permute(2, 3, 1, 0).reshape(-1, conv_w.shape[0]).contiguous()
+
+
+def _split_qkv(sd, fmt: str, layers: int, part: int, weight: bool) -> torch.Tensor:
+    """Part `part` (q, k, v) of a fused qkv, stacked over layers; weights
+    transposed to (din, dout)."""
+    return torch.stack([sd[fmt.format(i)].chunk(3, dim=0)[part].T if weight
+                        else sd[fmt.format(i)].chunk(3, dim=0)[part]
+                        for i in range(layers)])
+
+
+def _identity_norm(d: int, like: torch.Tensor) -> Dict[str, torch.Tensor]:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=like.device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=like.device)}
 
 
 def convert_vit_state_dict(state: Dict[str, Any], cfg) -> Dict[str, Any]:
-    _not_ported("CLIP / InternViT")
+    """HF `CLIPVisionModel` or InternViT state dict -> `models.vit` tree
+    (multimodal_encoder/{clip,intern}_encoder.py). CLIP names its block
+    norms layer_norm1/2; InternViT norm1/2, with a fused attn.qkv, ls1/ls2
+    and optional q/k norms, and no post-LayerNorm (an identity one here)."""
+    sd = {k.removeprefix("vision_model."): _t(v) for k, v in state.items()}
+    L = cfg.num_hidden_layers
+
+    def stack(fmt, transpose=False):
+        return _stack(sd, "encoder.layers.{}." + fmt, L, transpose)
+
+    def ln(name):
+        return {"scale": stack(f"{name}.weight"), "bias": stack(f"{name}.bias")}
+
+    def linear(name):
+        return {"kernel": stack(f"{name}.weight", True), "bias": stack(f"{name}.bias")}
+
+    if "encoder.layers.0.layer_norm1.weight" in sd:  # CLIP
+        params = {
+            "patch_embedding": {"kernel": _conv_kernel(sd["embeddings.patch_embedding.weight"])},
+            "position_embedding": {"embedding": sd["embeddings.position_embedding.weight"]},
+            "class_embedding": sd["embeddings.class_embedding"].reshape(-1),
+            "layers": {
+                "layer_norm1": ln("layer_norm1"),
+                "q_proj": linear("self_attn.q_proj"),
+                "k_proj": linear("self_attn.k_proj"),
+                "v_proj": linear("self_attn.v_proj"),
+                "out_proj": linear("self_attn.out_proj"),
+                "layer_norm2": ln("layer_norm2"),
+                "fc1": linear("mlp.fc1"),
+                "fc2": linear("mlp.fc2"),
+            },
+            "post_layernorm": {"scale": sd["post_layernorm.weight"],
+                               "bias": sd["post_layernorm.bias"]},
+        }
+        if "pre_layrnorm.weight" in sd:  # HF's spelling of CLIP's pre-LayerNorm
+            params["pre_layernorm"] = {"scale": sd["pre_layrnorm.weight"],
+                                       "bias": sd["pre_layrnorm.bias"]}
+        return params
+
+    conv_w = sd.get("embeddings.patch_embedding.weight", sd.get("patch_embed.proj.weight"))
+    d = conv_w.shape[0]
+    qkv = "encoder.layers.{}.attn.qkv."
+    layers = {
+        "layer_norm1": ln("norm1"),
+        "q_proj": {"kernel": _split_qkv(sd, qkv + "weight", L, 0, True),
+                   "bias": _split_qkv(sd, qkv + "bias", L, 0, False)},
+        "k_proj": {"kernel": _split_qkv(sd, qkv + "weight", L, 1, True),
+                   "bias": _split_qkv(sd, qkv + "bias", L, 1, False)},
+        "v_proj": {"kernel": _split_qkv(sd, qkv + "weight", L, 2, True),
+                   "bias": _split_qkv(sd, qkv + "bias", L, 2, False)},
+        "out_proj": linear("attn.proj"),
+        "layer_norm2": ln("norm2"),
+        "fc1": linear("mlp.fc1"),
+        "fc2": linear("mlp.fc2"),
+        "ls1": {"scale": stack("ls1")},
+        "ls2": {"scale": stack("ls2")},
+    }
+    if "encoder.layers.0.attn.q_norm.weight" in sd:
+        layers["q_norm"] = {"scale": stack("attn.q_norm.weight")}
+        layers["k_norm"] = {"scale": stack("attn.k_norm.weight")}
+    return {
+        "patch_embedding": {"kernel": _conv_kernel(conv_w)},
+        "position_embedding": {
+            "embedding": sd["embeddings.position_embedding"].reshape(-1, d)},
+        "class_embedding": sd["embeddings.class_embedding"].reshape(-1),
+        "layers": layers,
+        "post_layernorm": _identity_norm(d, conv_w),
+    }
+
+
+# --------------------------------------------------------------------------
+# RADIO (timm ViT layout) and PS3 (SigLIP trunk in timm layout)
+# --------------------------------------------------------------------------
+
+_TIMM_PREFIX_CANDIDATES = (
+    "radio_model.model.",  # HF-hub RADIO AutoModel (radio_encoder.py:141)
+    "vision_model.trunk.",  # PS3VisionModel's trunk (ps3_encoder.py:35)
+    "model.",  # torchhub RADIO (radio_torchhub_encoder.py)
+    "trunk.",
+    "",
+)
+
+
+def _find_timm_prefix(state: Dict[str, Any]) -> str:
+    for pre in _TIMM_PREFIX_CANDIDATES:
+        if (f"{pre}blocks.0.norm1.weight" in state
+                or f"{pre}patch_embed.proj.weight" in state
+                or f"{pre}patch_generator.embedder.weight" in state):
+            return pre
+    raise KeyError(
+        "no timm-ViT key layout found (expected blocks.N.norm1.weight under "
+        f"one of {_TIMM_PREFIX_CANDIDATES})")
+
+
+def _timm_layers(sd: Dict[str, torch.Tensor], L: int) -> Dict[str, Any]:
+    """timm's `blocks.{i}.*` (fused qkv, norm1/norm2, mlp.fc1/fc2, optional
+    ls1/ls2 gammas) -> the stacked layers of `models.vit` and `siglip`."""
+
+    def stack(fmt, transpose=False):
+        return _stack(sd, "blocks.{}." + fmt, L, transpose)
+
+    def ln(name):
+        return {"scale": stack(f"{name}.weight"), "bias": stack(f"{name}.bias")}
+
+    def linear(name):
+        return {"kernel": stack(f"{name}.weight", True), "bias": stack(f"{name}.bias")}
+
+    def qkv(part):
+        return {"kernel": _split_qkv(sd, "blocks.{}.attn.qkv.weight", L, part, True),
+                "bias": _split_qkv(sd, "blocks.{}.attn.qkv.bias", L, part, False)}
+
+    layers = {
+        "layer_norm1": ln("norm1"),
+        "q_proj": qkv(0),
+        "k_proj": qkv(1),
+        "v_proj": qkv(2),
+        "out_proj": linear("attn.proj"),
+        "layer_norm2": ln("norm2"),
+        "fc1": linear("mlp.fc1"),
+        "fc2": linear("mlp.fc2"),
+    }
+    if "blocks.0.ls1.gamma" in sd:  # timm's layer-scale variant
+        layers["ls1"] = {"scale": stack("ls1.gamma")}
+        layers["ls2"] = {"scale": stack("ls2.gamma")}
+    return layers
+
+
+def _timm_state(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    pre = _find_timm_prefix(state)
+    return {k.removeprefix(pre): _t(v) for k, v in state.items() if k.startswith(pre)}
 
 
 def convert_radio_state_dict(state: Dict[str, Any], cfg) -> Dict[str, Any]:
-    _not_ported("RADIO")
+    """A RADIO checkpoint (a timm VisionTransformer under
+    `radio_model.model.`, or torchhub's `model.`: radio_encoder.py:141,
+    radio_torchhub_encoder.py) -> `models.vit` tree. The standard patch
+    convolution, or RADIO's Cropped Position Embedding patch generator
+    (already a flat linear; its pos_embed covers the patches only, so a zero
+    row is put first for the class token). One summary token only."""
+    sd = _timm_state(state)
+    if "patch_generator.embedder.weight" in sd:  # CPE
+        w = sd["patch_generator.embedder.weight"]  # (D, P*P*3)
+        d = w.shape[0]
+        patch = {"kernel": w.T.contiguous()}
+        if "patch_generator.embedder.bias" in sd:
+            patch["bias"] = sd["patch_generator.embedder.bias"]
+        pos = sd["patch_generator.pos_embed"].reshape(-1, d)
+        cls_tok = sd["patch_generator.cls_token.token"].reshape(-1, d)
+        if cls_tok.shape[0] != 1:
+            raise ValueError(
+                f"RADIO checkpoint has {cls_tok.shape[0]} summary/register "
+                "tokens; only num_cls_tokens=1 is supported")
+        cls = cls_tok[0]
+        pos = torch.cat([pos.new_zeros((1, d)), pos])
+    else:
+        conv_w = sd["patch_embed.proj.weight"]
+        d = conv_w.shape[0]
+        patch = {"kernel": _conv_kernel(conv_w)}
+        if "patch_embed.proj.bias" in sd:
+            patch["bias"] = sd["patch_embed.proj.bias"]
+        pos = sd["pos_embed"].reshape(-1, d)
+        cls = sd["cls_token"].reshape(-1)
+        if pos.shape[0] == cfg.num_patches:  # no class row stored
+            pos = torch.cat([pos.new_zeros((1, d)), pos])
+    return {
+        "patch_embedding": patch,
+        "position_embedding": {"embedding": pos},
+        "class_embedding": cls,
+        "layers": _timm_layers(sd, cfg.num_hidden_layers),
+        # no final norm: skip_layer_norm / an Identity norm (radio_encoder.py:178)
+        "post_layernorm": ({"scale": sd["norm.weight"], "bias": sd["norm.bias"]}
+                           if "norm.weight" in sd else _identity_norm(d, pos)),
+    }
 
 
 def radio_image_stats(state: Dict[str, Any]):
-    _not_ported("RADIO")
+    """(mean, std) of a RADIO checkpoint's input conditioner
+    (`radio_model.input_conditioner.norm_{mean,std}`), or None."""
+    for pre in ("radio_model.", "", "model."):
+        mk, sk = f"{pre}input_conditioner.norm_mean", f"{pre}input_conditioner.norm_std"
+        if mk in state:
+            return (tuple(float(x) for x in _t(state[mk]).float().reshape(-1).tolist()),
+                    tuple(float(x) for x in _t(state[sk]).float().reshape(-1).tolist()))
+    return None
+
+
+# where the PS3 scale embeddings may be stored, in the order searched
+PS3_SCALE_KEYS = ("vision_model.scale_embed", "scale_embed", "scale_embedding")
 
 
 def convert_ps3_state_dict(state: Dict[str, Any], cfg) -> Dict[str, Any]:
-    _not_ported("PS3")
+    """A PS3 checkpoint (the `ps3` package's PS3VisionModel,
+    ps3_encoder.py:35) -> `models.ps3` tree. The SigLIP trunk (timm layout
+    under `vision_model.trunk.`) converts one to one; the scale embeddings
+    import when present. The reference's selection machinery (low-res-KV
+    cross attention, per-scale prompts) has no counterpart in the static
+    top-k design, so the selection and top-down heads are zeros (uniform
+    selection), as in the JAX package, unless the state dict holds the
+    port's own `select_head.*` / `top_down_prompt_head.*` (HF Linear
+    layout), which `entry.save` writes."""
+    sd = _timm_state(state)
+    conv_w = sd["patch_embed.proj.weight"]
+    d = conv_w.shape[0]
+    zeros = conv_w.new_zeros((d,), dtype=torch.float32)
+    trunk = {
+        "patch_embedding": {"kernel": _conv_kernel(conv_w),
+                            "bias": sd.get("patch_embed.proj.bias", zeros)},
+        "position_embedding": {"embedding": sd["pos_embed"].reshape(-1, d)},
+        "layers": _timm_layers(sd, cfg.vit.num_hidden_layers),
+        "post_layernorm": {"scale": sd.get("norm.weight", zeros + 1.0),
+                           "bias": sd.get("norm.bias", zeros)},
+    }
+    n_scales = len(cfg.s3_scales)
+    scale_emb = conv_w.new_zeros((n_scales, d), dtype=torch.float32)
+    for key in PS3_SCALE_KEYS:
+        if key in state:
+            se = _t(state[key]).reshape(-1, d)[:n_scales]
+            scale_emb[:se.shape[0]] = se
+            break
+
+    def head(name, din, dout):
+        if f"{name}.weight" in state:
+            return {"kernel": _t(state[f"{name}.weight"]).T.contiguous(),
+                    "bias": _t(state[f"{name}.bias"])}
+        return {"kernel": conv_w.new_zeros((din, dout), dtype=torch.float32),
+                "bias": conv_w.new_zeros((dout,), dtype=torch.float32)}
+
+    params = {"vit": trunk, "scale_embedding": scale_emb,
+              "select_head": head("select_head", d, 1)}
+    if cfg.prompt_dim:
+        params["top_down_prompt_head"] = head("top_down_prompt_head", cfg.prompt_dim, d)
+    return params
 
 
 # --------------------------------------------------------------------------

@@ -80,18 +80,49 @@ def _check_llm(llm: dict, cfg) -> None:
             )
 
 
+def _check_vision(tower: dict, cfg) -> None:
+    """The optional leaves of a ViT or PS3 tower tree against the config:
+    the class token, InternViT's layer scales and q/k norms (`models.vit`);
+    PS3's scale embeddings, selection head and top-down head
+    (`models.ps3`). A missing leaf fails here, not inside the forward."""
+    kind = getattr(cfg, "vision_tower_type", "siglip")
+    vis = cfg.vision
+    if kind in ("clip", "internvit", "radio"):
+        want = {"class_embedding": vis.class_token}
+        want.update({f"layers/{k}": vis.layer_scale for k in ("ls1", "ls2")})
+        want.update({f"layers/{k}": vis.qk_norm for k in ("q_norm", "k_norm")})
+    elif kind == "ps3":
+        want = {"scale_embedding": True, "select_head": True,
+                "top_down_prompt_head": bool(vis.prompt_dim)}
+        n, d = tower.get("scale_embedding", np.zeros((0, 0))).shape
+        if (n, d) != (len(vis.s3_scales), vis.hidden_size):
+            raise ValueError(f"scale_embedding {(n, d)} does not fit the config "
+                             f"({len(vis.s3_scales)}, {vis.hidden_size})")
+    else:
+        return
+    for path, needed in want.items():
+        node = tower
+        for key in path.split("/"):
+            node = node.get(key) if isinstance(node, dict) else None
+        if needed and node is None:
+            raise ValueError(f"vision_tower/{path} is missing for a {kind} tower")
+
+
 def from_jax_params(tree: Any, cfg=None, device="cuda") -> Any:
     """A `vila_tpu` param tree of numpy arrays -> the port's tensors.
 
     `cfg` may be a `qwen2.LLMConfig` (tree = LLM params) or a
     `vlm.VLMConfig` (tree = {"llm", "vision_tower", "mm_projector"}) of
-    either package; its LLM part is checked against the W4 slots."""
+    either package; its LLM part is checked against the W4 slots, and a
+    ViT or PS3 tower against its config (`_check_vision`)."""
     dev = resolve_device(device)
     out = to_torch_tree(tree, dev)
     if cfg is not None:
         llm_cfg = getattr(cfg, "llm", cfg)
         llm = out.get("llm", out) if isinstance(out, dict) else out
         _check_llm(llm, llm_cfg)
+        if isinstance(out, dict) and "vision_tower" in out and hasattr(cfg, "vision"):
+            _check_vision(out["vision_tower"], cfg)
     return out
 
 
