@@ -24,7 +24,9 @@ Phases:
                and 32, a stacked qkv at M = 1, 8 and 24 and one layer's
                four projections at M = 24, its wgmma form's digits and
                both forms' repeat launches bit for bit and the stream probe
-               (128- and 256-byte boxes, 16-byte loads); K1's one-digit
+               (128- and 256-byte boxes, 16-byte loads); K1 over one
+               layer's four projections at the speculative verify forward's
+               M = 5 and 8; K1's one-digit
                form (the `k1_one_digit` phase); then K1-K6 at Qwen2-0.5B
                widths (head dim 64, W4 groups of 112 and 128, then every
                product in groups of 64);
@@ -51,6 +53,28 @@ Phases:
   small_consistency  every decode route (bs=1 K3, B = 3 K6, B = 20 K4/K5)
                at Qwen2-0.5B widths (head dim 64, W4 groups of 112), 4
                layers, text only, against the plain CPU forward;
+  http         the OpenAI-compatible server over a max_batch=8 batcher: 4
+               concurrent text requests and, with them, one
+               `response_format` request blocking and streamed, which the
+               batcher hands to the serial engine (two threads launching on
+               one stream); each reply equal to its serial answer;
+  spec         prompt-lookup speculative decoding on the e2e engine: an
+               image + a question that repeats a span, and the text alone,
+               32 tokens at gamma 4 and 7 beside the vanilla stream; TTFT,
+               tok/s, tokens per verify forward, the verify forward's device
+               busy (traced) and host-issue ms, K1 launches by M (every projection and the
+               lm_head at M = gamma + 1); the stream against vanilla up to a
+               named K1-band tie, every K1 / K2 call of request 0 against
+               its plain version, each verify forward (gamma 4) against the
+               plain versions on a copy of its cache, and a vanilla chunk
+               after a speculative chunk;
+  constrained  JSON-constrained decoding: the e2e engine with json_object and
+               a two-property schema, and the W4 quant probe (its
+               tokenizer.json) with a yes/no schema: valid JSON prefixes,
+               complete where done, key order, the kernel stream against
+               `plain_versions`; per token (teacher-forced along a valid JSON
+               text) the step's device ms, the host's wait, the logits copy
+               and the sampler's pick and mask;
   s2           NVILA-8B with dynamic-S2 (scales 448, 896, 1344, max 12 tiles,
                s2_resize_output_to_scale_idx -1, mlp_downsample_3x3_fix over
                3 x 1152) through `entry.build_config`: one seeded 1344 x 1008
@@ -134,6 +158,12 @@ Phases:
   train_consistency  one `train_step` at full widths with 2 LLM and 2 SigLIP
                layers at seq 512 on the card (kernels) against the same
                step on the CPU (plain versions);
+  train_media  the `train` configuration with dynamic tiles: a video sample
+               (4 frames of a frame directory) and a dynamic-tiled image (3
+               tiles) through the port's `BaseDataset`, packed in one
+               2048-token row, 3 steps (K7-K9 once per layer per step): step
+               wall, tokens/s, peak memory; then a 2 + 2-layer step on a
+               3-frame video row at seq 1024, the card against the CPU;
   profile      (only when named) torch.profiler trace of one request:
                device busy time and idle share of a decode step; then one
                max_batch=8 decode step (K6): host issue time per layer and
@@ -150,6 +180,7 @@ output, per-shape numbers) go to `chiprun_out/`.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import math
@@ -218,8 +249,8 @@ E2E_KERNELS = ("w4_gemv", "w4_gemm", "fused_layer")
 # (max_batch, requests, new tokens) of each serve run: K6, then K4/K5
 SERVE_RUNS = ((8, 12, 32), (24, 24, 16))
 DEFAULT_PHASES = ("build,kernels,e2e,serve,consistency,batched_consistency,"
-                  "small_consistency,http,s2,video,ps3,towers,load,w8,awq,quant_acc,"
-                  "train_kernels,train,train_consistency")
+                  "small_consistency,http,spec,constrained,s2,video,ps3,towers,load,w8,awq,"
+                  "quant_acc,train_kernels,train,train_consistency,train_media")
 
 
 def log(*a):
@@ -233,10 +264,10 @@ def log(*a):
 
 class ByteTokenizer:
     """Byte-level tokenizer with a ChatML template: ids 0-255 are the
-    UTF-8 bytes, special tokens follow. Implements what `GenerationEngine`
-    and the training data path (`preprocess_conversation`: special tokens
-    added on the fly, the sentinel among them; the collators' pad id)
-    call."""
+    UTF-8 bytes, special tokens follow. Implements what `GenerationEngine`,
+    the grammar's vocab table (`vocab_size`, `len`, `batch_decode`) and the
+    training data path (`preprocess_conversation`: special tokens added on
+    the fly, the sentinel among them; the collators' pad id) call."""
 
     def __init__(self):
         self.vocab = {}
@@ -250,6 +281,11 @@ class ByteTokenizer:
 
     def __len__(self):
         return 256 + len(self.vocab)
+
+    @property
+    def vocab_size(self):
+        """The byte vocabulary, the added tokens not counted (HF's meaning)."""
+        return 256
 
     def add_tokens(self, tokens, special_tokens=True):
         for t in tokens:
@@ -300,6 +336,9 @@ class ByteTokenizer:
                 out.append(self._inv.get(i, ""))
         out.append(buf.decode("utf-8", errors="replace"))
         return "".join(out)
+
+    def batch_decode(self, sequences, skip_special_tokens=False):
+        return [self.decode(seq, skip_special_tokens=skip_special_tokens) for seq in sequences]
 
 
 # --------------------------------------------------------------------------
@@ -747,6 +786,9 @@ def _run_k3(torch, fused_decode, results, args, fill, flush, dims, model="NVILA-
 
 K1_LM_ROWS = (1, 2, 8, 16, 17, 24, 32)  # the lm_head: bs=1, the batched routes, short prompts
 K1_QKV_ROWS = (1, 8, 24)
+# the speculative verify forward's M = gamma + 1 (the `spec` phase's gamma 4
+# and 7): K1 on every projection of a layer and the lm_head
+K1_SPEC_ROWS = (5, 8)
 
 
 def bf16_ulps(torch, got, want):
@@ -767,7 +809,9 @@ def phase_k1(torch, seed, dev="cuda", reps=30, dims=DIMS_8B):
     largest difference is reported in those ulps), timed beside cuBLAS
     bf16 `x @ w` over the weights dequantised once; the plain version
     and dequantize + matmul at the batched routes' M = 8 and 24; one
-    layer's four projections at M = 24 (a short prompt's prefill) on K1; the
+    layer's four projections at M = 24 (a short prompt's prefill) and at
+    the speculative verify forward's M = 5 and 8 (`K1_SPEC_ROWS`, each
+    projection with its plain version and dequantize + matmul) on K1; the
     host's wall time of one call (the qkv at M = 1). On a generator of its
     own."""
     from vila_tpu_torch.ops import quant
@@ -779,9 +823,11 @@ def phase_k1(torch, seed, dev="cuda", reps=30, dims=DIMS_8B):
     shapes = {"lm_head": (D, V, None, ()), "qkv": (D, (Hq + 2 * Hkv) * hd, None, (2,)),
               "o": (Hkv * 8 * hd, D, None, (2,)), "gate_up": (D, 2 * I, None, (2,)),
               "down": (I, D, 5 << 20, (2,))}
-    rows = {"lm_head": K1_LM_ROWS, "qkv": K1_QKV_ROWS, "o": (24,), "gate_up": (24,),
-            "down": (24,)}
-    recs, ok, layer, slots = [], True, [], {}
+    spec = K1_SPEC_ROWS
+    rows = {"lm_head": K1_LM_ROWS, "qkv": tuple(sorted(set(K1_QKV_ROWS + spec))),
+            "o": spec + (24,), "gate_up": spec + (24,), "down": spec + (24,)}
+    recs, ok, slots = [], True, {}
+    layer = {m: [] for m in spec + (24,)}
     for name, (din, dout, budget, lead) in shapes.items():
         slot = slots[name] = synth_w4_slot(torch, gen, lead, din, dout, budget)
         packed, scales = slot["packed"], slot["scales"]
@@ -807,19 +853,23 @@ def phase_k1(torch, seed, dev="cuda", reps=30, dims=DIMS_8B):
                        max_ulps=bf16_ulps(torch, got, want), ok=good, ms=t, bound_ms=b_ms,
                        bound_by=b_by, bf16_matmul_ms=t_bf16, plain_ms=None,
                        library_ms=None)
-            if name == "lm_head" and m in (8, 24):
+            if (name == "lm_head" and m in (8, 24)) or (name != "lm_head" and m in spec):
                 rec["plain_ms"] = time_ms(torch, ref, 5, flush)
                 rec["library_ms"] = time_ms(torch, lambda: x @ quant.dequantize(
-                    {"packed": packed, "scales": scales}), 5, flush)
-            if m == 24 and name != "lm_head":
-                layer.append(fn)
+                    {"packed": packed[li] if lead else packed,
+                     "scales": scales[li] if lead else scales}), 5, flush)
+            if m in layer and name != "lm_head":  # bound now: fn reads the loop's names
+                layer[m].append(functools.partial(quant.w4_matmul_decode, x, packed, scales,
+                                                  layer_index=li))
             recs.append(rec)
             log(f"[k1] {name:8s} M={m:<3d} err {err:.3e} (tol {tol:.3e}; "
                 f"{rec['max_ulps']:.2f} bf16 ulps of max|ref|) {'OK' if good else 'FAIL'}  kernel "
                 f"{t:.4f} ms  bf16 matmul {t_bf16:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
         del w_l
-    t_layer = time_ms(torch, lambda: [f() for f in layer], reps, flush)
-    log(f"[k1] one layer's four projections (qkv, o, gate_up, down) at M=24: {t_layer:.4f} ms")
+    t_layer = {m: time_ms(torch, lambda: [f() for f in fns], reps, flush)
+               for m, fns in layer.items()}
+    for m, t in t_layer.items():
+        log(f"[k1] one layer's four projections (qkv, o, gate_up, down) at M={m}: {t:.4f} ms")
     # the host's side of a launch: wall time of the wrapper (output
     # allocation, checks, the launch itself), the card kept busy meanwhile
     x = torch.randn((1, D), generator=gen, device=dev).to(torch.bfloat16)
@@ -834,7 +884,8 @@ def phase_k1(torch, seed, dev="cuda", reps=30, dims=DIMS_8B):
     host_us = (time.perf_counter() - t0) / 200 * 1e6
     torch.cuda.synchronize()
     log(f"[k1] host time of one K1 call (stacked slot, M=1): {host_us:.1f} us")
-    return ok, dict(k1=recs, k1_layer_m24_ms=t_layer, k1_host_us=host_us)
+    return ok, dict(k1=recs, k1_layer_m24_ms=t_layer[24],
+                    k1_layer_ms={m: t_layer[m] for m in spec}, k1_host_us=host_us)
 
 
 K1_JAX_TOL = 0.06  # tests/test_quant.py:53, the JAX package's bar for one digit
@@ -1490,6 +1541,20 @@ def summarise(results, launches):
                                          "library_ms", "bf16_matmul_ms")})
                for m, path in K1_BATCHED
                for r in results.get("k1", []) if r["shape"] == "lm_head" and r["m"] == m]
+    # K1 at the speculative verify forward's M = gamma + 1: one layer's four
+    # projections (timings only; the spec paths' launches are in its
+    # `launches_by_path`)
+    spec = []
+    for m in K1_SPEC_ROWS:
+        rs = [r for r in results.get("k1", []) if r["m"] == m and r["shape"] != "lm_head"]
+        if len(rs) == 4:
+            spec.append(dict(
+                work=f"one layer's 4 projections M={m} (spec gamma={m - 1})", m=m,
+                max_abs_err=max(r["max_abs_err"] for r in rs), bound_by=rs[0]["bound_by"],
+                **{k: sum(r[k] for r in rs) for k in ("ms", "plain_ms", "library_ms",
+                                                      "bound_ms", "bf16_matmul_ms")},
+                sequence_ms=results.get("k1_layer_ms", {}).get(m),
+                checks_ok=all(r["ok"] for r in rs)))
     # K1 at act_digits=1 (the `k1_one_digit` check): one bs=1 step's work,
     # layer 1's qkv and the lm_head at M = 1, and the lm_head at every M
     # checked; no path asks for one digit, so its path launches are 0 and
@@ -1547,6 +1612,7 @@ def summarise(results, launches):
             work=", ".join(f"{r['shape']} M={r['m']}" for r in rows),
             checks_ok=all(r["ok"] for r in results[name]),
             **({"batched": batched} if name == "w4_gemv" and batched else {}),
+            **({"spec": spec} if name == "w4_gemv" and spec else {}),
             **({"one_digit": one_digit} if name == "w4_gemv" and one_digit else {}),
             **({"media": media[name]} if media.get(name) else {}),
         ))
@@ -1956,47 +2022,733 @@ def _greedy_request(inputs):
                     out=queue.Queue(), stop_ids=frozenset())
 
 
+HTTP_FORMAT = {"type": "json_schema", "json_schema": {
+    "type": "object", "properties": {"number": {"type": "integer"},
+                                     "parity": {"enum": ["odd", "even"]}},
+    "required": ["number", "parity"]}}
+HTTP_TEACHER = '{"number": 7, "parity": "odd"}'
+
+
+def _post_json(url, body, timeout=300):
+    """The content of one chat completion posted to `url` (a streamed one's
+    deltas joined; it must end with [DONE])."""
+    import urllib.request
+
+    req = urllib.request.Request(url + "/v1/chat/completions", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        if not body.get("stream"):
+            return json.loads(r.read())["choices"][0]["message"]["content"]
+        lines = [ln[6:] for ln in r.read().decode().splitlines() if ln.startswith("data: ")]
+    if lines[-1] != "[DONE]":
+        raise ConnectionError("the stream ended before [DONE]")
+    return "".join(json.loads(ln)["choices"][0]["delta"].get("content", "")
+                   for ln in lines[:-1])
+
+
 def phase_http(torch, engine, n_requests=4, new_tokens=16):
     """The OpenAI-compatible server on 127.0.0.1 (a free port) over a
     max_batch=8 batcher: `n_requests` concurrent text requests through the
     port's client, one of them streamed (the client raises unless the
-    stream ends with [DONE]); each reply must be the batcher's own greedy
-    answer to the same prompt."""
+    stream ends with [DONE]), and with them one `response_format` request
+    (a JSON schema), blocking and streamed, which the batcher hands to the
+    serial engine in the request's own thread while its decode loop runs
+    the others. The constrained requests are taught along HTTP_TEACHER
+    (`constrained_probe`), so that their loop takes one K3 step a token: K3
+    and K1 from the handlers' threads beside K6 and K1 from the batcher's,
+    on one stream. Checks: each batched reply is the batcher's own greedy
+    answer to the same prompt; each constrained reply is the teacher's
+    text, and at every step its logits and the sampler's own pick are the
+    serial engine's on the same request (CONSISTENCY_TOL; picks equal or
+    within K1's band); the batcher stepped while a constrained request
+    decoded; K3 launched at least layers x the constrained steps, and K6
+    launched."""
     import concurrent.futures as cf
     import threading
 
+    from vila_tpu_torch.inference.generate import GenerationConfig
+    from vila_tpu_torch.ops import _build
     from vila_tpu_torch.serving import client, server
     from vila_tpu_torch.serving.batcher import ContinuousBatcher
 
+    layers = engine.cfg.llm.num_hidden_layers
     prompts = [f"Say something about the number {i}." for i in range(n_requests)]
+    json_prompt = "Give the number 7 and its parity as JSON."
+    target = engine.tokenizer(HTTP_TEACHER, add_special_tokens=False).input_ids
+    json_body = {"messages": [{"role": "user", "content": json_prompt}],
+                 "max_tokens": len(target) + 1, "response_format": HTTP_FORMAT}
+    with constrained_probe(torch, target) as sp:
+        serial = engine.generate_content([json_prompt], GenerationConfig(
+            max_new_tokens=len(target) + 1, response_format=HTTP_FORMAT))
+    ref = sp.samplers[0]
     batcher = ContinuousBatcher(engine, max_batch=8, max_len=2048)
     httpd = server.make_server(batcher, "127.0.0.1", 0)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
     try:
-        gc = server._gen_config({"max_tokens": new_tokens, "temperature": 0})
+        gen_cfg = server._gen_config({"max_tokens": new_tokens, "temperature": 0})
         direct = [batcher.generate_content(server.parse_messages(
-            client.build_messages(p)), gc) for p in prompts]
+            client.build_messages(p)), gen_cfg) for p in prompts]
+        steps0 = batcher.steps
+        _build.reset_launches()
         t0 = time.perf_counter()
-        with cf.ThreadPoolExecutor(n_requests) as ex:
+        with constrained_probe(torch, target, engine, tick=lambda: batcher.steps) as cp, \
+                cf.ThreadPoolExecutor(n_requests + 2) as ex:
             futs = [ex.submit(lambda i: "".join(client.chat(
                 url, client.build_messages(prompts[i]), max_tokens=new_tokens,
                 temperature=0.0, stream=i == 0, timeout=300)), i)
                 for i in range(n_requests)]
+            json_futs = [ex.submit(_post_json, url, dict(json_body, stream=stream))
+                         for stream in (False, True)]
             got = [f.result(timeout=300) for f in futs]
+            json_got = [f.result(timeout=300) for f in json_futs]
         wall = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+        steps = batcher.steps - steps0
     finally:
         httpd.shutdown()
         httpd.server_close()
         batcher.shutdown()
         thread.join(timeout=30)
     ok = [g.strip() == d for g, d in zip(got, direct)]
-    log(f"[http] {n_requests} concurrent requests (request 0 streamed) in "
-        f"{wall:.2f} s: replies equal the batcher's own greedy answers: {ok}; "
-        f"first reply {got[0][:40]!r}")
-    return all(ok) and not thread.is_alive(), dict(wall_s=wall, equal=ok)
+    json_ok = [g.strip() == serial == HTTP_TEACHER for g in json_got]
+    held = [_held(s.rows, s.picks, ref.rows, ref.picks) for s in cp.samplers]
+    beside = [t[-1] - t[0] for t in cp.ticks.values()]  # batched steps during each
+    k3_steps = len(cp.step_ms)
+    launched = (k3_steps == 2 * (len(target) - 1) and counts["fused_layer_batched"] > 0
+                and counts["fused_layer"] >= layers * k3_steps)
+    log(f"[http] {n_requests} concurrent requests (request 0 streamed) and 2 response_format "
+        f"requests (blocking, streamed) in {wall:.2f} s, {steps} batched steps: replies equal "
+        f"the batcher's own greedy answers: {ok}; constrained replies, taught along "
+        f"{HTTP_TEACHER!r} ({k3_steps} K3 steps in all, {beside} batched steps during each), "
+        f"equal the serial engine's: {json_ok}; their rows against the serial ones: "
+        f"{[(h['gap_max'], h['parts']) for h in held]}; launches {counts}; first reply "
+        f"{got[0][:40]!r}")
+    good = (all(ok) and all(json_ok) and len(held) == 2 and all(h["ok"] for h in held)
+            and any(b > 0 for b in beside) and launched and steps > 0
+            and not thread.is_alive())
+    return good, dict(wall_s=wall, equal=ok, constrained_equal=json_ok, constrained=serial,
+                      constrained_steps=k3_steps, batched_steps_beside=beside,
+                      constrained_gap_max=[h["gap_max"] for h in held], launches=counts,
+                      batched_steps=steps)
 
+
+# --------------------------------------------------------------------------
+# The decoding options: prompt-lookup speculative and JSON-constrained
+# --------------------------------------------------------------------------
+
+SPEC_GAMMAS = (4, 7)
+SPEC_NEW_TOKENS = 32
+# a prompt that repeats a span, so that the 2-gram lookup has material
+SPEC_TEXT = ("Read this twice: the red cube sits on the blue table next to the green "
+             "ball. Again: the red cube sits on the blue table next to the green ball. "
+             "Where does the red cube sit?")
+K1_BAND = 2.0 ** -7  # K1's bar, one bf16 ulp of max|logit|: its tie band (ROADMAP §3)
+
+
+def parting(torch, got, want, rows):
+    """Where the token stream `got` first leaves `want`, and whether that
+    step is a tie of K1's band: `rows[i]` (the logits that chose want[i],
+    on want's own prefix, which both streams share up to the parting step)
+    puts its top two, and both streams' tokens, within K1_BAND x max|logit|
+    of the top. Streams that part are compared no further."""
+    n = min(len(got), len(want))
+    for i in range(n):
+        if got[i] != want[i]:
+            row = rows[i].float()
+            band = K1_BAND * float(row.abs().max())
+            top2 = row.topk(2).values
+            gaps = [float(top2[0] - top2[1]), float(row.max() - row[got[i]]),
+                    float(row.max() - row[want[i]])]
+            return dict(step=i, tie=max(gaps) <= band, gaps=gaps, band=band, compared=i + 1)
+    return dict(step=None, tie=True, compared=n)
+
+
+def profiled_busy(torch, fn):
+    """(the device's busy ms while `fn` runs, the profile): the sum of the
+    kernels' and copies' own intervals under torch.profiler (one stream:
+    none overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ms for _, ms in _device_events(prof)), prof
+
+
+def _device_events(prof):
+    """(name, ms) of each interval the profile traced on the device."""
+    from torch.autograd import DeviceType
+
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def _dtoh_ms(prof):
+    """The device-to-host copies' ms in a profile."""
+    return sum(ms for name, ms in _device_events(prof) if "DtoH" in name)
+
+
+def _cache_copy(cache):
+    """A copy of a decode cache that a pass may write without touching it."""
+    return dict(cache, k=cache["k"].clone(), v=cache["v"].clone(), valid=cache["valid"].clone())
+
+
+class spec_probe:
+    """While active: each K1 launch counted by its rows (`quant.launch_gemv`,
+    reached only where the kernel launches), and each speculative verify
+    forward (`speculative.qwen2.forward`) timed: CUDA events around it, the
+    host's issue time (the call returns once every launch is queued), and
+    its start on the host clock. With `plain`, each verify forward is first
+    run on a copy of the cache through the plain versions (no launch) and
+    the two logits compared: max |d| / max|plain| (`gaps`), and whether the
+    kernel pass's argmax ids lie within K1's band of the plain top
+    (`in_band`)."""
+
+    def __init__(self, torch, plain=False):
+        self.torch, self.plain = torch, plain
+        self.k1_rows, self.fwd, self.gaps, self.in_band = {}, [], [], []
+
+    def __enter__(self):
+        from vila_tpu_torch.inference import speculative
+        from vila_tpu_torch.ops import quant
+
+        torch = self.torch
+        self.speculative, self.quant = speculative, quant
+        self.saved = (speculative.qwen2, quant.launch_gemv)
+        real_fwd, real_launch = speculative.qwen2.forward, quant.launch_gemv
+
+        def forward(llm, cfg, **kw):
+            if self.plain:
+                with plain_versions():
+                    want, _ = real_fwd(llm, cfg, **dict(kw, cache=_cache_copy(kw["cache"])))
+            t0 = time.perf_counter()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = real_fwd(llm, cfg, **kw)
+            e.record()
+            self.fwd.append((t0, time.perf_counter() - t0, s, e))
+            if self.plain:
+                got, want = out[0][0].float(), want[0].float()
+                scale = want.abs().amax(-1)
+                self.gaps.append(float((got - want).abs().max() / scale.max()))
+                ids = got.argmax(-1)
+                margin = want.max(-1).values - want.gather(-1, ids[:, None])[:, 0]
+                self.in_band.append(bool((margin <= K1_BAND * scale).all()))
+            return out
+
+        def launch(x, *a, **kw):
+            self.k1_rows[int(x.shape[0])] = self.k1_rows.get(int(x.shape[0]), 0) + 1
+            return real_launch(x, *a, **kw)
+
+        speculative.qwen2 = argparse.Namespace(forward=forward)
+        quant.launch_gemv = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.speculative.qwen2, self.quant.launch_gemv = self.saved
+        return False
+
+    def timings(self):
+        """(device ms of each verify forward, host issue ms of each, host ms
+        from each forward's start to the next one's)."""
+        self.torch.cuda.synchronize()
+        dev = [s.elapsed_time(e) for _, _, s, e in self.fwd]
+        issue = [1e3 * t for _, t, _, _ in self.fwd]
+        starts = [t0 for t0, _, _, _ in self.fwd]
+        return dev, issue, [1e3 * (b - a) for a, b in zip(starts, starts[1:])]
+
+
+def _stream(engine, inputs, gen_cfg):
+    """(ids, seconds to the first chunk, seconds from the first chunk to the
+    last) of one `stream_ids` request."""
+    t0 = time.perf_counter()
+    ids, times = [], []
+    for chunk in engine.stream_ids(inputs, gen_cfg):
+        ids.extend(chunk)
+        times.append(time.perf_counter())
+    return ids, times[0] - t0, times[-1] - times[0]
+
+
+def _spec_then_vanilla(torch, engine, inputs, gamma, n_spec, n_vanilla):
+    """The engine's own prefill (`_start`), one speculative chunk of
+    `n_spec` tokens, then `n_vanilla` width-1 greedy steps from its
+    hand-off state (`_decode`, the fused K3 route): the greedy ids, the
+    first token included."""
+    from vila_tpu_torch.inference.generate import GenerationConfig
+    from vila_tpu_torch.inference.speculative import init_history, spec_chunk
+
+    gen_cfg = GenerationConfig(max_new_tokens=n_spec + gamma + n_vanilla + 1)
+    logits, cache, prompt_len, cache_len = engine._start(inputs, gen_cfg)
+    first = int(logits[0].argmax())
+    hist, hlen = init_history(inputs["input_ids"], first, cache_len + 8 * (gamma + 1))
+    out, n, cur, _, pos, cache, *_ = spec_chunk(
+        engine.params["llm"], engine.cfg.llm, [first], [int(inputs["input_ids"][-1])],
+        prompt_len, cache, hist, hlen, max_out=n_spec, gamma=gamma)
+    gen = torch.Generator(device=engine.device).manual_seed(0)
+    toks, _, _ = engine._decode(torch.tensor(cur, device=engine.device).long(), cache, pos,
+                                gen, n_vanilla, gen_cfg)
+    return [first] + out[:n].tolist() + toks.tolist(), n
+
+
+def phase_spec(torch, engine, seed, gammas=SPEC_GAMMAS, new_tokens=SPEC_NEW_TOKENS):
+    """Prompt-lookup speculative decoding (`GenerationConfig.lookup_gamma`)
+    through the serial engine at full width: a 448² image + a question
+    whose prompt repeats a span, and the same text alone, at 32 new tokens,
+    each with gamma 4 and 7 beside the vanilla greedy stream of the same
+    request. Reported: TTFT, decode tok/s speculative and vanilla, tokens
+    per verify forward, each verify forward's span between CUDA events, the
+    device's busy time a forward on request 0 at gamma 4 (`profiled_busy`:
+    a traced stream less a traced one-token request; its host operators go
+    to spec_profile.txt in OUT_DIR), host issue ms and host iteration ms,
+    K1 launches by M. Checks, on every request and gamma: exact launches
+    (K1 at M = 1 for the prefill's lm_head, then (4 x layers + 1) at
+    M = gamma + 1 a verify forward; K2 4 x layers; no K3); the speculative
+    stream equals the vanilla one or parts only at a tie of K1's band of
+    the vanilla path's own logits (`parting`); every K1 and K2 call of the
+    stream within its bar of its plain version on the same inputs
+    (`tap_calls`; the `k1` rows hold K1 at M = 5 and 8 over a layer's four
+    projections), every verify forward against the same forward through
+    the plain versions on a copy of its cache (CONSISTENCY_TOL, and the
+    kernel's argmax ids within K1's band of the plain top). On request 0 at
+    gamma 4, a speculative chunk of 12 tokens followed by 12 width-1 steps
+    equals the vanilla stream up to such a tie (stale slots masked at the
+    hand-off)."""
+    from vila_tpu_torch.inference.generate import GenerationConfig
+    from vila_tpu_torch.ops import _build
+
+    layers = engine.cfg.llm.num_hidden_layers
+    prompts = {"image": [_images(seed + 11, 1)[0], SPEC_TEXT], "text": SPEC_TEXT}
+    base = dict(max_new_tokens=new_tokens, stop_token_ids=(-1,))
+    _stream(engine, engine.prepare_inputs(prompts["text"]),
+            GenerationConfig(lookup_gamma=gammas[0], **base))  # warm-up
+    ok, out, launches = True, {}, {}
+    for tag, prompt in prompts.items():
+        inputs = engine.prepare_inputs(prompt)
+        van, v_ttft, v_dec = _stream(engine, inputs, GenerationConfig(**base))
+        rows, _ = _forced_logits(torch, engine, inputs, van)  # the vanilla path's logits
+        v_tok_s = (len(van) - 1) / v_dec
+        log(f"[spec] {tag}: prompt {inputs['input_ids'].shape[0]} tokens; vanilla TTFT "
+            f"{1e3 * v_ttft:.1f} ms, decode {v_tok_s:.1f} tok/s")
+        for gamma in gammas:
+            gen_cfg = GenerationConfig(lookup_gamma=gamma, **base)
+            first = tag == "image" and gamma == gammas[0]
+            _build.reset_launches()
+            with spec_probe(torch) as pr:
+                ids, ttft, dec = _stream(engine, inputs, gen_cfg)
+            counts = dict(_build.LAUNCHES)
+            dev_ms, issue_ms, iter_ms = pr.timings()
+            iters = len(dev_ms)
+            # the device's own time a verify forward (request 0 at gamma 4): the
+            # traced stream's busy time less the prefill's (a one-token
+            # request), over the forwards
+            own_ms, ids2 = None, ids
+            if first:
+                out_p = []
+                busy, prof = profiled_busy(torch, lambda: out_p.append(
+                    _stream(engine, inputs, gen_cfg)[0]))
+                busy_1, _ = profiled_busy(torch, lambda: _stream(
+                    engine, inputs, GenerationConfig(max_new_tokens=1, stop_token_ids=(-1,))))
+                own_ms, ids2 = (busy - busy_1) / iters, out_p[0]
+                os.makedirs(OUT_DIR, exist_ok=True)
+                with open(os.path.join(OUT_DIR, "spec_profile.txt"), "w") as f:
+                    f.write(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                                      row_limit=40))
+                host = sorted(((e.key, e.self_cpu_time_total / 1e3 / iters, e.count / iters)
+                               for e in prof.key_averages()), key=lambda r: -r[1])[:8]
+            t0 = time.perf_counter()
+            want = dict(_no_launches(), w4_gemv=1 + iters * (4 * layers + 1),
+                        w4_gemm=4 * layers)
+            want_rows = {1: 1, gamma + 1: iters * (4 * layers + 1)}
+            part = parting(torch, ids, van, rows)
+            checks = dict(launches=counts == want and pr.k1_rows == want_rows,
+                          repeat=ids2 == ids, length=len(ids) == new_tokens,
+                          stream=part["tie"])
+            rec = dict(
+                prompt_tokens=int(inputs["input_ids"].shape[0]), gamma=gamma, ttft_ms=1e3 * ttft,
+                decode_tok_s=(len(ids) - 1) / dec, vanilla_ttft_ms=1e3 * v_ttft,
+                vanilla_decode_tok_s=v_tok_s, verify_forwards=iters,
+                tokens_per_forward=(len(ids) - 1) / iters,
+                verify_ms_median=statistics.median(dev_ms),
+                verify_busy_ms=own_ms,
+                issue_ms_median=statistics.median(issue_ms),
+                iteration_ms_median=statistics.median(iter_ms) if iter_ms else None,
+                k1_by_m=pr.k1_rows, launches=counts, parting=part, ids=ids, vanilla=van)
+            rec["issue_share"] = (rec["issue_ms_median"] / rec["iteration_ms_median"]
+                                  if iter_ms else None)
+            # every call against its plain version (the `k1` rows hold K1 at
+            # M = 5 and 8 on a layer's four projections), every verify forward
+            # against the plain pass on a copy of its cache
+            with tap_calls(engine.cfg.llm.vocab_size, check=True) as tk:
+                checked, _, _ = _stream(engine, inputs, gen_cfg)
+            checks["local"] = tk.local_ok() and checked == ids
+            rec["local_max"] = {k: max((e / s for e, s in v), default=0.0)
+                                for k, v in tk.local.items()}
+            rec["k1_calls_checked"] = len(tk.local["w4_gemv"])
+            with spec_probe(torch, plain=True) as pp:
+                forced, _, _ = _stream(engine, inputs, gen_cfg)
+            checks["verify_forwards"] = (forced == ids and len(pp.gaps) == iters
+                                         and all(pp.in_band) and max(pp.gaps) <= CONSISTENCY_TOL)
+            rec["verify_gap_max"] = max(pp.gaps)
+            rec["verify_in_band"] = sum(pp.in_band)
+            if first:
+                hand, n_spec = _spec_then_vanilla(torch, engine, inputs, gamma, 12, 12)
+                rec["spec_then_vanilla"] = parting(torch, hand, van, rows)
+                rec["spec_then_vanilla"]["spec_tokens"] = n_spec
+                checks["spec_then_vanilla"] = rec["spec_then_vanilla"]["tie"]
+            rec["checks"], rec["checks_s"] = checks, time.perf_counter() - t0
+            good = all(checks.values())
+            ok &= good
+            out[f"{tag} gamma={gamma}"] = rec
+            launches[f"spec {tag} g{gamma}"] = counts
+            log(f"[spec] {tag} gamma={gamma}: TTFT {1e3 * ttft:.1f} ms, decode "
+                f"{rec['decode_tok_s']:.1f} tok/s (vanilla {v_tok_s:.1f}); {iters} verify "
+                f"forwards, {rec['tokens_per_forward']:.2f} tokens each; verify forward "
+                f"{rec['verify_ms_median']:.2f} ms between its events, device busy "
+                + ("not traced" if own_ms is None else f"{own_ms:.2f} ms (traced)")
+                + f", host issue {rec['issue_ms_median']:.2f} ms of a "
+                f"{rec['iteration_ms_median']:.2f} ms iteration; K1 launches by M "
+                f"{pr.k1_rows}; stream against vanilla: "
+                + ("equal" if part["step"] is None else
+                   f"parts at step {part['step']} (gaps {part['gaps']}, band "
+                   f"{part['band']:.4f})")
+                + f"; {rec['k1_calls_checked']} K1 calls checked, local max {rec['local_max']}"
+                + (f"; host self ms (calls) a forward, traced: " + ", ".join(
+                    f"{k} {t:.2f} ({c:.0f})" for k, t, c in host) if first else "")
+                + f"; verify forwards against plain: gap max {rec['verify_gap_max']:.4f}, "
+                f"{rec['verify_in_band']}/{len(pp.in_band)} in band"
+                + (f"; spec then vanilla {rec['spec_then_vanilla']}" if first else "")
+                + f"; checks {rec['checks_s']:.1f} s -> {'OK' if good else 'FAIL ' + str(checks)}")
+    return ok, out, launches
+
+
+CONSTRAINED_SCHEMA = {"type": "object",
+                      "properties": {"name": {"type": "string"},
+                                     "colour": {"enum": ["red", "green", "blue"]}},
+                      "required": ["name", "colour"]}
+PROBE_SCHEMA = {"type": "object", "properties": {"answer": {"enum": ["yes", "no"]}},
+                "required": ["answer"]}
+
+
+class constrained_probe:
+    """While active, `JsonConstrainedSampler.pick` runs as it is on each
+    step's logits, timed on the host, and each sampler keeps its rows (f32,
+    on the CPU) and its own picks (`sampler.rows`, `sampler.picks`; the
+    samplers in `samplers`); `grammar_token_mask` is timed and its cache
+    misses counted. With `target` (the token ids of a JSON text), the
+    sampler then takes the target's next token in place of its own pick:
+    the engine's own loop (`_constrained_loop` and `_decode_one`) decodes
+    along the target, whatever the random weights would pick. With
+    `engine`, that engine's own `_decode_one` is wrapped: the host's ms in
+    each step (the forward's issue, the wait for the device and the (V,)
+    f32 copy), and with `tick` that callable's value before each step, by
+    thread (`ticks`). With `plain` too, its own `_prefill` and each step
+    first run on a copy of the cache under `plain_versions`, and the
+    sampler's own pick on that plain row is kept beside the kernel's
+    (`sampler.plain`, `sampler.plain_picks`)."""
+
+    def __init__(self, torch, target=None, engine=None, plain=False, tick=None):
+        self.torch, self.target, self.engine, self.plain, self.tick = (
+            torch, target, engine, plain, tick)
+        self.samplers, self.pick_ms, self.mask_ms, self.step_ms = [], [], [], []
+        self.misses, self.ticks = 0, {}
+        self._plain_row, self._quiet = None, False
+
+    def __enter__(self):
+        import threading
+
+        import numpy as np
+
+        from vila_tpu_torch.inference import constrained
+
+        torch, mod = self.torch, constrained
+        self.mod = mod
+        self.saved = (mod.JsonConstrainedSampler.pick, mod.grammar_token_mask)
+        pick, mask = self.saved
+
+        def probed_pick(sampler, logits):
+            if not hasattr(sampler, "rows"):
+                sampler.rows, sampler.picks, sampler.plain, sampler.plain_picks = [], [], [], []
+                self.samplers.append(sampler)
+            state = (list(sampler._ids), sampler.text)
+            t0 = time.perf_counter()
+            tid = pick(sampler, logits)
+            self.pick_ms.append(1e3 * (time.perf_counter() - t0))
+            sampler.rows.append(torch.from_numpy(np.asarray(logits, np.float32).copy()))
+            sampler.picks.append(tid)
+            if self.plain:
+                own = (sampler._ids, sampler.text)
+                sampler._ids, sampler.text = list(state[0]), state[1]
+                self._quiet = True
+                sampler.plain.append(self._plain_row)
+                sampler.plain_picks.append(pick(sampler, self._plain_row.numpy()))
+                self._quiet = False
+                sampler._ids, sampler.text = own
+            if self.target is None:
+                return tid
+            sampler._ids, sampler.text = state
+            i = len(state[0])
+            return sampler._accept(int(self.target[i])) if i < len(self.target) else None
+
+        def timed_mask(tok, automaton):
+            n = len(mod._MASK_CACHE)
+            t0 = time.perf_counter()
+            m = mask(tok, automaton)
+            if not self._quiet:
+                self.mask_ms.append(1e3 * (time.perf_counter() - t0))
+                self.misses += len(mod._MASK_CACHE) > n
+            return m
+
+        mod.JsonConstrainedSampler.pick, mod.grammar_token_mask = probed_pick, timed_mask
+        eng = self.engine
+        if eng is not None:
+            prefill, step = eng._prefill, eng._decode_one
+
+            def plain_prefill(ids, valid, media, media_pos, cache, prompt_len):
+                with plain_versions():
+                    want, _ = prefill(ids, valid, media, media_pos, _cache_copy(cache),
+                                      prompt_len)
+                self._plain_row = want[0].float().cpu()
+                return prefill(ids, valid, media, media_pos, cache, prompt_len)
+
+            def probed_step(tok, cache, pos):
+                if self.plain:
+                    with plain_versions():
+                        want, _ = step(tok, _cache_copy(cache), pos)
+                    self._plain_row = torch.from_numpy(want)
+                if self.tick is not None:
+                    self.ticks.setdefault(threading.get_ident(), []).append(self.tick())
+                t0 = time.perf_counter()
+                out = step(tok, cache, pos)
+                self.step_ms.append(1e3 * (time.perf_counter() - t0))
+                return out
+
+            if self.plain:
+                eng._prefill = plain_prefill
+            eng._decode_one = probed_step
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.JsonConstrainedSampler.pick, self.mod.grammar_token_mask = self.saved
+        if self.engine is not None:
+            for name in ("_prefill", "_decode_one"):  # the class's methods again
+                self.engine.__dict__.pop(name, None)
+        return False
+
+
+def _held(rows, picks, want_rows, want_picks):
+    """One constrained stream's logits rows and own picks against another's
+    on the same steps: (the largest max |d| / max|want| of a row, the steps
+    where the picks differ, each with whether the two picks lie within
+    K1's band of the want row)."""
+    gaps, parts = [], []
+    for i, (got, want, a, b) in enumerate(zip(rows, want_rows, picks, want_picks)):
+        scale = float(want.abs().max())
+        gaps.append(float((got - want).abs().max()) / scale)
+        if a != b:
+            gap = None if a is None or b is None else float(want[b] - want[a])
+            parts.append(dict(step=i, got=a, want=b, gap=gap,
+                              tie=gap is not None and gap <= K1_BAND * scale))
+    n = min(len(rows), len(want_rows))
+    return dict(gap_max=max(gaps, default=0.0), parts=parts, compared=n,
+                ok=len(rows) == len(want_rows) and max(gaps, default=0.0) <= CONSISTENCY_TOL
+                and all(p["tie"] for p in parts))
+
+
+def _scalar_prefix(text):
+    """A bare top-level number or literal prefix such as "-", "1.", "2e",
+    "t" or "fal": the reference's validator calls it complete (its scan
+    ends inside a number or literal at depth 0), so the sampler stops
+    there, though `json.loads` rejects it (ROADMAP §3)."""
+    import re
+
+    return re.fullmatch(r"\s*(-?[0-9]*\.?[0-9]*([eE][-+]?[0-9]*)?|t(r(ue?)?)?|f(a(l(se?)?)?)?"
+                        r"|n(u(ll?)?)?)\s*", text) is not None
+
+
+def _schema_fault(value, schema):
+    """How a complete answer misses what its request asked for in the way
+    the reference's guide lets it (ROADMAP §3), or None: the guide narrows
+    only the object keys at depth 1, and holds neither a top-level object
+    (for `json_object`, `schema` None, too), nor the required keys, nor an
+    enum's values."""
+    if not isinstance(value, dict):
+        return "not an object"
+    if schema is None:
+        return None
+    missing = [k for k in schema.get("required", ()) if k not in value]
+    if missing:
+        return f"required keys missing: {missing}"
+    outside = [k for k, p in schema.get("properties", {}).items()
+               if "enum" in p and k in value and value[k] not in p["enum"]]
+    return f"values outside their enum: {outside}" if outside else None
+
+
+def phase_constrained(torch, engine, seed, new_tokens=48, dev="cuda"):
+    """JSON-constrained decoding (`GenerationConfig.response_format`)
+    through the serial engine: the e2e engine (NVILA-8B, ByteTokenizer)
+    with {"type": "json_object"} and a JSON schema of two required
+    properties (a string and an enum), 48 new tokens on a 448² image and a
+    question; then the committed quant probe through `entry.load` (its
+    `tokenizer.json`, vocab 512), its LLM quantized to W4 on the card, a
+    pope-mini image and question with a schema whose property is the
+    yes/no enum. The request as served (the random weights' own answer,
+    which may end after one token): a valid JSON prefix, complete and
+    parsed where the sampler says done (or the reference's scalar-prefix
+    fault, `_scalar_prefix`, reported), an object's keys in the schema's
+    order (an answer the guide lets miss its schema reported as the
+    reference's fault, `_schema_fault`), the stream equal to the same
+    request's under `plain_versions` or parting only at a step where the
+    plain logits put the two picks within K1's band, exact launches. Then
+    the same request through the engine's own loop taught along a JSON
+    text (`constrained_probe`: one K3 step a token): its text, exact
+    launches (K2 for the prefill, per step K3 a layer and K1 twice), and
+    at every step the logits against the plain versions' on a copy of the
+    cache (CONSISTENCY_TOL) and the sampler's own pick on each row equal or
+    within K1's band. Reported: TTFT; the vocab table's and each new
+    state's grammar mask's build time; per taught token the device's busy
+    ms (`profiled_busy`: the taught stream less a one-token request, over
+    its steps) and its logits copy's share, the host's ms in the step, the
+    sampler's pick (mask and validator) and the mask alone."""
+    from vila_tpu_torch import entry
+    from vila_tpu_torch.eval import benchmarks, quant_acc
+    from vila_tpu_torch.inference import constrained
+    from vila_tpu_torch.inference.generate import GenerationConfig, GenerationEngine
+    from vila_tpu_torch.ops import _build
+    from vila_tpu_torch.ops.quant import quantize_llm_params
+
+    probe = entry.load(quant_acc.PROBE, device=dev)
+    probe = GenerationEngine(dict(probe.params, llm=quantize_llm_params(
+        probe.params["llm"], bits=4, fuse=True, cfg=probe.cfg.llm)), probe.cfg,
+        probe.tokenizer, device=dev)
+    ds_path = benchmarks.resolve_dataset(quant_acc.DATASET)
+    row = benchmarks.load_dataset(ds_path)[0]
+    from PIL import Image
+
+    with Image.open(os.path.join(os.path.dirname(ds_path), row["image"])) as img:
+        img.load()
+        probe_prompt = [img, row["question"] + " Answer in JSON."]
+    image = _images(seed + 21, 1)[0]
+    requests = [  # (tag, engine, prompt, response_format, schema, teacher text)
+        ("json_object", engine, [image, "Describe the image as JSON."],
+         {"type": "json_object"}, None, '{"objects": ["cube", "ball"], "count": 2}'),
+        ("json_schema", engine, [image, "Name the main object and its colour in JSON."],
+         {"type": "json_schema", "json_schema": CONSTRAINED_SCHEMA}, CONSTRAINED_SCHEMA,
+         '{"name": "red cube", "colour": "red"}'),
+        ("probe json_schema", probe, probe_prompt,
+         {"type": "json_schema", "json_schema": PROBE_SCHEMA}, PROBE_SCHEMA,
+         '{"answer": "yes"}'),
+    ]
+    ok, out, launches = True, {}, {}
+    val = constrained.JsonPrefixValidator()
+    f3 = lambda x: "-" if x is None else f"{x:.3f}"  # noqa: E731
+    med = lambda xs: statistics.median(xs) if xs else None  # noqa: E731
+    for tag, eng, prompt, rf, schema, teacher in requests:
+        layers = eng.cfg.llm.num_hidden_layers
+        inputs = eng.prepare_inputs(prompt)
+        _stream(eng, inputs, GenerationConfig(max_new_tokens=2, stop_token_ids=(-1,)))
+        # the grammar's tables from scratch: the vocab texts, then each state's mask
+        tok = eng.tokenizer
+        constrained._TOKEN_TABLE_CACHE.pop(id(tok), None)
+        for key in [k for k in list(constrained._MASK_CACHE) if k[0] == id(tok)]:
+            constrained._MASK_CACHE.pop(key, None)
+        t0 = time.perf_counter()
+        n_texts = len(constrained._token_texts(tok))
+        table_ms = 1e3 * (time.perf_counter() - t0)
+        # the request as served: the random weights' own answer
+        served = GenerationConfig(max_new_tokens=new_tokens, response_format=rf)
+        _build.reset_launches()
+        with constrained_probe(torch, engine=eng) as pr:
+            ids, ttft, _ = _stream(eng, inputs, served)
+        counts = dict(_build.LAUNCHES)
+        with plain_versions(), constrained_probe(torch) as pp:
+            plain_ids, _, _ = _stream(eng, inputs, served)
+        steps = len(pr.step_ms)
+        want = dict(_no_launches(), w4_gemm=4 * layers, w4_gemv=1 + 2 * steps,
+                    fused_layer=layers * steps)
+        text = tok.decode(ids, skip_special_tokens=True)
+        done = val.is_complete(text)
+        parsed = order = fault = schema_fault = None
+        if done:
+            try:
+                value = json.loads(text)
+                parsed = True
+                schema_fault = _schema_fault(value, schema)
+                order = (not isinstance(value, dict) or schema is None
+                         or list(value) == [k for k in schema["properties"] if k in value])
+            except ValueError:
+                parsed, fault = False, _scalar_prefix(text)
+        part = dict(step=None, tie=True)
+        for i, (a, b) in enumerate(zip(ids, plain_ids)):
+            if a != b:  # the plain row that chose b: the two picks within K1's band?
+                r = pp.samplers[0].rows[i]
+                band = K1_BAND * float(r.abs().max())
+                part = dict(step=i, gap=float(r[b] - r[a]), band=band,
+                            tie=float(r[b] - r[a]) <= band)
+                break
+        same_len = part["step"] is not None or len(ids) == len(plain_ids)
+        # the same request taught along `teacher`, through the engine's own loop
+        target = tok(teacher, add_special_tokens=False).input_ids
+        taught = GenerationConfig(max_new_tokens=len(target) + 1, response_format=rf)
+        _build.reset_launches()
+        with constrained_probe(torch, target, eng, plain=True) as tp:
+            t_ids, _, _ = _stream(eng, inputs, taught)
+        t_counts = dict(_build.LAUNCHES)
+        t_steps = len(tp.step_ms)
+        t_want = dict(_no_launches(), w4_gemm=4 * layers, w4_gemv=1 + 2 * t_steps,
+                      fused_layer=layers * t_steps)
+        s = tp.samplers[0]
+        held = _held(s.rows, s.picks, s.plain, s.plain_picks)
+        with constrained_probe(torch, target, eng) as tt:  # host times, no plain pass
+            _stream(eng, inputs, taught)
+        with constrained_probe(torch, target):
+            busy, prof = profiled_busy(torch, lambda: _stream(eng, inputs, taught))
+        busy_1, prof_1 = profiled_busy(torch, lambda: _stream(
+            eng, inputs, GenerationConfig(max_new_tokens=1, stop_token_ids=(-1,))))
+        checks = dict(prefix=bool(text) and val.is_valid_prefix(text),
+                      complete=not done or bool(parsed) or fault,
+                      order=not done or bool(order) or fault,
+                      plain=part["tie"] and same_len, launches=counts == want,
+                      taught_text=(tok.decode(t_ids, skip_special_tokens=True) == teacher
+                                   and len(t_ids) == len(target) and s.done()),
+                      taught_launches=t_counts == t_want and t_steps == len(target) - 1,
+                      taught_plain=held["ok"])
+        rec = dict(new_tokens=len(ids), text=text, done=done, scalar_prefix_fault=fault,
+                   schema_fault=schema_fault, ttft_ms=1e3 * ttft, served_steps=steps,
+                   vocab_texts=n_texts, table_ms=table_ms,
+                   masks_built=pr.misses + tp.misses,
+                   mask_build_ms_max=max(pr.mask_ms + tp.mask_ms),
+                   teacher=teacher, taught_steps=t_steps, taught_launches=t_counts,
+                   taught_gap_max=held["gap_max"], taught_parts=held["parts"],
+                   step_device_ms=(busy - busy_1) / t_steps,
+                   copy_device_ms=(_dtoh_ms(prof) - _dtoh_ms(prof_1)) / t_steps,
+                   step_host_ms=med(tt.step_ms), pick_ms=med(tt.pick_ms),
+                   mask_ms=med(tt.mask_ms), plain_ids=plain_ids, parting=part,
+                   launches=counts, checks=checks)
+        good = all(checks.values())
+        ok &= good
+        out[tag] = rec
+        launches[f"constrained {tag}"] = counts
+        launches[f"constrained {tag} taught"] = t_counts
+        log(f"[constrained] {tag}: {len(ids)} tokens {text[:60]!r} (done {done}"
+            + (", the reference's scalar-prefix fault" if fault else "")
+            + (f", the reference's schema-guide fault: {schema_fault}" if schema_fault else "")
+            + f"); TTFT {rec['ttft_ms']:.1f} ms; vocab table {n_texts} texts in "
+            f"{table_ms:.1f} ms, {rec['masks_built']} masks built (slowest "
+            f"{rec['mask_build_ms_max']:.1f} ms); against plain: "
+            + ("equal" if part["step"] is None else f"parts at step {part['step']} {part}")
+            + f"; launches {counts}. Taught along {teacher!r}: {t_steps} steps, launches "
+            f"{t_counts}, logits against plain gap max {held['gap_max']:.4f}, picks parting "
+            f"{held['parts']}; per token: device busy {f3(rec['step_device_ms'])} ms "
+            f"(logits copy {f3(rec['copy_device_ms'])}), host in the step "
+            f"{f3(rec['step_host_ms'])}, pick {f3(rec['pick_ms'])} (mask "
+            f"{f3(rec['mask_ms'])}) -> {'OK' if good else 'FAIL ' + str(checks)}")
+    del probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, out, launches
 
 # --------------------------------------------------------------------------
 # NVILA's media paths: dynamic-S2 and TSP video at NVILA-8B width
@@ -3211,33 +3963,19 @@ def _forced_logits(torch, engine, inputs, ids=None, steps=None):
     step a token) fed `ids`, or, with `ids` None, fed its own argmax for
     `steps` tokens (greedy): ((len, vocab) f32 logits on the CPU, the ids),
     the row of step i the one that chose ids[i]."""
-    from vila_tpu_torch.inference.generate import (PROMPT_BUCKETS, _bucket, _round_up,
-                                                   padded_prompt)
-    from vila_tpu_torch.models import qwen2
+    from vila_tpu_torch.inference.generate import GenerationConfig
 
-    cfg, dev = engine.cfg, engine.device
     n = len(ids) if ids is not None else steps
-    prompt_len = int(inputs["input_ids"].shape[0])
-    s_pad = _bucket(prompt_len, PROMPT_BUCKETS)
-    p_ids, valid, media_pos = padded_prompt(inputs, s_pad, dev)
-    cache = qwen2.init_cache(cfg.llm, batch=1, device=dev, max_len=_round_up(s_pad + n, 256))
-    # PS3's top-down mode: the pass-1 forward gives the prompt of the selection
-    ps3_prompt = (engine._ps3_top_down_prompt(inputs) if inputs.get("ps3_low") is not None
-                  else None)
-    logits, cache = engine._prefill(p_ids, valid,
-                                    engine.encode_media(inputs["media"], ps3_prompt=ps3_prompt),
-                                    media_pos, cache, prompt_len)
-    rows = [logits[0].float()]
+    # the engine's own prefill (PS3's top-down pass included) and steps
+    logits, cache, prompt_len, _ = engine._start(inputs, GenerationConfig(max_new_tokens=n))
+    rows = [logits[0].float().cpu()]
     fed = list(ids) if ids is not None else [int(rows[0].argmax())]
     for i in range(n - 1):
-        step, cache = qwen2.forward(
-            engine.params["llm"], cfg.llm, input_ids=torch.tensor([[fed[i]]], device=dev),
-            positions=torch.full((1, 1), prompt_len + i, dtype=torch.int32, device=dev),
-            cache=cache)
-        rows.append(step[0, 0].float())
+        row, cache = engine._decode_one(fed[i], cache, prompt_len + i)
+        rows.append(torch.from_numpy(row))
         if ids is None:
             fed.append(int(rows[-1].argmax()))
-    return torch.stack(rows).cpu(), fed
+    return torch.stack(rows), fed
 
 
 CONSISTENCY_TOL = 5e-2  # max |dlogit| / max|logit| between kernels and plain versions
@@ -4067,11 +4805,13 @@ def copy_tree(tree, dev):
     return tree.to(dev, copy=True)
 
 
-def phase_train_consistency(torch, seed, cfg=None, card="cuda", seq=512):
+def phase_train_consistency(torch, seed, cfg=None, card="cuda", seq=512, batch=None,
+                            name="train_consistency"):
     """One `train_step` (stage sft, constant learning rates so that the
     step moves every tuned tensor) at full widths and reduced depth: on the
     card through K7-K9, and from the same parameters and batch on the CPU
-    through their plain versions. Tolerances: loss 1e-2 and grad_norm 5e-2
+    through their plain versions. The batch is the `train` phase's first
+    sample in one row of `seq` unless `batch` (a collated row) is given. Tolerances: loss 1e-2 and grad_norm 5e-2
     relative (bf16 products rounded by different libraries); the updated
     tensors: each update is at most lr per element (Adam's first step is
     lr * g / (|g| + eps)), so the card's and the CPU's may differ by up to
@@ -4084,8 +4824,9 @@ def phase_train_consistency(torch, seed, cfg=None, card="cuda", seq=512):
 
     cfg = cfg or nvila_lite_2b_config(layers=2, vision_layers=2)
     layers = cfg.llm.num_hidden_layers
-    examples, _, collator, _ = train_data(torch, cfg, seq)
-    batch = collator(examples[:1])
+    if batch is None:
+        examples, _, collator, _ = train_data(torch, cfg, seq)
+        batch = collator(examples[:1])
     ocfg = topt.OptimizerConfig(learning_rate=2e-5, vision_tower_lr=2e-6,
                                 schedule="constant", warmup_ratio=0.0)
     named = {"llm.layers.q_proj.kernel": (("llm", "layers", "q_proj", "kernel"), 2e-5),
@@ -4129,9 +4870,9 @@ def phase_train_consistency(torch, seed, cfg=None, card="cuda", seq=512):
         good = float(diff.max()) <= 2 * lr * (1 + 1e-3) and agree >= 0.9 and moved
         ok &= good
         tensors[n] = dict(max_abs_diff=float(diff.max()), lr=lr, share_within_0p1_lr=agree)
-        log(f"[train_consistency] {n}: max |d update| {float(diff.max()):.3e} "
+        log(f"[{name}] {n}: max |d update| {float(diff.max()):.3e} "
             f"(lr {lr:g}), {100 * agree:.2f}% within 0.1 lr -> {'OK' if good else 'FAIL'}")
-    log(f"[train_consistency] {layers} LLM + {cfg.vision.num_hidden_layers} SigLIP layers, "
+    log(f"[{name}] {layers} LLM + {cfg.vision.num_hidden_layers} SigLIP layers, "
         f"seq {seq}: "
         f"loss card {card['loss']:.6f} / CPU {host['loss']:.6f} (rel {rel_loss:.2e}, "
         f"limit 1e-2); grad_norm {card['grad_norm']:.5f} / {host['grad_norm']:.5f} "
@@ -4139,6 +4880,134 @@ def phase_train_consistency(torch, seed, cfg=None, card="cuda", seq=512):
         f"{host['s']:.1f} s -> {'OK' if ok else 'FAIL'}")
     return ok, dict(loss=(card["loss"], host["loss"]), grad_norm=(card["grad_norm"],
                     host["grad_norm"]), tensors=tensors, cpu_s=host["s"])
+
+
+# frames of the video sample and the dynamic image's size: 4 frames x 257
+# tokens and 3 tiles (a 1 x 2 grid and its thumbnail) x 257 fill 1.8k of the
+# 2048-token row, so both samples keep their answers
+TRAIN_MEDIA_FRAMES = 4
+TRAIN_MEDIA_IMAGE = (448, 896, 3)
+
+
+def train_media_data(torch, cfg, seq, seed, frames_dir, frames=TRAIN_MEDIA_FRAMES):
+    """Two samples through the port's `BaseDataset` with the smoke's
+    ByteTokenizer: a video of 8 seeded 720 x 1280 frames written as a frame
+    directory (`frames` of them sampled, each an image marker), and one
+    seeded image tiled `dynamic`; and the packing collator of one row.
+    Returns (examples, collator, the config with the data fields set)."""
+    import dataclasses
+
+    import numpy as np
+    from PIL import Image
+
+    from vila_tpu_torch.data.collate import PackingCollator
+    from vila_tpu_torch.data.dataset import BaseDataset
+
+    cfg = dataclasses.replace(cfg, image_aspect_ratio="dynamic", num_video_frames=frames)
+    rng = np.random.default_rng(seed + 31)
+    os.makedirs(frames_dir, exist_ok=True)
+    for i in range(8):
+        Image.fromarray(rng.integers(0, 256, VIDEO_FRAME, dtype=np.uint8)).save(
+            os.path.join(frames_dir, f"{i:03d}.png"))
+    image = rng.integers(0, 256, TRAIN_MEDIA_IMAGE, dtype=np.uint8)
+    tok = ByteTokenizer()
+    answer = "A small red cube moves slowly from the left of the table to the right."
+    instances = [
+        {"video": frames_dir, "conversations": [
+            {"from": "human", "value": "<video>\nWhat happens in the video?"},
+            {"from": "gpt", "value": answer}]},
+        {"image": image, "conversations": [
+            {"from": "human", "value": "<image>\nDescribe the picture."},
+            {"from": "gpt", "value": answer}]},
+    ]
+    ds = BaseDataset(tok, cfg, instances=instances, resample_on_failure=False)
+    examples = [ds[0], ds[1]]
+    collator = PackingCollator(seq_len=seq, rows=1, pad_token_id=tok.pad_token_id,
+                               tile_size=cfg.vision.image_size)
+    return examples, collator, cfg
+
+
+def phase_train_media(torch, seed, cfg=None, dev="cuda", steps=3, seq=2048,
+                      out_dir=os.path.join("runs", "chip_smoke_train_media"),
+                      check_cfg=None, check_seq=1024, check_frames=3):
+    """Training over media samples at full NVILA-Lite-2B width (the `train`
+    phase's configuration, `image_aspect_ratio="dynamic"`): one packed row
+    of 2048 tokens holding a video sample (TRAIN_MEDIA_FRAMES frames of a
+    frame directory) and a `dynamic`-tiled image (3 tiles), `steps` steps of
+    `train_step` (the trainer's step, without its checkpoint saves); K7-K9
+    launch once per LLM layer per step. Reported: step wall, tokens/s, peak
+    memory (under 80 GB). Then a `train_consistency` case at 2 + 2 layers
+    on a video row: `check_frames` frames at seq `check_seq` (at 257
+    tokens a frame, seq 512 holds under two frames and no answer), the
+    card's first step against the CPU's."""
+    import shutil
+
+    from vila_tpu_torch.models import vlm
+    from vila_tpu_torch.ops import _build
+    from vila_tpu_torch.train import optimizer as topt
+    from vila_tpu_torch.train.step import batch_to_device, make_train_step, train_step
+
+    dev = torch.device(dev)
+    try:
+        examples, collator, cfg = train_media_data(
+            torch, cfg or nvila_lite_2b_config(), seq, seed, os.path.join(out_dir, "frames"))
+        batch = collator(examples)
+        tiles = [int(e["tiles"].shape[0]) for e in examples]
+        lens = [len(e["input_ids"]) for e in examples]
+        fill = float(batch["segment_ids"].astype(bool).mean())
+        log(f"[train_media] a video sample ({tiles[0]} frames, {lens[0]} tokens) and a "
+            f"dynamic image ({tiles[1]} tiles, {lens[1]} tokens) packed in one {seq}-token "
+            f"row ({100 * fill:.1f}% filled, {int((batch['labels'] >= 0).sum())} labels)")
+        layers = cfg.llm.num_hidden_layers
+        params = vlm.init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                                 torch.float32)
+        opt = topt.make_optimizer(topt.OptimizerConfig(learning_rate=2e-5,
+                                                       vision_tower_lr=2e-6))
+        _, params, state = make_train_step(cfg, params, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        rows = []
+        for step in range(steps):
+            t0 = time.perf_counter()
+            params, state, m = train_step(params, state, batch_to_device(batch, dev), cfg=cfg,
+                                          optimizer=opt)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])  # the host waits, as a log
+            step_s = time.perf_counter() - t0
+            rows.append(dict(step=step + 1, loss=loss, grad_norm=gnorm, step_s=step_s,
+                             tokens_per_s=seq / step_s))
+            log(f"[train_media] step {step + 1}: loss {loss:.4f} grad_norm {gnorm:.4f} step "
+                f"wall {1e3 * step_s:.1f} ms, {seq / step_s:.0f} tokens/s")
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        del params, state, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        want = dict(_no_launches(), **{k: layers * steps for k in FLASH_KERNELS})
+        ok = (launches == want and peak < 80e9 and all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows))
+        steady = rows[1:] or rows
+        summary = dict(
+            config="NVILA-Lite-2B, sft, dynamic tiles, f32 master weights, bf16 compute",
+            seq=seq, frames=tiles[0], image_tiles=tiles[1], sample_tokens=lens, row_fill=fill,
+            steps=rows, step_s_median=statistics.median(r["step_s"] for r in steady),
+            tokens_per_s_median=statistics.median(r["tokens_per_s"] for r in steady),
+            peak_bytes=peak, launches=launches)
+        log(f"[train_media] steps 2..{steps}: step wall median "
+            f"{1e3 * summary['step_s_median']:.1f} ms, {summary['tokens_per_s_median']:.0f} "
+            f"tokens/s, peak {peak / 2**30:.2f} GiB; launches {launches} (expected {want}) "
+            f"-> {'OK' if ok else 'FAIL'}")
+        # the consistency case: a video row at 2 + 2 layers, card against CPU
+        ccfg = check_cfg or nvila_lite_2b_config(layers=2, vision_layers=2)
+        cexamples, ccollator, ccfg = train_media_data(
+            torch, ccfg, check_seq, seed, os.path.join(out_dir, "frames"), frames=check_frames)
+        good, summary["consistency"] = phase_train_consistency(
+            torch, seed, cfg=ccfg, card=dev, seq=check_seq, batch=ccollator(cexamples[:1]),
+            name="train_media consistency")
+        ok &= good
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return ok, summary, {"train_media": launches}
 
 
 def nvidia_smi_line():
@@ -4256,8 +5125,28 @@ def main(argv=None) -> int:
     if "small_consistency" in phases:
         good, report["small_consistency"] = phase_small_consistency(torch, args.seed)
         ok &= good
+    phase_s = report["phase_s"] = {}  # the wall of the phases this slice added or grew
+
+    def timed(name, fn):
+        t0 = time.time()
+        out = fn()
+        phase_s[name] = time.time() - t0
+        log(f"[{name}] phase wall {phase_s[name]:.1f} s")
+        return out
+
     if "http" in phases:
-        good, report["http"] = phase_http(torch, engine(args.layers, args.seed))
+        good, report["http"] = timed("http", lambda: phase_http(
+            torch, engine(args.layers, args.seed)))
+        ok &= good
+    if "spec" in phases:
+        good, report["spec"], spec_launches = timed("spec", lambda: phase_spec(
+            torch, engine(args.layers, args.seed), args.seed))
+        launches.update(spec_launches)
+        ok &= good
+    if "constrained" in phases:
+        good, report["constrained"], json_launches = timed("constrained", lambda: (
+            phase_constrained(torch, engine(args.layers, args.seed), args.seed)))
+        launches.update(json_launches)
         ok &= good
     if any(p in phases for p in ("s2", "video", "media_profile")):
         from vila_tpu_torch.models import siglip
@@ -4315,6 +5204,11 @@ def main(argv=None) -> int:
         ok &= good
     if "train_consistency" in phases:
         good, report["train_consistency"] = phase_train_consistency(torch, args.seed)
+        ok &= good
+    if "train_media" in phases:
+        good, report["train_media"], media_launches = timed(
+            "train_media", lambda: phase_train_media(torch, args.seed))
+        launches.update(media_launches)
         ok &= good
     if "train_profile" in phases:  # not in the default run
         report["train_profile"] = phase_train_profile(torch, args.seed)

@@ -6,8 +6,8 @@ checkpoint `helpers.save_tiny_checkpoint(seed=0, **FLAVORS["base"])`:
   (`--max-batch 0`) and through the continuous batcher (`--max-batch 2`);
 * `cli.infer.main` prints the text of `generate_content` for an image file
   and a question, and for a video file or frame directory (with time
-  tokens decoded against `--video-duration`), and refuses what is not
-  ported yet;
+  tokens decoded against `--video-duration`), and with `--json-mode` or
+  `--json-schema` what the JAX package's `vila-infer` prints;
 * `cli.train.main` runs 2 steps of `dummy_mix` from the checkpoint and
   writes a checkpoint.
 """
@@ -101,9 +101,28 @@ def test_infer_main_prints_generate_content(ckpt, engine, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra", [["--json-mode"], ["--json-schema", "schema.json"]])
-def test_infer_refuses_what_is_not_ported(ckpt, extra):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        infer.main(["--model-path", ckpt, "--text", "hi", "--device", "cpu", *extra])
+def test_infer_json_flags_print_the_jax_clis_json(ckpt, tmp_path, monkeypatch, capsys, extra):
+    """`--json-mode` and `--json-schema` (with `--stream`, which a
+    response_format overrides): the port prints what the JAX package's
+    `vila-infer` prints on the same checkpoint, a valid JSON prefix."""
+    from vila_tpu.cli import infer as jinfer
+    from vila_tpu_torch.inference.constrained import JsonPrefixValidator
+
+    if extra[0] == "--json-schema":
+        path = str(tmp_path / extra[1])
+        with open(path, "w") as f:
+            json.dump({"type": "object", "properties": {"answer": {"enum": ["yes", "no"]}},
+                       "required": ["answer"]}, f)
+        extra = [extra[0], path]
+    common = ["--model-path", ckpt, "--text", "Reply in JSON.", "--max-new-tokens", "16",
+              "--stream", *extra]
+    rc = infer.main([*common, "--device", "cpu"])
+    assert rc == 0
+    got = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["vila-infer", *common])
+    jinfer.main()
+    assert got == capsys.readouterr().out
+    assert got.endswith("\n") and JsonPrefixValidator().is_valid_prefix(got[:-1]), got
 
 
 @pytest.mark.parametrize("as_dir", [False, True])

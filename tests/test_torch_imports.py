@@ -19,6 +19,7 @@
 import builtins
 import dis
 import importlib
+import json
 import os
 import pkgutil
 import shutil
@@ -101,6 +102,38 @@ def test_tower_modules_are_walked():
     names = _module_names()
     for mod in ("models.vit", "models.ps3", "models.siglip", "utils.hf_import"):
         assert f"vila_tpu_torch.{mod}" in names
+
+
+DECODING_AND_MEDIA = {
+    # module: what running it needs, beside importing it
+    "vila_tpu_torch.inference.speculative": (
+        "from vila_tpu_torch.inference.speculative import draft_tokens, init_history\n"
+        "h, n = init_history([5, 6, 7, 5, 6], 7, 16)\n"
+        "assert list(draft_tokens(h, n, 7, 6, 2)) == [5, 6]\n"),
+    "vila_tpu_torch.inference.constrained": (
+        "from vila_tpu_torch.inference.constrained import JsonAutomaton\n"
+        "assert JsonAutomaton().run('{\"a\": [1') == 'ok'\n"),
+    "vila_tpu_torch.data.dataset": "",
+}
+
+
+@pytest.mark.parametrize("name", sorted(DECODING_AND_MEDIA))
+def test_decoding_and_training_media_modules_import_no_jax(name):
+    """The decoding options' modules and the training dataset, imported
+    (and run) alone in a fresh interpreter, load neither JAX nor the JAX
+    package; the constrained module's copy of the grammar is numpy only."""
+    code = (f"import importlib, json, sys\nimportlib.import_module({name!r})\n"
+            + DECODING_AND_MEDIA[name]
+            + "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'vila_tpu', 'torch'))))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert {m.split(".")[0] for m in loaded} <= {"torch"}
+    if name.endswith("constrained"):
+        assert loaded == []
 
 
 def _walk_code(code):

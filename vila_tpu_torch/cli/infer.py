@@ -3,17 +3,20 @@ prompt of images, videos and text, print the answer.
 
     python -m vila_tpu_torch.cli.infer --model-path ckpt/ --media clip.mp4 \\
         --text "Describe the video." [--video-duration 12.5] [--vision-int8] \\
-        [--stream] [--device cuda]
+        [--stream] [--json-mode | --json-schema schema.json] [--device cuda]
 
 Media types are told apart by extension (a directory is a video of frame
 images). With `--video-duration`, trained time tokens `<tN>` in the answer
-become timestamps (`decode_time_token`). JSON-constrained output
-(`--json-mode`, `--json-schema`) is not ported yet and raises.
+become timestamps (`decode_time_token`). `--json-mode` constrains the
+answer to valid JSON and `--json-schema` to a JSON-schema file's object
+(`response_format`); `--stream` is ignored when either is given, as in the
+JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import re
 
@@ -57,8 +60,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--top-p", type=float, default=1.0)
     p.add_argument("--stream", action="store_true")
-    p.add_argument("--json-mode", action="store_true", help="not ported yet")
-    p.add_argument("--json-schema", default=None, help="not ported yet")
+    p.add_argument("--json-mode", action="store_true", help="constrain output to valid JSON")
+    p.add_argument("--json-schema", default=None,
+                   help="path to a JSON-schema file for structured output")
     p.add_argument("--video-duration", type=float, default=0.0,
                    help="decode <tN> time tokens against this duration (seconds)")
     p.add_argument("--num-time-tokens", type=int, default=100)
@@ -70,9 +74,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, value in (("--json-mode", args.json_mode), ("--json-schema", args.json_schema)):
-        if value:
-            raise NotImplementedError(f"{flag} is not ported yet")
 
     from vila_tpu_torch import conversation as conv_lib
     from vila_tpu_torch import entry
@@ -85,13 +86,20 @@ def main(argv=None) -> int:
     if args.conv_mode:
         conv_lib.default_conversation = conv_lib.conv_templates[args.conv_mode]
 
+    response_format = None
+    if args.json_schema:
+        with open(args.json_schema) as f:
+            response_format = {"type": "json_schema", "json_schema": json.load(f)}
+    elif args.json_mode:
+        response_format = {"type": "json_object"}
     gc = GenerationConfig(
         max_new_tokens=args.max_new_tokens,
         do_sample=args.temperature > 0,
         temperature=max(args.temperature, 1e-4),
         top_p=args.top_p,
+        response_format=response_format,
     )
-    if args.stream:
+    if args.stream and response_format is None:
         for delta in engine.generate_content_stream(prompt, gc):
             print(delta, end="", flush=True)
         print()

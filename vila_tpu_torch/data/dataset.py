@@ -1,11 +1,18 @@
 """Datasets: conversation -> tokenized, media-expanded training examples, as
-`vila_tpu/data/dataset.py` (images with the resize and pad aspect modes;
-video samples and the dynamic tilings in training are not ported yet).
+`vila_tpu/data/dataset.py` (`BaseDataset.__getitem__`, llava/data/base.py:
+99-188, and the video branch of `LazySupervisedDataset`, llava/data/
+dataset.py:266-337): images (resize, pad, and for a single image the
+`dynamic` and `dynamic_s2` tilings; several images are resized) and videos
+(each `<video>` marker becomes one image marker per frame).
 
 Examples are host-side dicts with **media markers already expanded** into
 fixed placeholder runs so the device path is shape-static:
   {"input_ids": (S,) int32, "labels": (S,) int32,
    "tiles": (T, s, s, 3) uint8, "media_positions": (M,) int32}
+and, for a dynamic-S2 image, "block_sizes": [(rows, cols)]. As in the JAX
+package, the collators and `vlm.forward_batch` treat every tile as one
+plain image, which a dynamic-S2 sample's tokens do not fit (`ROADMAP.md`
+§3, faults of the reference).
 """
 
 from __future__ import annotations
@@ -72,7 +79,8 @@ class BaseDataset:
 
     Subclasses (or instances) provide `self.instances`: a list of dicts with
     'conversations' ([{'from', 'value'}]) and optional 'image' paths (or
-    in-memory images: uint8 arrays, PIL images).
+    in-memory images: uint8 arrays, PIL images) and 'video' (a file, a
+    directory of frames, or a `media.Video` of frames).
     """
 
     def __init__(
@@ -114,8 +122,6 @@ class BaseDataset:
     def process(self, instance: Dict[str, Any]) -> Dict[str, Any]:
         cfg = self.cfg
         conversations = copy.deepcopy(instance["conversations"])
-        if instance.get("video"):
-            raise NotImplementedError("video samples in training are not ported yet")
 
         images: List[Any] = []
         names = instance.get("image")
@@ -125,6 +131,26 @@ class BaseDataset:
             images = [
                 preprocess.load_image(self._media_path(n)) for n in names
             ]
+        if instance.get("video"):
+            from vila_tpu_torch.utils.media_loader import load_video_frames
+
+            names = instance["video"]
+            if not isinstance(names, list):
+                names = [names]
+            for n in names:
+                frames = load_video_frames(
+                    self._media_path(n), cfg.num_video_frames, cfg.fps
+                )
+                images.extend(frames)
+                # Video markers become per-frame image markers
+                # (reference: dataset.py:266-337).
+                for msg in conversations:
+                    if MEDIA_TOKENS["video"] in msg["value"]:
+                        msg["value"] = msg["value"].replace(
+                            MEDIA_TOKENS["video"],
+                            MEDIA_TOKENS["image"] * len(frames),
+                            1,
+                        )
 
         # Ensure the image markers exist in the text (reference prepends
         # them to the first human turn when missing).
@@ -142,23 +168,55 @@ class BaseDataset:
                 f"media tokens ({n_markers}) != media objects ({len(images)})"
             )
 
-        aspect = cfg.image_aspect_ratio
-        if aspect not in ("resize", "pad", None):
-            raise NotImplementedError(
-                f"image_aspect_ratio={aspect!r} in training is not ported yet")
+        # Tile images: the reference tiles dynamically only a single image.
         tiles_list: List[np.ndarray] = []
+        tokens_per_marker: List[int] = []
+        block_sizes: List[Any] = []
+        aspect = cfg.image_aspect_ratio
+        use_dynamic = aspect in ("dynamic", "dynamic_s2") and len(images) == 1
         for img in images:
-            tiles, _ = preprocess.process_image(
-                img, image_size=cfg.vision.image_size, image_aspect_ratio=aspect)
+            if use_dynamic and aspect == "dynamic":
+                tiles, _ = preprocess.process_image(
+                    img, image_size=cfg.vision.image_size,
+                    image_aspect_ratio="dynamic",
+                    min_tiles=cfg.min_tiles, max_tiles=cfg.max_tiles,
+                )
+                # a marker (and a "\n") per tile
+                for msg in conversations:
+                    if MEDIA_TOKENS["image"] in msg["value"]:
+                        msg["value"] = msg["value"].replace(
+                            MEDIA_TOKENS["image"],
+                            f"{MEDIA_TOKENS['image']}\n" * tiles.shape[0],
+                            1,
+                        )
+                        break
+                tokens_per_marker.extend([cfg.tokens_per_image] * tiles.shape[0])
+            elif use_dynamic and aspect == "dynamic_s2":
+                from vila_tpu_torch.models import s2
+
+                tiles, block = preprocess.process_image(
+                    img, image_size=cfg.vision.image_size,
+                    image_aspect_ratio="dynamic_s2",
+                    max_tiles=cfg.max_tiles, s2_scales=cfg.s2_scales,
+                )
+                block_sizes.append(block)
+                tokens_per_marker.append(s2.tokens_for_block_size(cfg, block))
+            else:
+                tiles, _ = preprocess.process_image(
+                    img, image_size=cfg.vision.image_size,
+                    image_aspect_ratio=(
+                        "resize" if aspect in ("dynamic", "dynamic_s2") else aspect
+                    ),
+                )
+                tokens_per_marker.append(cfg.tokens_per_image)
             tiles_list.append(tiles)
-        tokens_per_marker = [cfg.tokens_per_image] * len(images)
 
         data = preprocess_conversation(conversations, self.tokenizer)
         ids, labels, media_pos = expand_media_with_labels(
             data["input_ids"], data["labels"],
             self._image_token_id, tokens_per_marker, self._newline_ids,
         )
-        return {
+        out = {
             "input_ids": ids,
             "labels": labels,
             "media_positions": media_pos,
@@ -168,6 +226,9 @@ class BaseDataset:
                 (0, cfg.vision.image_size, cfg.vision.image_size, 3), np.uint8
             ),
         }
+        if block_sizes:
+            out["block_sizes"] = block_sizes
+        return out
 
     def __getitem__(self, index: int) -> Dict[str, Any]:
         try:

@@ -19,8 +19,11 @@ tokenizing otherwise.
 
 `JsonTokenizer` has what `GenerationEngine`, `data.tokenizer_utils`, the
 datasets and collators and `entry.save` call: `__call__(text).input_ids`,
-`decode`, `convert_tokens_to_ids`, `add_tokens`, `apply_chat_template`,
-`eos_token` / `pad_token_id`, `len()` and `save_pretrained`.
+`decode`, `batch_decode`, `convert_tokens_to_ids`, `add_tokens`,
+`apply_chat_template`, `eos_token` / `pad_token_id`, `vocab_size`, `len()`
+and `save_pretrained` (the grammar's vocab table,
+`inference/constrained._token_texts`, reads `vocab_size`, `len()` and
+`batch_decode`).
 """
 
 from __future__ import annotations
@@ -192,6 +195,12 @@ class JsonTokenizer:
         return len(set(self.vocab.values()) | set(self._added.values()))
 
     @property
+    def vocab_size(self) -> int:
+        """The model's vocabulary without the added tokens (HF's meaning;
+        `len()` counts them)."""
+        return len(self.vocab)
+
+    @property
     def eos_token_id(self) -> Optional[int]:
         return self.convert_tokens_to_ids(self.eos_token) if self.eos_token else None
 
@@ -318,6 +327,10 @@ class JsonTokenizer:
                          (" 're", "'re")):
                 text = text.replace(a, b)
         return text
+
+    def batch_decode(self, sequences, skip_special_tokens: bool = False) -> List[str]:
+        """`decode` of each id sequence."""
+        return [self.decode(seq, skip_special_tokens=skip_special_tokens) for seq in sequences]
 
     # ---- chat -------------------------------------------------------------
 

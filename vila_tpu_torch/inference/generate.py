@@ -23,7 +23,13 @@ same kernels (a padded prompt of more than 32 rows prefills through the W4
 GEMM) and yields the same tokens. Decode runs in chunks of `decode_chunk`
 steps with one host read-back per chunk.
 
-Not ported yet: speculative and JSON-constrained decoding.
+Two decoding options change the loop after the prefill, with JAX's
+precedence: `response_format` (JSON-constrained, `inference/constrained.py`)
+hands the prefill's full first logits to a host sampler and then decodes one
+step at a time, sending each step's (V,) f32 logits row to the host; else
+`lookup_gamma > 0` with greedy decoding runs prompt-lookup speculative
+chunks (`inference/speculative.py`: one verify forward over γ+1 tokens, K1
+at M = γ+1 on W4 weights, one read-back an iteration).
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ import torch
 from vila_tpu_torch.constants import MEDIA_TOKENS
 from vila_tpu_torch.data import preprocess
 from vila_tpu_torch.data.tokenizer_utils import infer_stop_tokens, tokenize_conversation
+from vila_tpu_torch.inference.constrained import JsonConstrainedSampler
+from vila_tpu_torch.inference.speculative import init_history, spec_chunk
 from vila_tpu_torch.media import Video
 from vila_tpu_torch.models import encoders, qwen2, s2, vlm
 from vila_tpu_torch.utils.device import host_to_device, resolve_device
@@ -56,8 +64,13 @@ class GenerationConfig:
     top_k: int = 0  # 0 = disabled
     seed: int = 0
     stop_token_ids: Tuple[int, ...] = ()
-    response_format: Optional[Any] = None  # not ported: must stay None
-    lookup_gamma: int = 0  # not ported: must stay 0
+    # structured output (ResponseFormat parity, configuration_llava.py:119):
+    # {"type": "json_object"} or a JSON-schema dict
+    response_format: Optional[Any] = None
+    # prompt-lookup speculative decoding (inference/speculative.py): draft
+    # length gamma, 0 = off. Greedy-exact, so it engages only for
+    # do_sample=False (sampling takes the vanilla loop).
+    lookup_gamma: int = 0
 
 
 def _bucket(n: int, sizes: Sequence[int]) -> int:
@@ -381,28 +394,34 @@ class GenerationEngine:
             out.extend(chunk)
         return out
 
-    def stream_ids(self, inputs: Dict[str, Any],
-                   generation_config: Optional[GenerationConfig] = None):
-        """Yield lists of token ids as they decode (chunk granularity)."""
-        gc = generation_config or GenerationConfig()
-        if gc.response_format is not None or gc.lookup_gamma > 0:
-            raise NotImplementedError(
-                "constrained and speculative decoding are not ported yet")
-        stop_ids = set(gc.stop_token_ids or self.stop_token_ids)
-        cfg, dev = self.cfg, self.device
-
-        expanded_ids = inputs["input_ids"]
-        prompt_len = int(expanded_ids.shape[0])
+    def _start(self, inputs: Dict[str, Any], gc: GenerationConfig):
+        """One request's prefill into a fresh cache sized for
+        `gc.max_new_tokens`: (the prompt's last logits (1, V), the cache,
+        the prompt's length, the cache's length)."""
+        prompt_len = int(inputs["input_ids"].shape[0])
         s_pad = _bucket(prompt_len, PROMPT_BUCKETS)
         cache_len = min(self.max_cache_len, _round_up(s_pad + gc.max_new_tokens, 256))
-        ids, valid, media_pos = padded_prompt(inputs, s_pad, dev)
+        ids, valid, media_pos = padded_prompt(inputs, s_pad, self.device)
         ps3_prompt = None
         if inputs.get("ps3_low") is not None:
             ps3_prompt = self._ps3_top_down_prompt(inputs)
         media_embeds = self.encode_media(inputs["media"], ps3_prompt=ps3_prompt)
-        cache = qwen2.init_cache(cfg.llm, batch=1, max_len=cache_len, device=dev)
-        logits, cache = self._prefill(ids, valid, media_embeds, media_pos, cache,
-                                      prompt_len)
+        cache = qwen2.init_cache(self.cfg.llm, batch=1, max_len=cache_len, device=self.device)
+        logits, cache = self._prefill(ids, valid, media_embeds, media_pos, cache, prompt_len)
+        return logits, cache, prompt_len, cache_len
+
+    def stream_ids(self, inputs: Dict[str, Any],
+                   generation_config: Optional[GenerationConfig] = None):
+        """Yield lists of token ids as they decode (chunk granularity)."""
+        gc = generation_config or GenerationConfig()
+        stop_ids = set(gc.stop_token_ids or self.stop_token_ids)
+        dev = self.device
+
+        expanded_ids = inputs["input_ids"]
+        logits, cache, prompt_len, cache_len = self._start(inputs, gc)
+        if gc.response_format is not None:
+            yield from self._constrained_loop(gc, logits, cache, prompt_len, stop_ids)
+            return
         gen = torch.Generator(device=dev).manual_seed(gc.seed)
         tok = sample_token(logits, gen, gc.do_sample, gc.temperature, gc.top_p, gc.top_k)
         first = int(tok[0])
@@ -410,6 +429,10 @@ class GenerationEngine:
             return
         yield [first]
 
+        if gc.lookup_gamma > 0 and not gc.do_sample:
+            yield from self._spec_loop(gc, expanded_ids, first, cache, prompt_len,
+                                       cache_len, stop_ids)
+            return
         steps_left = gc.max_new_tokens - 1
         pos = prompt_len
         while steps_left > 0:
@@ -429,6 +452,71 @@ class GenerationEngine:
                 yield accepted
             steps_left -= steps
             pos += steps
+
+    def _spec_loop(self, gc, expanded_ids, first, cache, prompt_len, cache_len, stop_ids):
+        """Prompt-lookup speculative decode (greedy-exact; see
+        inference/speculative.py) after the prefill's first token `first`.
+        The history holds the expanded prompt (media placeholders
+        included) with a slack tail: the last iteration may write up to
+        gamma rejected candidates past the live length."""
+        gamma = int(gc.lookup_gamma)
+        hist, hlen = init_history(expanded_ids, first, cache_len + 8 * (gamma + 1))
+        cur, prev = [first], [int(expanded_ids[-1])]
+        pos = prompt_len
+        steps_left = gc.max_new_tokens - 1
+        while steps_left > 0:
+            out, n, cur, prev, pos, cache, hist, hlen, _ = spec_chunk(
+                self.params["llm"], self.cfg.llm, cur, prev, pos, cache, hist, hlen,
+                max_out=min(self.decode_chunk, steps_left), gamma=gamma)
+            if n == 0:
+                return  # cache capacity exhausted (< gamma+1 slots left)
+            chunk = out[:min(n, steps_left)].tolist()
+            accepted = []
+            for t in chunk:
+                if t in stop_ids:
+                    if accepted:
+                        yield accepted
+                    return
+                accepted.append(t)
+            if accepted:
+                yield accepted
+            steps_left -= len(chunk)
+
+    def _decode_one(self, tok: int, cache, pos: int):
+        """One decode step of token `tok` at position `pos`: the (V,) f32
+        logits on the host and the cache (the constrained path)."""
+        logits, cache = qwen2.forward(
+            self.params["llm"], self.cfg.llm,
+            input_ids=host_to_device(np.asarray([[tok]], np.int64), self.device),
+            positions=host_to_device(np.asarray([[pos]], np.int32), self.device),
+            cache=cache)
+        return logits[0, 0].float().cpu().numpy(), cache
+
+    def _constrained_loop(self, gc, first_logits, cache, prompt_len, stop_ids):
+        """Host-guided JSON-constrained decode (xgrammar-processor parity,
+        llava_arch.py:802-821): the sampler picks every token, the first
+        from the prefill's logits, then one step at a time."""
+        schema = None
+        rf = gc.response_format
+        if isinstance(rf, dict) and rf.get("type") == "json_schema":
+            schema = rf.get("json_schema", rf.get("schema"))
+        elif isinstance(rf, dict) and "properties" in rf:
+            schema = rf
+        sampler = JsonConstrainedSampler(self.tokenizer, schema)
+
+        logits = first_logits[0].float().cpu().numpy()
+        pos = prompt_len
+        for _ in range(gc.max_new_tokens):
+            tid = sampler.pick(logits)
+            if tid is None or tid in stop_ids:
+                return
+            yield [tid]
+            if sampler.done():
+                return
+            logits, cache = self._decode_one(tid, cache, pos)
+            pos += 1
+            if pos >= cache["k"].shape[2]:
+                return
 
     def generate_content(self, prompt: Union[str, List[Any]],
                          generation_config: Optional[GenerationConfig] = None) -> str:

@@ -662,7 +662,10 @@ def _k1_workspace(dev: torch.device, floats: int):
     resets, then the rows' amax, stored by each launch before its barrier).
     K1's own: a persistent kernel's barrier count relies on every launch of
     that kernel having the same grid. Launches share them, so they run on
-    one stream. Growing the scratch drops the plans that point into it."""
+    one stream. Growing the scratch drops the plans that point into it; a
+    plan holds the tensors it points into, so a launch another thread is
+    issuing from a dropped plan still finds its scratch allocated (the
+    serial engine and the batcher's threads launch K1 on one stream)."""
     idx = _device_index(dev)
     with _k1_lock:
         ws, bar = _k1_ws.get(idx, (None, None))
@@ -670,8 +673,8 @@ def _k1_workspace(dev: torch.device, floats: int):
             bar = torch.zeros(_K1_BAR_WORDS, dtype=torch.int32, device=dev)
         if ws is None or ws.numel() < floats:
             ws = torch.empty(max(floats, 1 << 18), dtype=torch.float32, device=dev)
-            for key in [k for k in _k1_plans if k[-1] == idx]:
-                del _k1_plans[key]
+            for key in [k for k in list(_k1_plans) if k[-1] == idx]:
+                _k1_plans.pop(key, None)
         _k1_ws[idx] = (ws, bar)
         return ws, bar
 
@@ -707,7 +710,8 @@ def _k1_lib():
 def _k1_plan(dev, packed, scales, l, m, nd=2):
     """What a K1 launch of m rows on this slot and layer, with nd int8
     digits a row, needs besides x and out, made once: (entry point, its
-    maps, pointers, ints, din, dout)."""
+    maps, pointers, ints, din, dout, the workspace tensors the pointers
+    reach)."""
     _check_w4(packed, scales)
     half, bout, nj, ngh, gs, din, dout = _tiled_meta(packed, scales)
     check_group(gs, "w4_gemv")
@@ -729,7 +733,7 @@ def _k1_plan(dev, packed, scales, l, m, nd=2):
         ptrs = _K1_PTRS(s_ptr, ws.data_ptr() if ks > 1 else None, counters.data_ptr(), None,
                         None)
         ints = _K1_INTS(m, din, dout, bout, s_rows, gs, K1_BOX, ks, gps, n_cta, 0, nd)
-        return lib.w4_gemv_stream, maps, ptrs, ints, din, dout
+        return lib.w4_gemv_stream, maps, ptrs, ints, din, dout, (ws, counters)
     if bout % ROWS_TILE_N:
         raise ValueError(f"K1's wgmma form needs bout % 128 == 0 ({bout})")
     whole, ks, gps = wgmma_plan(dout, ngh, n_sm)
@@ -745,7 +749,7 @@ def _k1_plan(dev, packed, scales, l, m, nd=2):
     ptrs = _K1_PTRS(s_ptr, base, base + 4 * dig_f,
                     base + 4 * (dig_f + gsum_f) if split else None, bar.data_ptr())
     ints = _K1_INTS(m, din, dout, bout, s_rows, gs, whole, ks, gps, n_sm, 0, nd)
-    return lib.w4_gemv_wgmma, maps, ptrs, ints, din, dout
+    return lib.w4_gemv_wgmma, maps, ptrs, ints, din, dout, (ws, bar)
 
 
 def launch_gemv(x, packed, scales, layer_index, out, act_digits=2) -> None:
@@ -764,7 +768,7 @@ def launch_gemv(x, packed, scales, layer_index, out, act_digits=2) -> None:
         if not 1 <= m <= 32:
             raise ValueError(f"w4_gemv takes 1..32 rows, got {m}")
         plan = _k1_plans[key] = _k1_plan(dev, packed, scales, l, m, act_digits)
-    fn, maps, ptrs, ints, din, dout = plan
+    fn, maps, ptrs, ints, din, dout, _ = plan
     if x.shape != (m, din) or out.shape != (m, dout):
         raise ValueError(f"x {tuple(x.shape)} / out {tuple(out.shape)} against ({din}, {dout})")
     if x.dtype != torch.bfloat16 or out.dtype != torch.bfloat16:
