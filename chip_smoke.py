@@ -109,9 +109,9 @@ Phases:
   media_profile  (only when named) torch.profiler traces of the s2 and
                video requests' media encode and prefill: device busy time
                and the operations by device time;
-  load         the loader at full NVILA-8B width, LLM depth 4: unquantized
+  load         the loader at full NVILA-8B width, LLM depth 2: unquantized
                bf16 weights synthesised on the card from a seed of their
-               own, written with `entry.save` (≈ 9.9 GB of f32 safetensors
+               own, written with `entry.save` (≈ 8 GB of f32 safetensors
                under `runs/`, removed at the end) and read back with
                `entry.build_config` / `entry.load_params` (config equal,
                every leaf bit for bit); `quantize_llm_params` on the card
@@ -130,14 +130,15 @@ Phases:
   awq          AWQ at NVILA-8B width, 28 layers: seeded bf16 LLM, 32 x 48
                calibration ids, `collect_act_stats`, `apply_awq`,
                `quantize_llm_params` (seconds, peak memory); every fold
-               checked; layers 0-1's searches again on the CPU; 2 requests x
+               checked; layer 0's searches again on the CPU; 1 request x
                32 tokens through K1-K3, each call of the serving path against
                its plain version on its own inputs, the end-to-end gap and
                its growth with depth reported;
   quant_acc    the committed quant probe through `entry.load` (the port's
                tokenizer reader), pope-mini accuracy for bf16 / W4-RTN /
                W4-AWQ over 200 questions beside `QUANT_ACC_r05.json`; the W4
-               engines' predictions and logits against the plain versions;
+               engines' predictions and logits on the first 40 against the
+               plain versions;
   train_kernels  hold the flash-attention kernels K7 (forward), K8 (dQ)
                and K9 (dK/dV) against their plain versions at the
                NVILA-Lite-2B training shape (B 1, S 2048, 12/2 heads of 128,
@@ -164,6 +165,35 @@ Phases:
                2048-token row, 3 steps (K7-K9 once per layer per step): step
                wall, tokens/s, peak memory; then a 2 + 2-layer step on a
                3-frame video row at seq 1024, the card against the CPU;
+  train_fp8    COAT fp8 at the `train` configuration (one seeded f32
+               NVILA-Lite-2B tree, drawn once for the training-mode phases
+               and copied into each): 3 `train_step`s with every decoder
+               projection in fp8, per tensor (`fp8_linear`: `torch._scaled_mm`
+               on the fp8 tensor cores) and then per group, and
+               `optimizer="fp8_adamw"`; the first loss against bf16's on the
+               same row, the fp8 state's bytes against AdamW's; one
+               gate_proj-shaped fp8 linear (M 2048, K 1536, N 8960) forward
+               and backward: its quantizers' bytes against the CPU's, its
+               products against the plain version on the same fp8 bytes,
+               timed beside bf16 `torch.matmul`; a 2 + 2-layer step against
+               the CPU per route;
+  train_lora   LoRA, then DoRA (rank 16, all seven projections) over the
+               frozen tree: 3 steps each at seq 2048; B = 0 gives the base
+               model's hidden states bit for bit, only the factors move,
+               `merge_lora` gives the LoRA forward; a 2 + 2-layer DoRA step
+               against the CPU;
+  train_dpo    DPO, remat: 2 pairs of 1024-token rows, 2 steps of the
+               policy against the tree as the frozen reference; log 2 and
+               margin 0 at step 0, the margin rises; 2 + 2 layers against
+               the CPU;
+  train_rlhf   a reward model (the tree and a value head), 2 pairwise
+               steps; `make_experience` against the frozen tree, 2 PPO
+               steps (clipfrac 0 and pg_loss -mean(advantage) at the first);
+               2 + 2 layers against the CPU;
+  train_ps3    VILA-HD stage 1.5 (the `ps3` phase's tower, Qwen2-7B bf16
+               frozen): 2 steps on 2 rows of seq 1024, one 4:3 image each,
+               with gt selection maps (LM + selection loss); 2 + 2 layers
+               (tower 2) against the CPU;
   profile      (only when named) torch.profiler trace of one request:
                device busy time and idle share of a decode step; then one
                max_batch=8 decode step (K6): host issue time per layer and
@@ -250,7 +280,8 @@ E2E_KERNELS = ("w4_gemv", "w4_gemm", "fused_layer")
 SERVE_RUNS = ((8, 12, 32), (24, 24, 16))
 DEFAULT_PHASES = ("build,kernels,e2e,serve,consistency,batched_consistency,"
                   "small_consistency,http,spec,constrained,s2,video,ps3,towers,load,w8,awq,"
-                  "quant_acc,train_kernels,train,train_consistency,train_media")
+                  "quant_acc,train_kernels,train,train_consistency,train_media,train_fp8,"
+                  "train_lora,train_dpo,train_rlhf,train_ps3")
 
 
 def log(*a):
@@ -3592,7 +3623,7 @@ def _fold_check(torch, src, folded, stats, sc, cfg, l):
     return out
 
 
-def phase_awq(torch, seed, dev="cuda", layers=28, check_layers=2, n_requests=2,
+def phase_awq(torch, seed, dev="cuda", layers=28, check_layers=1, n_requests=1,
               new_tokens=32, fold_tol=2.0 ** -7, cfg=None):
     """AWQ at NVILA-8B width on the card (`ops/awq.py`): a seeded bf16 LLM of
     `layers` layers (with the e2e tower and projector, bf16), 32 x 48 seeded
@@ -3747,6 +3778,9 @@ def phase_awq(torch, seed, dev="cuda", layers=28, check_layers=2, n_requests=2,
 
 QUANT_ACC_JAX = "QUANT_ACC_r05.json"  # the JAX package's numbers (f32, on the CPU)
 QUANT_ACC_BAND = 0.03  # 6 of 200 answers: JAX ran f32 on the CPU, the card runs bf16
+# questions the two plain-version checks take (of 200, cut for the run's
+# time limit: all 200 took ≈ 100 s of the card's run)
+QUANT_ACC_PLAIN = 40
 
 
 def phase_quant_acc(torch, dev="cuda", limit=None):
@@ -3756,10 +3790,11 @@ def phase_quant_acc(torch, dev="cuda", limit=None):
     `transformers` may be imported); `eval.quant_acc.measure` over all 200
     pope-mini questions (bf16, W4-RTN, W4-AWQ: accuracy, first-token
     agreement and mean |logit diff| against bf16, the deltas) beside
-    `QUANT_ACC_r05.json`; the two W4 engines' 200 predictions again under
-    `plain_versions` (K1-K3's plain versions, no launch), which must be
-    equal, and their logits over every prompt against the plain versions'
-    (`_quant_acc_logits`); each accuracy within 0.03 of the JAX package's."""
+    `QUANT_ACC_r05.json`; the two W4 engines' predictions on the first
+    `QUANT_ACC_PLAIN` questions again under `plain_versions` (K1-K3's plain
+    versions, no launch), which must be equal, and their logits over those
+    prompts against the plain versions' (`_quant_acc_logits`); each
+    accuracy within 0.03 of the JAX package's."""
     from vila_tpu_torch import entry
     from vila_tpu_torch.eval import benchmarks, quant_acc
     from vila_tpu_torch.ops import _build
@@ -3788,7 +3823,7 @@ def phase_quant_acc(torch, dev="cuda", limit=None):
         f"{timings['w4_rtn']:.2f} s, AWQ {timings['w4_awq']:.2f} s); launches {launches} "
         f"{'OK' if ran else 'FAIL'}")
     ds_path = benchmarks.resolve_dataset(quant_acc.DATASET)
-    dataset = benchmarks.load_dataset(ds_path)[:limit]
+    dataset = benchmarks.load_dataset(ds_path)[:limit][:QUANT_ACC_PLAIN]
     t0 = time.perf_counter()
     with plain_versions():
         _, plain = quant_acc.accuracy(engines, dataset, os.path.dirname(ds_path),
@@ -3796,7 +3831,8 @@ def phase_quant_acc(torch, dev="cuda", limit=None):
     plain_s = time.perf_counter() - t0
     differ = {n: sum(a != b for a, b in zip(preds[n], plain[n])) for n in plain}
     ok &= not any(differ.values())
-    log(f"[quant_acc] the W4 engines' predictions under the plain versions ({plain_s:.1f} s): "
+    log(f"[quant_acc] the W4 engines' predictions on {len(dataset)} questions under the plain "
+        f"versions ({plain_s:.1f} s): "
         f"answers that differ {differ} {'OK' if not any(differ.values()) else 'FAIL'}")
     good, logits = _quant_acc_logits(torch, engines, quant_acc.prompts(
         engine, dataset, os.path.dirname(ds_path)))
@@ -3856,7 +3892,7 @@ def _quant_acc_logits(torch, engines, preps, steps=4):
                          decode_worst=worst[1])
         ok &= bad == 0
     secs = time.perf_counter() - t0
-    log(f"[quant_acc] the W4 engines' logits over all {len(preps)} prompts, {steps} greedy "
+    log(f"[quant_acc] the W4 engines' logits over {len(preps)} prompts, {steps} greedy "
         f"steps through the kernels, then the same tokens through the plain versions "
         f"({secs:.1f} s): largest max|dlogit| in units of 2^-7 max|logit| (first token; "
         f"decode steps) " + ", ".join(f"{n} {o['first_token_worst']:.3f}; "
@@ -4082,7 +4118,7 @@ def served_against_plain(torch, engine, inputs, ids):
                 k2_calls=len(tk.local["w4_gemm"]))
 
 
-def phase_load(torch, seed, dev="cuda", layers=4, n_requests=2, new_tokens=16,
+def phase_load(torch, seed, dev="cuda", layers=2, n_requests=2, new_tokens=16,
                full_layers=28, steps=8, cfg=None):
     """The loader on the card at NVILA-8B width (LLM depth cut to `layers`):
     unquantized bf16 parameters synthesised from a seed of their own are
@@ -4806,7 +4842,7 @@ def copy_tree(tree, dev):
 
 
 def phase_train_consistency(torch, seed, cfg=None, card="cuda", seq=512, batch=None,
-                            name="train_consistency"):
+                            name="train_consistency", optimizer="adamw"):
     """One `train_step` (stage sft, constant learning rates so that the
     step moves every tuned tensor) at full widths and reduced depth: on the
     card through K7-K9, and from the same parameters and batch on the CPU
@@ -4816,7 +4852,10 @@ def phase_train_consistency(torch, seed, cfg=None, card="cuda", seq=512, batch=N
     tensors: each update is at most lr per element (Adam's first step is
     lr * g / (|g| + eps)), so the card's and the CPU's may differ by up to
     2 lr where a gradient near zero changes sign, and at least 90 % of the
-    elements must agree within 0.1 lr."""
+    elements must agree within 0.1 lr. With `optimizer="fp8_adamw"` the
+    first step divides fp8 moments, and a small gradient whose E5M2 second
+    moment underflows to 0 in its block steps by far more than lr on either
+    side: the largest difference is reported, not bounded."""
     from vila_tpu_torch.models import vlm
     from vila_tpu_torch.ops import _build
     from vila_tpu_torch.train import optimizer as topt
@@ -4828,7 +4867,7 @@ def phase_train_consistency(torch, seed, cfg=None, card="cuda", seq=512, batch=N
         examples, _, collator, _ = train_data(torch, cfg, seq)
         batch = collator(examples[:1])
     ocfg = topt.OptimizerConfig(learning_rate=2e-5, vision_tower_lr=2e-6,
-                                schedule="constant", warmup_ratio=0.0)
+                                schedule="constant", warmup_ratio=0.0, optimizer=optimizer)
     named = {"llm.layers.q_proj.kernel": (("llm", "layers", "q_proj", "kernel"), 2e-5),
              "vision_tower.layers.fc1.kernel": (("vision_tower", "layers", "fc1", "kernel"), 2e-6),
              "mm_projector.2.kernel": (("mm_projector", "2", "kernel"), 2e-5)}
@@ -4867,7 +4906,8 @@ def phase_train_consistency(torch, seed, cfg=None, card="cuda", seq=512, batch=N
         diff = (card["delta"][n] - host["delta"][n]).abs()
         agree = float((diff <= 0.1 * lr).float().mean())
         moved = bool((host["delta"][n] != 0).any())
-        good = float(diff.max()) <= 2 * lr * (1 + 1e-3) and agree >= 0.9 and moved
+        bounded = optimizer == "fp8_adamw" or float(diff.max()) <= 2 * lr * (1 + 1e-3)
+        good = bounded and agree >= 0.9 and moved
         ok &= good
         tensors[n] = dict(max_abs_diff=float(diff.max()), lr=lr, share_within_0p1_lr=agree)
         log(f"[{name}] {n}: max |d update| {float(diff.max()):.3e} "
@@ -5010,6 +5050,803 @@ def phase_train_media(torch, seed, cfg=None, dev="cuda", steps=3, seq=2048,
     return ok, summary, {"train_media": launches}
 
 
+# --------------------------------------------------------------------------
+# The other training modes: fp8, LoRA / DoRA, DPO, reward / PPO, PS3
+# --------------------------------------------------------------------------
+
+
+def train_master(torch, seed, dev="cuda", cfg=None):
+    """The f32 NVILA-Lite-2B tree the training-mode phases copy: drawn once
+    on the card from the `train` phase's seed (the same values)."""
+    from vila_tpu_torch.models import vlm
+
+    return vlm.init_params(torch.Generator(device=dev).manual_seed(seed),
+                           cfg or nvila_lite_2b_config(), torch.float32)
+
+
+def want_flash(forwards, backwards, layers):
+    """K7-K9 launch counts of `forwards` forward passes and `backwards`
+    backward passes of `layers` LLM layers (one launch each a layer)."""
+    return {"flash_fwd": forwards * layers, "flash_bwd_dq": backwards * layers,
+            "flash_bwd_dkv": backwards * layers}
+
+
+class NormedOptimizer:
+    """A tree optimizer (`optimizer.adamw`) that keeps the global norm of
+    the gradients it steps with (before the step, as `train_step`'s
+    grad_norm): the DPO, reward and PPO steps return JAX's metrics, which
+    hold no norm."""
+
+    def __init__(self, inner):
+        self.inner, self.norm = inner, None
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, state, params):
+        from vila_tpu_torch.train.optimizer import global_norm, leaves
+
+        self.norm = global_norm([t.grad for t in leaves(params)])
+        return self.inner.update(state, params)
+
+
+def _rel_diff(a, b, floor=0.0):
+    return abs(a - b) / max(abs(b), floor, 1e-30)
+
+
+def mode_consistency(torch, seed, name, step, bars, card="cuda", cfg=None, params_fn=None):
+    """`step(params, dev)` -> dict of floats, run from one seeded tree on the
+    card (the flash kernels K7-K9) and on the CPU (dense attention, no
+    kernel): each value within its bar, `bars[key] = (relative tolerance,
+    floor)`: |card - cpu| <= tol * max(|cpu|, floor). The tree is a 2 + 2-layer
+    NVILA-Lite-2B draw unless `params_fn(cpu_device)` gives one."""
+    from vila_tpu_torch.models import vlm
+    from vila_tpu_torch.ops import _build
+
+    cpu = torch.device("cpu")
+    cfg = cfg or nvila_lite_2b_config(layers=2, vision_layers=2)
+    params_cpu = (params_fn(cpu) if params_fn else
+                  vlm.init_params(torch.Generator().manual_seed(seed), cfg, torch.float32))
+    out = {}
+    for tag, dev in (("card", torch.device(card)), ("cpu", cpu)):
+        params = copy_tree(params_cpu, dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        vals = step(params, dev)
+        out[tag] = dict(values={k: float(v) for k, v in vals.items()},
+                        s=time.perf_counter() - t0, launches=dict(_build.LAUNCHES))
+        del params
+    gc.collect()
+    ok = all(v == 0 for v in out["cpu"]["launches"].values()) and any(
+        out["card"]["launches"][k] for k in FLASH_KERNELS)
+    rows = {}
+    for k, (tol, floor) in bars.items():
+        a, b = out["card"]["values"][k], out["cpu"]["values"][k]
+        rel = _rel_diff(a, b, floor)
+        good = math.isfinite(a) and rel <= tol
+        ok &= good
+        rows[k] = dict(card=a, cpu=b, rel=rel, tol=tol)
+    log(f"[{name}] card against CPU: " + "; ".join(
+        f"{k} {r['card']:.6g} / {r['cpu']:.6g} (rel {r['rel']:.2e}, limit {r['tol']:g})"
+        for k, r in rows.items()) + f"; card launches {out['card']['launches']}; CPU "
+        f"{out['cpu']['s']:.1f} s -> {'OK' if ok else 'FAIL'}")
+    return ok, dict(values=rows, card_launches=out["card"]["launches"], cpu_s=out["cpu"]["s"])
+
+
+def _sft_batch(torch, cfg, seq, dev, n=None):
+    """The `train` phase's data: DummyDataset images packed in one row;
+    the per-step sample count unless `n`."""
+    from vila_tpu_torch.train.step import batch_to_device
+
+    examples, per_step, collator, _ = train_data(torch, cfg, seq)
+    return batch_to_device(collator(examples[:n or per_step]), torch.device(dev)), per_step
+
+
+def _run_steps(torch, tag, steps, step_fn, seq):
+    """`steps` calls of `step_fn(i)` -> dict of floats (the host reads them,
+    as a log does): per step its wall and tokens/s."""
+    rows = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        vals = {k: float(v) for k, v in step_fn(i).items()}
+        step_s = time.perf_counter() - t0
+        rows.append(dict(step=i + 1, step_s=step_s, tokens_per_s=seq / step_s, **vals))
+        log(f"[{tag}] step {i + 1}: " + ", ".join(f"{k} {v:.5g}" for k, v in vals.items())
+            + f"; step wall {1e3 * step_s:.1f} ms, {seq / step_s:.0f} tokens/s")
+    return rows
+
+
+def _finite(rows, keys):
+    return all(math.isfinite(r[k]) for r in rows for k in keys)
+
+
+FP8_LINEAR = (2048, 1536, 8960)  # NVILA-Lite-2B's gate_proj at seq 2048: M, K, N
+
+
+def _check_fp8_linear(torch, fp8_mode, seed, dev="cuda", shape=FP8_LINEAR, reps=20):
+    """One `fp8_linear` (fp8_mode True) or `fp8_linear_grouped` ("group")
+    forward and backward on the card at a real projection, bf16 operands.
+    Its quantizers' bytes and scales are held bit for bit against the same
+    quantizers on the CPU. The per-tensor route's three `_scaled_mm`
+    products (y, dx, dw) are held against the plain version on the same
+    fp8 bytes (`fp8.fp8_mm_plain`: f32 products) within 2^-7 max|ref|
+    (K1's bar: Hopper's fp8 tensor cores carry fewer bits than f32 between
+    the promotions of their sums, and both sides round to bf16, so an
+    element can sit two bf16 ulps from the plain value); the per-group
+    route's bf16 product of the dequantized operands against the same operands multiplied in f32
+    within 2^-6 max|ref| (its operands are rounded to bf16 first, as in
+    JAX). Times: each product of the route, the bf16 `torch.matmul` of the
+    same shape, and the whole forward + backward against bf16's."""
+    from vila_tpu_torch.ops import fp8
+
+    m, k, n = shape
+    gen = torch.Generator(device=dev).manual_seed(seed + 70)
+    rows = torch.exp(0.5 * torch.randn((m, 1), generator=gen, device=dev))
+    x = (torch.randn((m, k), generator=gen, device=dev) * rows).bfloat16()
+    w = (0.02 * torch.randn((k, n), generator=gen, device=dev)).bfloat16()
+    g = (1e-3 * torch.randn((m, n), generator=gen, device=dev)).bfloat16()
+    fn = fp8.fp8_linear_grouped if fp8_mode == "group" else fp8.fp8_linear
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = fn(xr, wr)
+    y.backward(g)
+    torch.cuda.synchronize()
+    got = {"y": y.detach(), "dx": xr.grad, "dw": wr.grad}
+    cpu = torch.device("cpu")
+    if fp8_mode == "group":
+        quants = {"x": lambda t: fp8.quantize_grouped(t), "w": lambda t: fp8.quantize_block2d(t),
+                  "g": lambda t: fp8.quantize_grouped(t, fp8.E5M2)}
+    else:
+        quants = {"x": lambda t: fp8.quantize_tensor(t), "w": lambda t: fp8.quantize_tensor(t),
+                  "g": lambda t: fp8.quantize_tensor(t, fp8.E5M2)}
+    q, bytes_equal = {}, {}
+    for name, t in (("x", x), ("w", w), ("g", g)):
+        q[name] = quants[name](t)
+        qc, sc = quants[name](t.to(cpu))
+        bytes_equal[name] = bool(torch.equal(q[name][0].view(torch.uint8).to(cpu),
+                                             qc.view(torch.uint8))
+                                 and torch.equal(q[name][1].to(cpu), sc))
+    (qx, sx), (qw, sw), (qg, sg) = q["x"], q["w"], q["g"]
+    bf = torch.bfloat16
+    if fp8_mode == "group":
+        xd = fp8.dequantize_grouped(qx, sx, k)
+        wd = fp8.dequantize_block2d(qw, sw, k, n)
+        gd = fp8.dequantize_grouped(qg, sg, n)
+        ref = {"y": (xd @ wd).to(bf), "dx": (gd @ wd.T).to(bf), "dw": (xd.T @ gd).to(bf)}
+        products = {"y": lambda: fp8.dequantize_grouped(qx, sx, k, bf)
+                    @ fp8.dequantize_block2d(qw, sw, k, n, bf)}
+        bar = lambda r: 2.0 ** -6 * r.abs().max()  # noqa: E731
+    else:
+        ref = {"y": fp8.fp8_mm_plain(qx, sx, qw, sw, bf),
+               "dx": fp8.fp8_mm_plain(qg, sg, qw.t(), sw, bf),
+               "dw": fp8.fp8_mm_plain(qx.t(), sx, qg, sg, bf)}
+        products = {"y": lambda: fp8._fp8_mm(qx, sx, qw, sw, bf),
+                    "dx": lambda: fp8._fp8_mm(qg, sg, qw.t(), sw, bf),
+                    "dw": lambda: fp8._fp8_mm(qx.t(), sx, qg, sg, bf)}
+        bar = lambda r: 2.0 ** -7 * r.abs().max()  # noqa: E731
+    errs, ok = {}, all(bytes_equal.values())
+    for key in ("y", "dx", "dw"):
+        r, gt = ref[key].float(), got[key].float()
+        diff = (gt - r).abs()
+        good = bool((diff <= bar(r)).all())
+        ok &= good and bool(torch.isfinite(gt).all())
+        errs[key] = dict(max_abs_err=float(diff.max()), ref_max=float(r.abs().max()), ok=good)
+    bf16_mm = {"y": lambda: x @ w, "dx": lambda: g @ w.T, "dw": lambda: x.T @ g}
+    times = {key: dict(fp8_ms=time_ms(torch, f, reps), bf16_ms=time_ms(torch, bf16_mm[key], reps))
+             for key, f in products.items()}
+
+    def fwd_bwd(f):
+        def run():
+            xr.grad = wr.grad = None
+            f(xr, wr).backward(g)
+        return run
+
+    whole = dict(fp8_ms=time_ms(torch, fwd_bwd(fn), reps),
+                 bf16_ms=time_ms(torch, fwd_bwd(lambda a, b: a @ b), reps))
+    log(f"[train_fp8 {fp8_mode}] fp8 linear M={m} K={k} N={n}: quantizer bytes card = CPU "
+        f"{bytes_equal}; " + "; ".join(
+            f"{key} max|err| {e['max_abs_err']:.3e} of max|ref| {e['ref_max']:.3e} "
+            f"{'OK' if e['ok'] else 'FAIL'}" for key, e in errs.items())
+        + "; times (ms, fp8 / bf16 matmul): " + ", ".join(
+            f"{key} {t['fp8_ms']:.4f} / {t['bf16_ms']:.4f}" for key, t in times.items())
+        + f"; forward + backward {whole['fp8_ms']:.3f} / {whole['bf16_ms']:.3f} -> "
+        f"{'OK' if ok else 'FAIL'}")
+    return ok, dict(shape=shape, bytes_equal=bytes_equal, errors=errs, times=times, whole=whole)
+
+
+def phase_train_fp8(torch, seed, master, dev="cuda", steps=3, seq=2048, cfg=None,
+                    check_cfg=None, modes=(True, "group"), check_modes=(True,)):
+    """COAT fp8 training at full NVILA-Lite-2B width, stage sft, seq 2048:
+    `steps` `train_step`s with every decoder projection in fp8
+    (`fp8_matmul` True, then "group") and `optimizer="fp8_adamw"` at the
+    stage's learning rates held constant (every step updates), each from a
+    copy of the master tree on the `train` phase's first packed row.
+    Checks: loss and grad norm finite; the first step's loss within 2 % of
+    the bf16 loss of the same weights and row; K7-K9 28 launches a step
+    each; the fp8 optimizer state under 0.3 x AdamW's (2 f32 moments a
+    parameter); peak under 80 GB; `_check_fp8_linear` at the gate_proj
+    shape; for the routes in `check_modes` a 2 + 2-layer step at seq 512
+    against the CPU (`phase_train_consistency` with the fp8 route and
+    optimizer): the per-tensor route, whose products take another library
+    on each side (the per-group route runs the same PyTorch ops on both,
+    and its quantizers' bytes are held against the CPU's above)."""
+    import dataclasses
+
+    from vila_tpu_torch.cli.train import STAGE_PRESETS
+    from vila_tpu_torch.ops import _build
+    from vila_tpu_torch.train import optimizer as topt
+    from vila_tpu_torch.train.step import loss_fn, make_train_step, train_step
+
+    cfg0 = cfg or nvila_lite_2b_config()
+    layers = cfg0.llm.num_hidden_layers
+    batch, per_step = _sft_batch(torch, cfg0, seq, dev)
+    with torch.no_grad():
+        bf16_loss = float(loss_fn(master, cfg0, batch)[0])
+    sft = STAGE_PRESETS["sft"]
+    ocfg = topt.OptimizerConfig(learning_rate=sft["learning_rate"],
+                                vision_tower_lr=sft["vision_tower_lr"], schedule="constant",
+                                warmup_ratio=0.0, optimizer="fp8_adamw")
+    n_params = sum(t.numel() for t in topt.leaves(master))
+    ok, summary, launches = True, dict(bf16_loss=bf16_loss, samples=per_step, seq=seq), {}
+    for mode in modes:
+        tag = f"train_fp8 {'tensor' if mode is True else mode}"
+        good, summary[f"linear_{tag.split()[-1]}"] = _check_fp8_linear(torch, mode, seed, dev)
+        ok &= good
+        cfg = dataclasses.replace(cfg0, llm=dataclasses.replace(cfg0.llm, fp8_matmul=mode))
+        opt = topt.make_optimizer(ocfg)
+        _, params, state = make_train_step(cfg, copy_tree(master, dev), opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+
+        def one(i):
+            nonlocal params, state
+            params, state, m = train_step(params, state, batch, cfg=cfg, optimizer=opt)
+            return {"loss": m["loss"], "grad_norm": m["grad_norm"]}
+
+        rows = _run_steps(torch, tag, steps, one, seq)
+        launches[tag] = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        state_bytes = sum(t.numel() * t.element_size() for o in state.adamw.values()
+                          for st in o.state.values() for t in st.values()
+                          if isinstance(t, torch.Tensor))
+        adamw_bytes = 8 * n_params
+        rel0 = _rel_diff(rows[0]["loss"], bf16_loss)
+        want = dict(_no_launches(), **want_flash(steps, steps, layers))
+        good = (_finite(rows, ("loss", "grad_norm")) and rel0 <= 0.02
+                and launches[tag] == want and state_bytes < 0.3 * adamw_bytes and peak < 80e9)
+        ok &= good
+        steady = rows[1:] or rows
+        summary[tag] = dict(
+            steps=rows, first_loss_rel_to_bf16=rel0, peak_bytes=peak, launches=launches[tag],
+            optimizer_state_bytes=state_bytes, adamw_state_bytes=adamw_bytes,
+            step_s_median=statistics.median(r["step_s"] for r in steady),
+            tokens_per_s_median=statistics.median(r["tokens_per_s"] for r in steady))
+        log(f"[{tag}] {steps} steps: first loss {rows[0]['loss']:.5f} against bf16 "
+            f"{bf16_loss:.5f} (rel {rel0:.2e}, limit 0.02); step wall median "
+            f"{1e3 * summary[tag]['step_s_median']:.1f} ms; optimizer state "
+            f"{state_bytes / 2**30:.2f} GiB = {state_bytes / adamw_bytes:.3f} x AdamW's "
+            f"(limit 0.3); peak {peak / 2**30:.2f} GiB; launches {launches[tag]} (expected "
+            f"{want}) -> {'OK' if good else 'FAIL'}")
+        del params, state, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        if mode not in check_modes:
+            continue
+        small = check_cfg or nvila_lite_2b_config(layers=2, vision_layers=2)
+        small = dataclasses.replace(small, llm=dataclasses.replace(small.llm, fp8_matmul=mode))
+        good, summary[f"{tag} consistency"] = phase_train_consistency(
+            torch, seed, cfg=small, card=dev, name=f"{tag} consistency", optimizer="fp8_adamw")
+        ok &= good
+    return ok, summary, launches
+
+
+def phase_train_lora(torch, seed, master, dev="cuda", steps=3, seq=2048, cfg=None,
+                     check_cfg=None, lr=2e-4):
+    """LoRA, then DoRA, at full NVILA-Lite-2B width: rank 16 on all seven
+    projections over the frozen master tree (`lora_loss_fn`), `steps`
+    `apply_gradients` steps of AdamW over the factors on the `train`
+    phase's first packed row. Checks: with B = 0 the adapted model's hidden
+    states equal the base model's bit for bit (DoRA's kernels w / |w| x |w|
+    within 1e-6 of max |w|, its hidden states reported); the base tree unchanged and without gradients, the
+    factors moved; `merge_lora`'s forward equal to the LoRA forward; K7-K9
+    28 a step each; loss and grad norm finite; a 2 + 2-layer DoRA step
+    against the CPU."""
+    from vila_tpu_torch.models import vlm
+    from vila_tpu_torch.ops import _build
+    from vila_tpu_torch.train import lora as lora_lib
+    from vila_tpu_torch.train import optimizer as topt
+    from vila_tpu_torch.train.step import apply_gradients
+
+    cfg = cfg or nvila_lite_2b_config()
+    layers = cfg.llm.num_hidden_layers
+    batch, _ = _sft_batch(torch, cfg, seq, dev)
+    layers_p = master["llm"]["layers"]
+    keep = {n: layers_p[n]["kernel"].detach().clone() for n in ("q_proj", "gate_proj")}
+    ok, summary, launches = True, {}, {}
+    with torch.no_grad():
+        h_base = vlm.forward_batch(master, cfg, batch, return_hidden=True)
+    for dora in (False, True):
+        tag = "train_lora dora" if dora else "train_lora"
+        lcfg = lora_lib.LoRAConfig(rank=16, use_dora=dora)
+        lora = lora_lib.init_lora(torch.Generator(device=dev).manual_seed(seed + 80),
+                                  master["llm"], lcfg)
+        with torch.no_grad():
+            adapted = lora_lib.apply_lora(master, lora, lcfg)
+            h0 = vlm.forward_batch(adapted, cfg, batch, return_hidden=True)
+            kernel_rel = max(float((adapted["llm"]["layers"][n]["kernel"] - layers_p[n]["kernel"])
+                                   .abs().max() / layers_p[n]["kernel"].abs().max())
+                             for n in lcfg.targets)
+            del adapted
+        same0 = bool(torch.equal(h0, h_base))
+        rel0 = float((h0.float() - h_base.float()).abs().max() / h_base.float().abs().max())
+        # DoRA's w / |w| x |w| is w within f32 rounding, which the bf16
+        # forward can round to the next bf16 value
+        identity = kernel_rel <= 1e-6 if dora else same0
+        fn = lora_lib.lora_loss_fn(master, cfg, lcfg)
+        opt = topt.adamw(lr, weight_decay=0.0)
+        state = opt.init(lora)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+
+        def one(i):
+            nonlocal state
+            loss, _, grad_norm, state = apply_gradients(lora, lambda: fn(lora, batch), opt,
+                                                        state)
+            return {"loss": loss, "grad_norm": grad_norm}
+
+        rows = _run_steps(torch, tag, steps, one, seq)
+        launches[tag] = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        base_same = all(torch.equal(layers_p[n]["kernel"], v) for n, v in keep.items()) and all(
+            t.grad is None and not t.requires_grad for t in topt.leaves(master))
+        moved = all(bool(e["b"].any()) for e in lora.values())
+        with torch.no_grad():
+            h_lora = vlm.forward_batch(lora_lib.apply_lora(master, lora, lcfg), cfg, batch,
+                                       return_hidden=True)
+            merged = lora_lib.merge_lora(master, {k: {kk: vv.detach() for kk, vv in e.items()}
+                                                  for k, e in lora.items()}, lcfg)
+            h_merged = vlm.forward_batch(merged, cfg, batch, return_hidden=True)
+        merge_same = bool(torch.equal(h_lora, h_merged))
+        del merged, h_lora, h_merged
+        want = dict(_no_launches(), **want_flash(steps, steps, layers))
+        good = (identity and base_same and moved and merge_same and launches[tag] == want
+                and _finite(rows, ("loss", "grad_norm")) and peak < 80e9)
+        ok &= good
+        n_factors = sum(t.numel() for t in topt.leaves(lora))
+        steady = rows[1:] or rows
+        summary[tag] = dict(steps=rows, identity_bit_exact=same0, identity_rel=rel0,
+                            identity_kernel_rel=kernel_rel,
+                            base_unchanged=base_same, factors_moved=moved,
+                            merge_equal=merge_same, factor_params=n_factors, peak_bytes=peak,
+                            launches=launches[tag],
+                            step_s_median=statistics.median(r["step_s"] for r in steady))
+        log(f"[{tag}] rank 16 x 7 projections ({n_factors} factor parameters): step 0 "
+            f"hidden equal to the base model's {same0} (max rel {rel0:.2e}; kernels' max rel "
+            f"{kernel_rel:.2e}); base unchanged "
+            f"{base_same}; factors moved {moved}; merged forward equal {merge_same}; peak "
+            f"{peak / 2**30:.2f} GiB; launches {launches[tag]} (expected {want}) -> "
+            f"{'OK' if good else 'FAIL'}")
+        del lora, state, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    del h_base, keep
+
+    lcfg = lora_lib.LoRAConfig(rank=16, use_dora=True)
+    small = check_cfg or nvila_lite_2b_config(layers=2, vision_layers=2)
+    cbatch = train_data(torch, small, 512)
+    cbatch = cbatch[2](cbatch[0][:1])
+
+    def check_step(params, d):
+        from vila_tpu_torch.train.step import batch_to_device
+
+        lora = copy_tree(lora_lib.init_lora(torch.Generator().manual_seed(seed + 81),
+                                            copy_tree(params["llm"], torch.device("cpu")),
+                                            lcfg), d)
+        fn = lora_lib.lora_loss_fn(params, small, lcfg)
+        opt = topt.adamw(lr, weight_decay=0.0)
+        b = batch_to_device(cbatch, d)
+        loss, _, grad_norm, _ = apply_gradients(lora, lambda: fn(lora, b), opt, opt.init(lora))
+        return {"loss": loss, "grad_norm": grad_norm}
+
+    good, summary["consistency"] = mode_consistency(
+        torch, seed, "train_lora dora consistency", check_step,
+        {"loss": (1e-2, 0.0), "grad_norm": (5e-2, 0.0)}, card=dev, cfg=small)
+    return ok & good, summary, launches
+
+
+def _preference_pairs(examples, n):
+    """n (chosen, rejected) pairs: each example as chosen, and as rejected
+    the same prompt and image with the answer's tokens reversed."""
+    import numpy as np
+
+    pairs = []
+    for e in examples[:n]:
+        ans = np.nonzero(e["labels"] >= 0)[0]
+        ids = e["input_ids"].copy()
+        ids[ans] = ids[ans[::-1]]
+        labels = e["labels"].copy()
+        labels[ans] = labels[ans[::-1]]
+        pairs.append({"chosen": e, "rejected": dict(e, input_ids=ids, labels=labels)})
+    return pairs
+
+
+def _pair_batch(torch, cfg, seq, dev, n=2, base=None):
+    """n `DPOCollator` pairs of DummyDataset image samples, one a row of
+    `seq` tokens, on `dev` (the collated numpy batch when `dev` is None)."""
+    from vila_tpu_torch.data.collate import Collator
+    from vila_tpu_torch.train.dpo import DPOCollator
+    from vila_tpu_torch.train.step import batch_to_device
+
+    examples, _, _, _ = train_data(torch, cfg, seq)
+    tok = ByteTokenizer()
+    pairs = DPOCollator(Collator(seq_len=seq, pad_token_id=tok.pad_token_id,
+                                 tile_size=cfg.vision.image_size))(
+        _preference_pairs(examples, n))
+    if dev is None:
+        return pairs
+    return {k: batch_to_device(v, torch.device(dev)) for k, v in pairs.items()}
+
+
+def _remat(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, remat=True))
+
+
+def phase_train_dpo(torch, seed, master, dev="cuda", steps=2, seq=1024, cfg=None,
+                    check_cfg=None, check_seq=512, lr=5e-6):
+    """DPO at full NVILA-Lite-2B width, `remat=True`: 2 `DPOCollator` pairs
+    of 1024-token rows (a DummyDataset image sample as chosen, its answer
+    reversed as rejected), `steps` `dpo_step_fn` steps of the policy (a
+    copy of the master tree) against the master tree as the frozen
+    reference. Checks: at step 0 (reference = policy) the loss is log 2
+    and the reward margin 0 (within 1e-6); the margin rises; K7 6 x 28 a
+    step (4 forwards, 2 recomputed), K8 and K9 2 x 28; peak under 80 GB;
+    at 2 + 2 layers (one pair at seq 512) the policy's log-probs and the
+    step's grad norm against the CPU."""
+    from vila_tpu_torch.ops import _build
+    from vila_tpu_torch.train import dpo
+    from vila_tpu_torch.train import optimizer as topt
+
+    cfg = _remat(cfg or nvila_lite_2b_config())
+    layers = cfg.llm.num_hidden_layers
+    batch = _pair_batch(torch, cfg, seq, dev)
+    policy = copy_tree(master, dev)
+    opt = NormedOptimizer(topt.adamw(lr, weight_decay=0.0))
+    state = opt.init(policy)
+    dcfg = dpo.DPOConfig()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+
+    def one(i):
+        nonlocal policy, state
+        policy, state, m = dpo.dpo_step_fn(policy, master, batch, cfg=cfg, dcfg=dcfg,
+                                           optimizer=opt, opt_state=state)
+        return dict(m, grad_norm=opt.norm)
+
+    rows = _run_steps(torch, "train_dpo", steps, one, 2 * 2 * seq)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    del policy, state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = dict(_no_launches(), **want_flash(6 * steps, 2 * steps, layers))
+    at0 = (abs(rows[0]["loss"] - math.log(2.0)) <= 1e-6
+           and abs(rows[0]["reward_margin"]) <= 1e-6)
+    rises = rows[-1]["reward_margin"] > rows[0]["reward_margin"]
+    ok = (at0 and rises and launches == want and peak < 80e9
+          and _finite(rows, ("loss", "grad_norm")))
+    log(f"[train_dpo] step 0: loss {rows[0]['loss']:.7f} (log 2 = {math.log(2.0):.7f}), "
+        f"margin {rows[0]['reward_margin']:.3e}; margin after {steps - 1} updates "
+        f"{rows[-1]['reward_margin']:.4e} (rises: {rises}); peak {peak / 2**30:.2f} GiB; "
+        f"launches {launches} (expected {want}) -> {'OK' if ok else 'FAIL'}")
+    summary = dict(config="NVILA-Lite-2B, remat, beta 0.1, sigmoid, 2 pairs x 1024 tokens",
+                   steps=rows, peak_bytes=peak, launches=launches,
+                   step_s_median=statistics.median(r["step_s"] for r in rows))
+
+    small = _remat(check_cfg or nvila_lite_2b_config(layers=2, vision_layers=2))
+    cpairs = _pair_batch(torch, small, check_seq, None, n=1)
+
+    def check_step(params, d):
+        from vila_tpu_torch.train.step import batch_to_device
+
+        b = {k: batch_to_device(v, d) for k, v in cpairs.items()}
+        ref = copy_tree(params, d)
+        with torch.no_grad():
+            lp = {k: dpo.sequence_logp(params, small, b[k]).sum() for k in b}
+        opt = NormedOptimizer(topt.adamw(lr, weight_decay=0.0))
+        _, _, m = dpo.dpo_step_fn(params, ref, b, cfg=small, dcfg=dcfg, optimizer=opt,
+                                  opt_state=opt.init(params))
+        return {"logp_chosen": lp["chosen"], "logp_rejected": lp["rejected"],
+                "loss": m["loss"], "grad_norm": opt.norm}
+
+    good, summary["consistency"] = mode_consistency(
+        torch, seed, "train_dpo consistency", check_step,
+        {"logp_chosen": (1e-2, 0.0), "logp_rejected": (1e-2, 0.0), "loss": (1e-6, 0.0),
+         "grad_norm": (5e-2, 0.0)}, card=dev, cfg=small)
+    return ok and good, summary, {"train_dpo": launches}
+
+
+def _ppo_rows(torch, cfg, seq, dev, n=2, seed=0):
+    """n DummyDataset image samples, one a row (Collator), on `dev`; the
+    response mask (the answer's next-token positions) and seeded scores."""
+    from vila_tpu_torch.data.collate import Collator
+    from vila_tpu_torch.train.step import batch_to_device
+
+    examples, _, _, _ = train_data(torch, cfg, seq)
+    batch = Collator(seq_len=seq, pad_token_id=ByteTokenizer().pad_token_id,
+                     tile_size=cfg.vision.image_size)(examples[:n])
+    mask = torch.tensor(batch["labels"][:, 1:] >= 0, dtype=torch.float32, device=dev)
+    scores = torch.randn((n,), generator=torch.Generator().manual_seed(seed + 91)).to(dev)
+    return batch_to_device(batch, torch.device(dev)), mask, scores
+
+
+def phase_train_rlhf(torch, seed, master, dev="cuda", seq=1024, reward_steps=2, ppo_steps=2,
+                     cfg=None, check_cfg=None, check_seq=512, lr=1e-6):
+    """Reward modeling and PPO at full NVILA-Lite-2B width, `remat=True`,
+    rows of 1024: a reward model (a copy of the master tree and a value
+    head) takes `reward_steps` pairwise steps on 2 preference pairs; then a
+    policy (another copy) and a fresh value head make one
+    `make_experience` against the master tree as the frozen reference and
+    take `ppo_steps` `ppo_step_fn` steps on 2 rows. Checks: at the first
+    PPO step new logp equals old, so `clipfrac` is 0, the ratio's mean 1
+    and `pg_loss` -mean(advantage) over the response mask; K7-K9 as
+    counted (a reward step 4 x 28 / 2 x 28, the experience 2 x 28 / 0, a
+    PPO step 2 x 28 / 1 x 28); losses and grad norms finite; peak under 80
+    GB; at 2 + 2 layers (one pair, one row, seq 512) a reward step and an
+    experience + PPO step against the CPU."""
+    from vila_tpu_torch.ops import _build
+    from vila_tpu_torch.train import optimizer as topt
+    from vila_tpu_torch.train import rlhf
+
+    cfg = _remat(cfg or nvila_lite_2b_config())
+    layers = cfg.llm.num_hidden_layers
+    d_model = cfg.llm.hidden_size
+    pairs = _pair_batch(torch, cfg, seq, dev)
+    rcfg, pcfg = rlhf.RewardConfig(), rlhf.PPOConfig()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    params = copy_tree(master, dev)
+    head = rlhf.init_value_head(torch.Generator(device=dev).manual_seed(seed + 90), d_model)
+    opt = NormedOptimizer(topt.adamw(lr, weight_decay=0.0))
+    state = opt.init((params, head))
+
+    def reward_one(i):
+        nonlocal params, head, state
+        params, head, state, m = rlhf.reward_step_fn(params, head, pairs, cfg=cfg, rcfg=rcfg,
+                                                     optimizer=opt, opt_state=state)
+        return dict(m, grad_norm=opt.norm)
+
+    rrows = _run_steps(torch, "train_rlhf reward", reward_steps, reward_one, 2 * 2 * seq)
+    launches = {"train_rlhf reward": dict(_build.LAUNCHES)}
+    del params, head, state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    batch, mask, scores = _ppo_rows(torch, cfg, seq, dev, seed=seed)
+    policy = copy_tree(master, dev)
+    vh = rlhf.init_value_head(torch.Generator(device=dev).manual_seed(seed + 92), d_model)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    exp = rlhf.make_experience(policy, master, vh, batch, mask, scores, cfg=cfg, pcfg=pcfg)
+    exp_kl = float(exp["kl"])
+    exp_s = time.perf_counter() - t0
+    opt = NormedOptimizer(topt.adamw(lr, weight_decay=0.0))
+    state = opt.init((policy, vh))
+
+    def ppo_one(i):
+        nonlocal policy, vh, state
+        policy, vh, state, m = rlhf.ppo_step_fn(policy, vh, batch, mask, exp, cfg=cfg,
+                                                pcfg=pcfg, optimizer=opt, opt_state=state)
+        return dict(m, grad_norm=opt.norm)
+
+    prows = _run_steps(torch, "train_rlhf ppo", ppo_steps, ppo_one, 2 * seq)
+    launches["train_rlhf ppo"] = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    pg_want = float(-(exp["advantages"] * mask).sum() / mask.sum())
+    del policy, vh, state, opt, exp
+    gc.collect()
+    torch.cuda.empty_cache()
+    first = prows[0]
+    at_init = (first["clipfrac"] == 0.0 and abs(first["ratio_mean"] - 1.0) <= 1e-6
+               and _rel_diff(first["pg_loss"], pg_want, 1.0) <= 1e-6)
+    want_r = dict(_no_launches(), **want_flash(4 * reward_steps, 2 * reward_steps, layers))
+    want_p = dict(_no_launches(), **want_flash(2 + 2 * ppo_steps, ppo_steps, layers))
+    ok = (at_init and launches["train_rlhf reward"] == want_r
+          and launches["train_rlhf ppo"] == want_p and peak < 80e9 and exp_kl == 0.0
+          and _finite(rrows, ("loss", "grad_norm")) and _finite(prows, ("loss", "grad_norm")))
+    log(f"[train_rlhf] experience {1e3 * exp_s:.1f} ms (kl against the reference "
+        f"{exp_kl:.3g}); first PPO step: clipfrac {first['clipfrac']}, ratio mean "
+        f"{first['ratio_mean']:.7f}, pg_loss {first['pg_loss']:.6g} against "
+        f"-mean(advantage) {pg_want:.6g}; peak {peak / 2**30:.2f} GiB; launches {launches} "
+        f"(expected reward {want_r}, ppo {want_p}) -> {'OK' if ok else 'FAIL'}")
+    summary = dict(config="NVILA-Lite-2B, remat, rows of 1024, value head on the trunk",
+                   reward_steps=rrows, ppo_steps=prows, experience_s=exp_s, peak_bytes=peak,
+                   launches=launches)
+
+    small = _remat(check_cfg or nvila_lite_2b_config(layers=2, vision_layers=2))
+    cpairs = _pair_batch(torch, small, check_seq, None, n=1)
+    crows = _ppo_rows(torch, small, check_seq, "cpu", n=1, seed=seed)
+
+    def check_step(params, d):
+        from vila_tpu_torch.train.step import batch_to_device
+
+        b = {k: batch_to_device(v, d) for k, v in cpairs.items()}
+        h = copy_tree(rlhf.init_value_head(torch.Generator().manual_seed(seed + 93), d_model), d)
+        ref = copy_tree(params, d)
+        opt = NormedOptimizer(topt.adamw(lr, weight_decay=0.0))
+        _, h, _, rm = rlhf.reward_step_fn(params, h, b, cfg=small, rcfg=rcfg, optimizer=opt,
+                                          opt_state=opt.init((params, h)))
+        rnorm = opt.norm
+        rb, rmask, rscores = (copy_tree(t, d) for t in crows)
+        exp = rlhf.make_experience(params, ref, h, rb, rmask, rscores, cfg=small, pcfg=pcfg)
+        opt = NormedOptimizer(topt.adamw(lr, weight_decay=0.0))
+        _, _, _, pm = rlhf.ppo_step_fn(params, h, rb, rmask, exp, cfg=small, pcfg=pcfg,
+                                       optimizer=opt, opt_state=opt.init((params, h)))
+        return {"reward_loss": rm["loss"], "reward_margin": rm["reward_margin"],
+                "reward_grad_norm": rnorm, "ppo_loss": pm["loss"], "vf_loss": pm["vf_loss"],
+                "pg_loss": pm["pg_loss"], "ppo_grad_norm": opt.norm}
+
+    # a reward reads one token's hidden state and the value loss squares
+    # each token's value, so the bf16 differences a mean over the row
+    # would average stay whole there: 2e-2 for those, 1e-2 for the rest
+    good, summary["consistency"] = mode_consistency(
+        torch, seed, "train_rlhf consistency", check_step,
+        {"reward_loss": (2e-2, 0.0), "reward_margin": (2e-2, 1.0),
+         "reward_grad_norm": (5e-2, 0.0), "ppo_loss": (2e-2, 1.0), "vf_loss": (2e-2, 0.0),
+         "pg_loss": (1e-2, 1.0), "ppo_grad_norm": (5e-2, 0.0)}, card=dev, cfg=small)
+    return ok and good, summary, launches
+
+
+PS3_TRAIN_ROWS = 2  # one 4:3 image a row
+
+
+def ps3_train_config(torch, layers=28, tower_layers=None, dev="cuda"):
+    """VILA-HD for training through `entry.build_config`: the `ps3` phase's
+    tower (PS3_TOWER), "after_image" selection, an mlp2x_gelu projector and
+    the e2e engine's Qwen2-7B (dense bf16 here); `tower_layers` cuts the
+    trunk."""
+    import dataclasses
+
+    base = nvila_8b_config(layers)
+    base = dataclasses.replace(base, projector=dataclasses.replace(
+        base.projector, projector_type="mlp2x_gelu"))
+    tower = dict(PS3_TOWER, **({"num_hidden_layers": tower_layers} if tower_layers else {}))
+    return config_from_files(base, {"ps3_look_close_mode": "after_image"}, vision_tower=tower,
+                             dev=dev)
+
+
+def ps3_train_params(torch, cfg, seed, dev):
+    """A seeded VILA-HD tree: the LLM in bf16 (frozen in stage 1.5), the
+    tower and projector f32 master weights."""
+    from vila_tpu_torch.models import projector, ps3, qwen2
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 60)
+    return {"llm": qwen2.init_params(gen, cfg.llm, torch.bfloat16),
+            "vision_tower": ps3.init_params(gen, cfg.vision, torch.float32),
+            "mm_projector": projector.init_params(gen, cfg.projector, torch.float32)}
+
+
+def ps3_train_batch(torch, cfg, seq, seed, rows=PS3_TRAIN_ROWS):
+    """`rows` rows of one seeded 4:3 image each (resized to every scale's
+    square as the engine does), a question and an answer, through the
+    port's `Collator`, with gt selection maps (a 108 x 108 map a tile, one
+    seeded rectangle marked); `pixel_values_high` then becomes a list, one
+    (B, 1, s, s, 3) array a high scale, since the collators carry one
+    array (the reference's fault)."""
+    import numpy as np
+
+    from vila_tpu_torch.constants import MEDIA_TOKENS
+    from vila_tpu_torch.data import preprocess
+    from vila_tpu_torch.data.collate import Collator
+
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(seed + 61)
+    tpi = cfg.tokens_per_image
+    img_id = tok.convert_tokens_to_ids(MEDIA_TOKENS["image"])
+    examples, highs = [], []
+    for i in range(rows):
+        img = rng.integers(0, 256, PS3_IMAGE, dtype=np.uint8)
+        views = [preprocess.process_image(img, image_size=s, image_aspect_ratio="resize")[0]
+                 for s in cfg.vision.s3_scales]
+        q = tok("<|im_start|>user\n").input_ids
+        a = tok(f"\nWhat is in region {i}?<|im_end|>\n<|im_start|>assistant\n").input_ids
+        ans = tok(f"A seeded pattern of noise, row {i}, with no object in it.<|im_end|>"
+                  ).input_ids
+        ids = np.array(q + [img_id] * tpi + a + ans, np.int32)
+        labels = np.full(len(ids), -100, np.int32)
+        labels[-len(ans):] = ans
+        gt = np.zeros((1, 108, 108), np.float32)
+        r0, c0 = rng.integers(0, 80, 2)
+        gt[0, r0:r0 + 24, c0:c0 + 24] = 1.0
+        examples.append({"input_ids": ids, "labels": labels, "tiles": views[0],
+                         "media_positions": np.arange(len(q), len(q) + tpi, dtype=np.int32),
+                         "tiles_high": views[1], "gt_selection_map": gt})
+        highs.append(views[1:])
+    batch = Collator(seq_len=seq, pad_token_id=tok.pad_token_id,
+                     tile_size=cfg.vision.image_size)(examples)
+    batch["pixel_values_high"] = [np.stack([h[j] for h in highs])
+                                  for j in range(len(cfg.vision.s3_scales) - 1)]
+    return batch
+
+
+def phase_train_ps3(torch, seed, dev="cuda", steps=2, seq=1024, cfg=None, check_cfg=None):
+    """PS3 / VILA-HD top-down training, stage 1.5 (tower and projector
+    tuned, the LLM frozen): the `ps3` phase's tower at full width and the
+    e2e engine's Qwen2-7B as a dense bf16 LLM, `steps` `train_step`s on
+    `PS3_TRAIN_ROWS` rows of seq 1024 with gt selection maps (teacher-forced
+    selection, the BCE + DICE selection loss beside the LM loss). Checks:
+    loss, selection loss and grad norm finite; the LLM unchanged, the
+    tower moved; K7-K9 28 a step each (the tower's head dim of 72 takes no
+    flash kernel); peak under 80 GB; a 2 + 2-layer step (tower 2 layers)
+    against the CPU."""
+    from vila_tpu_torch.ops import _build
+    from vila_tpu_torch.train import optimizer as topt
+    from vila_tpu_torch.train.step import batch_to_device, make_train_step, train_step
+
+    dev = torch.device(dev)
+    cfg = cfg or ps3_train_config(torch, dev=dev)
+    layers = cfg.llm.num_hidden_layers
+    batch_np = ps3_train_batch(torch, cfg, seq, seed)
+    batch = batch_to_device(batch_np, dev)
+    ocfg = topt.OptimizerConfig(learning_rate=5e-5, schedule="constant", warmup_ratio=0.0,
+                                tune_language_model=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = ps3_train_params(torch, cfg, seed, dev)
+    llm_before = params["llm"]["layers"]["q_proj"]["kernel"].clone()
+    tower_before = params["vision_tower"]["select_head"]["kernel"].clone()
+    opt = topt.make_optimizer(ocfg)
+    _, params, state = make_train_step(cfg, params, opt)
+    _build.reset_launches()
+
+    def one(i):
+        nonlocal params, state
+        params, state, m = train_step(params, state, batch, cfg=cfg, optimizer=opt)
+        return {k: m[k] for k in ("loss", "token_selection_loss", "grad_norm")}
+
+    rows = _run_steps(torch, "train_ps3", steps, one, PS3_TRAIN_ROWS * seq)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    frozen = bool(torch.equal(params["llm"]["layers"]["q_proj"]["kernel"], llm_before))
+    moved = not torch.equal(params["vision_tower"]["select_head"]["kernel"], tower_before)
+    del params, state, opt, llm_before, tower_before
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = dict(_no_launches(), **want_flash(steps, steps, layers))
+    ok = (_finite(rows, ("loss", "token_selection_loss", "grad_norm")) and frozen and moved
+          and launches == want and peak < 80e9)
+    fill = float(batch_np["segment_ids"].astype(bool).mean())
+    log(f"[train_ps3] VILA-HD ({cfg.vision.s3_scales}, {cfg.vision.k_per_scale} a high "
+        f"scale, {cfg.tokens_per_image} tokens an image), Qwen2-7B bf16 frozen, "
+        f"{PS3_TRAIN_ROWS} rows of {seq} ({100 * fill:.1f}% filled): LLM unchanged {frozen}, "
+        f"tower moved {moved}; peak {peak / 2**30:.2f} GiB; launches {launches} (expected "
+        f"{want}) -> {'OK' if ok else 'FAIL'}")
+    summary = dict(config="VILA-HD (PS3-1.5K tower, Qwen2-7B bf16 frozen), stage15",
+                   steps=rows, row_fill=fill, peak_bytes=peak, launches=launches,
+                   step_s_median=statistics.median(r["step_s"] for r in rows))
+
+    small = check_cfg or ps3_train_config(torch, layers=2, tower_layers=2, dev=dev)
+    cbatch = ps3_train_batch(torch, small, seq, seed, rows=1)
+
+    def check_step(params, d):
+        opt = topt.make_optimizer(ocfg)
+        _, params, state = make_train_step(small, params, opt)
+        _, _, m = train_step(params, state, batch_to_device(cbatch, d), cfg=small,
+                             optimizer=opt)
+        return {k: m[k] for k in ("loss", "token_selection_loss", "grad_norm")}
+
+    good, summary["consistency"] = mode_consistency(
+        torch, seed, "train_ps3 consistency", check_step,
+        {"loss": (1e-2, 0.0), "token_selection_loss": (1e-2, 0.0), "grad_norm": (5e-2, 0.0)},
+        card=dev, cfg=small,
+        params_fn=lambda d: copy_tree(ps3_train_params(torch, small, seed, dev), d))
+    return ok and good, summary, {"train_ps3": launches}
+
+
 def nvidia_smi_line():
     try:
         r = subprocess.run(
@@ -5081,10 +5918,19 @@ def main(argv=None) -> int:
                                            torch.device("cpu"))
         return engines["cpu"]
 
+    phase_s = report["phase_s"] = {}  # each phase's wall (the first user builds an engine)
+
+    def timed(name, fn):
+        t0 = time.time()
+        out = fn()
+        phase_s[name] = time.time() - t0
+        log(f"[{name}] phase wall {phase_s[name]:.1f} s")
+        return out
+
     if "build" in phases:
-        report["build_s"] = phase_build()
+        report["build_s"] = timed("build", phase_build)
     if "kernels" in phases:
-        good, results = phase_kernels(torch, args.seed)
+        good, results = timed("kernels", lambda: phase_kernels(torch, args.seed))
         ok &= good
     else:  # (only when named: the kernels phase runs them)
         if "k1" in phases:
@@ -5105,35 +5951,29 @@ def main(argv=None) -> int:
                 _check_k1_one_digit(torch, quant, args.seed, flush)
             ok &= good
     if "e2e" in phases:
-        good, report["requests"], launches["e2e"] = phase_e2e(
-            torch, engine(args.layers, args.seed), args.seed)
+        good, report["requests"], launches["e2e"] = timed("e2e", lambda: phase_e2e(
+            torch, engine(args.layers, args.seed), args.seed))
         ok &= good
     if "serve" in phases:
         for max_batch, n_req, new_tokens in SERVE_RUNS:
-            good, report[f"serve_b{max_batch}"], launches[f"serve b{max_batch}"] = \
-                phase_serve(torch, engine(args.layers, args.seed), args.seed,
-                            max_batch, n_req, new_tokens)
+            good, report[f"serve_b{max_batch}"], launches[f"serve b{max_batch}"] = timed(
+                f"serve b{max_batch}", lambda: phase_serve(
+                    torch, engine(args.layers, args.seed), args.seed, max_batch, n_req,
+                    new_tokens))
             ok &= good
     if "consistency" in phases:
-        good, report["consistency"] = phase_consistency(
-            torch, engine(4, args.seed + 1), llm_cpu(), args.seed)
+        good, report["consistency"] = timed("consistency", lambda: phase_consistency(
+            torch, engine(4, args.seed + 1), llm_cpu(), args.seed))
         ok &= good
     if "batched_consistency" in phases:
-        good, report["batched_consistency"] = phase_batched_consistency(
-            torch, engine(4, args.seed + 1), llm_cpu(), args.seed)
+        good, report["batched_consistency"] = timed(
+            "batched_consistency", lambda: phase_batched_consistency(
+                torch, engine(4, args.seed + 1), llm_cpu(), args.seed))
         ok &= good
     if "small_consistency" in phases:
-        good, report["small_consistency"] = phase_small_consistency(torch, args.seed)
+        good, report["small_consistency"] = timed(
+            "small_consistency", lambda: phase_small_consistency(torch, args.seed))
         ok &= good
-    phase_s = report["phase_s"] = {}  # the wall of the phases this slice added or grew
-
-    def timed(name, fn):
-        t0 = time.time()
-        out = fn()
-        phase_s[name] = time.time() - t0
-        log(f"[{name}] phase wall {phase_s[name]:.1f} s")
-        return out
-
     if "http" in phases:
         good, report["http"] = timed("http", lambda: phase_http(
             torch, engine(args.layers, args.seed)))
@@ -5155,8 +5995,8 @@ def main(argv=None) -> int:
         vt8 = siglip.quantize_siglip_w8a8(e2e.params["vision_tower"])
         for kind in ("s2", "video"):
             if kind in phases:
-                good, report[kind], launches[kind] = phase_media(torch, e2e, vt8, args.seed,
-                                                                 kind)
+                good, report[kind], launches[kind] = timed(kind, lambda: phase_media(
+                    torch, e2e, vt8, args.seed, kind))
                 ok &= good
         if "media_profile" in phases:  # not in the default run
             report["media_profile"] = {kind: phase_media_profile(torch, e2e, vt8, args.seed,
@@ -5164,27 +6004,30 @@ def main(argv=None) -> int:
                                        for kind in ("s2", "video")}
         del e2e, vt8
     if "ps3" in phases:
-        good, report["ps3"], ps3_launches, k2_rows = phase_ps3(
-            torch, engine(args.layers, args.seed), args.seed)
+        good, report["ps3"], ps3_launches, k2_rows = timed("ps3", lambda: phase_ps3(
+            torch, engine(args.layers, args.seed), args.seed))
         launches.update(ps3_launches)
         results.setdefault("w4_gemm", []).extend(k2_rows)
         ok &= good
     if "towers" in phases:
-        good, report["towers"], tower_launches = phase_towers(
-            torch, engine(args.layers, args.seed), args.seed)
+        good, report["towers"], tower_launches = timed("towers", lambda: phase_towers(
+            torch, engine(args.layers, args.seed), args.seed))
         launches.update(tower_launches)
         ok &= good
     if "load" in phases:
-        good, report["load"], launches["load"] = phase_load(torch, args.seed)
+        good, report["load"], launches["load"] = timed("load", lambda: phase_load(
+            torch, args.seed))
         ok &= good
     if "w8" in phases:
-        good, report["w8"] = phase_w8(torch, args.seed)
+        good, report["w8"] = timed("w8", lambda: phase_w8(torch, args.seed))
         ok &= good
     if "awq" in phases:
-        good, report["awq"], launches["awq"] = phase_awq(torch, args.seed)
+        good, report["awq"], launches["awq"] = timed("awq", lambda: phase_awq(
+            torch, args.seed))
         ok &= good
     if "quant_acc" in phases:
-        good, report["quant_acc"], launches["quant_acc"] = phase_quant_acc(torch)
+        good, report["quant_acc"], launches["quant_acc"] = timed(
+            "quant_acc", lambda: phase_quant_acc(torch))
         ok &= good
     if "profile" in phases:  # not in the default run
         report["profile"] = phase_profile(torch, engine(args.layers, args.seed), args.seed)
@@ -5195,20 +6038,41 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
     if "train_kernels" in phases:
-        good, train_results = phase_train_kernels(torch, args.seed)
+        good, train_results = timed("train_kernels", lambda: phase_train_kernels(
+            torch, args.seed))
         results.update(train_results)
         ok &= good
     if "train" in phases:
-        good, report["train"], train_launches = phase_train(torch, args.seed)
+        good, report["train"], train_launches = timed("train", lambda: phase_train(
+            torch, args.seed))
         launches.update(train_launches)
         ok &= good
     if "train_consistency" in phases:
-        good, report["train_consistency"] = phase_train_consistency(torch, args.seed)
+        good, report["train_consistency"] = timed(
+            "train_consistency", lambda: phase_train_consistency(torch, args.seed))
         ok &= good
     if "train_media" in phases:
         good, report["train_media"], media_launches = timed(
             "train_media", lambda: phase_train_media(torch, args.seed))
         launches.update(media_launches)
+        ok &= good
+    modes = [p for p in ("train_fp8", "train_lora", "train_dpo", "train_rlhf") if p in phases]
+    if modes:
+        master = train_master(torch, args.seed)
+        mode_fns = {"train_fp8": phase_train_fp8, "train_lora": phase_train_lora,
+                    "train_dpo": phase_train_dpo, "train_rlhf": phase_train_rlhf}
+        for name in modes:
+            good, report[name], mode_launches = timed(name, lambda: mode_fns[name](
+                torch, args.seed, master))
+            launches.update(mode_launches)
+            ok &= good
+        del master
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "train_ps3" in phases:
+        good, report["train_ps3"], ps3_train_launches = timed(
+            "train_ps3", lambda: phase_train_ps3(torch, args.seed))
+        launches.update(ps3_train_launches)
         ok &= good
     if "train_profile" in phases:  # not in the default run
         report["train_profile"] = phase_train_profile(torch, args.seed)

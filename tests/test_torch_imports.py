@@ -136,6 +136,64 @@ def test_decoding_and_training_media_modules_import_no_jax(name):
         assert loaded == []
 
 
+TRAINING_MODES = {
+    # module: what running it needs, beside importing it
+    "vila_tpu_torch.ops.fp8": (
+        "import torch\nfrom vila_tpu_torch.ops.fp8 import quantize_grouped\n"
+        "q, s = quantize_grouped(torch.ones(2, 130))\nassert q.shape == (2, 2, 128)\n"),
+    "vila_tpu_torch.ops.fake_quant": "",
+    "vila_tpu_torch.train.fp8_adamw": "",
+    "vila_tpu_torch.train.lora": "",
+    "vila_tpu_torch.train.dpo": "",
+    "vila_tpu_torch.train.rlhf": "",
+}
+
+
+@pytest.mark.parametrize("name", sorted(TRAINING_MODES))
+def test_training_mode_modules_are_walked_and_import_no_jax(name):
+    """The fp8, QAT, LoRA, DPO and RLHF modules are among those the import
+    and globals checks walk, and imported (and run) alone in a fresh
+    interpreter they load neither JAX nor the JAX package."""
+    assert name in _module_names()
+    code = (f"import importlib, json, sys\nimportlib.import_module({name!r})\n"
+            + TRAINING_MODES[name]
+            + "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'vila_tpu'))))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 96, 48), (25, 100, 40)])
+def test_fp8_linear_off_the_cpu_takes_scaled_mm(monkeypatch, m, k, n):
+    """Tensors that are not on the CPU take `torch._scaled_mm` (three
+    products: forward, dx, dw), never the plain f32 product; the operands
+    reach it row-major and column-major, with f32 scales and exact
+    accumulation, every dimension zero-padded to a multiple of 16 (the
+    second shape) and the results cut back."""
+    from vila_tpu_torch.ops import fp8
+
+    calls = []
+
+    def scaled_mm(a, b, scale_a, scale_b, out_dtype, use_fast_accum):
+        assert a.shape[1] == b.shape[0] and all(d % 16 == 0 for d in (*a.shape, b.shape[1]))
+        calls.append((a.dtype, b.dtype, a.is_contiguous(), b.t().is_contiguous(),
+                      scale_a.dtype, out_dtype, use_fast_accum))
+        return torch.empty((a.shape[0], b.shape[1]), dtype=out_dtype, device=a.device)
+
+    monkeypatch.setattr(torch, "_scaled_mm", scaled_mm)
+    x = torch.empty((2, m, k), dtype=torch.bfloat16, device="meta", requires_grad=True)
+    w = torch.empty((k, n), dtype=torch.bfloat16, device="meta", requires_grad=True)
+    y = fp8.fp8_linear(x, w)
+    assert y.shape == (2, m, n) and y.device.type == "meta"
+    y.backward(torch.empty_like(y))
+    assert x.grad.shape == x.shape and w.grad.shape == w.shape
+    e4, e5, bf, f32 = fp8.E4M3, fp8.E5M2, torch.bfloat16, torch.float32
+    assert calls == [(e4, e4, True, True, f32, bf, False), (e5, e4, True, True, f32, bf, False),
+                     (e4, e5, True, True, f32, bf, False)]
+
 def _walk_code(code):
     yield code
     for const in code.co_consts:

@@ -254,8 +254,14 @@ def test_vlm_tokens_and_encode_images_ps3_match_jax():
     with pytest.raises(ValueError, match="encode_images_ps3"):
         tvlm.encode_images(weights.from_jax_params(p, device="cpu"), tcfg,
                            torch.as_tensor(px[0]))
-    with pytest.raises(NotImplementedError, match="forward_batch_ps3"):  # PS3 training
-        tvlm.forward_batch({}, tcfg, {"input_ids": torch.zeros((1, 8), dtype=torch.long)})
+    # PS3 training: forward_batch dispatches to forward_batch_ps3 (text-only batch here;
+    # tests/test_torch_ps3_train.py holds the media batches)
+    ids = np.arange(8, dtype=np.int32)[None] + 3
+    want = jvlm.forward_batch(jax.tree.map(jnp.asarray, p), jcfg, {"input_ids": jnp.asarray(ids)})
+    got = tvlm.forward_batch(weights.from_jax_params(p, device="cpu"), tcfg,
+                             {"input_ids": torch.as_tensor(ids)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=RTOL * np.abs(np.asarray(want)).max())
     with pytest.raises(AssertionError, match="non-downsampling"):
         dataclasses.replace(tcfg, projector=dataclasses.replace(
             tcfg.projector, projector_type="mlp_downsample")).tokens_per_image

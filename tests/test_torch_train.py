@@ -227,9 +227,15 @@ def test_train_step_matches_jax(remat, attn_impl):
 
 
 def test_llm_config_training_options():
-    with pytest.raises(NotImplementedError, match="fp8"):
-        tqwen2.LLMConfig(fp8_matmul="group")
+    """fp8 matmuls and the fp8 AdamW build (tests/test_torch_fp8.py holds
+    them against JAX); an unknown remat or fp8 mode is refused."""
+    from vila_tpu_torch.train.fp8_adamw import FP8AdamW
+
+    assert tqwen2.LLMConfig(fp8_matmul="group").fp8_matmul == "group"
+    with pytest.raises(ValueError, match="fp8_matmul"):
+        tqwen2.LLMConfig(fp8_matmul="row")
     with pytest.raises(ValueError, match="remat"):
         tqwen2.LLMConfig(remat="everything")
-    with pytest.raises(NotImplementedError, match="fp8_adamw"):
-        topt.make_optimizer(topt.OptimizerConfig(optimizer="fp8_adamw"))
+    tree = {c: {"w": torch.zeros(3)} for c in topt.COMPONENTS}
+    state = topt.make_optimizer(topt.OptimizerConfig(optimizer="fp8_adamw")).init(tree)
+    assert all(isinstance(o, FP8AdamW) for o in state.adamw.values())

@@ -9,8 +9,9 @@ cross-segment pairs.
 
 All outputs are static-shape numpy arrays matching
 `vila_tpu_torch.models.vlm.forward_batch`'s batch layout. A copy of
-`vila_tpu/data/collate.py`; PS3's high-res tiles and selection maps come
-with PS3.
+`vila_tpu/data/collate.py`, PS3's high-res tiles and selection maps
+(`_collate_ps3_extras`) included: as there, only `Collator` carries them,
+and as one array, so one high-res scale.
 """
 
 from __future__ import annotations
@@ -104,10 +105,44 @@ class Collator:
                 mp = e["media_positions"]
                 mp = mp[mp < s]  # truncated media tokens are dropped
                 out["media_positions"][i, : len(mp)] = mp
+        _collate_ps3_extras(out, examples, max_tiles)
         if not any_tiles:
             # media-free batch: skip the vision forward entirely
             del out["pixel_values"], out["media_positions"]
         return out
+
+
+def _collate_ps3_extras(out, examples, max_tiles) -> None:
+    """PS3 batch keys: high-res tiles and gt selection maps, per tile
+    (reference: `gt_selection_maps` stacking in llava/data/collate.py:138-158).
+    Samples carry optional "tiles_high" (T, s1, s1, 3) and
+    "gt_selection_map" (T, gh, gw)."""
+    if not any(e.get("tiles_high") is not None and len(e["tiles_high"])
+               for e in examples):
+        return
+    b = len(examples)
+    hi_shape = next(
+        e["tiles_high"].shape[1:]
+        for e in examples
+        if e.get("tiles_high") is not None and len(e["tiles_high"])
+    )
+    out["pixel_values_high"] = np.zeros((b, max_tiles) + hi_shape, np.uint8)
+    gt_shape = None
+    for e in examples:
+        if e.get("gt_selection_map") is not None:
+            gt_shape = e["gt_selection_map"].shape[1:]
+            break
+    if gt_shape is not None:
+        out["gt_selection_maps"] = np.zeros(
+            (b, max_tiles) + gt_shape, np.float32
+        )
+    for i, e in enumerate(examples):
+        th = e.get("tiles_high")
+        if th is not None and len(th):
+            out["pixel_values_high"][i, : th.shape[0]] = th
+        gm = e.get("gt_selection_map")
+        if gt_shape is not None and gm is not None:
+            out["gt_selection_maps"][i, : gm.shape[0]] = gm
 
 
 @dataclasses.dataclass

@@ -38,7 +38,8 @@ the backward stacks one gradient per tensor instead of summing a full-size
 one per layer), and runs each layer under `torch.utils.checkpoint` with
 `cfg.remat` (True: full recompute; "dots": matmul outputs kept, JAX's
 `dots_with_no_batch_dims_saveable`). Its attention takes the flash kernels
-on the card (`ops/attention.py`).
+on the card (`ops/attention.py`). With `cfg.fp8_matmul` every dense
+projection runs through `ops/fp8.py` (per-tensor or per-group COAT fp8).
 """
 
 from __future__ import annotations
@@ -77,13 +78,15 @@ class LLMConfig:
     dtype: str = "float32"  # compute dtype
     # False | True (full recompute per layer) | "dots" (matmul outputs kept)
     remat: Any = False
-    # FP8 training matmuls (JAX's ops/fp8.py): not ported yet, must be False
+    # FP8 decoder matmuls (ops/fp8.py): False | True / "tensor" (per-tensor
+    # scales, `fp8_linear`) | "group" (COAT's per-group recipe,
+    # `fp8_linear_grouped`)
     fp8_matmul: Any = False
 
     def __post_init__(self):
-        if self.fp8_matmul:
-            raise NotImplementedError(
-                "fp8_matmul needs ops/fp8.py, which is not ported yet")
+        if self.fp8_matmul not in (False, True, "tensor", "group"):
+            raise ValueError(
+                f"fp8_matmul must be False, True, 'tensor' or 'group', got {self.fp8_matmul!r}")
         if self.remat not in (False, True, "dots"):
             raise ValueError(f"remat must be False, True or 'dots', got {self.remat!r}")
 
@@ -202,12 +205,18 @@ def init_cache(
 # --------------------------------------------------------------------------
 
 
-def _linear(x, p, dtype):
+def _linear(x, p, dtype, fp8=False):
     if "packed" in p:  # one layer's W4 slot
         from vila_tpu_torch.ops.quant import quantized_linear
 
         return quantized_linear(x, p, dtype)
-    y = x @ p["kernel"].to(dtype)
+    if fp8:  # COAT fp8 training (ops/fp8.py); the bias is added after
+        from vila_tpu_torch.ops import fp8 as fp8_ops
+
+        fn = fp8_ops.fp8_linear_grouped if fp8 == "group" else fp8_ops.fp8_linear
+        y = fn(x, p["kernel"].to(dtype))
+    else:
+        y = x @ p["kernel"].to(dtype)
     if "bias" in p:
         y = y + p["bias"].to(dtype)
     return y
@@ -338,7 +347,7 @@ def forward(
             if "bias" in lp:
                 y = y + lp["bias"][l].to(dtype)
             return y
-        return _linear(x, layer_slot(name, l), dtype)
+        return _linear(x, layer_slot(name, l), dtype, cfg.fp8_matmul)
 
     def pad_attn(attn):
         """(b, s, nq) -> (b, s, o_din): zero lanes for the GQA group pad."""

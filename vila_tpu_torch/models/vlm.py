@@ -1,8 +1,9 @@
 """VLM meta-architecture: vision tower + projector + LLM with media splice,
 as `vila_tpu/models/vlm.py`, and the training forward over a collated batch
-(`forward_batch`). The tower is SigLIP (`models/siglip.py`), CLIP,
-InternViT or RADIO (`models/vit.py`), or PS3 (`models/ps3.py`, VILA-HD's
-selective high-resolution tower, encoded by `encode_images_ps3`).
+(`forward_batch`; `forward_batch_ps3` for PS3). The tower is SigLIP
+(`models/siglip.py`), CLIP, InternViT or RADIO (`models/vit.py`), or PS3
+(`models/ps3.py`, VILA-HD's selective high-resolution tower, encoded by
+`encode_images_ps3`).
 Dynamic-S2 images encode through `models/s2.py`, TSP videos through
 `models/encoders.py`.
 
@@ -14,7 +15,7 @@ vision features into those slots of the text embeddings.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -172,34 +173,80 @@ def forward(
     )
 
 
+def _splice_batch(embeds: torch.Tensor, feats: torch.Tensor, batch) -> torch.Tensor:
+    """Per-row features (B, M, D) into their row-local media positions."""
+    b, s = embeds.shape[:2]
+    mp = batch["media_positions"].to(embeds.device).long()
+    # row-local -> global flat indices; the sentinels stay out of range
+    offsets = (torch.arange(b, device=mp.device) * s)[:, None]
+    global_pos = torch.where(mp < s, mp + offsets, b * s)
+    return splice_media(embeds, feats.reshape(-1, feats.shape[-1]), global_pos.reshape(-1))
+
+
 def forward_batch(params: Params, cfg: VLMConfig, batch: Dict[str, torch.Tensor], *,
                   attn_impl: str = "auto", return_hidden: bool = False) -> torch.Tensor:
     """Training forward over a collated batch (`data/collate.py`). Returns
     logits (B, S, V), or the final hidden states (B, S, D) with
-    `return_hidden` (for the chunked cross entropy).
+    `return_hidden` (for the chunked cross entropy). A PS3 config runs
+    `forward_batch_ps3`.
 
     Batch: input_ids, positions, segment_ids (B, S); pixel_values
     (B, T, s, s, 3) per-sample tiles; media_positions (B, M) row-local flat
     indices with an out-of-range sentinel for padding, M = T *
     tokens_per_image. `attn_impl` picks the LLM's attention route."""
     if cfg.vision_tower_type == "ps3":
-        raise NotImplementedError("forward_batch_ps3 (PS3 training) is not ported yet")
+        out, _ = forward_batch_ps3(params, cfg, batch, attn_impl=attn_impl,
+                                   return_hidden=return_hidden)
+        return out
     input_ids = batch["input_ids"]
-    b, s = input_ids.shape
+    b = input_ids.shape[0]
     embeds = qwen2.embed_tokens(params["llm"], cfg.llm, input_ids)
     pixels = batch.get("pixel_values")
     if pixels is not None:
         feats = encode_images(params, cfg, pixels.reshape((-1,) + pixels.shape[2:]))
-        feats = feats.reshape(b, -1, feats.shape[-1])  # (B, M, D)
-        mp = batch["media_positions"].to(embeds.device).long()
-        # row-local -> global flat indices; the sentinels stay out of range
-        offsets = (torch.arange(b, device=mp.device) * s)[:, None]
-        global_pos = torch.where(mp < s, mp + offsets, b * s)
-        embeds = splice_media(embeds, feats.reshape(-1, feats.shape[-1]),
-                              global_pos.reshape(-1))
+        embeds = _splice_batch(embeds, feats.reshape(b, -1, feats.shape[-1]), batch)
     out, _ = qwen2.forward(
         params["llm"], cfg.llm, inputs_embeds=embeds,
         positions=batch.get("positions"), segment_ids=batch.get("segment_ids"),
         attn_impl=attn_impl, return_hidden=return_hidden,
     )
     return out
+
+
+def forward_batch_ps3(params: Params, cfg: VLMConfig, batch: Dict[str, Any], *,
+                      attn_impl: str = "auto", return_hidden: bool = False,
+                      num_look_close: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """PS3 training forward: bottom-up look-close selection, teacher-forced
+    by the gt maps when the batch has them (the reference's "after_image"
+    training path, llava_trainer.py:917-998). Returns (logits or hidden,
+    selection_probs) for the token-selection loss.
+
+    Extra batch keys: pixel_values_high (B, T, s1, s1, 3), or a list with
+    one such array a high scale; gt_selection_maps (B, T, gh, gw) binary,
+    optional."""
+    input_ids = batch["input_ids"]
+    b = input_ids.shape[0]
+    embeds = qwen2.embed_tokens(params["llm"], cfg.llm, input_ids)
+    sel_probs: List[torch.Tensor] = []
+    pixels = batch.get("pixel_values")
+    if pixels is not None:
+        bt = pixels.shape[0] * pixels.shape[1]
+        high = batch.get("pixel_values_high")
+        if high is not None:
+            high = [h.reshape((bt,) + h.shape[2:])
+                    for h in (high if isinstance(high, (list, tuple)) else [high])]
+        gt = batch.get("gt_selection_maps")
+        if gt is not None:
+            gt = gt.reshape((bt,) + gt.shape[2:])
+        feats, sel_probs, _ = encode_images_ps3(
+            params, cfg, pixels.reshape((bt,) + pixels.shape[2:]), high,
+            gt_selection_maps=gt, num_look_close=num_look_close,
+            smooth_selection_prob=False)
+        embeds = _splice_batch(embeds, feats.reshape(b, -1, feats.shape[-1]), batch)
+    out, _ = qwen2.forward(
+        params["llm"], cfg.llm, inputs_embeds=embeds,
+        positions=batch.get("positions"), segment_ids=batch.get("segment_ids"),
+        attn_impl=attn_impl, return_hidden=return_hidden,
+    )
+    return out, sel_probs

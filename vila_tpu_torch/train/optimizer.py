@@ -12,9 +12,14 @@ Semantics kept from optax, component by component:
     first update lr 0);
   * a frozen component (`set_to_zero`) keeps its parameters.
 The AdamW step is `torch.optim.AdamW` (fused on the card), whose update is
-optax's; parameters and moments are updated in place. A parameter that
+optax's, or with `optimizer="fp8_adamw"` `train/fp8_adamw.FP8AdamW` (fp8
+moments); parameters and moments are updated in place. A parameter that
 received no gradient (unused in the forward) steps with a zero gradient, as
 optax's dense tree does.
+
+`adamw` / `adam` are the same step over any tree of tensors (dicts, lists,
+tuples), one learning rate or schedule for all of it: what the JAX
+package's LoRA, DPO, reward, PPO and SFT steps take from optax.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ class OptimizerConfig:
     total_steps: int = 1000
     schedule: str = "cosine"  # cosine | linear | constant
     max_grad_norm: float = 1.0
-    optimizer: str = "adamw"  # adamw (fp8_adamw comes with train/fp8_adamw.py)
+    optimizer: str = "adamw"  # adamw | fp8_adamw (COAT-parity fp8 moments)
     tune_language_model: bool = True
     tune_vision_tower: bool = True
     tune_mm_projector: bool = True
@@ -75,9 +80,12 @@ def make_schedule(cfg: OptimizerConfig, peak_lr: float) -> Callable[[int], float
 
 
 def leaves(tree: Any) -> List[torch.Tensor]:
-    """The tensors of a nested dict tree, in key order."""
+    """The tensors of a nested dict / list / tuple tree, dicts in key
+    order (jax.tree's order)."""
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in leaves(v)]
     return [tree] if isinstance(tree, torch.Tensor) else []
 
 
@@ -87,13 +95,34 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def _adam_step(ts: List[torch.Tensor], optimizer: str, b1: float, b2: float, eps: float,
+               weight_decay: float) -> torch.optim.Optimizer:
+    """The in-place AdamW (or fp8 AdamW) over `ts`, learning rate set per
+    step."""
+    if optimizer == "fp8_adamw":
+        from vila_tpu_torch.train.fp8_adamw import FP8AdamW
+
+        return FP8AdamW(ts, lr=0.0, betas=(b1, b2), eps=eps, weight_decay=weight_decay)
+    if optimizer != "adamw":
+        raise ValueError(f"optimizer must be 'adamw' or 'fp8_adamw', got {optimizer!r}")
+    return torch.optim.AdamW(ts, lr=0.0, betas=(b1, b2), eps=eps,
+                             weight_decay=weight_decay, fused=ts[0].is_cuda or None)
+
+
+def _fill_grads(ts: List[torch.Tensor]) -> List[torch.Tensor]:
+    for t in ts:
+        if t.grad is None:
+            t.grad = torch.zeros_like(t)
+    return [t.grad for t in ts]
+
+
 @dataclasses.dataclass
 class OptState:
-    """The update count and one `torch.optim.AdamW` per tuned component,
-    bound to that component's tensors."""
+    """The update count and one in-place optimizer (`torch.optim.AdamW` or
+    `FP8AdamW`) per tuned component, bound to that component's tensors."""
 
     count: int
-    adamw: Dict[str, torch.optim.AdamW]
+    adamw: Dict[str, torch.optim.Optimizer]
 
     def state_dict(self) -> Dict[str, Any]:
         return {"count": self.count,
@@ -111,9 +140,6 @@ class Optimizer:
     tensor's `.grad` (in place)."""
 
     def __init__(self, cfg: OptimizerConfig):
-        if cfg.optimizer != "adamw":
-            raise NotImplementedError(
-                f"optimizer {cfg.optimizer!r} needs train/fp8_adamw.py, not ported yet")
         self.cfg = cfg
         tuned = {"llm": cfg.tune_language_model, "vision_tower": cfg.tune_vision_tower,
                  "mm_projector": cfg.tune_mm_projector}
@@ -125,21 +151,14 @@ class Optimizer:
 
     def init(self, params: Dict[str, Any]) -> OptState:
         cfg = self.cfg
-        adamw = {}
-        for name in self.schedules:
-            ts = leaves(params[name])
-            adamw[name] = torch.optim.AdamW(
-                ts, lr=0.0, betas=(cfg.b1, cfg.b2), eps=cfg.eps,
-                weight_decay=cfg.weight_decay, fused=ts[0].is_cuda or None)
-        return OptState(count=0, adamw=adamw)
+        return OptState(count=0, adamw={
+            name: _adam_step(leaves(params[name]), cfg.optimizer, cfg.b1, cfg.b2, cfg.eps,
+                             cfg.weight_decay)
+            for name in self.schedules})
 
     def update(self, opt_state: OptState, params: Dict[str, Any]) -> OptState:
         for name, opt in opt_state.adamw.items():
-            ts = leaves(params[name])
-            for t in ts:
-                if t.grad is None:
-                    t.grad = torch.zeros_like(t)
-            grads = [t.grad for t in ts]
+            grads = _fill_grads(leaves(params[name]))
             clip = self.cfg.max_grad_norm / torch.clamp(
                 global_norm(grads), min=self.cfg.max_grad_norm)
             torch._foreach_mul_(grads, clip)
@@ -153,3 +172,39 @@ class Optimizer:
 def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
     """AdamW with component-wise learning rates, clipping and freezing."""
     return Optimizer(cfg)
+
+
+class TreeOptimizer:
+    """`optax.adamw` / `optax.adam` over every leaf of any tree:
+    `init(params)` binds the state to the leaves, `update(opt_state,
+    params)` steps them in place from their `.grad`. `learning_rate` is a
+    number or a schedule of the update count."""
+
+    def __init__(self, learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 0.0):
+        self.schedule = learning_rate if callable(learning_rate) else (
+            lambda count: learning_rate)
+        self.args = ("adamw", b1, b2, eps, weight_decay)
+
+    def init(self, params: Any) -> OptState:
+        return OptState(count=0, adamw={"tree": _adam_step(leaves(params), *self.args)})
+
+    def update(self, opt_state: OptState, params: Any) -> OptState:
+        _fill_grads(leaves(params))
+        opt = opt_state.adamw["tree"]
+        for group in opt.param_groups:
+            group["lr"] = self.schedule(opt_state.count)
+        opt.step()
+        opt_state.count += 1
+        return opt_state
+
+
+def adamw(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 1e-4) -> TreeOptimizer:
+    """`optax.adamw` (its default weight decay 1e-4) over a whole tree."""
+    return TreeOptimizer(learning_rate, b1, b2, eps, weight_decay)
+
+
+def adam(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> TreeOptimizer:
+    """`optax.adam` over a whole tree."""
+    return TreeOptimizer(learning_rate, b1, b2, eps, 0.0)
