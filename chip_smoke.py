@@ -194,6 +194,24 @@ Phases:
                frozen): 2 steps on 2 rows of seq 1024, one 4:3 image each,
                with gt selection maps (LM + selection loss); 2 + 2 layers
                (tower 2) against the CPU;
+  sp_ring      LongVILA's ring at Qwen2-7B attention widths (28 / 4 heads of
+               128), bf16, S 32768 with three packed segments: the port's
+               ring steps (`_ring_step_fwd`, `_merge`, `_ring_step_bwd`) for
+               4 virtual ranks in one process, contiguous and zigzag, held
+               against one K7 / K8 / K9 call over the whole sequence; each
+               step kind's K7-K9 against its plain version, timed beside
+               SDPA; the step kernels' ms summed over the ring;
+  extend       context extension (`extend_llm`) over a seeded bf16 Qwen2-7B,
+               28 layers: LoRA rank 16, remat, rope_theta 15.3e6, 2 steps of
+               32768 tokens (step wall, peak, K7-K9 launches); the first
+               loss of a 2-layer cut at S 1024 against the CPU;
+  niah         `run_niah` over the same Qwen2-7B: contexts 8192 / 32768 x
+               depths 0 / 0.5 / 1 (each forward's ms, K7 launches); at 8192
+               the logits against the plain attention;
+  long_ctx     `LongContextEngine` over the W4 NVILA-8B LLM on a one-rank
+               NCCL mesh: cache 65536, chunks of 4096, a 32768-token prompt,
+               16 greedy tokens (TTFT, tok/s, peak, K1 / K2 launches) against
+               the serial `qwen2.forward` cache path;
   profile      (only when named) torch.profiler trace of one request:
                device busy time and idle share of a decode step; then one
                max_batch=8 decode step (K6): host issue time per layer and
@@ -281,7 +299,7 @@ SERVE_RUNS = ((8, 12, 32), (24, 24, 16))
 DEFAULT_PHASES = ("build,kernels,e2e,serve,consistency,batched_consistency,"
                   "small_consistency,http,spec,constrained,s2,video,ps3,towers,load,w8,awq,"
                   "quant_acc,train_kernels,train,train_consistency,train_media,train_fp8,"
-                  "train_lora,train_dpo,train_rlhf,train_ps3")
+                  "train_lora,train_dpo,train_rlhf,train_ps3,sp_ring,extend,long_ctx,niah")
 
 
 def log(*a):
@@ -1620,6 +1638,12 @@ def summarise(results, launches):
                 r["library_ms"] for r in rows),
             checks_ok=all(r["ok"] for r in rows))
             for (path, m), rows in by_path.items()]
+    # K7-K9 at the ring's block shapes (the `sp_ring` phase), beside the main
+    # entries: each step kind once, with the number of ring steps that run it
+    ring = {name: [dict(work=r["shape"], steps=r["steps"], ok=r["ok"],
+                        **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")})
+                   for r in results.get(name, []) if "ring" in r] for name in FLASH_KERNELS}
     out = []
     for name, meta in KERNELS.items():
         # the NVILA-8B main-path shapes (the Qwen2-0.5B checks are reported apart)
@@ -1646,6 +1670,7 @@ def summarise(results, launches):
             **({"spec": spec} if name == "w4_gemv" and spec else {}),
             **({"one_digit": one_digit} if name == "w4_gemv" and one_digit else {}),
             **({"media": media[name]} if media.get(name) else {}),
+            **({"ring": ring[name]} if ring.get(name) else {}),
         ))
     return out
 
@@ -2853,16 +2878,19 @@ def media_config(kind, serving, dev="cuda"):
 class plain_versions:
     """The reference side of a comparison on the card: while active, the
     W4 wrappers compute their plain versions (`quant._w4_gemv_ref`,
-    `_w4_gemm_ref`, `fused_decode._fused_layer_ref`: K1, K2, K3) on the
-    card's tensors, and no kernel may launch. The port's wrappers never do
-    this themselves."""
+    `_w4_gemm_ref`, `fused_decode._fused_layer_ref`: K1, K2, K3) and the
+    flash forward its own (`flash_fwd_plain`: K7) on the card's tensors,
+    and no kernel may launch. The port's wrappers never do this
+    themselves."""
 
     def __enter__(self):
-        from vila_tpu_torch.ops import _build, fused_decode, quant
+        from vila_tpu_torch.ops import _build, flash_attention, fused_decode, quant
 
-        self.quant, self.fd = quant, fused_decode
-        self.saved = (quant.w4_matmul_decode, quant.w4_matmul_prefill, fused_decode.fused_layer)
+        self.quant, self.fd, self.fa = quant, fused_decode, flash_attention
+        self.saved = (quant.w4_matmul_decode, quant.w4_matmul_prefill, fused_decode.fused_layer,
+                      flash_attention.flash_fwd)
         self.before = dict(_build.LAUNCHES)
+        flash_attention.flash_fwd = flash_attention.flash_fwd_plain
         quant.w4_matmul_decode = (lambda x, packed, scales, act_digits=2, layer_index=None:
                                   quant._w4_gemv_ref(x, packed, scales, layer_index,
                                                      act_digits=act_digits))
@@ -2875,7 +2903,7 @@ class plain_versions:
         from vila_tpu_torch.ops import _build
 
         (self.quant.w4_matmul_decode, self.quant.w4_matmul_prefill,
-         self.fd.fused_layer) = self.saved
+         self.fd.fused_layer, self.fa.flash_fwd) = self.saved
         if exc[0] is None and dict(_build.LAUNCHES) != self.before:
             raise RuntimeError("a kernel launched inside plain_versions")
         return False
@@ -5847,6 +5875,545 @@ def phase_train_ps3(torch, seed, dev="cuda", steps=2, seq=1024, cfg=None, check_
     return ok and good, summary, {"train_ps3": launches}
 
 
+# --------------------------------------------------------------------------
+# LongVILA's long-context stack (MM-SP ring steps, context extension, the
+# sequence-sharded engine, NIAH) at Qwen2-7B width
+# --------------------------------------------------------------------------
+
+RING_HEADS = (28, 4)  # Qwen2-7B's attention: 28 query and 4 KV heads of 128
+RING_SEQ = 32768
+RING_RANKS = 4  # virtual ranks of the ring, driven in one process
+EXTEND_SEQ = 32768  # half of the 64k recipe's sequence
+EXTEND_STEPS = 2
+LONG_CTX = dict(max_cache_len=65536, prefill_chunk=4096, prompt=32768, new_tokens=16)
+NIAH_CONTEXTS = (8192, 32768)
+NIAH_DEPTHS = (0.0, 0.5, 1.0)
+
+
+def one_rank_mesh(torch, dev):
+    """A process group of this one rank (NCCL on the card, gloo on the
+    CPU, 127.0.0.1 and a free port) and its (1, 1, 1) mesh, opened once:
+    the long-context phases run the code the CPU tests run over gloo."""
+    import socket
+
+    import torch.distributed as dist
+
+    from vila_tpu_torch.parallel import distributed, mesh as mesh_lib
+
+    if not dist.is_initialized():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        distributed.init_distributed(f"tcp://127.0.0.1:{port}", 1, 0,
+                                     backend="nccl" if dev.type == "cuda" else "gloo")
+    return mesh_lib.make_mesh()
+
+
+def qwen2_7b_config(layers=28, dtype="bfloat16", **over):
+    """Qwen2-7B's published widths (Qwen/Qwen2-7B config.json: hidden
+    3584, intermediate 18944, 28 layers, 28 query and 4 KV heads of 128,
+    vocab 152064, untied lm_head), bf16."""
+    from vila_tpu_torch.models import qwen2
+
+    kw = dict(vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+              num_hidden_layers=layers, num_attention_heads=28, num_key_value_heads=4,
+              rope_theta=1e6, tie_word_embeddings=False, dtype=dtype)
+    kw.update(over)
+    return qwen2.LLMConfig(**kw)
+
+
+def ring_segments(torch, s, dev):
+    """Three packed segments of 45 %, 35 % and 20 % of the sequence."""
+    a, b = int(0.45 * s), int(0.8 * s)
+    seg = torch.ones((1, s), dtype=torch.int32, device=dev)
+    seg[:, a:b] = 2
+    seg[:, b:] = 3
+    return seg
+
+
+def _by_group(fn, hq, hkv):
+    """fn(query head slice, KV head slice) for each KV head group: a plain
+    version run one group at a time (its score tensors at 1 / hkv of the
+    memory)."""
+    g = hq // hkv
+    return [fn(slice(j * g, (j + 1) * g), slice(j, j + 1)) for j in range(hkv)]
+
+
+def phase_sp_ring(torch, seed, dev="cuda", heads=RING_HEADS, seq=RING_SEQ, n=RING_RANKS):
+    """The ring's steps at Qwen2-7B attention widths, bf16, S `seq` with
+    three packed segments, for `n` virtual ranks in one process: the port's
+    `_ring_step_fwd`, `_merge` and `_ring_step_bwd` for every (my, src)
+    pair, the rotation by list indexing (P2P is held on the CPU over
+    gloo), in the contiguous and the zigzag layouts. The merged output,
+    LSE and gradients are held against one K7 / K8 / K9 call over the whole
+    sequence (K7's and K9's bars: 1e-2 x max|ref| on bf16, 1e-3 on the
+    LSE); each step kind's K7 / K8 / K9 against its plain version (one KV
+    head group at a time), timed beside it and SDPA on the same block; the
+    step kernels' ms summed over the ring against the single call's."""
+    import torch.nn.functional as F
+
+    from vila_tpu_torch.ops import _build
+    from vila_tpu_torch.ops import flash_attention as fa
+    from vila_tpu_torch.parallel import ring_attention as ra
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    hq, hkv = heads
+    d = fa.HEAD_DIM
+    scale = d ** -0.5
+    bf16 = torch.bfloat16
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(bf16)  # noqa: E731
+    q, k, v, do = rnd(1, seq, hq, d), rnd(1, seq, hkv, d), rnd(1, seq, hkv, d), rnd(1, seq, hq, d)
+    seg = ring_segments(torch, seq, dev)
+    kw = dict(causal=True, scale=scale)
+    # the single calls over the whole sequence: the ring's reference
+    out1, lse1 = fa.flash_fwd(q, k, v, seg, seg, **kw)
+    delta1 = (do.float() * out1.float()).sum(-1).transpose(1, 2).contiguous()
+    dq1 = fa.flash_bwd_dq(q, k, v, do, lse1, delta1, seg, seg, **kw)
+    dk1, dv1 = fa.flash_bwd_dkv(q, k, v, do, lse1, delta1, seg, seg, **kw)
+    single = {
+        "flash_fwd": time_ms(torch, lambda: fa.flash_fwd(q, k, v, seg, seg, **kw), 10, flush),
+        "flash_bwd_dq": time_ms(torch, lambda: fa.flash_bwd_dq(
+            q, k, v, do, lse1, delta1, seg, seg, **kw), 10, flush),
+        "flash_bwd_dkv": time_ms(torch, lambda: fa.flash_bwd_dkv(
+            q, k, v, do, lse1, delta1, seg, seg, **kw), 10, flush)}
+    sl = seq // n
+    ok = True
+    summary, launches, results = {"single_ms": single}, {}, {name: [] for name in FLASH_KERNELS}
+    for layout in ("contiguous", "zigzag"):
+        order = torch.as_tensor(ra.zigzag_order(seq, n) if layout == "zigzag"
+                                else list(range(seq)), device=dev)
+        part = lambda x: [x[:, order][:, r * sl:(r + 1) * sl].contiguous()  # noqa: E731
+                          for r in range(n)]
+        qs, ks, vs, dos, ss = part(q), part(k), part(v), part(do), part(seg)
+        step_kw = dict(causal=True, impl="flash", layout=layout)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        outs, lses = [], []
+        for my in range(n):
+            out = torch.zeros((1, sl, hq, d), dtype=torch.float32, device=dev)
+            lse = torch.full((1, hq, sl), ra._NEG_INF, dtype=torch.float32, device=dev)
+            for step in range(n):
+                src = (my - step) % n
+                o, l = ra._ring_step_fwd(qs[my], ks[src], vs[src], ss[my], ss[src], src=src,
+                                         my=my, **step_kw)
+                out, lse = ra._merge(out, lse, o, l)
+            outs.append(out)
+            lses.append(lse)
+        dq = [torch.zeros(x.shape, dtype=torch.float32, device=dev) for x in qs]
+        dk = [torch.zeros(x.shape, dtype=torch.float32, device=dev) for x in ks]
+        dv = [torch.zeros(x.shape, dtype=torch.float32, device=dev) for x in vs]
+        deltas = []
+        for my in range(n):  # the ring's backward: O rounded to bf16, as the ring saves it
+            deltas.append((dos[my].float() * outs[my].to(bf16).float()).sum(-1)
+                          .transpose(1, 2).contiguous())
+            for src in range(n):
+                a, b_, c = ra._ring_step_bwd(qs[my], ks[src], vs[src], dos[my], lses[my],
+                                             deltas[my], ss[my], ss[src], src=src, my=my,
+                                             **step_kw)
+                dq[my] += a
+                dk[src] += b_
+                dv[src] += c
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[f"sp_ring {layout}"] = counts = dict(_build.LAUNCHES)
+        steps = n * n if layout == "zigzag" else n * (n + 1) // 2
+        want = dict(_no_launches(), **{name: steps for name in FLASH_KERNELS})
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(seq, device=dev)
+        back = lambda xs, dim=1: torch.cat(xs, dim)[:, inv] if dim == 1 else \
+            torch.cat(xs, dim)[:, :, inv]  # noqa: E731
+        errs = {}
+        for tag, got, ref, tol in (
+                ("out", back(outs), out1, 1e-2), ("lse", back(lses, 2), lse1, None),
+                ("dq", back(dq), dq1, 1e-2), ("dk", back(dk), dk1, 1e-2),
+                ("dv", back(dv), dv1, 1e-2)):
+            err, sc = rel_err(torch, got, ref)
+            errs[tag] = err
+            ok &= bool(torch.isfinite(got).all()) and err <= (1e-3 if tol is None else tol * sc)
+        ok &= counts == want
+        def step_kind(my, src):
+            if src == my:
+                return "diag"
+            if layout == "zigzag":
+                return "earlier" if src < my else "later"
+            return "full" if src < my else None  # None: the step launches nothing
+
+        def step_inputs(my, src):
+            """(q, k, v, dO, lse, delta, q seg, kv seg) as the step hands them
+            to the kernels."""
+            kind, h = step_kind(my, src), sl // 2
+            qq, kk, vv, dd = qs[my], ks[src], vs[src], dos[my]
+            qseg, kseg, ll, de = ss[my], ss[src], lses[my], deltas[my]
+            if kind == "earlier":
+                kk, vv, kseg = kk[:, :h], vv[:, :h], kseg[:, :h]
+            if kind == "later":
+                qq, dd, qseg = qq[:, h:], dd[:, h:], qseg[:, h:]
+                ll, de = ll[:, :, h:], de[:, :, h:]
+            return tuple(x.contiguous() for x in (qq, kk, vv, dd, ll, de, qseg, kseg))
+
+        # every step's kernels timed, summed over the ring
+        step_sum = {name: 0.0 for name in FLASH_KERNELS}
+        count_of = {}
+        for my in range(n):
+            for src in range(n):
+                kind = step_kind(my, src)
+                if kind is None:
+                    continue
+                count_of[kind] = count_of.get(kind, 0) + 1
+                qq, kk, vv, dd, ll, de, qseg, kseg = step_inputs(my, src)
+                kkw = dict(causal=kind == "diag", scale=scale)
+                bwd = (qq, kk, vv, dd, ll, de, qseg, kseg)
+                for name, fn in (
+                        ("flash_fwd", lambda: fa.flash_fwd(qq, kk, vv, qseg, kseg, **kkw)),
+                        ("flash_bwd_dq", lambda: fa.flash_bwd_dq(*bwd, **kkw)),
+                        ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(*bwd, **kkw))):
+                    step_sum[name] += time_ms(torch, fn, 5, flush)
+        # each step kind once (ranks 1 and 2): against its plain version, SDPA
+        kinds = {"diag": (1, 1), "later": (1, 2)} if layout == "zigzag" else {"diag": (1, 1)}
+        kinds[("earlier" if layout == "zigzag" else "full")] = (2, 1)
+        for kind, (my, src) in kinds.items():
+            qq, kk, vv, dd, ll, de, qseg, kseg = step_inputs(my, src)
+            causal = kind == "diag"
+            kkw = dict(causal=causal, scale=scale)
+            bwd = (qq, kk, vv, dd, ll, de, qseg, kseg)
+
+            def plain(fn, with_grad):
+                def one(qs_, ks_):
+                    args = (qq[:, :, qs_], kk[:, :, ks_], vv[:, :, ks_])
+                    if with_grad:
+                        args += (dd[:, :, qs_], ll[:, qs_], de[:, qs_])
+                    return fn(*args, qseg, kseg, **kkw)
+                return lambda: _by_group(one, hq, hkv)
+
+            cases = {
+                "flash_fwd": (lambda: fa.flash_fwd(qq, kk, vv, qseg, kseg, **kkw),
+                              plain(fa.flash_fwd_plain, False), 2),
+                "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*bwd, **kkw),
+                                 plain(fa.flash_bwd_dq_plain, True), 3),
+                "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*bwd, **kkw),
+                                  plain(fa.flash_bwd_dkv_plain, True), 4),
+            }
+            qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (qq, kk, vv, dd))
+            qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+            out_g = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                                   enable_gqa=True)
+            t_sdpa = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), 10, flush)
+            t_sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
+                out_g, (qg, kg, vg), dot, retain_graph=True), 10, flush)
+            mask = fa._mask(1, qq.shape[1], kk.shape[1], causal, qseg, kseg, dev)
+            pairs = int(mask.sum())
+            del mask
+            in_bytes = 2 * (qq.numel() + kk.numel() + vv.numel()) + 4 * (qseg.numel()
+                                                                        + kseg.numel())
+            for name, (fn, ref, products) in cases.items():
+                got = fn()
+                got = got if isinstance(got, tuple) else (got,)
+                groups = ref()
+                if name == "flash_fwd":
+                    want_t = (torch.cat([g[0] for g in groups], 2), torch.cat(
+                        [g[1] for g in groups], 1))
+                elif name == "flash_bwd_dq":
+                    want_t = (torch.cat(groups, 2),)
+                else:
+                    want_t = (torch.cat([g[0] for g in groups], 2),
+                              torch.cat([g[1] for g in groups], 2))
+                del groups
+                torch.cuda.synchronize()
+                good, kerrs = True, []
+                for g, w in zip(got, want_t):
+                    err, sc = rel_err(torch, g, w)
+                    tol = 1e-3 if g.dtype == torch.float32 else 1e-2 * sc
+                    good &= bool(torch.isfinite(g.float()).all()) and err <= tol
+                    kerrs.append(err)
+                del want_t
+                ok &= good
+                t = time_ms(torch, fn, 10, flush)
+                t_plain = time_ms(torch, ref, 1, flush)
+                out_bytes = sum(g.numel() * g.element_size() for g in got)
+                extra = 0 if name == "flash_fwd" else 2 * dd.numel() + 8 * qq.shape[2] * qq.shape[1]
+                b_ms, b_by = bound(in_bytes + extra + out_bytes, products * 2 * hq * d * pairs,
+                                   BF16_FLOPS)
+                results[name].append(dict(
+                    shape=f"B 1, Sq {qq.shape[1]}, Skv {kk.shape[1]}, {hq}/{hkv} heads of {d}, "
+                          f"{'causal' if causal else 'not causal'}, ring {layout} {kind} (ranks {my}, {src})",
+                    m=qq.shape[1], main=False, ring=f"{layout} {kind} (ranks {my}, {src})",
+                    steps=count_of[kind],
+                    max_abs_err=max(kerrs), ok=good, ms=t, plain_ms=t_plain, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=t_sdpa if name == "flash_fwd" else t_sdpa_bwd,
+                    library=("sdpa forward" if name == "flash_fwd" else "sdpa backward")
+                            + (", causal" if causal else ", not causal"),
+                    allowed_pairs=pairs))
+                log(f"[sp_ring] {layout:10s} {kind:7s} {name:13s} Sq {qq.shape[1]} Skv "
+                    f"{kk.shape[1]} (ranks {my}, {src}): err {max(kerrs):.3e} "
+                    f"{'OK' if good else 'FAIL'}  kernel {t:.4f} ms  plain {t_plain:.2f} ms  sdpa "
+                    f"{results[name][-1]['library_ms']:.4f} ms  bound {b_ms:.4f} ms ({b_by}); "
+                    f"{count_of[kind]} steps of this kind")
+            del out_g, qg, kg, vg
+        summary[layout] = dict(errors=errs, launches=counts, expected=want, wall_s=wall,
+                               step_kernel_ms=step_sum)
+        log(f"[sp_ring] {layout}: {n} virtual ranks of {sl} tokens; merged against the single "
+            f"call: " + ", ".join(f"{t} {e:.3e}" for t, e in errs.items())
+            + f"; launches {counts} (expected {want}); ring wall {wall:.2f} s; step kernels "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in step_sum.items())
+            + " against the single call " + ", ".join(f"{k} {v:.3f} ms" for k, v in single.items()))
+        del outs, lses, dq, dk, dv, qs, ks, vs, dos, ss, deltas
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[sp_ring] -> {'OK' if ok else 'FAIL'}")
+    return ok, summary, launches, results
+
+
+def _extend_draw(torch, cfg, seed, dev):
+    from vila_tpu_torch.models import qwen2
+
+    return qwen2.init_params(torch.Generator(device=dev).manual_seed(seed), cfg, torch.bfloat16)
+
+
+def phase_extend(torch, seed, base=None, dev="cuda", seq=EXTEND_SEQ, steps=EXTEND_STEPS,
+                 cfg=None, check_cfg=None, check_seq=1024):
+    """LongVILA stage 4 on one card: `context_extend.extend_llm` over a
+    seeded bf16 Qwen2-7B (rope_theta 15.3e6, LoRA rank 16 on the seven
+    projections, remat, CE chunk 1024), `steps` steps of one `seq`-token
+    row of random text. Reports each step's wall, the peak memory and the
+    K7-K9 launches (28 a layer and step for K8 / K9, twice that for K7:
+    remat recomputes each layer's forward); the losses finite. Then the
+    first loss (the base model's: B = 0) of a 2-layer cut at S `check_seq`
+    on the card against the same tree in f32 on the CPU (within 1e-2)."""
+    import dataclasses
+
+    import numpy as np
+
+    from vila_tpu_torch.ops import _build
+    from vila_tpu_torch.train import context_extend as ce
+    from vila_tpu_torch.train import lora as lora_lib
+
+    dev = torch.device(dev)
+    cfg = cfg or qwen2_7b_config()
+    layers = cfg.num_hidden_layers
+    args = ce.ContextExtendArgs(target_context=65536, seq_len=seq, steps=steps)
+    rng = np.random.default_rng(seed)
+    rows = [rng.integers(0, cfg.vocab_size, (1, seq)).astype(np.int32) for _ in range(steps)]
+    base = base if base is not None else _extend_draw(torch, cfg, seed, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+
+    def timed_rows():
+        for r in rows:
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter())
+            yield r
+
+    _build.reset_launches()
+    merged, ext_cfg, losses = ce.extend_llm(base, cfg, timed_rows(), args, seed=seed)
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter())
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    del merged
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_s = [b - a for a, b in zip(walls, walls[1:])]
+    want = dict(_no_launches(), flash_fwd=2 * steps * layers, flash_bwd_dq=steps * layers,
+                flash_bwd_dkv=steps * layers)
+    ok = all(math.isfinite(x) for x in losses) and launches == want
+    log(f"[extend] Qwen2-7B bf16, {layers} layers, LoRA rank 16, remat, rope_theta "
+        f"{ext_cfg.rope_theta:g}, {steps} steps of {seq} tokens: losses {losses}; step wall "
+        + ", ".join(f"{s:.2f}" for s in step_s) + f" s; {seq / step_s[-1]:.0f} tokens/s; peak "
+        f"{peak / 2**30:.2f} GiB; launches {launches} (expected {want})")
+    summary = dict(config=f"Qwen2-7B bf16 {layers} layers", seq=seq, losses=losses,
+                   step_s=step_s, peak_bytes=peak, launches=launches)
+
+    # the first loss of a 2-layer cut, card against the CPU
+    small = check_cfg or qwen2_7b_config(layers=2)
+    tree = _extend_draw(torch, small, seed + 1, dev)
+    ids = rng.integers(0, small.vocab_size, (1, check_seq)).astype(np.int32)
+    lcfg = lora_lib.LoRAConfig(rank=16, alpha=32.0)
+    vals = {}
+    for tag, d, dtype in (("card", dev, small.dtype), ("cpu", torch.device("cpu"), "float32")):
+        p = tree if tag == "card" else copy_tree(tree, d)
+        if tag == "cpu":
+            p = {k: v for k, v in _float_tree(torch, p).items()}
+        c = ce.extended_config(dataclasses.replace(small, dtype=dtype), args)
+        lo = lora_lib.init_lora(torch.Generator(device=d).manual_seed(seed), p, lcfg)
+        arrs = [torch.as_tensor(x).to(d) for x in ce.host_chunk(ids)]
+        with torch.no_grad():
+            loss, _ = ce.extend_loss(lo, {"llm": p}, lcfg, c, *arrs,
+                                     ce_chunk_size=args.ce_chunk_size)
+        vals[tag] = float(loss)
+    rel = abs(vals["card"] - vals["cpu"]) / abs(vals["cpu"])
+    good = math.isfinite(vals["card"]) and rel <= 1e-2
+    log(f"[extend] 2-layer first loss at S {check_seq}: card (bf16) {vals['card']:.6f}, CPU "
+        f"(f32) {vals['cpu']:.6f}, rel {rel:.2e} (limit 1e-2) -> {'OK' if ok and good else 'FAIL'}")
+    summary["first_loss_check"] = dict(card=vals["card"], cpu=vals["cpu"], rel=rel)
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok and good, summary, {"extend": launches}
+
+
+def _float_tree(torch, tree):
+    return {k: (_float_tree(torch, v) if isinstance(v, dict) else v.float())
+            for k, v in tree.items()}
+
+
+def phase_long_ctx(torch, seed, dev="cuda", cfg=None, run=None):
+    """`LongContextEngine` on a one-rank mesh over the seeded W4 NVILA-8B
+    LLM (`bench.py:30-48`): max_cache_len 65536, prefill chunks of 4096, a
+    32768-token prompt of embeddings, 16 greedy tokens. Prefill runs K2 at
+    M = 4096 on every projection and K1 on the lm_head's last row; decode K1
+    at M = 1 on every projection (no K3 in the deferred mode); the launches
+    are held to those counts. Held against the port's serial `qwen2.forward`
+    cache path on the same weights: the first logits within 5e-2 x max|ref|
+    and each token, fed to the serial path, within K1's tie band (2^-7
+    max|logit|) of its top. Reports TTFT, decode tokens/s and peak memory."""
+    from vila_tpu_torch.inference.long_context import LongContextEngine
+    from vila_tpu_torch.models import qwen2
+    from vila_tpu_torch.ops import _build
+
+    dev = torch.device(dev)
+    run = dict(LONG_CTX, **(run or {}))
+    lcfg = cfg or nvila_8b_config().llm
+    layers = lcfg.num_hidden_layers
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = synth_llm_params(torch, lcfg, gen, dev)
+    embeds = (0.02 * torch.randn((1, run["prompt"], lcfg.hidden_size), generator=gen,
+                                 device=dev)).to(torch.bfloat16)
+    mesh = one_rank_mesh(torch, dev)
+    eng = LongContextEngine(params, lcfg, mesh, max_cache_len=run["max_cache_len"],
+                            prefill_chunk=run["prefill_chunk"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache, s = eng.prefill(embeds)
+    first_logits = logits.float()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    toks = eng.decode(logits, cache, s, run["new_tokens"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    chunks = -(-run["prompt"] // run["prefill_chunk"])
+    want = dict(_no_launches(), w4_gemm=chunks * 4 * layers,
+                w4_gemv=chunks + (len(toks) - 1) * (4 * layers + 1))
+    # the serial path: qwen2.forward over one cache, chunk by chunk, then the
+    # engine's tokens fed one at a time (bs=1: the fused K3 route)
+    cache = qwen2.init_cache(lcfg, batch=1, max_len=run["max_cache_len"], device=dev)
+    with torch.no_grad():
+        c = run["prefill_chunk"]
+        for start in range(0, s, c):
+            chunk = embeds[:, start:start + c]
+            ref, cache = qwen2.forward(params, lcfg, inputs_embeds=chunk, cache=cache,
+                                       last_token_only=True)
+        rows = [ref[0, -1].float()]
+        for t in toks[:-1]:
+            ref, cache = qwen2.forward(params, lcfg, input_ids=torch.tensor([[t]], device=dev),
+                                       cache=cache)
+            rows.append(ref[0, -1].float())
+    del cache
+    err, sc = rel_err(torch, first_logits[0], rows[0])
+    margins = [float(r.max() - r[t]) for r, t in zip(rows, toks)]
+    bands = [K1_BAND * float(r.abs().max()) for r in rows]
+    exact = sum(int(r.argmax()) == t for r, t in zip(rows, toks))
+    ok = (err <= CONSISTENCY_TOL * sc and len(toks) == run["new_tokens"]
+          and all(m <= b for m, b in zip(margins, bands)) and launches == want)
+    ttft = t1 - t0
+    tok_s = (len(toks) - 1) / (t2 - t1)
+    log(f"[long_ctx] NVILA-8B W4 LLM ({layers} layers), cache {run['max_cache_len']} on one "
+        f"rank, prompt {s} in chunks of {run['prefill_chunk']}: TTFT {ttft:.2f} s, decode "
+        f"{tok_s:.2f} tok/s ({len(toks)} tokens), peak {peak / 2**30:.2f} GiB; first logits "
+        f"against the serial path {err:.3e} of max {sc:.3g}; tokens exact {exact}/{len(toks)}, "
+        f"largest margin {max(margins):.4g} (band {min(bands):.4g}); launches {launches} "
+        f"(expected {want}) -> {'OK' if ok else 'FAIL'}")
+    summary = dict(prompt=s, ttft_s=ttft, decode_tok_s=tok_s, tokens=toks, peak_bytes=peak,
+                   first_logits_err=err, first_logits_max=sc, exact=exact, margins=margins,
+                   launches=launches, expected=want)
+    del params, eng, embeds
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, summary, {"long_ctx": launches}
+
+
+def phase_niah(torch, seed, base=None, dev="cuda", cfg=None, contexts=NIAH_CONTEXTS,
+               depths=NIAH_DEPTHS):
+    """`niah.run_niah` over a seeded bf16 Qwen2-7B on the one-rank mesh:
+    contexts x depths, a haystack of embedded random tokens, an 8-token
+    needle and a 4-token answer (random weights: the accuracy is reported
+    and judged by nothing). Each forward's ms; K7 launches (28 a forward,
+    no backward). At the first context, `forward_embeds_sharded`'s logits
+    (K7) against the same forward under `plain_versions` (K7's plain
+    version on the card): within 5e-2 x max|ref| over the first 2 layers,
+    reported over all of them."""
+    import dataclasses
+
+    import numpy as np
+
+    from vila_tpu_torch.eval import niah
+    from vila_tpu_torch.models import qwen2
+    from vila_tpu_torch.ops import _build
+
+    dev = torch.device(dev)
+    cfg = cfg or qwen2_7b_config()
+    p = base if base is not None else _extend_draw(torch, cfg, seed, dev)
+    mesh = one_rank_mesh(torch, dev)
+    rng = np.random.default_rng(seed)
+    emb = lambda n: qwen2.embed_tokens(p, cfg, torch.as_tensor(  # noqa: E731
+        rng.integers(0, cfg.vocab_size, (1, n)), device=dev))[0]
+    haystack, needle = emb(max(contexts)), emb(8)
+    answers = rng.integers(0, cfg.vocab_size, 4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    timings = []
+    grid = niah.run_niah(p, cfg, haystack, needle, answers,
+                         niah.NIAHConfig(context_lengths=contexts, depths=depths), mesh=mesh,
+                         timings=timings)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(_no_launches(), flash_fwd=len(grid) * cfg.num_hidden_layers)
+    # forward_embeds_sharded (K7) against K7's plain version at the first
+    # context: judged on the first 2 layers, reported at every layer (28
+    # random bf16 layers amplify the two sides' summation orders to a few %)
+    full = torch.cat([haystack[:contexts[0] - 8], needle])[None]
+    two = dict(p, layers={k: {kk: vv[:2] for kk, vv in slot.items()}
+                          for k, slot in p["layers"].items()})
+    gaps = {}
+    for tag, tree, c in (("2 layers", two, dataclasses.replace(cfg, num_hidden_layers=2)),
+                         (f"{cfg.num_hidden_layers} layers", p, cfg)):
+        with torch.no_grad():
+            got = niah.forward_embeds_sharded(tree, c, full, mesh)
+            with plain_versions():
+                ref = niah.forward_embeds_sharded(tree, c, full, mesh)
+        gaps[tag] = rel_err(torch, got, ref)
+        del got, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    err, sc = gaps["2 layers"]
+    ok = launches == want and err <= CONSISTENCY_TOL * sc and len(grid) == len(contexts) * len(
+        depths)
+    log(f"[niah] Qwen2-7B bf16 ({cfg.num_hidden_layers} layers), contexts {contexts} x depths "
+        f"{depths}: " + "; ".join(f"{c} @ {d:.1f}: {1e3 * t:.1f} ms" for c, d, t in timings)
+        + f"; accuracy (random weights) {[r['acc'] for r in grid]}; peak {peak / 2**30:.2f} "
+        f"GiB; logits at {contexts[0]} against K7's plain version: " + ", ".join(
+            f"{t} {e:.3e} of max {m:.3g}" for t, (e, m) in gaps.items()) + "; "
+        f"launches {launches} (expected {want}) -> {'OK' if ok else 'FAIL'}")
+    summary = dict(grid=grid, forward_ms={f"{c}@{d}": 1e3 * t for c, d, t in timings},
+                   peak_bytes=peak, launches=launches,
+                   logits_err={t: dict(err=e, max=m) for t, (e, m) in gaps.items()})
+    return ok, summary, {"niah": launches}
+
+
 def nvidia_smi_line():
     try:
         r = subprocess.run(
@@ -6043,8 +6610,9 @@ def main(argv=None) -> int:
         results.update(train_results)
         ok &= good
     if "train" in phases:
+        # LLM depth 14, not 28: its three checkpoint saves shrink by a third
         good, report["train"], train_launches = timed("train", lambda: phase_train(
-            torch, args.seed))
+            torch, args.seed, cfg=nvila_lite_2b_config(layers=14)))
         launches.update(train_launches)
         ok &= good
     if "train_consistency" in phases:
@@ -6074,6 +6642,40 @@ def main(argv=None) -> int:
             "train_ps3", lambda: phase_train_ps3(torch, args.seed))
         launches.update(ps3_train_launches)
         ok &= good
+    long_phases = [p for p in ("sp_ring", "extend", "niah", "long_ctx") if p in phases]
+    if long_phases:
+        engines.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "sp_ring" in phases:
+        good, report["sp_ring"], ring_launches, ring_results = timed(
+            "sp_ring", lambda: phase_sp_ring(torch, args.seed))
+        launches.update(ring_launches)
+        for name, rows in ring_results.items():
+            results.setdefault(name, []).extend(rows)
+        ok &= good
+    if "extend" in phases or "niah" in phases:
+        # one seeded bf16 Qwen2-7B for both (the extension leaves it as it is)
+        base = _extend_draw(torch, qwen2_7b_config(), args.seed, torch.device("cuda"))
+        for name, fn in (("extend", phase_extend), ("niah", phase_niah)):
+            if name in phases:
+                good, report[name], long_launches = timed(name, lambda: fn(
+                    torch, args.seed, base=base))
+                launches.update(long_launches)
+                ok &= good
+        del base
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "long_ctx" in phases:
+        good, report["long_ctx"], long_launches = timed("long_ctx", lambda: phase_long_ctx(
+            torch, args.seed))
+        launches.update(long_launches)
+        ok &= good
+    if long_phases:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
     if "train_profile" in phases:  # not in the default run
         report["train_profile"] = phase_train_profile(torch, args.seed)
     report["seconds"] = time.time() - t_all

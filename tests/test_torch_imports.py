@@ -339,3 +339,43 @@ def test_vision_int8_refuses_ps3_as_jax(tmp_path):
     with pytest.raises(ValueError, match="vision_int8 unsupported for tower 'ps3'") as got:
         entry.load(d, device="cpu", vision_int8=True)
     assert str(got.value) == str(want.value)
+
+
+# the long-context stack: MM-SP, ZeRO-3, context extension, the sharded
+# engine, NIAH, and the gloo tests' worker module (its spawned processes
+# must never load JAX)
+LONG_CONTEXT_MODULES = (
+    "vila_tpu_torch.parallel.distributed", "vila_tpu_torch.parallel.mesh",
+    "vila_tpu_torch.parallel.ring_attention", "vila_tpu_torch.parallel.sp",
+    "vila_tpu_torch.train.context_extend", "vila_tpu_torch.inference.long_context",
+    "vila_tpu_torch.eval.niah", "vila_tpu_torch.eval.niah_cli",
+)
+
+
+@pytest.fixture(scope="module")
+def long_context_imports():
+    """For each long-context module (and `tests/torch_dist_helpers.py`),
+    the JAX and JAX-package modules importing it alone loads, in a fresh
+    interpreter."""
+    code = (
+        "import importlib, json, sys\n"
+        f"sys.path.insert(0, {os.path.join(REPO, 'tests')!r})\n"
+        "out = {}\n"
+        f"for name in {LONG_CONTEXT_MODULES + ('torch_dist_helpers',)!r}:\n"
+        "    importlib.import_module(name)\n"
+        "    out[name] = sorted(m for m in sys.modules\n"
+        "                       if m.split('.')[0] in ('jax', 'jaxlib', 'vila_tpu'))\n"
+        "print(json.dumps(out))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", LONG_CONTEXT_MODULES + ("torch_dist_helpers",))
+def test_long_context_modules_import_no_jax(name, long_context_imports):
+    if name != "torch_dist_helpers":
+        assert name in _module_names()
+    assert long_context_imports[name] == []

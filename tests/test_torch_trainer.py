@@ -256,12 +256,16 @@ def test_profile_steps_write_a_trace(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
+    """tp > 1 (tensor parallelism, not ported) raises naming its ROADMAP
+    item; dp / sp / su > 1 without a process a device (no process group)
+    raise. The mesh runs themselves are `test_torch_sp.py`'s."""
     ds, coll = ToyDataset(), tcollate.Collator(seq_len=24)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        Trainer(_toy_cfg(), _params(), ds, coll, _args(tmp_path, dp=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        Trainer(_toy_cfg(), _params(), ds, coll, _args(tmp_path, distributed=True),
-                device="cpu")
+    with pytest.raises(NotImplementedError, match="tensor parallelism.*ROADMAP"):
+        Trainer(_toy_cfg(), _params(), ds, coll, _args(tmp_path, tp=2), device="cpu")
+    for axis in ("dp", "sp", "su"):
+        with pytest.raises(ValueError, match="one process a device"):
+            Trainer(_toy_cfg(), _params(), ds, coll, _args(tmp_path, **{axis: 2}),
+                    device="cpu")
 
 
 def test_parser_stage_presets():

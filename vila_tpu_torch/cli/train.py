@@ -7,6 +7,11 @@ the collator, train.
     python -m vila_tpu_torch.cli.train --model-path ckpt/ --stage sft \
         --data-mixture dummy_mix --max-steps 100 [--device cuda]
 
+On N cards, one process each (torchrun's environment; dp x sp x su = N):
+
+    torchrun --nproc_per_node=N -m vila_tpu_torch.cli.train --distributed true \
+        --sp N --model-path ckpt/ --stage sft ...
+
 The weights are loaded as f32 master weights (the `Trainer`'s contract);
 the compute dtype is the config's (bf16 on the card, f32 on the CPU).
 """
@@ -94,11 +99,15 @@ def main(argv=None) -> int:
     from vila_tpu_torch.entry import build_config, load_params, load_tokenizer
     from vila_tpu_torch.train.trainer import Trainer
 
+    targs = train_args(args)
+    if targs.distributed:  # before loading: each rank's card is LOCAL_RANK's
+        from vila_tpu_torch.parallel.distributed import init_distributed
+
+        init_distributed(backend="gloo" if args.device == "cpu" else None)
     tokenizer = load_tokenizer(args.model_path)
     cfg = build_config(args.model_path, device=args.device)
     params = load_params(args.model_path, cfg, param_dtype=torch.float32,
                          device=args.device)
-    targs = train_args(args)
 
     dataset = build_dataset(targs.data_mixture, tokenizer, cfg)
     # zigzag ring layout needs S % (2 * sp * su) == 0

@@ -245,7 +245,9 @@ def forward(
     last_token_only: bool = False,
     gather_position: Optional[torch.Tensor] = None,  # (B,) per-sample index
     return_hidden: bool = False,
-    attn_impl: str = "auto",
+    attn_impl: Any = "auto",
+    sp: Optional[Any] = None,  # parallel.sp.SPConfig: MM-SP attention
+    cache_append: Optional[Any] = None,  # deferred (sharded-cache) append hook
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Run the decoder. Returns (logits_or_hidden, updated_cache).
 
@@ -254,8 +256,32 @@ def forward(
     per-slot cursor (`init_cache(per_slot_fill=True)`) writes each row at
     its own depth and drops writes past the cache: the continuous-batching
     decode path. Without `cache`, standard causal (optionally packed)
-    attention."""
+    attention. `attn_impl` may be a callable with `multi_head_attention`'s
+    signature (less `impl`) for the cache path.
+
+    With `cache_append` (a cache with a shared cursor and a callable
+    `attn_impl`), the layers never write the cache: each attends over the
+    read-only cache through `attn_impl`, which also receives the chunk's
+    own rows (`new_k`, `new_v`, `new_kv_positions`, `new_kv_seg`) to fold
+    in, and after the last layer one `cache_append(k, v, valid, k_rows,
+    v_rows, token_valid, fill)` call (k_rows / v_rows (L, B, S, Hkv*hd))
+    writes every layer's rows and returns (k, v, valid): the
+    sequence-sharded cache of `inference/long_context.py`, whose local
+    shard starts at global slot `cache["offset"]`. The fused decode routes
+    are off in this mode, as in JAX.
+
+    With `sp` (an active `parallel.sp.SPConfig`) the cache-free attention
+    runs sequence parallel (ring / Ulysses / hybrid) over this rank's
+    shard; `positions` must be given (the shard's global positions, laid
+    out as the batch)."""
     dtype = cfg.compute_dtype
+    sp_on = sp is not None and sp.active and cache is None
+    if sp_on and positions is None:
+        raise ValueError("a sequence-parallel forward needs the shard's positions")
+    deferred = cache_append is not None
+    if deferred and (cache is None or not callable(attn_impl) or "fill_host" in cache):
+        raise ValueError("cache_append needs a cache with a shared cursor and a "
+                         "callable attn_impl")
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, cfg, input_ids)
     h = inputs_embeds.to(dtype)
@@ -281,7 +307,7 @@ def forward(
         max_len = cache["k"].shape[2]
         if token_valid is None:
             token_valid = torch.ones((b, s), dtype=torch.bool, device=dev)
-        new_valid = cache["valid"].clone()
+        new_valid = None if deferred else cache["valid"].clone()
         if per_slot:
             # (row, token, slot) of every write inside the cache, from the
             # host cursors; the rest drop (JAX: scatter mode="drop")
@@ -290,13 +316,16 @@ def forward(
             writes = host_to_device(np.stack([w_b, w_t, rows[w_b, w_t]]), dev).long()
             new_valid[writes[0], writes[2]] = token_valid[writes[0], writes[1]]
             last = (fill_host + s - 1).tolist()  # each row's last written slot
+        elif deferred:  # the hook appends; attention reads the old cache
+            new_valid = cache["valid"]
         else:
             if fill + s > max_len:
                 raise ValueError(f"cache of {max_len} slots cannot take {fill}+{s}")
             new_valid[:, fill:fill + s] = token_valid
             last = fill + s - 1
         q_slots = start
-        kv_slots = torch.arange(max_len, dtype=torch.int32, device=dev).expand(b, max_len)
+        kv_slots = (torch.arange(max_len, dtype=torch.int32, device=dev)
+                    + cache.get("offset", 0)).expand(b, max_len)
         kv_seg = new_valid.to(torch.int32)
         q_seg = torch.ones((b, s), dtype=torch.int32, device=dev)
 
@@ -357,19 +386,33 @@ def forward(
         a = torch.nn.functional.pad(a, (0, 0, 0, grp_pad - grp))
         return a.reshape(b, s, -1)
 
+    new_rows = []  # deferred mode: each layer's (k, v) rows
+
     def attend(q, k, v, l):
         q = apply_rope(q.reshape(b, s, Hq, hd), cos, sin)
         k = apply_rope(k.reshape(b, s, Hkv, hd), cos, sin)
         v = v.reshape(b, s, Hkv, hd)
         if cache is not None:
-            write_kv(l, k.reshape(b, s, -1), v.reshape(b, s, -1))
+            extra = {}
+            if deferred:
+                new_rows.append((k.reshape(b, s, -1), v.reshape(b, s, -1)))
+                extra = dict(new_k=k.to(dtype), new_v=v.to(dtype), new_kv_positions=q_slots,
+                             new_kv_seg=token_valid.to(torch.int32))
+            else:
+                write_kv(l, k.reshape(b, s, -1), v.reshape(b, s, -1))
             ck, cv = cache["k"][l], cache["v"][l]  # (b, max_len, Hkv*hd) views
-            attn = multi_head_attention(
+            attend_fn = attn_impl if callable(attn_impl) else functools.partial(
+                multi_head_attention, impl=attn_impl)
+            attn = attend_fn(
                 q, ck.reshape(b, -1, Hkv, hd).to(dtype),
                 cv.reshape(b, -1, Hkv, hd).to(dtype),
                 causal=True, q_positions=q_slots, kv_positions=kv_slots,
-                q_segment_ids=q_seg, kv_segment_ids=kv_seg, impl=attn_impl,
+                q_segment_ids=q_seg, kv_segment_ids=kv_seg, **extra,
             )
+        elif sp_on:
+            from vila_tpu_torch.parallel.sp import sp_attention
+
+            attn = sp_attention(q, k, v, sp, causal=True, segment_ids=segment_ids)
         else:
             attn = multi_head_attention(
                 q, k, v, causal=True, q_segment_ids=segment_ids,
@@ -397,6 +440,7 @@ def forward(
 
     use_fused = (
         cache is not None
+        and not deferred
         and s == 1
         and b * s <= 32
         and {"qkv_proj", "o_proj", "gate_up_proj", "down_proj"} <= set(q_stacked)
@@ -432,8 +476,12 @@ def forward(
 
     new_cache = None
     if cache is not None:
-        new_cache = {"k": cache["k"], "v": cache["v"], "valid": new_valid,
-                     "fill": cache["fill"] + s}
+        new_k, new_v = cache["k"], cache["v"]
+        if deferred:
+            new_k, new_v, new_valid = cache_append(
+                new_k, new_v, cache["valid"], torch.stack([r[0] for r in new_rows]),
+                torch.stack([r[1] for r in new_rows]), token_valid, fill)
+        new_cache = dict(cache, k=new_k, v=new_v, valid=new_valid, fill=cache["fill"] + s)
         if per_slot:
             new_cache["fill_host"] = fill_host + s
 

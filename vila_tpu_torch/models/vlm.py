@@ -159,8 +159,10 @@ def forward(
     last_token_only: bool = False,
     gather_position: Optional[torch.Tensor] = None,
     attn_impl: str = "auto",
+    sp: Optional[Any] = None,  # parallel.sp.SPConfig
 ):
-    """Fused multimodal forward. Returns (logits, new_cache)."""
+    """Fused multimodal forward. Returns (logits, new_cache). With `sp` the
+    arrays are this rank's sequence shard (`qwen2.forward`)."""
     embeds = qwen2.embed_tokens(params["llm"], cfg.llm, input_ids)
     if pixel_values is not None:
         feats = encode_images(params, cfg, pixel_values)
@@ -169,7 +171,7 @@ def forward(
         params["llm"], cfg.llm,
         inputs_embeds=embeds, positions=positions, segment_ids=segment_ids,
         token_valid=token_valid, cache=cache, last_token_only=last_token_only,
-        gather_position=gather_position, attn_impl=attn_impl,
+        gather_position=gather_position, attn_impl=attn_impl, sp=sp,
     )
 
 
@@ -184,7 +186,8 @@ def _splice_batch(embeds: torch.Tensor, feats: torch.Tensor, batch) -> torch.Ten
 
 
 def forward_batch(params: Params, cfg: VLMConfig, batch: Dict[str, torch.Tensor], *,
-                  attn_impl: str = "auto", return_hidden: bool = False) -> torch.Tensor:
+                  attn_impl: str = "auto", return_hidden: bool = False,
+                  sp: Optional[Any] = None) -> torch.Tensor:
     """Training forward over a collated batch (`data/collate.py`). Returns
     logits (B, S, V), or the final hidden states (B, S, D) with
     `return_hidden` (for the chunked cross entropy). A PS3 config runs
@@ -193,10 +196,13 @@ def forward_batch(params: Params, cfg: VLMConfig, batch: Dict[str, torch.Tensor]
     Batch: input_ids, positions, segment_ids (B, S); pixel_values
     (B, T, s, s, 3) per-sample tiles; media_positions (B, M) row-local flat
     indices with an out-of-range sentinel for padding, M = T *
-    tokens_per_image. `attn_impl` picks the LLM's attention route."""
+    tokens_per_image. `attn_impl` picks the LLM's attention route. With
+    `sp` (an active `parallel.sp.SPConfig`) the batch is this rank's shard
+    (`parallel.distributed.host_local_batch`): its media positions local
+    to its sequence slice, the LLM's attention sequence parallel."""
     if cfg.vision_tower_type == "ps3":
         out, _ = forward_batch_ps3(params, cfg, batch, attn_impl=attn_impl,
-                                   return_hidden=return_hidden)
+                                   return_hidden=return_hidden, sp=sp)
         return out
     input_ids = batch["input_ids"]
     b = input_ids.shape[0]
@@ -208,14 +214,14 @@ def forward_batch(params: Params, cfg: VLMConfig, batch: Dict[str, torch.Tensor]
     out, _ = qwen2.forward(
         params["llm"], cfg.llm, inputs_embeds=embeds,
         positions=batch.get("positions"), segment_ids=batch.get("segment_ids"),
-        attn_impl=attn_impl, return_hidden=return_hidden,
+        attn_impl=attn_impl, return_hidden=return_hidden, sp=sp,
     )
     return out
 
 
 def forward_batch_ps3(params: Params, cfg: VLMConfig, batch: Dict[str, Any], *,
                       attn_impl: str = "auto", return_hidden: bool = False,
-                      num_look_close: Optional[int] = None
+                      num_look_close: Optional[int] = None, sp: Optional[Any] = None
                       ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """PS3 training forward: bottom-up look-close selection, teacher-forced
     by the gt maps when the batch has them (the reference's "after_image"
@@ -247,6 +253,6 @@ def forward_batch_ps3(params: Params, cfg: VLMConfig, batch: Dict[str, Any], *,
     out, _ = qwen2.forward(
         params["llm"], cfg.llm, inputs_embeds=embeds,
         positions=batch.get("positions"), segment_ids=batch.get("segment_ids"),
-        attn_impl=attn_impl, return_hidden=return_hidden,
+        attn_impl=attn_impl, return_hidden=return_hidden, sp=sp,
     )
     return out, sel_probs

@@ -117,10 +117,13 @@ def attention_blocked(
     kv_valid_len: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     block: int = 1024,
+    return_stats: bool = False,
 ) -> torch.Tensor:
     """Memory-bounded attention: online softmax over KV blocks (the
     flash-attention recurrence in plain ops), peak intermediate
-    B*H*Sq*block floats. Blocks past every query position are skipped."""
+    B*H*Sq*block floats. Blocks past every query position are skipped.
+    `return_stats` gives the unnormalised pieces for a merge across KV
+    shards instead: acc (B, Sq, Hq, D), l and m (B, Hq, Sq), f32."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     groups = hq // hkv
@@ -171,6 +174,8 @@ def attention_blocked(
             "bhgqk,bkhd->bqhgd", p, v[:, sl].float()
         )
         m = m_new
+    if return_stats:
+        return acc.reshape(b, sq, hq, d), l.reshape(b, hq, sq), m.reshape(b, hq, sq)
     l = l.clamp_min(1e-30).permute(0, 3, 1, 2)[..., None]
     return (acc / l).reshape(b, sq, hq, d).to(q.dtype)
 

@@ -156,11 +156,16 @@ class Optimizer:
                              cfg.weight_decay)
             for name in self.schedules})
 
-    def update(self, opt_state: OptState, params: Dict[str, Any]) -> OptState:
+    def update(self, opt_state: OptState, params: Dict[str, Any],
+               norm: Optional[Callable[[str, List[torch.Tensor]], torch.Tensor]] = None
+               ) -> OptState:
+        """One step; `norm(component, grads)` is the global norm each
+        component is clipped by (default `global_norm`; a sharded step
+        gives the norm of the whole gradients from their shards)."""
         for name, opt in opt_state.adamw.items():
             grads = _fill_grads(leaves(params[name]))
-            clip = self.cfg.max_grad_norm / torch.clamp(
-                global_norm(grads), min=self.cfg.max_grad_norm)
+            gnorm = global_norm(grads) if norm is None else norm(name, grads)
+            clip = self.cfg.max_grad_norm / torch.clamp(gnorm, min=self.cfg.max_grad_norm)
             torch._foreach_mul_(grads, clip)
             for group in opt.param_groups:
                 group["lr"] = self.schedules[name](opt_state.count)

@@ -1,13 +1,20 @@
-"""The training loop on one device, as `vila_tpu/train/trainer.py`: args,
-loop, logging, checkpoint/resume, preemption.
+"""The training loop, as `vila_tpu/train/trainer.py`: args, loop,
+logging, checkpoint/resume, preemption.
 
 Tune-flag freezing and per-component learning rates (the optimizer),
 resume from the latest checkpoint with the data skipped ahead, periodic and
 final saves, save-and-exit 124 on SIGTERM or near the walltime limit,
 metric logging with a `log_history.json` dump, and a `torch.profiler` trace
-of `profile_num_steps` steps from `profile_step`. The mesh axes (dp, sp,
-su, tp) and multi-host runs wait for `parallel/`: anything but one device
-raises.
+of `profile_num_steps` steps from `profile_step`.
+
+On a mesh (`distributed`: torchrun's environment, one process a device;
+dp x sp x su = the world size) the step is `make_sharded_train_step`'s
+ZeRO-3 step, with MM-SP attention when sp x su > 1. Every rank draws and
+collates the same global batch, as the JAX package's single host does, and
+keeps its part (`sp.layout_batch`, then `distributed.host_local_batch`). A
+checkpoint holds the whole tensors (gathered, written by rank 0), the
+single-device layout: it resumes at any world size. Only rank 0 logs.
+tp > 1 raises (tensor parallelism is not ported).
 """
 
 from __future__ import annotations
@@ -22,9 +29,14 @@ from typing import Any, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from vila_tpu_torch.parallel import distributed as dist_lib
 from vila_tpu_torch.train.checkpoint import CheckpointManager, PreemptionGuard
 from vila_tpu_torch.train.optimizer import OptimizerConfig, leaves, make_optimizer
-from vila_tpu_torch.train.step import batch_to_device, make_train_step
+from vila_tpu_torch.train.step import (
+    batch_to_device,
+    make_sharded_train_step,
+    make_train_step,
+)
 from vila_tpu_torch.utils.device import resolve_device
 from vila_tpu_torch.utils.weights import to_torch_tree
 
@@ -40,7 +52,7 @@ class TrainArgs:
     per_device_batch_size: int = 1
     seq_len: int = 4096
     pack_rows: int = 0  # >0: greedy sample packing into this many rows
-    # parallelism (mesh axes): one device only until parallel/ is ported
+    # parallelism (mesh axes; tp is not ported and must stay 1)
     dp: int = 1
     sp: int = 1
     su: int = 1
@@ -129,10 +141,22 @@ class Trainer:
 
     def __init__(self, cfg, params: Dict[str, Any], dataset, collator,
                  args: TrainArgs, device="cuda") -> None:
-        if args.distributed or (args.dp, args.sp, args.su, args.tp) != (1, 1, 1, 1):
+        from vila_tpu_torch.parallel import mesh as mesh_lib
+
+        if args.tp != 1:
             raise NotImplementedError(
-                "multi-device training (dp/sp/su/tp, distributed) needs parallel/, "
-                "not ported yet")
+                f"tp={args.tp}: tensor parallelism is not ported ({mesh_lib.TP_ITEM})")
+        if args.distributed:
+            dist_lib.init_distributed(
+                backend="gloo" if torch.device(device).type == "cpu" else None)
+        self.process_index = dist_lib.process_index()
+        self.is_primary = self.process_index == 0
+        self.mesh = self.sp_plan = None
+        if torch.distributed.is_initialized():
+            self.mesh = mesh_lib.make_mesh(dp=args.dp, sp=args.sp, su=args.su)
+        elif (args.dp, args.sp, args.su) != (1, 1, 1):
+            raise ValueError("dp / sp / su > 1 need one process a device: run under "
+                             "torchrun with --distributed true")
         self.cfg = cfg
         self.args = args
         self.device = resolve_device(device)
@@ -150,9 +174,17 @@ class Trainer:
             tune_vision_tower=args.tune_vision_tower,
             tune_mm_projector=args.tune_mm_projector,
         )
-        self.step_fn, self.params, self.opt_state = make_train_step(
-            cfg, to_torch_tree(params, self.device), make_optimizer(ocfg),
-            ce_chunk_size=args.ce_chunk_size)
+        params = to_torch_tree(params, self.device)
+        self.dims = None
+        if self.mesh is None:
+            self.step_fn, self.params, self.opt_state = make_train_step(
+                cfg, params, make_optimizer(ocfg), ce_chunk_size=args.ce_chunk_size)
+        else:
+            self.step_fn, self.params, self.opt_state, self.dims = make_sharded_train_step(
+                cfg, params, make_optimizer(ocfg), self.mesh, ce_chunk_size=args.ce_chunk_size,
+                sp_attention=args.sp_attention, ring_layout=args.ring_layout)
+            self.sp_plan = self.step_fn.keywords["sp"]
+        del params
         self.dataset = dataset
         self.collator = collator
         self.ckpt = CheckpointManager(
@@ -166,6 +198,8 @@ class Trainer:
         if args.resume:
             latest, state = self.ckpt.restore_latest(map_location="cpu")
             if latest is not None:
+                if self.mesh is not None:
+                    state = _shard_state(state, self.params, self.dims, self.mesh)
                 with torch.no_grad():
                     for dst, src in zip(leaves(self.params), leaves(state["params"])):
                         dst.copy_(src)
@@ -177,11 +211,21 @@ class Trainer:
 
     def _save(self, step: int):
         self._last_saved = step
-        self.ckpt.save(
-            step,
-            {"params": self.params, "opt_state": self.opt_state.state_dict()},
-            metadata={"step": step, "time": time.time()},
-        )
+        state = {"params": self.params, "opt_state": self.opt_state.state_dict()}
+        if self.mesh is not None:  # every rank gathers; rank 0 writes
+            state = _full_state(state, self.params, self.dims)
+        if self.is_primary:
+            self.ckpt.save(step, state, metadata={"step": step, "time": time.time()})
+        if self.mesh is not None:
+            torch.distributed.barrier()
+
+    def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
+        """This rank's part of a global host batch, on the device."""
+        if self.mesh is not None:
+            from vila_tpu_torch.parallel.sp import layout_batch
+
+            batch = dist_lib.host_local_batch(layout_batch(batch, self.sp_plan), self.mesh)
+        return batch_to_device(batch, self.device)
 
     def train(self) -> Dict[str, Any]:
         from vila_tpu_torch.utils.profiling import MetricsLogger, trace
@@ -191,7 +235,8 @@ class Trainer:
             self.dataset, self.collator, args.per_device_batch_size,
             args.seed, self.start_step, batch_shuffle=args.batch_shuffle,
         )
-        mlog = MetricsLogger(args.output_dir, project=args.wandb_project or None)
+        mlog = (MetricsLogger(args.output_dir, project=args.wandb_project or None)
+                if self.is_primary else None)
         t0 = time.time()
         tokens_seen = 0
         pending_tokens: list = []
@@ -200,7 +245,7 @@ class Trainer:
             if step == args.profile_step:
                 profiling = trace(os.path.join(args.output_dir, "profile"))
                 profiling.__enter__()
-            batch = batch_to_device(next(it), self.device)
+            batch = self._put(next(it))
             self.params, self.opt_state, metrics = self.step_fn(
                 self.params, self.opt_state, batch
             )
@@ -219,8 +264,9 @@ class Trainer:
                 m["tokens_seen"] = tokens_seen
                 m.update(step=step + 1, elapsed_s=time.time() - t0)
                 self.log_history.append(m)
-                mlog.log(m, step=step + 1)
-                print(f"[trainer] {json.dumps(m)}", flush=True)
+                if self.is_primary:
+                    mlog.log(m, step=step + 1)
+                    print(f"[trainer] {json.dumps(m)}", flush=True)
             if (step + 1) % args.save_steps == 0:
                 self._save(step + 1)
             if self.guard.should_stop(step):
@@ -236,12 +282,62 @@ class Trainer:
             self._save(args.max_steps)
         self.ckpt.wait()
         self._dump_log_history()
-        mlog.close()
+        if mlog is not None:
+            mlog.close()
         return {"final_step": args.max_steps, "log_history": self.log_history}
 
     def _dump_log_history(self):
+        if not self.is_primary:
+            return
         os.makedirs(self.args.output_dir, exist_ok=True)
         with open(
             os.path.join(self.args.output_dir, "log_history.json"), "w"
         ) as f:
             json.dump(self.log_history, f, indent=2)
+
+
+def _opt_pairs(opt_state_dict, params, dims):
+    """(component, param index, moment name, split dim) of every moment
+    tensor of `OptState.state_dict()`, the params in `leaves` order."""
+    from vila_tpu_torch.train.step import _pairs
+
+    for name, sd in opt_state_dict["adamw"].items():
+        split = [d for _, d in _pairs(params[name], dims[name])]
+        for i, st in sd["state"].items():
+            for key, val in st.items():
+                if isinstance(val, torch.Tensor) and val.ndim > 0:
+                    yield name, i, key, split[i]
+
+
+def _full_state(state, params, dims):
+    """A sharded {params, opt_state} with every split tensor gathered whole
+    (on every rank: the gathers are collective)."""
+    import copy
+
+    from vila_tpu_torch.parallel.mesh import gather_tensor, map_tree
+
+    with torch.no_grad():
+        full = {"params": map_tree(lambda t, d: gather_tensor(t.detach(), d), params, dims),
+                "opt_state": copy.copy(state["opt_state"])}
+        osd = full["opt_state"]
+        osd["adamw"] = {name: {"state": {i: dict(st) for i, st in sd["state"].items()},
+                               "param_groups": sd["param_groups"]}
+                        for name, sd in state["opt_state"]["adamw"].items()}
+        for name, i, key, d in _opt_pairs(osd, params, dims):
+            st = osd["adamw"][name]["state"][i]
+            st[key] = gather_tensor(st[key], d)
+    return full
+
+
+def _shard_state(state, params, dims, mesh):
+    """A whole {params, opt_state} (a checkpoint) cut to this rank's
+    shards."""
+    from vila_tpu_torch.parallel.mesh import map_tree, shard_tensor
+
+    out = {"params": map_tree(lambda t, d: shard_tensor(t, d, mesh.rank, mesh.size),
+                              state["params"], dims),
+           "opt_state": state["opt_state"]}
+    for name, i, key, d in list(_opt_pairs(state["opt_state"], params, dims)):
+        st = state["opt_state"]["adamw"][name]["state"][i]
+        st[key] = shard_tensor(st[key], d, mesh.rank, mesh.size)
+    return out
