@@ -60,7 +60,7 @@ Phases:
                one stream); each reply equal to its serial answer;
   spec         prompt-lookup speculative decoding on the e2e engine: an
                image + a question that repeats a span, and the text alone,
-               32 tokens at gamma 4 and 7 beside the vanilla stream; TTFT,
+               20 tokens at gamma 4 and 7 beside the vanilla stream; TTFT,
                tok/s, tokens per verify forward, the verify forward's device
                busy (traced) and host-issue ms, K1 launches by M (every projection and the
                lm_head at M = gamma + 1); the stream against vanilla up to a
@@ -194,6 +194,18 @@ Phases:
                frozen): 2 steps on 2 rows of seq 1024, one 4:3 image each,
                with gt selection maps (LM + selection loss); 2 + 2 layers
                (tower 2) against the CPU;
+  tp           tensor parallelism: (a) two tp ranks (two processes sharing the
+               card over gloo) at NVILA-Lite-2B full width, LLM depth 4,
+               tower depth 6, one packed 2048-token row with images: the rank's tp
+               forward and backward (column / row / vocab parallel, 6 / 1
+               heads a rank) against the one-device step on the card (loss
+               within 1e-3, every gradient leaf within 2e-2 x max|ref|),
+               every K7-K9 call against its plain version; (b) K7-K9 at
+               the tp ranks' heads, 6 / 1 (NVILA-Lite-2B at tp 2) and 7 / 1
+               (Qwen2-7B at tp 4), S 2048, three segments, against their
+               plain versions, timed beside SDPA; (c) the sharded step on a
+               (1, 1, 1, 1) NCCL mesh, 2 steps of fp8 AdamW and 2 of PS3
+               stage 1.5 at 2 layers, against the one-device step;
   sp_ring      LongVILA's ring at Qwen2-7B attention widths (28 / 4 heads of
                128), bf16, S 32768 with three packed segments: the port's
                ring steps (`_ring_step_fwd`, `_merge`, `_ring_step_bwd`) for
@@ -207,11 +219,14 @@ Phases:
                loss of a 2-layer cut at S 1024 against the CPU;
   niah         `run_niah` over the same Qwen2-7B: contexts 8192 / 32768 x
                depths 0 / 0.5 / 1 (each forward's ms, K7 launches); at 8192
-               the logits against the plain attention;
+               every K7 call of the 28-layer forward against its plain
+               version on the same inputs;
   long_ctx     `LongContextEngine` over the W4 NVILA-8B LLM on a one-rank
                NCCL mesh: cache 65536, chunks of 4096, a 32768-token prompt,
                16 greedy tokens (TTFT, tok/s, peak, K1 / K2 launches) against
-               the serial `qwen2.forward` cache path;
+               the serial `qwen2.forward` cache path; then the engine built
+               with `param_specs` against the replicated one (8 tokens after
+               a 4096-token prompt);
   profile      (only when named) torch.profiler trace of one request:
                device busy time and idle share of a decode step; then one
                max_batch=8 decode step (K6): host issue time per layer and
@@ -299,7 +314,7 @@ SERVE_RUNS = ((8, 12, 32), (24, 24, 16))
 DEFAULT_PHASES = ("build,kernels,e2e,serve,consistency,batched_consistency,"
                   "small_consistency,http,spec,constrained,s2,video,ps3,towers,load,w8,awq,"
                   "quant_acc,train_kernels,train,train_consistency,train_media,train_fp8,"
-                  "train_lora,train_dpo,train_rlhf,train_ps3,sp_ring,extend,long_ctx,niah")
+                  "train_lora,train_dpo,train_rlhf,train_ps3,tp,sp_ring,extend,long_ctx,niah")
 
 
 def log(*a):
@@ -1644,11 +1659,19 @@ def summarise(results, launches):
                         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")})
                    for r in results.get(name, []) if "ring" in r] for name in FLASH_KERNELS}
+    # K7-K9 at a tensor-parallel rank's heads (the `tp` phase), beside the
+    # main entries
+    tp_rows = {name: [dict(work=f"{r['tp']}: {r['shape']}", ok=r["ok"],
+                           **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")})
+                      for r in results.get(name, []) if "tp" in r] for name in FLASH_KERNELS}
     out = []
     for name, meta in KERNELS.items():
         # the NVILA-8B main-path shapes (the Qwen2-0.5B checks are reported apart)
         rows = [r for r in results.get(name, [])
                 if r.get("model", "NVILA-8B") == "NVILA-8B" and picks[name](r)]
+        if not rows:  # a run without `train_kernels`: the tp ranks' rows
+            rows = [r for r in results.get(name, []) if "tp" in r]
         if not rows:
             continue
         lib = [r["library_ms"] for r in rows]
@@ -1671,6 +1694,7 @@ def summarise(results, launches):
             **({"one_digit": one_digit} if name == "w4_gemv" and one_digit else {}),
             **({"media": media[name]} if media.get(name) else {}),
             **({"ring": ring[name]} if ring.get(name) else {}),
+            **({"tp": tp_rows[name]} if tp_rows.get(name) else {}),
         ))
     return out
 
@@ -2195,7 +2219,7 @@ def phase_http(torch, engine, n_requests=4, new_tokens=16):
 # --------------------------------------------------------------------------
 
 SPEC_GAMMAS = (4, 7)
-SPEC_NEW_TOKENS = 32
+SPEC_NEW_TOKENS = 20  # a stream's tokens (the default run's time bounds them)
 # a prompt that repeats a span, so that the 2-gram lookup has material
 SPEC_TEXT = ("Read this twice: the red cube sits on the blue table next to the green "
              "ball. Again: the red cube sits on the blue table next to the green ball. "
@@ -4518,7 +4542,8 @@ def live_tiles(fa, seg_q, seg_kv, sq, skv, causal, tiles):
     return live, total
 
 
-def phase_train_kernels(torch, seed, dev="cuda", heads=(12, 2), seq=2048, row_seg=None):
+def phase_train_kernels(torch, seed, dev="cuda", heads=(12, 2), seq=2048, row_seg=None,
+                        only=None, tp=None):
     """K7, K8 and K9 against their plain versions (same inputs, on the
     card), each timed beside its plain version and, as the yardstick,
     `scaled_dot_product_attention` (GQA; causal, or not for the cross shape)
@@ -4527,7 +4552,8 @@ def phase_train_kernels(torch, seed, dev="cuda", heads=(12, 2), seq=2048, row_se
     (ragged tiles); causal alone (SDPA's own work); the `train` phase's first
     packed row; short runs of shuffled segment ids; Sq seq/2 against Skv seq,
     not causal. The bound counts this run's work: 2, 3 and 4 products over
-    the (q, k) pairs the masks allow."""
+    the (q, k) pairs the masks allow. `only` keeps the shapes of those tags;
+    `tp` labels rows of a tensor-parallel rank's heads (off the main rows)."""
     import torch.nn.functional as F
 
     from vila_tpu_torch.ops import flash_attention as fa
@@ -4539,16 +4565,18 @@ def phase_train_kernels(torch, seed, dev="cuda", heads=(12, 2), seq=2048, row_se
     d = fa.HEAD_DIM
     scale = d ** -0.5
     bf16 = torch.bfloat16
-    if row_seg is None:
+    if row_seg is None and (only is None or "train row" in only):
         row_seg = train_row_segments(torch, seq, dev)
     shapes = [  # (tag, Sq, Skv, causal, segment ids)
         ("3 segments", seq, seq, True, _packed_segments(torch, seq, dev)),
         ("3 segments, ragged", seq - 48, seq - 48, True, _packed_segments(torch, seq - 48, dev)),
         ("causal only", seq, seq, True, None),
-        ("train row", seq, seq, True, row_seg.to(dev)),
+        ("train row", seq, seq, True, None if row_seg is None else row_seg.to(dev)),
         ("shuffled ids", seq, seq, True, _shuffled_runs(torch, seq, dev, seed)),
         ("cross, not causal", seq // 2, seq, False, None),
     ]
+    if only is not None:
+        shapes = [sh for sh in shapes if sh[0] in only]
     results = {name: [] for name in FLASH_KERNELS}
     ok = True
     for tag, s, skv, causal, seg in shapes:
@@ -4617,7 +4645,8 @@ def phase_train_kernels(torch, seed, dev="cuda", heads=(12, 2), seq=2048, row_se
                 shape=f"B 1, Sq {s}, Skv {skv}, {hq}/{hkv} heads of {d}, "
                       f"{'causal' if causal else 'not causal'}, {tag}"
                       + ("" if counts is None else f" (segment sizes by id {counts})"),
-                m=s, main=tag == "3 segments", max_abs_err=max(errs), ok=good, ms=t,
+                m=s, main=tag == "3 segments" and tp is None, max_abs_err=max(errs), ok=good,
+                ms=t, **({"tp": tp} if tp else {}),
                 plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
                 bound_ms_causal=bound(in_bytes + extra + out_bytes, flops_causal,
                                       BF16_FLOPS)[0],
@@ -4628,7 +4657,8 @@ def phase_train_kernels(torch, seed, dev="cuda", heads=(12, 2), seq=2048, row_se
                 tflops=flops / t / 1e9, allowed_pairs=pairs, tiles_walked=live,
                 tiles_causal=walk, tile=FLASH_TILES[name],
                 **({"deterministic": same} if name == "flash_bwd_dq" else {})))
-            log(f"[train_kernels] {name:13s} {tag:18s} Sq={s}: err {max(errs):.3e} "
+            log(f"[train_kernels] {name:13s} {tag:18s} Sq={s} {hq}/{hkv} heads: err "
+                f"{max(errs):.3e} "
                 f"{'OK' if good else 'FAIL'}{'' if name != 'flash_bwd_dq' else f' (repeat bit-exact {same})'}"
                 f"  kernel {t:.4f} ms ({flops / t / 1e9:.1f} "
                 f"TFLOP/s on allowed pairs; tiles {live}/{walk} of "
@@ -4636,9 +4666,10 @@ def phase_train_kernels(torch, seed, dev="cuda", heads=(12, 2), seq=2048, row_se
                 f"{results[name][-1]['library']} {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by}; "
                 f"causal-only {results[name][-1]['bound_ms_causal']:.4f})")
         del out_g, qg, kg, vg
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "train_kernels.json"), "w") as f:
-        json.dump(results, f, indent=1)
+    if tp is None:
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "train_kernels.json"), "w") as f:
+            json.dump(results, f, indent=1)
     return ok, results
 
 
@@ -5886,6 +5917,7 @@ RING_RANKS = 4  # virtual ranks of the ring, driven in one process
 EXTEND_SEQ = 32768  # half of the 64k recipe's sequence
 EXTEND_STEPS = 2
 LONG_CTX = dict(max_cache_len=65536, prefill_chunk=4096, prompt=32768, new_tokens=16)
+PARAM_SPECS_TOKENS = 8  # the long_ctx engine with param_specs against the replicated one
 NIAH_CONTEXTS = (8192, 32768)
 NIAH_DEPTHS = (0.0, 0.5, 1.0)
 
@@ -6271,10 +6303,15 @@ def phase_long_ctx(torch, seed, dev="cuda", cfg=None, run=None):
     are held to those counts. Held against the port's serial `qwen2.forward`
     cache path on the same weights: the first logits within 5e-2 x max|ref|
     and each token, fed to the serial path, within K1's tie band (2^-7
-    max|logit|) of its top. Reports TTFT, decode tokens/s and peak memory."""
+    max|logit|) of its top. Reports TTFT, decode tokens/s and peak memory.
+    Then the engine built with `param_specs` (the JAX package's
+    `llm_param_specs`: on a W4 tree only the dense embedding has a spec, and
+    on one rank nothing splits) and the replicated engine over a one-chunk
+    prompt: the same tokens."""
     from vila_tpu_torch.inference.long_context import LongContextEngine
     from vila_tpu_torch.models import qwen2
     from vila_tpu_torch.ops import _build
+    from vila_tpu_torch.parallel.mesh import llm_param_specs
 
     dev = torch.device(dev)
     run = dict(LONG_CTX, **(run or {}))
@@ -6327,6 +6364,15 @@ def phase_long_ctx(torch, seed, dev="cuda", cfg=None, run=None):
     exact = sum(int(r.argmax()) == t for r, t in zip(rows, toks))
     ok = (err <= CONSISTENCY_TOL * sc and len(toks) == run["new_tokens"]
           and all(m <= b for m, b in zip(margins, bands)) and launches == want)
+    # the engine with `param_specs` against the replicated one, a one-chunk prompt
+    short = embeds[:, :run["prefill_chunk"]]
+    eng_specs = LongContextEngine(params, lcfg, mesh, max_cache_len=run["max_cache_len"],
+                                  prefill_chunk=run["prefill_chunk"],
+                                  param_specs=llm_param_specs(lcfg, mesh))
+    spec_toks = [e.generate(short, PARAM_SPECS_TOKENS) for e in (eng, eng_specs)]
+    same_specs = spec_toks[0] == spec_toks[1] and len(spec_toks[0]) == PARAM_SPECS_TOKENS
+    ok = ok and same_specs
+    del eng_specs
     ttft = t1 - t0
     tok_s = (len(toks) - 1) / (t2 - t1)
     log(f"[long_ctx] NVILA-8B W4 LLM ({layers} layers), cache {run['max_cache_len']} on one "
@@ -6334,10 +6380,12 @@ def phase_long_ctx(torch, seed, dev="cuda", cfg=None, run=None):
         f"{tok_s:.2f} tok/s ({len(toks)} tokens), peak {peak / 2**30:.2f} GiB; first logits "
         f"against the serial path {err:.3e} of max {sc:.3g}; tokens exact {exact}/{len(toks)}, "
         f"largest margin {max(margins):.4g} (band {min(bands):.4g}); launches {launches} "
-        f"(expected {want}) -> {'OK' if ok else 'FAIL'}")
+        f"(expected {want}); with param_specs over {short.shape[1]} tokens the replicated "
+        f"engine's {PARAM_SPECS_TOKENS} tokens {same_specs} -> {'OK' if ok else 'FAIL'}")
     summary = dict(prompt=s, ttft_s=ttft, decode_tok_s=tok_s, tokens=toks, peak_bytes=peak,
                    first_logits_err=err, first_logits_max=sc, exact=exact, margins=margins,
-                   launches=launches, expected=want)
+                   launches=launches, expected=want, param_specs_tokens=spec_toks,
+                   param_specs_same=same_specs)
     del params, eng, embeds
     gc.collect()
     torch.cuda.empty_cache()
@@ -6350,12 +6398,10 @@ def phase_niah(torch, seed, base=None, dev="cuda", cfg=None, contexts=NIAH_CONTE
     contexts x depths, a haystack of embedded random tokens, an 8-token
     needle and a 4-token answer (random weights: the accuracy is reported
     and judged by nothing). Each forward's ms; K7 launches (28 a forward,
-    no backward). At the first context, `forward_embeds_sharded`'s logits
-    (K7) against the same forward under `plain_versions` (K7's plain
-    version on the card): within 5e-2 x max|ref| over the first 2 layers,
-    reported over all of them."""
-    import dataclasses
-
+    no backward). At the first context, every K7 call of the 28-layer
+    `forward_embeds_sharded` against its plain version on the same inputs
+    (`tap_flash`: within 1e-2 x max|ref|, the LSE within 1e-3): each layer
+    judged on its own inputs, so the bar holds at full depth."""
     import numpy as np
 
     from vila_tpu_torch.eval import niah
@@ -6382,36 +6428,422 @@ def phase_niah(torch, seed, base=None, dev="cuda", cfg=None, contexts=NIAH_CONTE
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     want = dict(_no_launches(), flash_fwd=len(grid) * cfg.num_hidden_layers)
-    # forward_embeds_sharded (K7) against K7's plain version at the first
-    # context: judged on the first 2 layers, reported at every layer (28
-    # random bf16 layers amplify the two sides' summation orders to a few %)
+    # every K7 call of the 28-layer forward at the first context against its
+    # plain version on the same inputs (the layers' own inputs: the bar holds
+    # at full depth, where the two sides' summation orders part the logits)
     full = torch.cat([haystack[:contexts[0] - 8], needle])[None]
-    two = dict(p, layers={k: {kk: vv[:2] for kk, vv in slot.items()}
-                          for k, slot in p["layers"].items()})
-    gaps = {}
-    for tag, tree, c in (("2 layers", two, dataclasses.replace(cfg, num_hidden_layers=2)),
-                         (f"{cfg.num_hidden_layers} layers", p, cfg)):
-        with torch.no_grad():
-            got = niah.forward_embeds_sharded(tree, c, full, mesh)
-            with plain_versions():
-                ref = niah.forward_embeds_sharded(tree, c, full, mesh)
-        gaps[tag] = rel_err(torch, got, ref)
-        del got, ref
-        gc.collect()
-        torch.cuda.empty_cache()
-    err, sc = gaps["2 layers"]
-    ok = launches == want and err <= CONSISTENCY_TOL * sc and len(grid) == len(contexts) * len(
-        depths)
+    with torch.no_grad(), tap_flash(torch) as tap:
+        niah.forward_embeds_sharded(p, cfg, full, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    calls = tap.calls
+    worst = max(calls, key=lambda c: c["max_abs_err"]) if calls else None
+    ok = (launches == want and tap.ok() and len(calls) == cfg.num_hidden_layers
+          and len(grid) == len(contexts) * len(depths))
     log(f"[niah] Qwen2-7B bf16 ({cfg.num_hidden_layers} layers), contexts {contexts} x depths "
         f"{depths}: " + "; ".join(f"{c} @ {d:.1f}: {1e3 * t:.1f} ms" for c, d, t in timings)
         + f"; accuracy (random weights) {[r['acc'] for r in grid]}; peak {peak / 2**30:.2f} "
-        f"GiB; logits at {contexts[0]} against K7's plain version: " + ", ".join(
-            f"{t} {e:.3e} of max {m:.3g}" for t, (e, m) in gaps.items()) + "; "
-        f"launches {launches} (expected {want}) -> {'OK' if ok else 'FAIL'}")
+        f"GiB; at {contexts[0]} every K7 call against its plain version: "
+        f"{sum(c['ok'] for c in calls)}/{len(calls)} within the bars (worst "
+        f"{worst['max_abs_err'] if worst else float('nan'):.3e}); launches {launches} "
+        f"(expected {want}) -> {'OK' if ok else 'FAIL'}")
     summary = dict(grid=grid, forward_ms={f"{c}@{d}": 1e3 * t for c, d, t in timings},
-                   peak_bytes=peak, launches=launches,
-                   logits_err={t: dict(err=e, max=m) for t, (e, m) in gaps.items()})
+                   peak_bytes=peak, launches=launches, k7_calls=calls)
     return ok, summary, {"niah": launches}
+
+
+# --------------------------------------------------------------------------
+# Tensor parallelism on the (dp, sp, su, tp) mesh, and the sharded step's
+# other optimizers and PS3
+# --------------------------------------------------------------------------
+
+TP_RANKS = 2  # NVILA-Lite-2B's tp ranks, two processes sharing the card
+TP_LAYERS = 4  # their LLM depth
+# their tower depth: each rank process holds a one-device reference step
+# beside its own, and two full-depth towers' activations overflow the card
+TP_VISION_LAYERS = 6
+TP_SEQ = 2048
+# K7-K9 at a tp rank's heads: (query heads, KV heads, the configuration)
+TP_RANK_HEADS = ((6, 1, "NVILA-Lite-2B at tp 2"), (7, 1, "Qwen2-7B at tp 4"))
+TP_TIMEOUT_S = 300
+# part (a)'s step runs as it is and with the decoder layers rematerialised
+TP_REMAT = (False, True)
+
+
+class tap_flash:
+    """While active, K7, K8 and K9 (`flash_attention.flash_fwd`,
+    `flash_bwd_dq`, `flash_bwd_dkv`, whatever they are on entry) are
+    wrapped: every call also runs its plain version on the same inputs and
+    is judged with `train_kernels`' bars (bf16 outputs within 1e-2 x
+    max|ref|, the f32 LSE within 1e-3). `calls` holds (kernel, heads,
+    Sq, largest |d| over the outputs, ok) per call."""
+
+    def __init__(self, torch):
+        self.torch, self.calls = torch, []
+
+    def __enter__(self):
+        from vila_tpu_torch.ops import flash_attention as fa
+
+        self.fa = fa
+        self.saved = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+        plains = (fa.flash_fwd_plain, fa.flash_bwd_dq_plain, fa.flash_bwd_dkv_plain)
+
+        def wrap(name, kernel, plain):
+            def fn(*args, **kw):
+                got = kernel(*args, **kw)
+                self._judge(name, args, got, plain(*args, **kw))
+                return got
+            return fn
+
+        fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv = (
+            wrap(n, k, p) for n, k, p in zip(FLASH_KERNELS, self.saved, plains))
+        return self
+
+    def _judge(self, name, args, got, want):
+        torch = self.torch
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        ok, errs = True, []
+        for g, w in zip(got, want):
+            err, sc = rel_err(torch, g, w)
+            tol = 1e-3 if g.dtype == torch.float32 else 1e-2 * sc
+            ok &= bool(torch.isfinite(g.float()).all()) and err <= tol
+            errs.append(err)
+        self.calls.append(dict(kernel=name, heads=(args[0].shape[2], args[1].shape[2]),
+                               sq=args[0].shape[1], max_abs_err=max(errs), ok=ok))
+
+    def __exit__(self, *exc):
+        self.fa.flash_fwd, self.fa.flash_bwd_dq, self.fa.flash_bwd_dkv = self.saved
+        return False
+
+    def ok(self):
+        return bool(self.calls) and all(c["ok"] for c in self.calls)
+
+
+class KeepGrads:
+    """A tree optimizer for `make_sharded_train_step` that leaves the shards
+    as they are and returns, as its state, each shard's gradient in
+    `leaves` order: the step's gradients, read after its own
+    reductions."""
+
+    def init(self, params, layouts=None):
+        return []
+
+    def update(self, opt_state, params):
+        from vila_tpu_torch.train.optimizer import leaves
+
+        return [t.grad.detach().clone() for t in leaves(params)]
+
+
+def leaf_paths(tree, path=()):
+    """The path of every tensor of a tree, in `leaves` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in leaf_paths(v, path + (i,))]
+    return [path]
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _tp_rank(rank, world, port, out_path, seed, layers, seq, dev="cuda", cfg=None):
+    """One tensor-parallel rank of the `tp` phase's part (a), a process of
+    its own on the shared card (gloo carries the CUDA tensors of the tp
+    all-reduces and all-gathers): the one-device loss and gradients on the
+    card first (the reference), then one step of the port's
+    `make_sharded_train_step` on the (1, 1, 1, world) mesh with `KeepGrads`
+    as its optimizer for each `TP_REMAT` setting of the LLM's remat, every
+    K7-K9 call held against its plain version; writes the reference's loss
+    and grad norm, each run's loss, grad norm, gradient shards' gaps
+    against the reference's slices and calls, and the launches of both
+    runs to `out_path` (JSON)."""
+    import dataclasses
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from vila_tpu_torch.ops import _build
+        from vila_tpu_torch.parallel import distributed, mesh as mesh_lib
+        from vila_tpu_torch.train.optimizer import global_norm, leaves
+        from vila_tpu_torch.train.step import loss_fn, make_sharded_train_step
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device(dev)
+        card = dev.type == "cuda"
+        sync = torch.cuda.synchronize if card else (lambda: None)
+        if card:
+            torch.cuda.set_device(0)
+        distributed.init_distributed(f"tcp://127.0.0.1:{port}", world, rank, backend="gloo")
+        mesh = mesh_lib.make_mesh(tp=world, device_type="cpu")
+        cfg = cfg or nvila_lite_2b_config(layers=layers, vision_layers=TP_VISION_LAYERS)
+        params = train_master(torch, seed, dev, cfg)
+        batch, _ = _sft_batch(torch, cfg, seq, dev)
+        ts = leaves(params)
+        for t in ts:
+            t.requires_grad_(True)
+        loss_ref, _ = loss_fn(params, cfg, batch)
+        loss_ref.backward()
+        # a leaf the forward leaves unused (the last tower layer): 0, as the step's
+        ref = [t.grad if t.grad is not None else torch.zeros_like(t) for t in ts]
+        norm_ref = global_norm(ref).item()
+        for t in ts:
+            t.grad = None
+
+        def detached(tree):
+            if isinstance(tree, dict):
+                return {k: detached(v) for k, v in tree.items()}
+            return tree.detach()
+
+        runs = []
+        _build.reset_launches()
+        for remat in TP_REMAT:
+            rcfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, remat=remat))
+            step, shards, state, dims = make_sharded_train_step(rcfg, detached(params),
+                                                                KeepGrads(), mesh)
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            with tap_flash(torch) as tap:
+                _, grads, m = step(shards, state, batch)
+                sync()
+            step_s = time.perf_counter() - t0
+            rows = []
+            for path, g, r in zip(leaf_paths(shards), grads, ref):
+                split = _leaf(dims, path)
+                want = mesh_lib.shard_leaf(r, split, mesh)
+                rows.append(dict(path="/".join(path),
+                                 tp_dim=None if split is None else split.tp,
+                                 gap=float((g.float() - want.float()).abs().max()),
+                                 ref_max=float(r.float().abs().max())))
+            runs.append(dict(remat=remat, loss=m["loss"].item(), grad_norm=m["grad_norm"].item(),
+                             leaves=rows, calls=tap.calls, step_s=step_s))
+            del step, shards, state, grads
+        with open(out_path, "w") as f:
+            json.dump(dict(loss_ref=loss_ref.item(), norm_ref=norm_ref, runs=runs,
+                           launches=dict(_build.LAUNCHES),
+                           peak_bytes=torch.cuda.max_memory_allocated() if card else 0), f)
+        dist.destroy_process_group()
+    except BaseException:
+        with open(out_path + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+
+
+def _tp_two_ranks(torch, seed, layers=TP_LAYERS, seq=TP_SEQ, world=TP_RANKS, dev="cuda",
+                  cfg=None):
+    """Part (a): `world` tp ranks at NVILA-Lite-2B full width, each a
+    process on this card over gloo, one step of the port's sharded step for
+    each `TP_REMAT` setting. Each step's loss within 1e-3 (relative) of the one-device loss, their grad
+    norm within 2e-2, every gradient leaf within 2e-2 x its max|ref| (each
+    rank holds a chunk of the split leaves: together the gathered leaf),
+    the K biases' within 1e-3 x the tree's largest |ref| (their true
+    gradient is 0: both sides hold rounding residue, so their own max is
+    no yardstick), every K7-K9 call against its plain version."""
+    import multiprocessing as mp
+    import shutil
+    import socket
+
+    out = os.path.join("runs", "chip_smoke_tp")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    paths = [os.path.join(out, f"rank{r}.json") for r in range(world)]
+    procs = [ctx.Process(target=_tp_rank, args=(r, world, port, paths[r], seed, layers, seq,
+                                                str(dev), cfg))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.time() + TP_TIMEOUT_S
+    while any(p.is_alive() for p in procs) and time.time() < deadline:
+        if any(p.exitcode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.2)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join(10)
+    wall = time.perf_counter() - t0
+    errors = [open(pth + ".err").read() for pth in paths if os.path.exists(pth + ".err")]
+    if errors or any(p.exitcode != 0 for p in procs):
+        log("[tp] a rank failed (exit codes "
+            f"{[p.exitcode for p in procs]}):\n" + "\n".join(errors))
+        shutil.rmtree(out, ignore_errors=True)
+        return False, dict(exit_codes=[p.exitcode for p in procs], errors=errors), {}
+    ranks = [json.load(open(pth)) for pth in paths]
+    shutil.rmtree(out, ignore_errors=True)
+    loss_ref, norm_ref = ranks[0]["loss_ref"], ranks[0]["norm_ref"]
+    layers = (cfg or nvila_lite_2b_config(layers=layers)).llm.num_hidden_layers
+    vision = (cfg or nvila_lite_2b_config(vision_layers=TP_VISION_LAYERS)).vision
+    launches = {k: sum(r["launches"].get(k, 0) for r in ranks) for k in ranks[0]["launches"]}
+    # a remat run's forward runs K7 twice (the recompute)
+    want = dict(_no_launches(), **{k: world * sum(want_flash(1 + bool(m), 1, layers)[k]
+                                                  for m in TP_REMAT)
+                                   for k in FLASH_KERNELS})
+    ok = launches == want
+    summary = dict(loss_ref=loss_ref, norm_ref=norm_ref, launches=launches, wall_s=wall,
+                   runs=[])
+    for i, remat in enumerate(TP_REMAT):
+        runs = [r["runs"][i] for r in ranks]
+        loss, norm = runs[0]["loss"], runs[0]["grad_norm"]
+        loss_rel = abs(loss - loss_ref) / abs(loss_ref)
+        norm_rel = abs(norm - norm_ref) / abs(norm_ref)
+        worst = {}
+        for r in runs:
+            for row in r["leaves"]:
+                w = worst.setdefault(row["path"], dict(row, gap=0.0))
+                w["gap"] = max(w["gap"], row["gap"])
+        # a K bias's gradient is 0 in exact arithmetic (softmax ignores a
+        # shift shared by every key): both sides hold rounding residue, held
+        # to a small share of the tree's largest gradient
+        tree_max = max(w["ref_max"] for w in worst.values())
+        residue = [w for w in worst.values() if w["path"].endswith("k_proj/bias")]
+        bad = [w for w in worst.values()
+               if not w["gap"] <= (1e-3 * tree_max if w in residue else 2e-2 * w["ref_max"])]
+        calls = [c for r in runs for c in r["calls"]]
+        same = len({(r["loss"], r["grad_norm"]) for r in runs}) == 1
+        good = (loss_rel <= 1e-3 and norm_rel <= 2e-2 and not bad and bool(calls)
+                and all(c["ok"] for c in calls) and same)
+        ok &= good
+        split = sum(w["tp_dim"] is not None for w in worst.values())
+        ranked = sorted(worst.values(), key=lambda w: -w["gap"] / max(w["ref_max"], 1e-30))
+        log(f"[tp] (a) NVILA-Lite-2B, {world} tp ranks (processes on this card, gloo), one "
+            f"step of make_sharded_train_step, remat {remat}, LLM {layers} layers, tower "
+            f"{vision.num_hidden_layers}, seq {seq}: loss {loss:.6f} against one device's "
+            f"{loss_ref:.6f} (rel {loss_rel:.2e}, limit 1e-3), grad norm {norm:.6g} against "
+            f"{norm_ref:.6g} (rel {norm_rel:.2e}, limit 2e-2), the same on every rank {same}; "
+            f"{len(worst)} gradient leaves ({split} split over tp), worst gap "
+            + ", ".join(f"{w['path']} {w['gap']:.3e} of max {w['ref_max']:.3g}"
+                        for w in ranked[:3])
+            + " (limit 2e-2 x max); K biases (rounding residue) "
+            + ", ".join(f"{w['path']} {w['gap']:.2e} of max {w['ref_max']:.2e}"
+                        for w in residue)
+            + f" (limit 1e-3 x the tree's largest {tree_max:.3g}); {len(bad)} over; K7-K9 "
+            f"calls against their plain versions {sum(c['ok'] for c in calls)}/{len(calls)} "
+            f"within the bars (heads {sorted({tuple(c['heads']) for c in calls})}, worst "
+            f"{max((c['max_abs_err'] for c in calls), default=float('nan')):.3e}); rank step "
+            f"{', '.join(f'{r['step_s']:.2f}' for r in runs)} s -> {'OK' if good else 'FAIL'}")
+        summary["runs"].append(dict(
+            remat=remat, loss=loss, loss_rel=loss_rel, grad_norm=norm, norm_rel=norm_rel,
+            tree_max=tree_max, residue=residue, leaves=len(worst), split_leaves=split,
+            over=[w["path"] for w in bad], worst=ranked[:5], calls=len(calls),
+            calls_ok=sum(c["ok"] for c in calls), step_s=[r["step_s"] for r in runs]))
+    log(f"[tp] (a) wall {wall:.1f} s, peak {max(r['peak_bytes'] for r in ranks) / 2**30:.2f} "
+        f"GiB a rank; launches {launches} (expected {want}) -> {'OK' if ok else 'FAIL'}")
+    return ok, summary, launches
+
+
+def _tp_one_rank(torch, seed, dev, seq=1024, steps=2, lite=None, ps3=None):
+    """Part (c): `make_sharded_train_step` on a (1, 1, 1, 1) NCCL mesh
+    against the one-device step from the same tree: `steps` steps of fp8
+    AdamW (NVILA-Lite-2B, 2 + 2 layers) and of PS3 stage 1.5 (VILA-HD,
+    Qwen2-7B and the PS3 trunk at 2 layers each). Each step's loss (and
+    selection loss) within 1e-5, its grad norm within 1e-4 (relative), every
+    parameter after the steps within 2 x the learning rate (AdamW turns
+    rounding residue into updates of up to lr)."""
+    from vila_tpu_torch.ops import _build
+    from vila_tpu_torch.train import optimizer as topt
+    from vila_tpu_torch.train.step import (
+        batch_to_device,
+        make_sharded_train_step,
+        make_train_step,
+        train_step,
+    )
+
+    mesh = one_rank_mesh(torch, dev)
+    lite = lite or nvila_lite_2b_config(layers=2, vision_layers=2)
+    ps3 = ps3 or ps3_train_config(torch, layers=2, tower_layers=2, dev=dev)
+    runs = [
+        ("fp8_adamw", lite, lambda: train_master(torch, seed, dev, lite),
+         lambda: _sft_batch(torch, lite, seq, dev)[0],
+         topt.OptimizerConfig(learning_rate=1e-4, schedule="constant", warmup_ratio=0.0,
+                              optimizer="fp8_adamw"), ("loss", "grad_norm")),
+        ("ps3 stage 1.5", ps3, lambda: ps3_train_params(torch, ps3, seed, dev),
+         lambda: batch_to_device(ps3_train_batch(torch, ps3, seq, seed), dev),
+         topt.OptimizerConfig(learning_rate=5e-5, schedule="constant", warmup_ratio=0.0,
+                              tune_language_model=False),
+         ("loss", "token_selection_loss", "grad_norm")),
+    ]
+    ok, summary, launches = True, {}, {}
+    for name, cfg, draw, data, ocfg, keys in runs:
+        batch = data()
+        got = {}
+        for tag in ("one device", "sharded"):
+            opt = topt.make_optimizer(ocfg)
+            if tag == "one device":
+                _, params, state = make_train_step(cfg, draw(), opt)
+                step = functools.partial(train_step, cfg=cfg, optimizer=opt)
+            else:
+                step, params, state, _ = make_sharded_train_step(cfg, draw(), opt, mesh)
+                _build.reset_launches()
+            rows = []
+            for _ in range(steps):
+                params, state, m = step(params, state, batch)
+                rows.append({k: float(m[k]) for k in keys})
+            if tag == "sharded":
+                launches[f"tp one-rank {name}"] = dict(_build.LAUNCHES)
+            got[tag] = (rows, params)
+            del state, opt
+        (rows_a, pa), (rows_b, pb) = got["one device"], got["sharded"]
+        rels = {k: max(_rel_diff(b[k], a[k]) for a, b in zip(rows_a, rows_b)) for k in keys}
+        gap = max(float((x.detach().float() - y.detach().float()).abs().max())
+                  for x, y in zip(topt.leaves(pa), topt.leaves(pb)))
+        good = (all(rels[k] <= (1e-4 if k == "grad_norm" else 1e-5) for k in keys)
+                and gap <= 2 * ocfg.learning_rate
+                and all(math.isfinite(r[k]) for r in rows_b for k in keys)
+                and any(launches[f"tp one-rank {name}"][k] for k in FLASH_KERNELS))
+        ok &= good
+        log(f"[tp] (c) {name} on a (1, 1, 1, 1) NCCL mesh, {steps} steps: sharded "
+            + "; ".join(f"{k} {[round(r[k], 6) for r in rows_b]}" for k in keys)
+            + " against one device's, largest rel " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                                               rels.items())
+            + f"; parameters within {gap:.3e} (limit {2 * ocfg.learning_rate:g}); launches "
+            f"{launches[f'tp one-rank {name}']} -> {'OK' if good else 'FAIL'}")
+        summary[name] = dict(sharded=rows_b, one_device=rows_a, rel=rels, param_gap=gap)
+        del got, pa, pb, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ok, summary, launches
+
+
+def phase_tp(torch, seed, dev="cuda", cfg=None, lite=None, ps3=None, heads=TP_RANK_HEADS,
+             seq=TP_SEQ):
+    """Tensor parallelism: (a) two tp ranks at NVILA-Lite-2B full width
+    against the one-device step (`_tp_two_ranks`); (b) K7-K9 at the tp
+    ranks' heads (6 / 1: NVILA-Lite-2B at tp 2; 7 / 1: Qwen2-7B at tp 4)
+    at S 2048 with three segments, against their plain versions and timed
+    beside SDPA (`phase_train_kernels`' main shape); (c) the sharded step's
+    other optimizers and PS3 on a one-rank NCCL mesh (`_tp_one_rank`).
+    `cfg`, `lite`, `ps3` and `heads` replace the three parts' models (a
+    rehearsal on the CPU at small widths)."""
+    dev = torch.device(dev)
+    ok, summary, launches = True, {}, {}
+    good, summary["two_ranks"], two = _tp_two_ranks(torch, seed, seq=seq, dev=dev, cfg=cfg)
+    gc.collect()
+    ok &= good
+    if two:
+        launches["tp"] = two
+    results = {name: [] for name in FLASH_KERNELS}
+    for hq, hkv, label in heads:
+        good, rows = phase_train_kernels(torch, seed, dev=dev, heads=(hq, hkv), seq=seq,
+                                         only=("3 segments",), tp=f"{label} ({hq}/{hkv} heads)")
+        ok &= good
+        for name, rs in rows.items():
+            results[name].extend(rs)
+    good, summary["one_rank"], one = _tp_one_rank(torch, seed, dev, lite=lite, ps3=ps3)
+    ok &= good
+    launches.update(one)
+    return ok, summary, launches, results
 
 
 def nvidia_smi_line():
@@ -6599,7 +7031,7 @@ def main(argv=None) -> int:
     if "profile" in phases:  # not in the default run
         report["profile"] = phase_profile(torch, engine(args.layers, args.seed), args.seed)
         report["profile_batched"] = phase_profile_batched(torch, engine(args.layers, args.seed))
-    if any(p.startswith("train") for p in phases):
+    if any(p.startswith("train") or p == "tp" for p in phases):
         # the serving engines' weights make room for training
         engines.clear()
         gc.collect()
@@ -6610,9 +7042,9 @@ def main(argv=None) -> int:
         results.update(train_results)
         ok &= good
     if "train" in phases:
-        # LLM depth 14, not 28: its three checkpoint saves shrink by a third
+        # LLM depth 8, not 28: its three checkpoint saves dominate the phase
         good, report["train"], train_launches = timed("train", lambda: phase_train(
-            torch, args.seed, cfg=nvila_lite_2b_config(layers=14)))
+            torch, args.seed, cfg=nvila_lite_2b_config(layers=8)))
         launches.update(train_launches)
         ok &= good
     if "train_consistency" in phases:
@@ -6641,6 +7073,13 @@ def main(argv=None) -> int:
         good, report["train_ps3"], ps3_train_launches = timed(
             "train_ps3", lambda: phase_train_ps3(torch, args.seed))
         launches.update(ps3_train_launches)
+        ok &= good
+    if "tp" in phases:
+        good, report["tp"], tp_launches, tp_results = timed("tp", lambda: phase_tp(
+            torch, args.seed))
+        launches.update(tp_launches)
+        for name, rows in tp_results.items():
+            results.setdefault(name, []).extend(rows)
         ok &= good
     long_phases = [p for p in ("sp_ring", "extend", "niah", "long_ctx") if p in phases]
     if long_phases:
@@ -6671,11 +7110,10 @@ def main(argv=None) -> int:
             torch, args.seed))
         launches.update(long_launches)
         ok &= good
-    if long_phases:
-        import torch.distributed as dist
+    import torch.distributed as dist
 
-        if dist.is_initialized():
-            dist.destroy_process_group()
+    if dist.is_initialized():  # the one-rank NCCL group of tp and the long phases
+        dist.destroy_process_group()
     if "train_profile" in phases:  # not in the default run
         report["train_profile"] = phase_train_profile(torch, args.seed)
     report["seconds"] = time.time() - t_all

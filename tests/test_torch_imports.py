@@ -379,3 +379,12 @@ def test_long_context_modules_import_no_jax(name, long_context_imports):
     if name != "torch_dist_helpers":
         assert name in _module_names()
     assert long_context_imports[name] == []
+
+
+def test_tensor_parallel_modules_are_walked():
+    """The tensor-parallel slice's module is among those the import checks
+    above walk (no `jax`, no `vila_tpu`)."""
+    names = _module_names()
+    for mod in ("vila_tpu_torch.parallel.tensor_parallel", "vila_tpu_torch.parallel.mesh",
+                "vila_tpu_torch.train.fp8_adamw"):
+        assert mod in names

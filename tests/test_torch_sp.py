@@ -28,6 +28,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from jax.sharding import NamedSharding
 
 import torch_dist_helpers as dh
@@ -386,13 +387,28 @@ def test_trainer_resumes_at_world_size_one(port):
 
 
 def test_tp_raises_naming_the_roadmap_item():
+    """What still raises around tp: a mesh without a process group, a mesh
+    larger than the world (one gloo process asked for tp 2), a tp degree
+    that divides none of the model's dims (every weight would stay whole),
+    and COAT's per-group fp8 under a tp split that cuts a 128-group (its
+    local groups would not be the whole tensor's)."""
+    from vila_tpu_torch.models import qwen2 as tqwen2
     from vila_tpu_torch.parallel import mesh as m
-    from vila_tpu_torch.train.trainer import TrainArgs, Trainer
+    from vila_tpu_torch.parallel import tensor_parallel as tpl
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(RuntimeError, match="process group"):
         m.make_mesh(tp=2)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        Trainer(None, {}, [], None, TrainArgs(tp=2), device="cpu")
+    kind, text = dh.spawn([("mesh_error", dict(mesh_axes=dict(tp=2)))], 1)[0][0]
+    assert kind == "ValueError" and "needs 2 ranks" in text
+    llm = llm_cfg()
+    with pytest.raises(ValueError, match="divides none"):
+        tpl.check_divides((llm.vocab_size, llm.intermediate_size), tpl.TPConfig(
+            m.Mesh.layout(tp=3)))
+    cfg = tqwen2.LLMConfig(**dict(dh.config_fields(llm), fp8_matmul="group"))
+    params = tqwen2.init_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(ValueError, match="128-groups"):
+        tqwen2.forward(params, cfg, inputs_embeds=torch.zeros(1, 2, 64),
+                       tp=tpl.TPConfig(m.Mesh.layout(tp=2)))
 
 
 @pytest.mark.parametrize("name,axes", SHARD_MESHES, ids=[m[0] for m in SHARD_MESHES])

@@ -256,16 +256,34 @@ def test_profile_steps_write_a_trace(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    """tp > 1 (tensor parallelism, not ported) raises naming its ROADMAP
-    item; dp / sp / su > 1 without a process a device (no process group)
-    raise. The mesh runs themselves are `test_torch_sp.py`'s."""
+    """dp / sp / su / tp > 1 without a process a device (no process group)
+    raise; tp = 2 on two gloo processes runs and logs the one-process
+    run's losses and grad norms (rtol 2e-5: the same global batches, the
+    products split over two ranks). The other mesh runs are
+    `test_torch_sp.py`'s and `test_torch_tp_train.py`'s."""
+    import torch_dist_helpers as dh
+
     ds, coll = ToyDataset(), tcollate.Collator(seq_len=24)
-    with pytest.raises(NotImplementedError, match="tensor parallelism.*ROADMAP"):
-        Trainer(_toy_cfg(), _params(), ds, coll, _args(tmp_path, tp=2), device="cpu")
-    for axis in ("dp", "sp", "su"):
+    for axis in ("dp", "sp", "su", "tp"):
         with pytest.raises(ValueError, match="one process a device"):
             Trainer(_toy_cfg(), _params(), ds, coll, _args(tmp_path, **{axis: 2}),
                     device="cpu")
+    cfg = _toy_cfg()
+    targs = dict(max_steps=3, per_device_batch_size=4, seq_len=24, learning_rate=1e-3,
+                 warmup_ratio=0.0, lr_schedule="constant", logging_steps=1, save_steps=3)
+    params = dh._tree(_params(), lambda t: t.numpy())
+    ranks = dh.spawn([("trainer_run", dict(
+        mesh_axes=dict(tp=2), cfg=dict(llm=dh.config_fields(cfg.llm),
+                                       vision=dh.config_fields(cfg.vision),
+                                       projector=dh.config_fields(cfg.projector)),
+        params=params, examples=ds.items, targs=dict(targs, tp=2, distributed=False),
+        out_dir=str(tmp_path / "tp2")))], 2)
+    one = Trainer(cfg, _params(), ds, coll, TrainArgs(output_dir=str(tmp_path / "one"), **targs),
+                  device="cpu").train()["log_history"]
+    want = [(h["step"], h["loss"], h["grad_norm"]) for h in one]
+    for rows in ranks:
+        assert [r[0] for r in rows[0]] == [w[0] for w in want] == [1, 2, 3]
+        np.testing.assert_allclose([r[1:] for r in rows[0]], [w[1:] for w in want], rtol=2e-5)
 
 
 def test_parser_stage_presets():

@@ -212,7 +212,8 @@ def shards(mesh_axes, cfg, params):
 def sharded_steps(mesh_axes, cfg, params, batch, optim, sp_attention, layout="zigzag", steps=3,
                   ce_chunk_size=None):
     """`steps` ZeRO-3 steps on one global batch: per step (loss, grad norm),
-    then the whole parameters."""
+    then the whole parameters. `optim` holds `OptimizerConfig`'s fields, or
+    {"tree": "adamw" | "adam", "learning_rate": lr} for a tree optimizer."""
     import torch
 
     from vila_tpu_torch.parallel import distributed, mesh as mesh_lib
@@ -222,7 +223,10 @@ def sharded_steps(mesh_axes, cfg, params, batch, optim, sp_attention, layout="zi
 
     mesh = _mesh(**mesh_axes)
     vcfg = vlm_config(**cfg)
-    opt = topt.make_optimizer(topt.OptimizerConfig(**optim))
+    if "tree" in optim:
+        opt = getattr(topt, optim["tree"])(optim["learning_rate"])
+    else:
+        opt = topt.make_optimizer(topt.OptimizerConfig(**optim))
     step, sh, state, dims = make_sharded_train_step(
         vcfg, _tree(params, _t), opt, mesh, ce_chunk_size=ce_chunk_size,
         sp_attention=sp_attention, ring_layout=layout, attn_impl="xla")
@@ -233,9 +237,7 @@ def sharded_steps(mesh_axes, cfg, params, batch, optim, sp_attention, layout="zi
     for _ in range(steps):
         sh, state, m = step(sh, state, local)
         rows.append((float(m["loss"]), float(m["grad_norm"]), int(m["n_tokens"])))
-    with torch.no_grad():
-        full = mesh_lib.map_tree(lambda t, d: mesh_lib.gather_tensor(t.detach(), d), sh, dims)
-    return rows, _tree(full, _np)
+    return rows, _tree(mesh_lib.gather_params(sh, dims, mesh), _np)
 
 
 def trainer_run(mesh_axes, cfg, params, examples, targs, out_dir, resume_from=None):
@@ -261,17 +263,20 @@ def trainer_run(mesh_axes, cfg, params, examples, targs, out_dir, resume_from=No
     return [(r["step"], r["loss"], r["grad_norm"]) for r in res["log_history"]]
 
 
-def long_context(mesh_axes, llm, params, runs, seq_axes=None):
+def long_context(mesh_axes, llm, params, runs, seq_axes=None, param_specs=False):
     """`LongContextEngine.generate` for each (embeds, kwargs of the engine,
-    kwargs of generate) run."""
+    kwargs of generate) run; with `param_specs` the weights sharded at rest
+    by `llm_param_specs`."""
     from vila_tpu_torch.inference.long_context import LongContextEngine
+    from vila_tpu_torch.parallel.mesh import llm_param_specs
 
     mesh = _mesh(**mesh_axes)
     cfg = llm_config(**llm)
     p = _tree(params, _t)
+    specs = llm_param_specs(cfg, mesh) if param_specs else None
     out = []
     for embeds, ekw, gkw in runs:
-        eng = LongContextEngine(p, cfg, mesh, seq_axes=seq_axes, **ekw)
+        eng = LongContextEngine(p, cfg, mesh, seq_axes=seq_axes, param_specs=specs, **ekw)
         out.append(eng.generate(_t(embeds), **gkw))
     return out
 
@@ -323,3 +328,165 @@ def cli_main(module, argv):
     import importlib
 
     return importlib.import_module(module).main(argv)
+
+
+def tp_model(mesh_axes, llm, params, ids, pos, seg, cot, layout="zigzag"):
+    """qwen2.forward under tp (and sp) on this rank's shard, whole
+    weights cut to the rank's tp chunks: (whole logits in token order,
+    whole parameter gradients of sum(logits * cot))."""
+    import torch
+    import torch.distributed as dist
+
+    from vila_tpu_torch.models import qwen2
+    from vila_tpu_torch.parallel import mesh as mesh_lib
+    from vila_tpu_torch.parallel import tensor_parallel as tpl
+    from vila_tpu_torch.parallel.sp import SPConfig
+
+    mesh = _mesh(**mesh_axes)
+    cfg = llm_config(**llm)
+    whole = _tree(params, _t)
+    dims = mesh_lib.tp_dims(whole, mesh_lib.shard_dims(whole, mesh_lib.llm_param_specs(cfg, mesh),
+                                                       mesh))
+    p = _tree(mesh_lib.shard_params(whole, dims, mesh), lambda x: x.clone().requires_grad_(True))
+    tp = tpl.plan_for(mesh)
+    sp = SPConfig(mesh=mesh, ring_layout=layout, impl="xla")
+    rows, cols = mesh.dp_slice(ids.shape[0]), mesh.seq_slice(ids.shape[1])
+    logits, _ = qwen2.forward(p, cfg, input_ids=_t(ids)[rows, cols], positions=_t(pos)[rows, cols],
+                              segment_ids=_t(seg)[rows, cols], attn_impl="xla",
+                              sp=sp if sp.active else None, tp=tp)
+    vp = tpl.vocab_plan(tp, cfg.vocab_size)
+    c = _t(cot)[rows, cols]
+    if vp is not None:
+        c = tpl.local_slice(c, vp)
+    (logits * c).sum().backward()
+    grads = mesh_lib.gather_params(_tree(p, lambda t: t.grad), dims, mesh)
+    for g in _tree_leaves(grads):  # the data ranks' parts
+        dist.all_reduce(g, group=mesh.group(mesh_lib.FSDP))
+    full = logits.detach()
+    if vp is not None:
+        full = tpl.all_gather_last(full, vp)
+    return _np(full), _tree(grads, _np)
+
+
+def mesh_error(mesh_axes):
+    """The exception `make_mesh(**mesh_axes)` raises: (type name, text)."""
+    try:
+        _mesh(**mesh_axes)
+    except Exception as e:  # noqa: BLE001 (reported to the test)
+        return type(e).__name__, str(e)
+    return None
+
+
+def vocab_pieces(mesh_axes, llm, params, ids, cot, logits, labels, hidden, z_loss, chunk):
+    """The vocab-parallel pieces on this rank's tp chunks: (embedding and
+    the table's gradient of sum(emb * cot); the cross entropy with z_loss
+    and its logits gradient; the chunked cross entropy and the gradients of
+    the hidden states and the table; the chunked per-sequence log-probs and
+    the same gradients of their sum), every gradient whole."""
+    import torch
+
+    from vila_tpu_torch.models import qwen2
+    from vila_tpu_torch.parallel import mesh as mesh_lib
+    from vila_tpu_torch.parallel import tensor_parallel as tpl
+    from vila_tpu_torch.train import losses
+
+    mesh = _mesh(**mesh_axes)
+    cfg = llm_config(**llm)
+    tp = tpl.plan_for(mesh)
+    whole = _tree(params, _t)
+    dims = mesh_lib.tp_dims(whole, mesh_lib.shard_dims(whole, mesh_lib.llm_param_specs(cfg, mesh),
+                                                       mesh))
+
+    def fresh():
+        return _tree(mesh_lib.shard_params(whole, dims, mesh),
+                     lambda x: x.clone().requires_grad_(True))
+
+    def whole_grads(p):
+        return _np(mesh_lib.gather_leaf(p["embed_tokens"]["embedding"].grad,
+                                        dims["embed_tokens"]["embedding"], mesh))
+
+    out = {}
+    p = fresh()
+    emb = qwen2.embed_tokens(p, cfg, _t(ids), tp=tp)
+    (emb * _t(cot)).sum().backward()
+    out["embed"] = (_np(emb), whole_grads(p))
+
+    lg = tpl.local_slice(_t(logits), tp).clone().requires_grad_(True)
+    loss, n = losses.causal_lm_loss(lg, _t(labels), z_loss=z_loss, tp=tp)
+    loss.backward()
+    out["ce"] = (float(loss), int(n), _np(tpl.all_gather_last(lg.grad, tp)))
+
+    for key, fn in (("chunked", lambda h, q: losses.chunked_causal_lm_loss(
+            h, q, cfg, _t(labels), chunk_size=chunk, z_loss=z_loss, tp=tp)[0]),
+                    ("logp", lambda h, q: losses.chunked_sequence_logp(
+            h, q, cfg, _t(labels), chunk_size=chunk, tp=tp))):
+        p = fresh()
+        h = _t(hidden).clone().requires_grad_(True)
+        val = fn(h, p)
+        val.sum().backward()
+        out[key] = (_np(val), _np(h.grad), whole_grads(p))
+    return out
+
+
+def fp8_state(mesh_axes, grads, split, steps=2):
+    """fp8 AdamW over one leaf's shard (`split`: (FSDP dim, tp dim)) fed
+    each whole gradient in turn: the whole moments' (nb, 128) bytes and
+    their scales."""
+    import torch
+
+    from vila_tpu_torch.parallel import mesh as mesh_lib
+    from vila_tpu_torch.train import fp8_adamw
+    from vila_tpu_torch.train.step import _shard_layouts
+
+    mesh = _mesh(**mesh_axes)
+    split = mesh_lib.Split(*split)
+    whole = torch.zeros(grads[0].shape)
+    p = mesh_lib.shard_leaf(whole, split, mesh).clone()
+    lay = _shard_layouts({"w": p}, {"w": split}, mesh)["w"]
+    opt = fp8_adamw.FP8AdamW([p], lr=1e-3, weight_decay=0.01, layouts=[lay])
+    for g in grads[:steps]:
+        p.grad = mesh_lib.shard_leaf(_t(g), split, mesh).clone()
+        opt.step()
+    st = opt.state[p]
+    out = {}
+    for key in ("mu", "nu"):
+        q = mesh_lib.gather_leaf(st[key], split, mesh)
+        out[key] = fp8_adamw.to_blocks(q).view(torch.uint8).numpy()
+        out[key + "_scale"] = st[key + "_scale"].numpy()
+    out["param"] = _np(mesh_lib.gather_leaf(p, split, mesh))
+    return out
+
+
+def ps3_vlm_config(llm, vit, ps3, projector):
+    from vila_tpu_torch.models import projector as proj_lib
+    from vila_tpu_torch.models import ps3 as ps3_lib
+    from vila_tpu_torch.models import siglip, vlm
+
+    vision = ps3_lib.PS3Config(vit=siglip.SigLIPConfig(**vit), **ps3)
+    return vlm.VLMConfig(llm=llm_config(**llm), vision=vision,
+                         projector=proj_lib.ProjectorConfig(**projector),
+                         vision_tower_type="ps3")
+
+
+def ps3_steps(mesh_axes, cfg, params, batch, optim, steps=2, weight=1.0):
+    """`steps` PS3 sharded steps: per step (loss, selection loss, grad
+    norm), then the whole parameters."""
+    import torch
+
+    from vila_tpu_torch.parallel import distributed, mesh as mesh_lib
+    from vila_tpu_torch.train import optimizer as topt
+    from vila_tpu_torch.train.step import batch_to_device, make_sharded_train_step
+
+    mesh = _mesh(**mesh_axes)
+    vcfg = ps3_vlm_config(**cfg)
+    opt = topt.make_optimizer(topt.OptimizerConfig(**optim))
+    whole = _tree(params, lambda x: _t(x).clone())  # the cases share the arrays
+    step, sh, state, dims = make_sharded_train_step(vcfg, whole, opt, mesh, attn_impl="xla",
+                                                    token_selection_loss_weight=weight)
+    local = batch_to_device(distributed.host_local_batch(batch, mesh), torch.device("cpu"))
+    rows = []
+    for _ in range(steps):
+        sh, state, m = step(sh, state, local)
+        rows.append((float(m["loss"]), float(m["token_selection_loss"]), float(m["grad_norm"])))
+    return rows, _tree(mesh_lib.gather_params(sh, dims, mesh), _np)
+

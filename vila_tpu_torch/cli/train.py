@@ -7,10 +7,13 @@ the collator, train.
     python -m vila_tpu_torch.cli.train --model-path ckpt/ --stage sft \
         --data-mixture dummy_mix --max-steps 100 [--device cuda]
 
-On N cards, one process each (torchrun's environment; dp x sp x su = N):
+On N cards, one process each (torchrun's environment; dp x sp x su x tp =
+N), with `--tp` for tensor parallelism:
 
     torchrun --nproc_per_node=N -m vila_tpu_torch.cli.train --distributed true \
         --sp N --model-path ckpt/ --stage sft ...
+    torchrun --nproc_per_node=4 -m vila_tpu_torch.cli.train --distributed true \
+        --dp 2 --tp 2 --model-path ckpt/ --stage sft ...
 
 The weights are loaded as f32 master weights (the `Trainer`'s contract);
 the compute dtype is the config's (bf16 on the card, f32 on the CPU).

@@ -7,8 +7,11 @@ which runs zigzag ring attention over several devices).
 Every rank holds the whole embedding sequence and forwards its sequence
 shard (zigzag when the layout applies) with MM-SP attention in every
 decoder layer (`parallel/sp.py`); the shards' outputs are gathered over
-the mesh's sequence dims and put back in token order. Without an active
-mesh it is the plain forward.
+the mesh's sequence dims and put back in token order. The ranks that
+differ on dp hold copies of their sequence shard; over tp the forward
+runs tensor parallel on slices of the whole weights (heads split over tp
+as `sp.SPConfig.head_axis` names it; the logits' vocabulary gathered).
+Without an active mesh it is the plain forward.
 """
 
 from __future__ import annotations
@@ -59,11 +62,13 @@ def forward_embeds_sharded(llm_params: Dict[str, Any], llm_cfg, embeds: torch.Te
     """Causal forward over (1, S, D) embeddings with the sequence split over
     the mesh's sequence dims (S divisible by their product), MM-SP
     attention in every layer, so a rank's attention memory is O(S_local)
-    per ring step. Returns logits (1, S, V), or the final hidden states
-    with `return_hidden`, in token order on every rank
-    (eval_vision_niah.py's zigzag ring)."""
+    per ring step, and tensor parallel over its tp dim. Returns logits (1,
+    S, V), or the final hidden states with `return_hidden`, in token order
+    on every rank (eval_vision_niah.py's zigzag ring)."""
     from vila_tpu_torch.models import qwen2
-    from vila_tpu_torch.parallel.mesh import gather_tensor
+    from vila_tpu_torch.parallel import mesh as mesh_lib
+    from vila_tpu_torch.parallel import tensor_parallel as tpl
+    from vila_tpu_torch.parallel.mesh import SEQ, gather_tensor
     from vila_tpu_torch.parallel.ring_attention import inverse_zigzag_order, zigzag_order
     from vila_tpu_torch.parallel.sp import SPConfig
 
@@ -71,31 +76,44 @@ def forward_embeds_sharded(llm_params: Dict[str, Any], llm_cfg, embeds: torch.Te
     dev = embeds.device
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=dev)[None]
-    sp_plan = None
+    sp_plan = tp = None
     if mesh is not None:
         sp_plan = SPConfig(mesh=mesh, ring_layout=ring_layout)
         if not sp_plan.active:
             sp_plan = None
         elif s % sp_plan.degree:
             raise ValueError(f"a sequence of {s} does not split over {sp_plan.degree} ranks")
+        tp = tpl.plan_for(mesh)
+    if tp is not None:  # this rank's tp chunks: views of the whole weights
+        dims = mesh_lib.shard_dims(llm_params, mesh_lib.llm_param_specs(llm_cfg, mesh), mesh)
+        llm_params = mesh_lib.shard_params(llm_params, mesh_lib.tp_dims(llm_params, dims), mesh)
     if sp_plan is None:
         out, _ = qwen2.forward(llm_params, llm_cfg, inputs_embeds=embeds, positions=positions,
-                               return_hidden=return_hidden)
-        return out
+                               return_hidden=return_hidden, tp=tp)
+        return out if return_hidden else _whole_vocab(out, tp, llm_cfg)
     layout = sp_plan.layout_for(s)
     if layout == "zigzag":
         order = torch.as_tensor(zigzag_order(s, sp_plan.ring_degree), device=dev)
         embeds, positions = embeds[:, order], positions[:, order]
     sl = mesh.seq_slice(s)
     out, _ = qwen2.forward(llm_params, llm_cfg, inputs_embeds=embeds[:, sl],
-                           positions=positions[:, sl], sp=sp_plan, return_hidden=return_hidden)
-    if mesh.size != sp_plan.degree:
-        raise NotImplementedError("forward_embeds_sharded takes a mesh of sequence dims only")
-    out = gather_tensor(out, 1)  # the shards in rank order, ring major
+                           positions=positions[:, sl], sp=sp_plan, return_hidden=return_hidden,
+                           tp=tp)
+    if not return_hidden:
+        out = _whole_vocab(out, tp, llm_cfg)
+    out = gather_tensor(out, 1, mesh.group(SEQ))  # the shards in order, ring major
     if layout == "zigzag":
         inv = torch.as_tensor(inverse_zigzag_order(s, sp_plan.ring_degree), device=dev)
         out = out[:, inv]
     return out
+
+
+def _whole_vocab(logits: torch.Tensor, tp, llm_cfg) -> torch.Tensor:
+    """Vocab-parallel logits gathered whole over tp."""
+    from vila_tpu_torch.parallel import tensor_parallel as tpl
+
+    vp = tpl.vocab_plan(tp, llm_cfg.vocab_size)
+    return logits if vp is None else tpl.all_gather_last(logits, vp)
 
 
 @torch.no_grad()

@@ -2,9 +2,16 @@
 `vila_tpu/inference/long_context.py`: the inference side of LongVILA
 (1M-token NIAH over several devices).
 
-The cache is split along its sequence over the mesh's sequence dims (by
-default every dim): rank i holds global slots [i·n, (i+1)·n), n =
-max_cache_len / shards, and the weights whole. The decoder runs in
+The cache is split along its sequence over any subset of the mesh's dims
+(`seq_axes`, by default every dim): rank i of that subset holds global
+slots [i·n, (i+1)·n), n = max_cache_len / shards, the ranks that differ
+on the other dims holding copies. The weights are whole on every rank, or
+with `param_specs` (`parallel.mesh.llm_param_specs`: FSDP and tp over a
+bf16 tree) sharded at rest: each decoder layer's weights are gathered
+whole when the layer runs and freed after it, the embedding, final norm
+and lm_head when the forward uses them, as GSPMD gathers the JAX engine's
+(`vila_tpu/inference/long_context.py:84-95`). A W4 tree's slots have no
+spec and stay whole (the specs describe a bf16 tree). The decoder runs in
 `qwen2.forward`'s deferred mode (`cache_append`):
 
   * chunked prefill: the prompt streams through in `prefill_chunk`
@@ -21,8 +28,7 @@ max_cache_len / shards, and the weights whole. The decoder runs in
 
 On W4 weights the projections run K1 at M = 1 in decode and K2 at M =
 `prefill_chunk` in prefill: the fused decode kernels are off in deferred
-mode, as in JAX. The weights are replicated (the JAX package can shard
-them over the mesh through GSPMD; `param_specs` is not ported).
+mode, as in JAX.
 """
 
 from __future__ import annotations
@@ -38,25 +44,47 @@ from vila_tpu_torch.ops.attention import _NEG_INF, attention_blocked
 _BLOCK_SCORES = 1 << 22  # the blocked attention's scores a block, at most
 
 
+class _GatheredLayers:
+    """A stacked decoder weight held as this rank's shard: `[l]` gives
+    layer l whole (gathered over the ranks that split it)."""
+
+    def __init__(self, shard, split, mesh):
+        from vila_tpu_torch.parallel.mesh import Split
+
+        self.shard, self.mesh = shard, mesh
+        self.split = Split(*(None if d is None else d - 1 for d in split))
+
+    def __getitem__(self, l):
+        from vila_tpu_torch.parallel.mesh import gather_leaf
+
+        return gather_leaf(self.shard[l], self.split, self.mesh)
+
+
 class LongContextEngine:
     """Generation over contexts larger than one device's KV budget.
 
     `mesh` is a `parallel.mesh.Mesh` (one rank a device); `seq_axes` the
-    dims the cache is split over: every dim (the default) or one named
-    dim."""
+    dims the cache is split over (any of them, major to minor; default
+    every dim); `param_specs` a spec tree of `params` that keeps the
+    weights sharded at rest (None: whole on every rank)."""
 
     def __init__(self, params: Dict[str, Any], llm_cfg, mesh, *, max_cache_len: int,
-                 prefill_chunk: int = 4096, seq_axes: Optional[Sequence[str]] = None) -> None:
-        self.params = params
+                 prefill_chunk: int = 4096, seq_axes: Optional[Sequence[str]] = None,
+                 param_specs: Optional[Dict[str, Any]] = None) -> None:
+        from vila_tpu_torch.parallel import mesh as mesh_lib
+
         self.cfg = llm_cfg
         self.mesh = mesh
-        axes = tuple(seq_axes or ("dp", "sp", "su"))
-        if set(axes) == {"dp", "sp", "su"}:
-            axes, self.group = ("dp", "sp", "su"), None  # the whole world
-        elif len(axes) == 1:
-            self.group = mesh.group(axes[0])
-        else:
-            raise NotImplementedError("the cache splits over every mesh dim or one")
+        self.dims = None
+        if param_specs is not None:
+            self.dims = mesh_lib.shard_dims(params, param_specs, mesh)
+            params = mesh_lib.shard_params(params, self.dims, mesh)
+        self.params = params
+        axes = tuple(seq_axes or mesh.axis_names)
+        unknown = [a for a in axes if a not in mesh.axis_names]
+        if unknown or len(set(axes)) != len(axes):
+            raise ValueError(f"seq_axes {axes} must name distinct mesh dims {mesh.axis_names}")
+        self.group = mesh.group(axes)
         self.seq_axes = axes
         n_shards = mesh.axis_size(axes)
         if max_cache_len % n_shards or max_cache_len % prefill_chunk:
@@ -67,6 +95,27 @@ class LongContextEngine:
         self.local_len = max_cache_len // n_shards
         self.offset = mesh.axis_index(axes) * self.local_len
         self.device = params["embed_tokens"]["embedding"].device
+
+    def _weights(self, embed: bool) -> Dict[str, Any]:
+        """The forward's parameter tree: with `param_specs`, each decoder
+        layer gathered when it runs, the other split leaves now (the
+        embedding only when `embed` or tied)."""
+        if self.dims is None:
+            return self.params
+        from vila_tpu_torch.parallel.mesh import gather_leaf
+
+        out = {}
+        for name, slot in self.params.items():
+            dims = self.dims[name]
+            if name == "layers":
+                out[name] = {n: {k: (v if dims[n][k] is None else
+                                     _GatheredLayers(v, dims[n][k], self.mesh))
+                                 for k, v in s.items()} for n, s in slot.items()}
+            elif name == "embed_tokens" and not (embed or self.cfg.tie_word_embeddings):
+                out[name] = slot
+            else:
+                out[name] = {k: gather_leaf(v, dims[k], self.mesh) for k, v in slot.items()}
+        return out
 
     def init_cache(self):
         cache = qwen2.init_cache(self.cfg, batch=1, max_len=self.local_len,
@@ -122,8 +171,8 @@ class LongContextEngine:
         return ck, cv, valid
 
     def _forward(self, cache, **kw):
-        return qwen2.forward(self.params, self.cfg, cache=cache, attn_impl=self._attend,
-                             cache_append=self._append, **kw)
+        return qwen2.forward(self._weights("input_ids" in kw), self.cfg, cache=cache,
+                             attn_impl=self._attend, cache_append=self._append, **kw)
 
     @torch.no_grad()
     def prefill(self, embeds: torch.Tensor, cache=None, progress=None):

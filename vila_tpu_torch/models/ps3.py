@@ -182,6 +182,7 @@ def forward(
     smooth_selection_prob: bool = False,
     feature_layer: int = -2,
     attn_impl: str = "auto",
+    tp=None,  # parallel.tensor_parallel.TPConfig: the trunk's tp chunks
 ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
     """Selective multi-scale encode. Returns (features, selection_probs,
     selection_maps):
@@ -202,7 +203,7 @@ def forward(
     # pass 1: the low-res trunk, the selection basis
     tokens_low = siglip.embed_pixels(vparams, vit_cfg, pixels_low) + scale_emb[0]
     low_feats = siglip.encode_tokens(vparams, vit_cfg, tokens_low,
-                                     feature_layer=feature_layer, attn_impl=attn_impl)
+                                     feature_layer=feature_layer, attn_impl=attn_impl, tp=tp)
     n = pixels_low.shape[0]
     probs_all: List[torch.Tensor] = []
     maps_all: List[torch.Tensor] = []
@@ -247,7 +248,7 @@ def forward(
 
     # pass 2: the trunk over [low tokens ++ selected high-res tokens]
     feats = siglip.encode_tokens(vparams, vit_cfg, torch.cat(parts, dim=1),
-                                 feature_layer=feature_layer, attn_impl=attn_impl)
+                                 feature_layer=feature_layer, attn_impl=attn_impl, tp=tp)
     return feats, probs_all, maps_all
 
 

@@ -205,7 +205,10 @@ def init_cache(
 # --------------------------------------------------------------------------
 
 
-def _linear(x, p, dtype, fp8=False):
+def _linear(x, p, dtype, fp8=False, groups=(None, None, None)):
+    """x @ kernel (+ bias); `groups`: the process groups x, the kernel and
+    the output are split over under tensor parallelism (per-tensor fp8
+    scales of whole tensors)."""
     if "packed" in p:  # one layer's W4 slot
         from vila_tpu_torch.ops.quant import quantized_linear
 
@@ -213,8 +216,10 @@ def _linear(x, p, dtype, fp8=False):
     if fp8:  # COAT fp8 training (ops/fp8.py); the bias is added after
         from vila_tpu_torch.ops import fp8 as fp8_ops
 
-        fn = fp8_ops.fp8_linear_grouped if fp8 == "group" else fp8_ops.fp8_linear
-        y = fn(x, p["kernel"].to(dtype))
+        if fp8 == "group":
+            y = fp8_ops.fp8_linear_grouped(x, p["kernel"].to(dtype))
+        else:
+            y = fp8_ops.fp8_linear(x, p["kernel"].to(dtype), groups)
     else:
         y = x @ p["kernel"].to(dtype)
     if "bias" in p:
@@ -248,6 +253,7 @@ def forward(
     attn_impl: Any = "auto",
     sp: Optional[Any] = None,  # parallel.sp.SPConfig: MM-SP attention
     cache_append: Optional[Any] = None,  # deferred (sharded-cache) append hook
+    tp: Optional[Any] = None,  # parallel.tensor_parallel.TPConfig
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Run the decoder. Returns (logits_or_hidden, updated_cache).
 
@@ -273,8 +279,27 @@ def forward(
     With `sp` (an active `parallel.sp.SPConfig`) the cache-free attention
     runs sequence parallel (ring / Ulysses / hybrid) over this rank's
     shard; `positions` must be given (the shard's global positions, laid
-    out as the batch)."""
+    out as the batch).
+
+    With `tp` (a `parallel.tensor_parallel.TPConfig`) the forward runs on
+    a mesh: COAT's per-tensor fp8 scales are those of the whole activations
+    and gradients (an all-reduce MAX over the ranks). With tp > 1 (the
+    cache-free path only) the parameters are this rank's tp chunks
+    (`parallel.mesh`'s specs): q, k, v, gate and up run column parallel, o
+    and down row parallel, the embedding and the logits vocab parallel, so
+    the logits are this rank's vocabulary columns (whole when tp does not
+    divide the vocabulary); attention runs over the rank's heads when both
+    head counts divide tp (and `sp.head_axis` names it), else over all of
+    them, gathered."""
+    from vila_tpu_torch.parallel import tensor_parallel as tpl
+
     dtype = cfg.compute_dtype
+    fp8 = cfg.fp8_matmul
+    fp8_group = tpl.amax_group(tp) if fp8 else None
+    tp_on = tpl.active(tp)
+    if tp_on and cache is not None:
+        raise ValueError("tensor parallelism runs the cache-free forward only")
+    tp = tp if tp_on else None
     sp_on = sp is not None and sp.active and cache is None
     if sp_on and positions is None:
         raise ValueError("a sequence-parallel forward needs the shard's positions")
@@ -283,7 +308,7 @@ def forward(
         raise ValueError("cache_append needs a cache with a shared cursor and a "
                          "callable attn_impl")
     if inputs_embeds is None:
-        inputs_embeds = embed_tokens(params, cfg, input_ids)
+        inputs_embeds = embed_tokens(params, cfg, input_ids, tp=tp)
     h = inputs_embeds.to(dtype)
     b, s, _ = h.shape
     dev = h.device
@@ -351,6 +376,11 @@ def forward(
     o_din = (2 * q_stacked["o_proj"]["packed"].shape[-2]
              if "o_proj" in q_stacked else None)
     padded_o = o_din == Hkv * grp_pad * hd and grp_pad != grp
+    if tp_on and q_stacked:
+        raise ValueError("tensor parallelism takes dense weights, not W4 slots")
+    # the heads this rank's attention runs over
+    tp_heads = tp_on and tp.heads_split(Hq, Hkv) and (not sp_on or sp.head_axis == "tp")
+    hq_loc, hkv_loc = (Hq // tp.size, Hkv // tp.size) if tp_heads else (Hq, Hkv)
 
     # cache-free (training) path: one unbind per dense stacked tensor
     unbound = None if cache is not None else {
@@ -376,7 +406,7 @@ def forward(
             if "bias" in lp:
                 y = y + lp["bias"][l].to(dtype)
             return y
-        return _linear(x, layer_slot(name, l), dtype, cfg.fp8_matmul)
+        return _linear(x, layer_slot(name, l), dtype, fp8, (fp8_group, None, fp8_group))
 
     def pad_attn(attn):
         """(b, s, nq) -> (b, s, o_din): zero lanes for the GQA group pad."""
@@ -389,9 +419,9 @@ def forward(
     new_rows = []  # deferred mode: each layer's (k, v) rows
 
     def attend(q, k, v, l):
-        q = apply_rope(q.reshape(b, s, Hq, hd), cos, sin)
-        k = apply_rope(k.reshape(b, s, Hkv, hd), cos, sin)
-        v = v.reshape(b, s, Hkv, hd)
+        q = apply_rope(q.reshape(b, s, hq_loc, hd), cos, sin)
+        k = apply_rope(k.reshape(b, s, hkv_loc, hd), cos, sin)
+        v = v.reshape(b, s, hkv_loc, hd)
         if cache is not None:
             extra = {}
             if deferred:
@@ -418,25 +448,64 @@ def forward(
                 q, k, v, causal=True, q_segment_ids=segment_ids,
                 kv_segment_ids=segment_ids, impl=attn_impl,
             )
-        return attn.reshape(b, s, nq)
+        return attn.reshape(b, s, hq_loc * hd)
+
+    if tp_on and fp8 == "group":  # local 128-groups must be the whole tensor's
+        for width in (nq, nkv, cfg.intermediate_size):
+            if tp.splits(width) and (width // tp.size) % 128:
+                raise ValueError(f"per-group fp8 under tp needs split widths in 128-groups: "
+                                 f"{width} / {tp.size}")
+
+    def col(x, xc, name, l, width):
+        """A projection whose output columns tp splits when it divides
+        `width` (column parallel: xc is x through `copy_to`), else `lin`."""
+        if not (tp_on and tp.splits(width)):
+            return lin(x, name, l)
+        return _linear(xc, layer_slot(name, l), dtype, fp8, (fp8_group, tp.group, fp8_group))
+
+    def row(x, name, l, width):
+        """A projection whose input rows tp splits when it divides `width`
+        (row parallel: summed over the ranks), else `lin`."""
+        if not (tp_on and tp.splits(width)):
+            return lin(x, name, l)
+        y = _linear(x, layer_slot(name, l), dtype, fp8, (fp8_group, tp.group, fp8_group))
+        return tpl.reduce_from(y, tp)
+
+    def copy_for(x, *widths):
+        """x through `copy_to` when tp splits one of `widths`."""
+        return tpl.copy_to(x, tp) if tp_on and any(tp.splits(w) for w in widths) else x
+
+    if tp_on and {"qkv_proj", "gate_up_proj"} & set(all_layers):
+        raise ValueError("tensor parallelism takes the unfused q/k/v and gate/up projections")
 
     def layer_fn(h, l):
+        """Layer l; under tp over this rank's chunks (Megatron's column /
+        row split, `parallel/tensor_parallel.py`)."""
         scale = lambda n: layer_slot(n, l)["scale"]  # noqa: E731
         x = rms_norm(h, scale("input_layernorm"), cfg.rms_norm_eps)
         if "qkv_proj" in all_layers:
             qkv = lin(x, "qkv_proj", l)
             q, k, v = qkv[..., :nq], qkv[..., nq:nq + nkv], qkv[..., nq + nkv:]
         else:
-            q, k, v = (lin(x, n, l) for n in ("q_proj", "k_proj", "v_proj"))
-        h = h + lin(pad_attn(attend(q, k, v, l)), "o_proj", l)
+            xc = copy_for(x, nq, nkv)
+            q, k, v = (col(x, xc, n, l, w)
+                       for n, w in (("q_proj", nq), ("k_proj", nkv), ("v_proj", nkv)))
+            if tp_on and not tp_heads:  # attention over every head
+                q, k, v = (tpl.gather_from(y, tp) if tp.splits(w) else y
+                           for y, w in ((q, nq), (k, nkv), (v, nkv)))
+        attn = attend(q, k, v, l)
+        if tp_on and not tp_heads and tp.splits(nq):
+            attn = tpl.scatter_to(attn, tp)
+        h = h + row(pad_attn(attn), "o_proj", l, nq)
         x = rms_norm(h, scale("post_attention_layernorm"), cfg.rms_norm_eps)
+        inter = cfg.intermediate_size
         if "gate_up_proj" in all_layers:
             gu = lin(x, "gate_up_proj", l)
-            inter = cfg.intermediate_size
             gate, up = gu[..., :inter], gu[..., inter:]
         else:
-            gate, up = lin(x, "gate_proj", l), lin(x, "up_proj", l)
-        return h + lin(torch.nn.functional.silu(gate) * up, "down_proj", l)
+            xc = copy_for(x, inter)
+            gate, up = col(x, xc, "gate_proj", l, inter), col(x, xc, "up_proj", l, inter)
+        return h + row(torch.nn.functional.silu(gate) * up, "down_proj", l, inter)
 
     use_fused = (
         cache is not None
@@ -468,9 +537,7 @@ def forward(
     elif use_fused:
         h = _fused_decode(params, cfg, h, attend, pad_attn, lin)
     else:
-        body = layer_fn
-        if cache is None and cfg.remat:
-            body = _checkpointed(layer_fn, cfg.remat)
+        body = _checkpointed(layer_fn, cfg.remat) if cache is None and cfg.remat else layer_fn
         for l in range(cfg.num_hidden_layers):
             h = body(h, l)
 
@@ -492,7 +559,7 @@ def forward(
         h = h[:, -1:]
     if return_hidden:
         return h, new_cache
-    return compute_logits(params, cfg, h), new_cache
+    return compute_logits(params, cfg, h, tp=tp), new_cache
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -625,14 +692,29 @@ def _fused_decode(params, cfg, h, attend, pad_attn, lin):
     return h
 
 
-def embed_tokens(params: Params, cfg: LLMConfig, input_ids: torch.Tensor):
+def embed_tokens(params: Params, cfg: LLMConfig, input_ids: torch.Tensor, tp=None):
+    """The token embeddings; under a tp plan that splits the vocabulary,
+    from this rank's rows of the table (vocab parallel)."""
+    from vila_tpu_torch.parallel import tensor_parallel as tpl
+
     emb = params["embed_tokens"]["embedding"]
-    return emb[input_ids.to(emb.device).long()].to(cfg.compute_dtype)
+    ids = input_ids.to(emb.device)
+    vp = tpl.vocab_plan(tp, cfg.vocab_size)
+    if vp is not None:
+        return tpl.vocab_embedding(ids, emb, vp).to(cfg.compute_dtype)
+    return emb[ids.long()].to(cfg.compute_dtype)
 
 
-def compute_logits(params: Params, cfg: LLMConfig, hidden: torch.Tensor):
+def compute_logits(params: Params, cfg: LLMConfig, hidden: torch.Tensor, tp=None):
     """Vocabulary logits in float32 (products in the compute dtype,
-    accumulated in float32); the untied lm_head may be a W4 slot."""
+    accumulated in float32); the untied lm_head may be a W4 slot. Under a
+    tp plan that splits the vocabulary, this rank's columns of them
+    (vocab parallel; `hidden` replicated)."""
+    from vila_tpu_torch.parallel import tensor_parallel as tpl
+
+    vp = tpl.vocab_plan(tp, cfg.vocab_size)
+    if vp is not None:
+        hidden = tpl.copy_to(hidden, vp)
     if cfg.tie_word_embeddings:
         w = params["embed_tokens"]["embedding"].T
     elif "packed" in params["lm_head"]:

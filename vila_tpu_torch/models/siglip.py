@@ -175,14 +175,33 @@ def embed_pixels(params: Params, cfg: SigLIPConfig, pixel_values: torch.Tensor):
 
 
 def encode_tokens(params: Params, cfg: SigLIPConfig, h: torch.Tensor, *,
-                  feature_layer: int = -2, attn_impl: str = "auto") -> torch.Tensor:
-    """The encoder trunk over a token sequence, up to `feature_layer`."""
+                  feature_layer: int = -2, attn_impl: str = "auto", tp=None) -> torch.Tensor:
+    """The encoder trunk over a token sequence, up to `feature_layer`.
+    Under a tp plan (`parallel/tensor_parallel.py`) the layer weights are
+    this rank's tp chunks (`parallel.mesh.siglip_param_specs`): q, k, v and
+    fc1 column parallel (their biases split with them), out_proj and fc2
+    row parallel (their biases, whole, added after the sum); attention over
+    the rank's heads when they divide tp, else over all of them."""
+    from vila_tpu_torch.parallel import tensor_parallel as tpl
+
     dtype = cfg.compute_dtype
     L = cfg.num_hidden_layers
     n_run = feature_layer + L + 1 if feature_layer < 0 else feature_layer
     assert 0 <= n_run <= L, f"feature_layer {feature_layer} out of range"
     b, s, d = h.shape
     nh, hd = cfg.num_attention_heads, cfg.head_dim
+    tp_on = tpl.active(tp)
+    split_d = tp_on and tp.splits(d)
+    split_i = tp_on and tp.splits(cfg.intermediate_size)
+    heads = tp_on and tp.splits(nh)  # implies split_d
+    nh_loc = nh // tp.size if heads else nh
+
+    def row(x, p, split):
+        """out_proj / fc2: summed over the tp ranks when its rows are split."""
+        if not split:
+            return _linear(x, p, dtype)
+        return tpl.reduce_from(x @ p["kernel"].to(dtype), tp) + p["bias"].to(dtype)
+
     # one unbind per stacked tensor: the backward stacks one gradient per
     # tensor instead of summing a full-size one per layer
     layers = {name: {k: v.unbind(0) for k, v in slot.items()}
@@ -191,15 +210,22 @@ def encode_tokens(params: Params, cfg: SigLIPConfig, h: torch.Tensor, *,
         lp = {name: {k: v[l] for k, v in slot.items()} for name, slot in layers.items()}
         x = layer_norm(h, lp["layer_norm1"]["scale"], lp["layer_norm1"]["bias"],
                        cfg.layer_norm_eps)
-        q = _linear(x, lp["q_proj"], dtype).reshape(b, s, nh, hd)
-        k = _linear(x, lp["k_proj"], dtype).reshape(b, s, nh, hd)
-        v = _linear(x, lp["v_proj"], dtype).reshape(b, s, nh, hd)
-        attn = multi_head_attention(q, k, v, causal=False, impl=attn_impl)
-        h = h + _linear(attn.reshape(b, s, d), lp["out_proj"], dtype)
+        xc = tpl.copy_to(x, tp) if split_d else x
+        qkv = []
+        for name in ("q_proj", "k_proj", "v_proj"):
+            y = _linear(xc, lp[name], dtype)
+            if split_d and not heads:  # attention over every head
+                y = tpl.gather_from(y, tp)
+            qkv.append(y.reshape(b, s, nh_loc, hd))
+        attn = multi_head_attention(*qkv, causal=False, impl=attn_impl).reshape(b, s, -1)
+        if split_d and not heads:
+            attn = tpl.scatter_to(attn, tp)
+        h = h + row(attn, lp["out_proj"], split_d)
         x = layer_norm(h, lp["layer_norm2"]["scale"], lp["layer_norm2"]["bias"],
                        cfg.layer_norm_eps)
-        x = torch.nn.functional.gelu(_linear(x, lp["fc1"], dtype), approximate="tanh")
-        h = h + _linear(x, lp["fc2"], dtype)
+        xc = tpl.copy_to(x, tp) if split_i else x
+        x = torch.nn.functional.gelu(_linear(xc, lp["fc1"], dtype), approximate="tanh")
+        h = h + row(x, lp["fc2"], split_i)
     if n_run == L:
         h = layer_norm(h, params["post_layernorm"]["scale"],
                        params["post_layernorm"]["bias"], cfg.layer_norm_eps)
@@ -208,11 +234,11 @@ def encode_tokens(params: Params, cfg: SigLIPConfig, h: torch.Tensor, *,
 
 def forward(params: Params, cfg: SigLIPConfig, pixel_values: torch.Tensor, *,
             feature_layer: int = -2, select: str = "cls_patch",
-            attn_impl: str = "auto") -> torch.Tensor:
+            attn_impl: str = "auto", tp=None) -> torch.Tensor:
     """Run the tower up to `feature_layer` (HF hidden_states indexing) and
-    return the selected patch features."""
+    return the selected patch features (`tp`: `encode_tokens`)."""
     h = embed_pixels(params, cfg, pixel_values)
-    h = encode_tokens(params, cfg, h, feature_layer=feature_layer, attn_impl=attn_impl)
+    h = encode_tokens(params, cfg, h, feature_layer=feature_layer, attn_impl=attn_impl, tp=tp)
     if select == "patch":
         h = h[:, 1:]
     elif select != "cls_patch":

@@ -53,6 +53,9 @@ class VLMConfig:
     # dynamic-S2
     s2_scales: Tuple[int, ...] = (448, 896, 1344)
     s2_resize_output_to_scale_idx: int = 0
+    # media token ids (as the JAX package's VLMConfig declares them)
+    image_token_id: int = -1
+    video_token_id: int = -1
 
     @property
     def tokens_per_image(self) -> int:
@@ -91,14 +94,16 @@ def init_params(generator: torch.Generator, cfg: VLMConfig,
     }
 
 
-def encode_images(params: Params, cfg: VLMConfig, pixel_values: torch.Tensor):
+def encode_images(params: Params, cfg: VLMConfig, pixel_values: torch.Tensor, tp=None):
     """(N, H, W, 3) pixels -> (N, tokens_per_image, llm_hidden); PS3 towers
-    take two pixel scales and encode through `encode_images_ps3`."""
+    take two pixel scales and encode through `encode_images_ps3`. `tp`: a
+    SigLIP tower's tensor-parallel plan (`siglip.encode_tokens`)."""
     if cfg.vision_tower_type == "ps3":
         raise ValueError("PS3 towers use encode_images_ps3 (two pixel scales)")
+    kw = {"tp": tp} if tp is not None else {}
     feats = vision_module(cfg).forward(
         params["vision_tower"], cfg.vision, pixel_values,
-        feature_layer=cfg.vision_feature_layer, select=cfg.vision_select,
+        feature_layer=cfg.vision_feature_layer, select=cfg.vision_select, **kw,
     )
     return projector_lib.forward(params["mm_projector"], cfg.projector, feats)
 
@@ -113,6 +118,7 @@ def encode_images_ps3(
     num_look_close: Optional[int] = None,
     gt_selection_maps: Optional[torch.Tensor] = None,
     smooth_selection_prob: bool = False,
+    tp=None,
 ):
     """PS3's selective encode and the projector (encode_images_ps3,
     llava_arch.py:967). Returns (projected features, selection
@@ -124,7 +130,7 @@ def encode_images_ps3(
         prompt=prompt, num_look_close=num_look_close,
         gt_selection_maps=gt_selection_maps,
         smooth_selection_prob=smooth_selection_prob,
-        feature_layer=cfg.vision_feature_layer,
+        feature_layer=cfg.vision_feature_layer, tp=tp,
     )
     return projector_lib.forward(params["mm_projector"], cfg.projector, feats), probs, maps
 
@@ -187,7 +193,7 @@ def _splice_batch(embeds: torch.Tensor, feats: torch.Tensor, batch) -> torch.Ten
 
 def forward_batch(params: Params, cfg: VLMConfig, batch: Dict[str, torch.Tensor], *,
                   attn_impl: str = "auto", return_hidden: bool = False,
-                  sp: Optional[Any] = None) -> torch.Tensor:
+                  sp: Optional[Any] = None, tp: Optional[Any] = None) -> torch.Tensor:
     """Training forward over a collated batch (`data/collate.py`). Returns
     logits (B, S, V), or the final hidden states (B, S, D) with
     `return_hidden` (for the chunked cross entropy). A PS3 config runs
@@ -199,30 +205,35 @@ def forward_batch(params: Params, cfg: VLMConfig, batch: Dict[str, torch.Tensor]
     tokens_per_image. `attn_impl` picks the LLM's attention route. With
     `sp` (an active `parallel.sp.SPConfig`) the batch is this rank's shard
     (`parallel.distributed.host_local_batch`): its media positions local
-    to its sequence slice, the LLM's attention sequence parallel."""
+    to its sequence slice, the LLM's attention sequence parallel. With `tp`
+    (an active `parallel.tensor_parallel.TPConfig`) the LLM's and a SigLIP
+    tower's weights are this rank's tp chunks and the logits its
+    vocabulary columns (`qwen2.forward`); the projector's and any other
+    tower's weights are whole."""
     if cfg.vision_tower_type == "ps3":
         out, _ = forward_batch_ps3(params, cfg, batch, attn_impl=attn_impl,
-                                   return_hidden=return_hidden, sp=sp)
+                                   return_hidden=return_hidden, sp=sp, tp=tp)
         return out
     input_ids = batch["input_ids"]
     b = input_ids.shape[0]
-    embeds = qwen2.embed_tokens(params["llm"], cfg.llm, input_ids)
+    embeds = qwen2.embed_tokens(params["llm"], cfg.llm, input_ids, tp=tp)
     pixels = batch.get("pixel_values")
     if pixels is not None:
-        feats = encode_images(params, cfg, pixels.reshape((-1,) + pixels.shape[2:]))
+        feats = encode_images(params, cfg, pixels.reshape((-1,) + pixels.shape[2:]),
+                              tp=tp if cfg.vision_tower_type == "siglip" else None)
         embeds = _splice_batch(embeds, feats.reshape(b, -1, feats.shape[-1]), batch)
     out, _ = qwen2.forward(
         params["llm"], cfg.llm, inputs_embeds=embeds,
         positions=batch.get("positions"), segment_ids=batch.get("segment_ids"),
-        attn_impl=attn_impl, return_hidden=return_hidden, sp=sp,
+        attn_impl=attn_impl, return_hidden=return_hidden, sp=sp, tp=tp,
     )
     return out
 
 
 def forward_batch_ps3(params: Params, cfg: VLMConfig, batch: Dict[str, Any], *,
                       attn_impl: str = "auto", return_hidden: bool = False,
-                      num_look_close: Optional[int] = None, sp: Optional[Any] = None
-                      ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+                      num_look_close: Optional[int] = None, sp: Optional[Any] = None,
+                      tp: Optional[Any] = None) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """PS3 training forward: bottom-up look-close selection, teacher-forced
     by the gt maps when the batch has them (the reference's "after_image"
     training path, llava_trainer.py:917-998). Returns (logits or hidden,
@@ -230,10 +241,10 @@ def forward_batch_ps3(params: Params, cfg: VLMConfig, batch: Dict[str, Any], *,
 
     Extra batch keys: pixel_values_high (B, T, s1, s1, 3), or a list with
     one such array a high scale; gt_selection_maps (B, T, gh, gw) binary,
-    optional."""
+    optional. `tp`: as `forward_batch` (the PS3 trunk is SigLIP's)."""
     input_ids = batch["input_ids"]
     b = input_ids.shape[0]
-    embeds = qwen2.embed_tokens(params["llm"], cfg.llm, input_ids)
+    embeds = qwen2.embed_tokens(params["llm"], cfg.llm, input_ids, tp=tp)
     sel_probs: List[torch.Tensor] = []
     pixels = batch.get("pixel_values")
     if pixels is not None:
@@ -248,11 +259,11 @@ def forward_batch_ps3(params: Params, cfg: VLMConfig, batch: Dict[str, Any], *,
         feats, sel_probs, _ = encode_images_ps3(
             params, cfg, pixels.reshape((bt,) + pixels.shape[2:]), high,
             gt_selection_maps=gt, num_look_close=num_look_close,
-            smooth_selection_prob=False)
+            smooth_selection_prob=False, tp=tp)
         embeds = _splice_batch(embeds, feats.reshape(b, -1, feats.shape[-1]), batch)
     out, _ = qwen2.forward(
         params["llm"], cfg.llm, inputs_embeds=embeds,
         positions=batch.get("positions"), segment_ids=batch.get("segment_ids"),
-        attn_impl=attn_impl, return_hidden=return_hidden, sp=sp,
+        attn_impl=attn_impl, return_hidden=return_hidden, sp=sp, tp=tp,
     )
     return out, sel_probs

@@ -88,10 +88,19 @@ def dequantize_blockwise(q: torch.Tensor, scale: torch.Tensor, shape,
     return x.reshape(-1)[:n].reshape(shape).to(out_dtype)
 
 
-def quantize_tensor(x: torch.Tensor, dtype=E4M3) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One scale for the whole tensor (the fp8 matmul's operands)."""
+def quantize_tensor(x: torch.Tensor, dtype=E4M3, group=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One scale for the whole tensor (the fp8 matmul's operands). With a
+    process `group`, `x` is this rank's part of a tensor split over it and
+    the amax is the whole tensor's (an all-reduce MAX), so that every part
+    is quantized as the whole would be."""
     x32 = x.float()
-    scale = _scale(x32.abs().amax(), dtype)
+    amax = x32.abs().amax()
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    scale = _scale(amax, dtype)
     return to_fp8(x32 / scale, dtype), scale
 
 
@@ -181,11 +190,13 @@ def _fp8_mm(a: torch.Tensor, sa: torch.Tensor, b: torch.Tensor, sb: torch.Tensor
 
 class _FP8Linear(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w):
-        qx, sx = quantize_tensor(x, E4M3)
-        qw, sw = quantize_tensor(w, E4M3)
+    def forward(ctx, x, w, groups):
+        gx, gw, gg = groups
+        qx, sx = quantize_tensor(x, E4M3, gx)
+        qw, sw = quantize_tensor(w, E4M3, gw)
         ctx.save_for_backward(qx, sx, qw, sw)
         ctx.dtypes = (x.dtype, w.dtype)
+        ctx.group_g = gg
         lead = x.shape[:-1]
         y = _fp8_mm(qx.reshape(-1, x.shape[-1]), sx, qw, sw, x.dtype)
         return y.reshape(*lead, w.shape[1])
@@ -194,19 +205,22 @@ class _FP8Linear(torch.autograd.Function):
     def backward(ctx, g):
         qx, sx, qw, sw = ctx.saved_tensors
         x_dtype, w_dtype = ctx.dtypes
-        qg, sg = quantize_tensor(g, E5M2)
+        qg, sg = quantize_tensor(g, E5M2, ctx.group_g)
         qg2 = qg.reshape(-1, qg.shape[-1])
         qx2 = qx.reshape(-1, qx.shape[-1])
         dx = _fp8_mm(qg2, sg, qw.t(), sw, x_dtype).reshape(*qx.shape[:-1], qw.shape[0])
         # dw = x^T g, contracting every leading dim
         dw = _fp8_mm(qx2.t(), sx, qg2, sg, w_dtype)
-        return dx, dw
+        return dx, dw, None
 
 
-def fp8_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def fp8_linear(x: torch.Tensor, w: torch.Tensor, groups=(None, None, None)) -> torch.Tensor:
     """y = x @ w with per-tensor E4M3 operands (forward) and an E5M2
-    gradient (backward): the COAT / TransformerEngine recipe."""
-    return _FP8Linear.apply(x, w)
+    gradient (backward): the COAT / TransformerEngine recipe. `groups`
+    names the process group each of x, w and the output's gradient is split
+    over (tensor parallelism), None where it is whole: their scales are
+    then the whole tensors'."""
+    return _FP8Linear.apply(x, w, tuple(groups))
 
 
 # --------------------------------------------------------------------------

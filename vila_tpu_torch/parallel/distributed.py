@@ -66,10 +66,11 @@ def is_primary() -> bool:
 def host_local_batch(global_batch: Dict[str, np.ndarray], mesh) -> Dict[str, np.ndarray]:
     """This rank's part of a global host batch on `mesh`, by the JAX
     package's `batch_specs`: rows split over dp, the per-token arrays'
-    sequence over (sp, su) ring major; `media_positions` made local to the
-    slice (a position outside it becomes the sentinel S_local, which the
-    splice drops). Keys without a spec stay whole, as do rows that dp does
-    not divide (`_spec`'s fallback to replication)."""
+    sequence over (sp, su) ring major, nothing over tp (the tp ranks of a
+    (dp, sp, su) coordinate get the same part); `media_positions` made
+    local to the slice (a position outside it becomes the sentinel
+    S_local, which the splice drops). Keys without a spec stay whole, as do
+    rows that dp does not divide (`_spec`'s fallback to replication)."""
     from vila_tpu_torch.parallel.mesh import SEQ, batch_specs
 
     specs = batch_specs(mesh)

@@ -6,8 +6,11 @@ the mesh's sequence dims.
 Where the JAX package's `sp_attention` takes global arrays inside `jit`
 and `shard_map`s them, here every rank calls the forward on its own shard:
 rows of its dp coordinate and the sequence slice of its (sp, su)
-coordinate, ring major (`distributed.host_local_batch`). Positions always
-come with the batch (RoPE phases travel with their tokens).
+coordinate, ring major (`distributed.host_local_batch`), and the heads of
+its tp coordinate when `head_axis` names the tp dim and both head counts
+divide it (the model's tensor-parallel plan hands them over already cut,
+`models/qwen2.py`); otherwise every head. Positions always come with the
+batch (RoPE phases travel with their tokens).
 
 The zigzag layout: the host permutes each row with `zigzag_order(S,
 ring)` before slicing (`zigzag_batch`), so that ring rank r holds global
@@ -35,14 +38,16 @@ from vila_tpu_torch.parallel.ring_attention import (
 @dataclasses.dataclass(frozen=True)
 class SPConfig:
     """The sequence-parallel plan threaded into `qwen2.forward`: the ring
-    dim (`ring_axis`, outer), the Ulysses dim (`ulysses_axis`, inner) and
-    the head dim (None: heads replicated; tp is not ported). The batch dim
-    needs no name: every rank forwards its own rows."""
+    dim (`ring_axis`, outer), the Ulysses dim (`ulysses_axis`, inner), the
+    batch dim (`dp_axis`: every rank forwards its own rows) and the head
+    dim (`head_axis`: heads split over tp; None: every head on every
+    rank)."""
 
     mesh: object  # parallel.mesh.Mesh
     ring_axis: str = "sp"
     ulysses_axis: str = "su"
-    head_axis: Optional[str] = None
+    dp_axis: str = "dp"
+    head_axis: Optional[str] = "tp"
     ring_layout: str = "zigzag"  # "contiguous" | "zigzag"
     impl: str = "auto"
 
@@ -76,13 +81,12 @@ def sp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sp: SPConfig
                  causal: bool = True, segment_ids: Optional[torch.Tensor] = None,
                  scale: Optional[float] = None) -> torch.Tensor:
     """Sequence-parallel attention over this rank's shard: q (B, S_local,
-    Hq, D), k / v (B, S_local, Hkv, D), segment ids (B, S_local).
-    Differentiable: the ring carries its own backward, the all-to-alls are
-    their own inverses."""
+    Hq_local, D), k / v (B, S_local, Hkv_local, D), segment ids (B,
+    S_local); the local heads are the rank's tp chunk or every head (see
+    the module's docstring). Differentiable: the ring carries its own
+    backward, the all-to-alls are their own inverses."""
     if scale is not None and abs(scale - q.shape[-1] ** -0.5) > 1e-12:
         raise ValueError("sp_attention takes the default scale only")
-    if sp.head_axis is not None:
-        raise NotImplementedError("head_axis: tensor parallelism is not ported")
     n_u, n_r = sp.ulysses_degree, sp.ring_degree
     hq = q.shape[2]
     if n_u > 1 and hq % n_u != 0:

@@ -5,6 +5,12 @@ entropy over time tokens (llava/model/loss.py:11-48); and PS3's DICE and
 token-selection losses (llava_trainer.py:861-915). The mean is over all
 valid tokens of the batch, the weighting the reference rebuilds by hand for
 packed rows.
+
+Under a tensor-parallel plan that splits the vocabulary (`tp`,
+`parallel.tensor_parallel.vocab_plan`) the logits are this rank's
+vocabulary columns and the cross entropies and log-probabilities reduce
+over the tp ranks (`tensor_parallel.vocab_nll`); the results are the same
+on every tp rank.
 """
 
 from __future__ import annotations
@@ -18,10 +24,14 @@ from torch.utils.checkpoint import checkpoint
 from vila_tpu_torch.constants import IGNORE_INDEX
 
 
-def _nll(logits: torch.Tensor, targets: torch.Tensor, z_loss: float):
+def _nll(logits: torch.Tensor, targets: torch.Tensor, z_loss: float, tp=None):
     """Per-token negative log-likelihood (0 where the target is ignored)
     and the valid mask."""
     valid = targets != IGNORE_INDEX
+    if tp is not None:
+        from vila_tpu_torch.parallel.tensor_parallel import vocab_nll
+
+        return vocab_nll(logits, targets, valid, tp, z_loss), valid
     safe = torch.where(valid, targets, 0).long()
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
@@ -36,22 +46,24 @@ def causal_lm_loss(
     labels: torch.Tensor,  # (B, S) int with IGNORE_INDEX masking
     z_loss: float = 0.0,
     shift: bool = True,
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Next-token cross entropy. Returns (loss, n_valid_tokens). With
-    `shift=False` labels[i] is already the target of position i."""
+    `shift=False` labels[i] is already the target of position i; with `tp`
+    the logits are vocab parallel."""
     if shift:
         logits, targets = logits[:, :-1], labels[:, 1:]
     else:
         targets = labels
-    nll, valid = _nll(logits, targets.to(logits.device), z_loss)
+    nll, valid = _nll(logits, targets.to(logits.device), z_loss, tp)
     n = valid.sum()
     return nll.sum() / n.clamp(min=1), n
 
 
-def _chunk_nll(hc, tc, llm_params, llm_cfg, z_loss):
+def _chunk_nll(hc, tc, llm_params, llm_cfg, z_loss, tp):
     from vila_tpu_torch.models import qwen2
 
-    nll, valid = _nll(qwen2.compute_logits(llm_params, llm_cfg, hc), tc, z_loss)
+    nll, valid = _nll(qwen2.compute_logits(llm_params, llm_cfg, hc, tp=tp), tc, z_loss, tp)
     return nll.sum(), valid.sum()
 
 
@@ -63,11 +75,17 @@ def chunked_causal_lm_loss(
     chunk_size: int = 1024,
     z_loss: float = 0.0,
     shift: bool = True,
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross entropy over sequence chunks of `chunk_size` tokens: each
     chunk's vocabulary projection and loss run under
     `torch.utils.checkpoint`, so the backward recomputes that chunk's logits
-    and peak memory holds one chunk's (chunk, V) logits, not (B*S, V)."""
+    and peak memory holds one chunk's (chunk, V) logits, not (B*S, V).
+    With `tp` (the plan of `qwen2.forward`) each chunk's logits are vocab
+    parallel."""
+    from vila_tpu_torch.parallel.tensor_parallel import vocab_plan
+
+    tp = vocab_plan(tp, llm_cfg.vocab_size)
     b, s, d = hidden.shape
     labels = labels.to(hidden.device)
     if shift:
@@ -82,18 +100,21 @@ def chunked_causal_lm_loss(
     count = torch.zeros((), dtype=torch.int64, device=hidden.device)
     for c in range(0, h.shape[0], chunk_size):
         nll, nv = checkpoint(_chunk_nll, h[c:c + chunk_size], t[c:c + chunk_size],
-                             llm_params, llm_cfg, z_loss, use_reentrant=False)
+                             llm_params, llm_cfg, z_loss, tp, use_reentrant=False)
         total = total + nll
         count = count + nv
     return total / count.clamp(min=1), count
 
 
-def _chunk_logp(hc, tc, llm_params, llm_cfg):
+def _chunk_logp(hc, tc, llm_params, llm_cfg, tp=None):
     """(B,) sum of target log-probs of one (B, C, D) chunk."""
     from vila_tpu_torch.models import qwen2
 
-    logits = qwen2.compute_logits(llm_params, llm_cfg, hc).float()
+    logits = qwen2.compute_logits(llm_params, llm_cfg, hc, tp=tp).float()
     valid = tc != IGNORE_INDEX
+    if tp is not None:
+        nll, _ = _nll(logits, tc, 0.0, tp)
+        return -nll.sum(-1)
     safe = torch.where(valid, tc, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
     tl = logits.gather(-1, safe[..., None])[..., 0]
@@ -106,10 +127,15 @@ def chunked_sequence_logp(
     llm_cfg,
     labels: torch.Tensor,  # (B, S) int with IGNORE_INDEX masking
     chunk_size: int = 1024,
+    tp=None,
 ) -> torch.Tensor:
     """(B,) per-sequence sum of next-token target log-probs without forming
     (B, S, V): chunks of `chunk_size` positions, each chunk's vocabulary
-    projection and log-softmax under `torch.utils.checkpoint`."""
+    projection and log-softmax under `torch.utils.checkpoint` (vocab
+    parallel under `tp`, the plan of `qwen2.forward`)."""
+    from vila_tpu_torch.parallel.tensor_parallel import vocab_plan
+
+    tp = vocab_plan(tp, llm_cfg.vocab_size)
     labels = labels.to(hidden.device)
     h, t = hidden[:, :-1], labels[:, 1:]
     pad = (-h.shape[1]) % chunk_size
@@ -119,7 +145,7 @@ def chunked_sequence_logp(
     total = hidden.new_zeros((hidden.shape[0],), dtype=torch.float32)
     for c in range(0, h.shape[1], chunk_size):
         total = total + checkpoint(_chunk_logp, h[:, c:c + chunk_size], t[:, c:c + chunk_size],
-                                   llm_params, llm_cfg, use_reentrant=False)
+                                   llm_params, llm_cfg, tp, use_reentrant=False)
     return total
 
 

@@ -96,13 +96,15 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def _adam_step(ts: List[torch.Tensor], optimizer: str, b1: float, b2: float, eps: float,
-               weight_decay: float) -> torch.optim.Optimizer:
+               weight_decay: float, layouts=None) -> torch.optim.Optimizer:
     """The in-place AdamW (or fp8 AdamW) over `ts`, learning rate set per
-    step."""
+    step; `layouts` places shards for fp8 AdamW's blocks (AdamW's
+    elementwise state needs none)."""
     if optimizer == "fp8_adamw":
         from vila_tpu_torch.train.fp8_adamw import FP8AdamW
 
-        return FP8AdamW(ts, lr=0.0, betas=(b1, b2), eps=eps, weight_decay=weight_decay)
+        return FP8AdamW(ts, lr=0.0, betas=(b1, b2), eps=eps, weight_decay=weight_decay,
+                        layouts=layouts)
     if optimizer != "adamw":
         raise ValueError(f"optimizer must be 'adamw' or 'fp8_adamw', got {optimizer!r}")
     return torch.optim.AdamW(ts, lr=0.0, betas=(b1, b2), eps=eps,
@@ -149,11 +151,17 @@ class Optimizer:
         self.schedules = {name: make_schedule(cfg, peaks[name])
                           for name in COMPONENTS if tuned[name]}
 
-    def init(self, params: Dict[str, Any]) -> OptState:
+    def init(self, params: Dict[str, Any], layouts: Optional[Dict[str, Any]] = None
+             ) -> OptState:
+        """The state over `params`; `layouts` (a tree like `params`: each
+        shard's `fp8_adamw.ShardLayout`, None for whole tensors) places a
+        mesh's shards for fp8 AdamW."""
         cfg = self.cfg
         return OptState(count=0, adamw={
             name: _adam_step(leaves(params[name]), cfg.optimizer, cfg.b1, cfg.b2, cfg.eps,
-                             cfg.weight_decay)
+                             cfg.weight_decay,
+                             None if layouts is None else _layout_leaves(params[name],
+                                                                         layouts[name]))
             for name in self.schedules})
 
     def update(self, opt_state: OptState, params: Dict[str, Any],
@@ -174,6 +182,15 @@ class Optimizer:
         return opt_state
 
 
+def _layout_leaves(tree, layouts) -> list:
+    """The layouts of `leaves(tree)`, in its order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _layout_leaves(tree[k], layouts[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v, lay in zip(tree, layouts) for x in _layout_leaves(v, lay)]
+    return [layouts] if isinstance(tree, torch.Tensor) else []
+
+
 def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
     """AdamW with component-wise learning rates, clipping and freezing."""
     return Optimizer(cfg)
@@ -191,7 +208,9 @@ class TreeOptimizer:
             lambda count: learning_rate)
         self.args = ("adamw", b1, b2, eps, weight_decay)
 
-    def init(self, params: Any) -> OptState:
+    def init(self, params: Any, layouts: Any = None) -> OptState:
+        """The state over every leaf; `layouts` is taken for the sharded
+        step's sake and unused (AdamW's state is elementwise)."""
         return OptState(count=0, adamw={"tree": _adam_step(leaves(params), *self.args)})
 
     def update(self, opt_state: OptState, params: Any) -> OptState:

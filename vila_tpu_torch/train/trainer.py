@@ -8,13 +8,17 @@ metric logging with a `log_history.json` dump, and a `torch.profiler` trace
 of `profile_num_steps` steps from `profile_step`.
 
 On a mesh (`distributed`: torchrun's environment, one process a device;
-dp x sp x su = the world size) the step is `make_sharded_train_step`'s
-ZeRO-3 step, with MM-SP attention when sp x su > 1. Every rank draws and
-collates the same global batch, as the JAX package's single host does, and
-keeps its part (`sp.layout_batch`, then `distributed.host_local_batch`). A
-checkpoint holds the whole tensors (gathered, written by rank 0), the
-single-device layout: it resumes at any world size. Only rank 0 logs.
-tp > 1 raises (tensor parallelism is not ported).
+dp x sp x su x tp = the world size) the step is `make_sharded_train_step`'s
+ZeRO-3 step, tensor parallel when tp > 1 and with MM-SP attention when
+sp x su > 1. Every rank draws and collates the same global batch, as the
+JAX package's single host does, and keeps its part (`sp.layout_batch`,
+then `distributed.host_local_batch`: rows over dp, the sequence over sp x
+su, the same rows on every tp rank). So the ranks of one model replica
+(sp x su x tp, JAX's `model_span`) load the same data and the dp groups
+their own rows, whatever the number of hosts. A checkpoint holds the
+whole tensors (gathered over FSDP and tp, written by rank 0), the
+single-device layout: it resumes at any (dp, sp, su, tp). Only rank 0
+logs.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ class TrainArgs:
     per_device_batch_size: int = 1
     seq_len: int = 4096
     pack_rows: int = 0  # >0: greedy sample packing into this many rows
-    # parallelism (mesh axes; tp is not ported and must stay 1)
+    # parallelism (mesh axes)
     dp: int = 1
     sp: int = 1
     su: int = 1
@@ -143,9 +147,6 @@ class Trainer:
                  args: TrainArgs, device="cuda") -> None:
         from vila_tpu_torch.parallel import mesh as mesh_lib
 
-        if args.tp != 1:
-            raise NotImplementedError(
-                f"tp={args.tp}: tensor parallelism is not ported ({mesh_lib.TP_ITEM})")
         if args.distributed:
             dist_lib.init_distributed(
                 backend="gloo" if torch.device(device).type == "cpu" else None)
@@ -153,9 +154,9 @@ class Trainer:
         self.is_primary = self.process_index == 0
         self.mesh = self.sp_plan = None
         if torch.distributed.is_initialized():
-            self.mesh = mesh_lib.make_mesh(dp=args.dp, sp=args.sp, su=args.su)
-        elif (args.dp, args.sp, args.su) != (1, 1, 1):
-            raise ValueError("dp / sp / su > 1 need one process a device: run under "
+            self.mesh = mesh_lib.make_mesh(dp=args.dp, sp=args.sp, su=args.su, tp=args.tp)
+        elif (args.dp, args.sp, args.su, args.tp) != (1, 1, 1, 1):
+            raise ValueError("dp / sp / su / tp > 1 need one process a device: run under "
                              "torchrun with --distributed true")
         self.cfg = cfg
         self.args = args
@@ -199,7 +200,7 @@ class Trainer:
             latest, state = self.ckpt.restore_latest(map_location="cpu")
             if latest is not None:
                 if self.mesh is not None:
-                    state = _shard_state(state, self.params, self.dims, self.mesh)
+                    state = _shard_state(state, self.dims, self.mesh)
                 with torch.no_grad():
                     for dst, src in zip(leaves(self.params), leaves(state["params"])):
                         dst.copy_(src)
@@ -213,7 +214,7 @@ class Trainer:
         self._last_saved = step
         state = {"params": self.params, "opt_state": self.opt_state.state_dict()}
         if self.mesh is not None:  # every rank gathers; rank 0 writes
-            state = _full_state(state, self.params, self.dims)
+            state = _full_state(state, self.params, self.dims, self.mesh)
         if self.is_primary:
             self.ckpt.save(step, state, metadata={"step": step, "time": time.time()})
         if self.mesh is not None:
@@ -297,47 +298,65 @@ class Trainer:
 
 
 def _opt_pairs(opt_state_dict, params, dims):
-    """(component, param index, moment name, split dim) of every moment
-    tensor of `OptState.state_dict()`, the params in `leaves` order."""
+    """(component, param index, moment name, split) of every moment
+    tensor of `OptState.state_dict()` (fp8 AdamW's block scales are whole
+    on every rank and left out), the params in `leaves` order."""
     from vila_tpu_torch.train.step import _pairs
 
     for name, sd in opt_state_dict["adamw"].items():
         split = [d for _, d in _pairs(params[name], dims[name])]
         for i, st in sd["state"].items():
             for key, val in st.items():
-                if isinstance(val, torch.Tensor) and val.ndim > 0:
+                if isinstance(val, torch.Tensor) and val.ndim > 0 and not key.endswith("_scale"):
                     yield name, i, key, split[i]
 
 
-def _full_state(state, params, dims):
-    """A sharded {params, opt_state} with every split tensor gathered whole
-    (on every rank: the gathers are collective)."""
+_FP8_MOMENTS = ("mu", "nu")  # fp8 AdamW's moments: one device's (nb, 128) blocks
+
+
+def _copy_state(osd):
     import copy
 
-    from vila_tpu_torch.parallel.mesh import gather_tensor, map_tree
+    out = copy.copy(osd)
+    out["adamw"] = {name: {"state": {i: dict(st) for i, st in sd["state"].items()},
+                           "param_groups": sd["param_groups"]}
+                    for name, sd in osd["adamw"].items()}
+    return out
+
+
+def _full_state(state, params, dims, mesh):
+    """A sharded {params, opt_state} with every split tensor gathered whole
+    (on every rank: the gathers are collective); fp8 moments in one
+    device's block layout."""
+    from vila_tpu_torch.parallel.mesh import gather_leaf, gather_params
+    from vila_tpu_torch.train.fp8_adamw import to_blocks
 
     with torch.no_grad():
-        full = {"params": map_tree(lambda t, d: gather_tensor(t.detach(), d), params, dims),
-                "opt_state": copy.copy(state["opt_state"])}
+        full = {"params": gather_params(params, dims, mesh),
+                "opt_state": _copy_state(state["opt_state"])}
         osd = full["opt_state"]
-        osd["adamw"] = {name: {"state": {i: dict(st) for i, st in sd["state"].items()},
-                               "param_groups": sd["param_groups"]}
-                        for name, sd in state["opt_state"]["adamw"].items()}
         for name, i, key, d in _opt_pairs(osd, params, dims):
             st = osd["adamw"][name]["state"][i]
-            st[key] = gather_tensor(st[key], d)
+            st[key] = gather_leaf(st[key], d, mesh)
+            if key in _FP8_MOMENTS and d is not None:
+                st[key] = to_blocks(st[key])
     return full
 
 
-def _shard_state(state, params, dims, mesh):
+def _shard_state(state, dims, mesh):
     """A whole {params, opt_state} (a checkpoint) cut to this rank's
     shards."""
-    from vila_tpu_torch.parallel.mesh import map_tree, shard_tensor
+    from vila_tpu_torch.parallel.mesh import shard_leaf, shard_params
+    from vila_tpu_torch.train.fp8_adamw import from_blocks
+    from vila_tpu_torch.train.step import _pairs
 
-    out = {"params": map_tree(lambda t, d: shard_tensor(t, d, mesh.rank, mesh.size),
-                              state["params"], dims),
-           "opt_state": state["opt_state"]}
-    for name, i, key, d in list(_opt_pairs(state["opt_state"], params, dims)):
-        st = state["opt_state"]["adamw"][name]["state"][i]
-        st[key] = shard_tensor(st[key], d, mesh.rank, mesh.size)
+    out = {"params": shard_params(state["params"], dims, mesh),
+           "opt_state": _copy_state(state["opt_state"])}
+    whole = {name: [t.shape for t, _ in _pairs(state["params"][name], dims[name])]
+             for name in state["params"]}
+    for name, i, key, d in list(_opt_pairs(out["opt_state"], state["params"], dims)):
+        st = out["opt_state"]["adamw"][name]["state"][i]
+        if key in _FP8_MOMENTS and d is not None:
+            st[key] = from_blocks(st[key], whole[name][i])
+        st[key] = shard_leaf(st[key], d, mesh)
     return out
