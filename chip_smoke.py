@@ -136,9 +136,19 @@ Phases:
                its growth with depth reported;
   quant_acc    the committed quant probe through `entry.load` (the port's
                tokenizer reader), pope-mini accuracy for bf16 / W4-RTN /
-               W4-AWQ over 200 questions beside `QUANT_ACC_r05.json`; the W4
-               engines' predictions and logits on the first 40 against the
-               plain versions;
+               W4-AWQ over 200 questions beside `QUANT_ACC_r05.json`; on
+               the first 40, against the plain versions: the W4-AWQ
+               engine's predictions, the W4-RTN engine through the port's
+               `vqa.run_eval` and `smoke.run` (text, image; exact K1-K3
+               launches, predictions equal), both W4 engines' logits;
+  eval         the port's evaluation over the quant probe, started before
+               `quant_acc` and read after it: `python -m
+               vila_tpu_torch.cli.eval --tags mini` (pope-mini and
+               textvqa-mini as subprocesses on the card, bf16; pope-mini
+               within 0.03 of `QUANT_ACC_r05.json`'s bf16 accuracy) and
+               `--tasks loss-regression smoke-text smoke-image` (exit 0,
+               every metric resolved through `json_path`, every smoke
+               prompt passed, a finite loss);
   train_kernels  hold the flash-attention kernels K7 (forward), K8 (dQ)
                and K9 (dK/dV) against their plain versions at the
                NVILA-Lite-2B training shape (B 1, S 2048, 12/2 heads of 128,
@@ -153,7 +163,7 @@ Phases:
                SigLIP-SO400M-448; mlp_downsample), f32 master weights
                synthesised on the card from a seed, bf16 compute: 6 steps of
                `Trainer` over `DummyDataset` images packed into one 2048-token
-               row, checkpoints at 3 and 6; then a fresh `Trainer` resumes
+               row, a checkpoint at 3; then a fresh `Trainer` resumes
                from step 3 and must reproduce steps 4-6 exactly; exact K7-K9 launch
                counts, step wall, tokens/s, model-FLOPs share, peak memory;
   train_consistency  one `train_step` at full widths with 2 LLM and 2 SigLIP
@@ -194,6 +204,22 @@ Phases:
                frozen): 2 steps on 2 rows of seq 1024, one 4:3 image each,
                with gt selection maps (LM + selection loss); 2 + 2 layers
                (tower 2) against the CPU;
+  train_data   `Trainer` at NVILA-Lite-2B width (LLM depth 8) on a mixture
+               from the port's registry: a seeded corpus written with the
+               port's `prep` (image + caption tar shards, an SFT json turned
+               into shards, MMC4-style documents, caption pairs, TextOCR
+               shards, LITA frame directories), registered from its YAML
+               file and built with `build_dataset("corpus_interleaved+
+               corpus_pairs+corpus_wds*2+corpus_textocr+corpus_lita")`; each
+               shard's native tar index against the Python index; 3 steps of
+               packed 2048-token rows (exact K7-K9 launches), every batch on
+               the card bit for bit against the mixture collated afresh on
+               the CPU (the same code: collation is deterministic and the
+               copy exact; the samples themselves rest on the CPU tests
+               against JAX); `loss_eval.loss` on the trained tree at 2048
+               (K7 once a layer) within 1e-4 of the same call under
+               `plain_versions`, the last layer's output on its batch within
+               5e-2 x max|ref|;
   tp           tensor parallelism: (a) two tp ranks (two processes sharing the
                card over gloo) at NVILA-Lite-2B full width, LLM depth 4,
                tower depth 6, one packed 2048-token row with images: the rank's tp
@@ -243,6 +269,7 @@ output, per-shape numbers) go to `chiprun_out/`.
 from __future__ import annotations
 
 import argparse
+import atexit
 import functools
 import gc
 import json
@@ -313,8 +340,9 @@ E2E_KERNELS = ("w4_gemv", "w4_gemm", "fused_layer")
 SERVE_RUNS = ((8, 12, 32), (24, 24, 16))
 DEFAULT_PHASES = ("build,kernels,e2e,serve,consistency,batched_consistency,"
                   "small_consistency,http,spec,constrained,s2,video,ps3,towers,load,w8,awq,"
-                  "quant_acc,train_kernels,train,train_consistency,train_media,train_fp8,"
-                  "train_lora,train_dpo,train_rlhf,train_ps3,tp,sp_ring,extend,long_ctx,niah")
+                  "quant_acc,eval,train_kernels,train,train_consistency,train_media,train_fp8,"
+                  "train_lora,train_dpo,train_rlhf,train_ps3,train_data,tp,sp_ring,extend,"
+                  "long_ctx,niah")
 
 
 def log(*a):
@@ -3830,8 +3858,8 @@ def phase_awq(torch, seed, dev="cuda", layers=28, check_layers=1, n_requests=1,
 
 QUANT_ACC_JAX = "QUANT_ACC_r05.json"  # the JAX package's numbers (f32, on the CPU)
 QUANT_ACC_BAND = 0.03  # 6 of 200 answers: JAX ran f32 on the CPU, the card runs bf16
-# questions the two plain-version checks take (of 200, cut for the run's
-# time limit: all 200 took ≈ 100 s of the card's run)
+# questions the plain-version checks take (of 200, cut for the run's time
+# limit: all 200 took ≈ 100 s of the card's run)
 QUANT_ACC_PLAIN = 40
 
 
@@ -3842,11 +3870,14 @@ def phase_quant_acc(torch, dev="cuda", limit=None):
     `transformers` may be imported); `eval.quant_acc.measure` over all 200
     pope-mini questions (bf16, W4-RTN, W4-AWQ: accuracy, first-token
     agreement and mean |logit diff| against bf16, the deltas) beside
-    `QUANT_ACC_r05.json`; the two W4 engines' predictions on the first
-    `QUANT_ACC_PLAIN` questions again under `plain_versions` (K1-K3's plain
-    versions, no launch), which must be equal, and their logits over those
-    prompts against the plain versions' (`_quant_acc_logits`); each
-    accuracy within 0.03 of the JAX package's."""
+    `QUANT_ACC_r05.json`, each accuracy within 0.03 of the JAX package's.
+    Then, on the first `QUANT_ACC_PLAIN` questions, against the plain
+    versions (K1-K3's, no launch): the W4-AWQ engine's predictions again
+    under `plain_versions`, which must be equal; the W4-RTN engine through
+    the port's task modules (`eval_in_process`: `vqa.run_eval` and
+    `smoke.run`, exact launches, predictions equal under `plain_versions`);
+    and both W4 engines' logits over those prompts (`_quant_acc_logits`).
+    Returns (ok, summary, {path: launches})."""
     from vila_tpu_torch import entry
     from vila_tpu_torch.eval import benchmarks, quant_acc
     from vila_tpu_torch.ops import _build
@@ -3875,19 +3906,22 @@ def phase_quant_acc(torch, dev="cuda", limit=None):
         f"{timings['w4_rtn']:.2f} s, AWQ {timings['w4_awq']:.2f} s); launches {launches} "
         f"{'OK' if ran else 'FAIL'}")
     ds_path = benchmarks.resolve_dataset(quant_acc.DATASET)
+    media_root = os.path.dirname(ds_path)
     dataset = benchmarks.load_dataset(ds_path)[:limit][:QUANT_ACC_PLAIN]
     t0 = time.perf_counter()
     with plain_versions():
-        _, plain = quant_acc.accuracy(engines, dataset, os.path.dirname(ds_path),
-                                      names=("w4_rtn", "w4_awq"))
+        _, plain = quant_acc.accuracy(engines, dataset, media_root, names=("w4_awq",))
     plain_s = time.perf_counter() - t0
     differ = {n: sum(a != b for a, b in zip(preds[n], plain[n])) for n in plain}
     ok &= not any(differ.values())
-    log(f"[quant_acc] the W4 engines' predictions on {len(dataset)} questions under the plain "
-        f"versions ({plain_s:.1f} s): "
-        f"answers that differ {differ} {'OK' if not any(differ.values()) else 'FAIL'}")
+    log(f"[quant_acc] the W4-AWQ engine's predictions on {len(dataset)} questions under the "
+        f"plain versions ({plain_s:.1f} s): answers that differ {differ} "
+        f"{'OK' if not any(differ.values()) else 'FAIL'}")
+    good, inproc, inproc_launches = eval_in_process(torch, engines["w4_rtn"], ds_path,
+                                                    len(dataset))
+    ok &= good
     good, logits = _quant_acc_logits(torch, engines, quant_acc.prompts(
-        engine, dataset, os.path.dirname(ds_path)))
+        engine, dataset, media_root))
     ok &= good
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), QUANT_ACC_JAX)) as f:
         jax_out = json.load(f)
@@ -3915,8 +3949,9 @@ def phase_quant_acc(torch, dev="cuda", limit=None):
     gc.collect()
     torch.cuda.empty_cache()
     return ok, dict(result=out, by_engine=rows, predictions_differ_from_plain=differ,
-                    logits_against_plain=logits, seconds=secs, plain_seconds=plain_s,
-                    load_s=load_s, quantize_s=timings), launches
+                    eval_modules=inproc, logits_against_plain=logits, seconds=secs,
+                    plain_seconds=plain_s, load_s=load_s, quantize_s=timings), \
+        dict(inproc_launches, quant_acc=launches)
 
 
 def _quant_acc_logits(torch, engines, preps, steps=4):
@@ -3952,6 +3987,247 @@ def _quant_acc_logits(torch, engines, preps, steps=4):
         + f"; prompts outside the bar {[o['prompts_outside'] for o in out.values()]} "
         f"{'OK' if ok else 'FAIL'}")
     return ok, dict(out, seconds=secs)
+
+
+# --------------------------------------------------------------------------
+# Evaluation through the port's registry (`vila-torch-eval`) and its task
+# modules
+# --------------------------------------------------------------------------
+
+EVAL_TIMEOUT_S = 600
+
+
+class count_engine_work:
+    """While active, the engine's prefills (`_start`) and decode steps
+    (`_decode`'s `steps`) are counted: the serial path's K1-K3 launches
+    follow from them (`engine_launches`)."""
+
+    def __init__(self, engine):
+        self.engine, self.prefills, self.steps = engine, 0, 0
+
+    def __enter__(self):
+        start, decode = self.engine._start, self.engine._decode
+
+        def counted_start(*a, **kw):
+            self.prefills += 1
+            return start(*a, **kw)
+
+        def counted_decode(tok, cache, pos, gen, steps, gc):
+            self.steps += steps
+            return decode(tok, cache, pos, gen, steps, gc)
+
+        self.engine._start, self.engine._decode = counted_start, counted_decode
+        return self
+
+    def __exit__(self, *exc):
+        del self.engine._start, self.engine._decode
+        return False
+
+
+def engine_launches(layers, prefills, steps):
+    """K1-K3 launches of the serial W4 path: per prefill K2 on 4 projections
+    a layer and K1 on the lm_head; per decode step K3 a layer and K1 on
+    layer 0's qkv and the lm_head."""
+    return dict(_no_launches(), w4_gemv=prefills + 2 * steps, w4_gemm=4 * layers * prefills,
+                fused_layer=layers * steps)
+
+
+def eval_in_process(torch, w4, ds_path, rows):
+    """The port's task modules over a W4 engine of the quant probe, in this
+    process: `vqa.run_eval` over pope-mini's first `rows` rows (media_root
+    at the fixture) and `smoke.run` (text, image). Each call's K1-K3
+    launches must equal what its prefills and decode steps give
+    (`engine_launches`), and its predictions those of the same call under
+    `plain_versions`. Returns (ok, {call: row}, {path: launches})."""
+    from vila_tpu_torch.eval import smoke, vqa
+    from vila_tpu_torch.ops import _build
+
+    ok, out = True, {}
+    layers = w4.cfg.llm.num_hidden_layers
+    dataset = vqa.load_dataset(ds_path)[:rows]
+    media_root = os.path.dirname(ds_path)
+    for name, fn in (
+            ("vqa", lambda: vqa.run_eval(w4, dataset, max_new_tokens=16,
+                                         media_root=media_root)),
+            ("smoke text", lambda: smoke.run(w4, "text")),
+            ("smoke image", lambda: smoke.run(w4, "image"))):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with count_engine_work(w4) as work:
+            got = fn()
+        secs = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        want = engine_launches(layers, work.prefills, work.steps)
+        with plain_versions():
+            plain = fn()
+        if name == "vqa":
+            preds = [r["prediction"] for r in got["results"]]
+            plain_preds = [r["prediction"] for r in plain["results"]]
+            metrics = got["metrics"]
+        else:
+            preds, plain_preds = got[2], plain[2]
+            metrics = {"pass": got[0], "total": got[1]}
+        differ = sum(a != b for a, b in zip(preds, plain_preds))
+        good = (launches == want and all(launches[k] > 0 for k in E2E_KERNELS)
+                and differ == 0 and len(preds) == len(plain_preds)
+                and all(isinstance(p, str) for p in preds))
+        ok &= good
+        out[name] = dict(seconds=secs, prefills=work.prefills, decode_steps=work.steps,
+                         launches=launches, expected=want, differ_from_plain=differ,
+                         metrics=metrics, ok=good)
+        log(f"[quant_acc] {name} on the W4-RTN engine: {len(preds)} prompts in {secs:.2f} s, "
+            f"{work.prefills} prefills + {work.steps} decode steps; launches {launches} "
+            f"(expected {want}); predictions that differ from the plain versions' {differ}; "
+            f"{metrics} {'OK' if good else 'FAIL'}")
+    return ok, out, {f"quant_acc {name}": r["launches"] for name, r in out.items()}
+
+
+def _cli_fault(name, metrics):
+    """What a registry task's resolved metrics fail, or None: a smoke task
+    must pass every prompt, loss-regression give a finite loss."""
+    if name.startswith("smoke-") and metrics.get("pass_rate") != 1.0:
+        return f"pass_rate {metrics.get('pass_rate')}, not 1.0"
+    if name == "loss-regression":
+        v = metrics.get("loss")
+        if not (isinstance(v, (int, float)) and math.isfinite(v)):
+            return f"loss {v}, not finite"
+    return None
+
+
+def eval_cli(args, out_dir):
+    """`python -m vila_tpu_torch.cli.eval ARGS -o out_dir`, started in the
+    background (its tasks run as subprocesses on the card)."""
+    log_path = os.path.join(out_dir, "cli_log.txt")
+    os.makedirs(out_dir, exist_ok=True)
+    f = open(log_path, "w")
+    proc = subprocess.Popen([sys.executable, "-m", "vila_tpu_torch.cli.eval", *args,
+                             "-o", out_dir], stdout=f, stderr=subprocess.STDOUT,
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            start_new_session=True)
+    return proc, f
+
+
+def kill_group(proc):
+    """Kill a process started with `start_new_session` and all it started."""
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, 9)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+def eval_cli_results(proc, f, out_dir, model_name, specs, tag):
+    """Wait for a CLI run and read its results.json: (ok, {task: row}).
+    Each task must exit 0, every metric of its registry entry resolve
+    through `json_path` against its metrics.json, and the values pass
+    `_cli_fault`."""
+    from vila_tpu_torch.cli.eval import json_path
+
+    try:
+        rc = proc.wait(timeout=EVAL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        rc = f"none: still running after {EVAL_TIMEOUT_S} s"
+    finally:
+        kill_group(proc)
+        f.close()
+    root = os.path.join(out_dir, model_name)
+    path = os.path.join(root, "results.json")
+    if rc != 0 or not os.path.exists(path):
+        with open(f.name) as fh:
+            log(f"[eval] {tag}: the CLI exited {rc}\n{fh.read()[-3000:]}")
+        return False, {}
+    with open(path) as fh:
+        results = json.load(fh)
+    ok, rows = set(results) == set(specs), {}
+    for name, spec in specs.items():
+        r = results.get(name, {"exit_code": None, "metrics": {}})
+        fault = None if r["exit_code"] == 0 else f"exit {r['exit_code']}"
+        if fault is None:
+            with open(os.path.join(root, name, "metrics.json")) as fh:
+                raw = json.load(fh)
+            try:
+                resolved = {m: json_path(raw, p) for m, p in spec["metrics"].items()}
+            except (KeyError, TypeError):
+                resolved = None
+            if resolved != r["metrics"] or any(v is None for v in resolved.values()):
+                fault = f"metrics {r['metrics']} against {resolved} through json_path"
+            else:
+                fault = _cli_fault(name, resolved)
+        ok &= fault is None
+        rows[name] = dict(r, ok=fault is None, fault=fault)
+        if fault is not None:
+            with open(os.path.join(root, name, "log.txt")) as fh:
+                log(f"[eval] {tag}: {name} FAIL: {fault}\n{fh.read()[-3000:]}")
+    log(f"[eval] {tag}: " + "; ".join(
+        f"{n} exit {r['exit_code']} {r['metrics']}" for n, r in rows.items())
+        + f" {'OK' if ok else 'FAIL'}")
+    return ok, rows
+
+
+def start_eval(dev="cuda"):
+    """Start the `eval` phase's two `vila_tpu_torch.cli.eval` runs over the
+    quant probe in the background: `--tags mini` (pope-mini, textvqa-mini)
+    and `--tasks loss-regression smoke-text smoke-image`. Their task
+    processes share the card with whatever runs here until `phase_eval`
+    reads them (the default run starts them before `quant_acc`)."""
+    import tempfile
+
+    from vila_tpu_torch.cli.eval import load_registry
+    from vila_tpu_torch.eval import quant_acc
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    registry = load_registry()
+    regression = ("loss-regression", "smoke-text", "smoke-image")
+    runs = {"mini": (["--tags", "mini"], {n: s for n, s in registry.items()
+                                          if "mini" in s.get("tags", [])}),
+            "regression": (["--tasks", *regression], {n: registry[n] for n in regression})}
+    cli_args = ["-m", quant_acc.PROBE, "--device", dev]
+    started = dict(out_dir=out_dir, runs=runs, procs={}, t0=time.perf_counter())
+    atexit.register(stop_eval, started)  # should the run end before `phase_eval`
+    for tag, (a, _) in runs.items():
+        started["procs"][tag] = eval_cli(cli_args + a, os.path.join(out_dir, tag))
+    return started
+
+
+def stop_eval(started):
+    """Kill what is left of `start_eval`'s runs and remove their output."""
+    import shutil
+
+    for proc, f in started["procs"].values():
+        kill_group(proc)
+        f.close()
+    shutil.rmtree(started["out_dir"], ignore_errors=True)
+
+
+def phase_eval(started):
+    """Evaluation over the committed quant probe through the port's registry
+    (`vila-torch-eval`), as task subprocesses on the card (`start_eval`):
+    every task exits 0 and its metrics resolve through `json_path`;
+    pope-mini's accuracy (bf16) lies within 0.03 of `QUANT_ACC_r05.json`'s
+    bf16 figure; smoke-text and smoke-image pass every prompt;
+    loss-regression's loss is finite. (The in-process task modules run in
+    `quant_acc`, over its W4-RTN engine.)"""
+    ok, cli, got_acc, want_acc = True, {}, None, None
+    try:
+        for tag, (proc, f) in started["procs"].items():
+            good, cli[tag] = eval_cli_results(proc, f, os.path.join(started["out_dir"], tag),
+                                              "quant_probe", started["runs"][tag][1], tag)
+            ok &= good
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), QUANT_ACC_JAX)) as f:
+            want_acc = json.load(f)["bf16"]["pope/accuracy"]
+        got_acc = cli["mini"].get("pope-mini", {}).get("metrics", {}).get("accuracy")
+        good = got_acc is not None and abs(got_acc - want_acc) <= QUANT_ACC_BAND + 1e-9
+        ok &= good
+        log(f"[eval] pope-mini through vila-torch-eval on the card (bf16): accuracy {got_acc} "
+            f"against {want_acc} in {QUANT_ACC_JAX} (band {QUANT_ACC_BAND}); textvqa-mini "
+            f"{cli['mini'].get('textvqa-mini', {}).get('metrics')} {'OK' if good else 'FAIL'}")
+    finally:
+        stop_eval(started)
+    secs = time.perf_counter() - started["t0"]
+    log(f"[eval] the CLI runs took {secs:.1f} s from their start")
+    return ok, dict(cli=cli, pope_mini_accuracy=got_acc, pope_mini_jax=want_acc,
+                    seconds_from_start=secs)
 
 
 def synth_bf16_params(torch, cfg, seed, device):
@@ -4464,6 +4740,9 @@ def phase_profile_batched(torch, engine, max_batch=8, warmup=2):
 # --------------------------------------------------------------------------
 
 
+TRAIN_LAYERS = 8  # the LLM depth of `train` and `train_data` (28 cut for the run's time)
+
+
 def nvila_lite_2b_config(layers=28, vision_layers=27):
     """NVILA-Lite-2B shape (`__graft_entry__._flagship_cfg`): Qwen2-1.5B LLM
     (tied embeddings, vocab 151936 + 64), SigLIP-SO400M-448,
@@ -4709,9 +4988,9 @@ def _snapshot(params):
 def phase_train(torch, seed, cfg=None, dev="cuda", steps=6, save_steps=3, seq=2048,
                 out_dir=os.path.join("runs", "chip_smoke_train")):
     """`Trainer` on the card at full NVILA-Lite-2B width, stage sft: `steps`
-    steps with checkpoints every `save_steps`; then the last checkpoint is
-    removed and a fresh `Trainer` resumes from step `save_steps`, which must
-    reproduce the first run's losses. K7-K9 must launch 28 times per step
+    steps with one checkpoint, at `save_steps` (the later saves skipped:
+    each took ≈ 17 s at LLM depth 8); then a fresh `Trainer` resumes from
+    it and must reproduce the first run's losses. K7-K9 must launch 28 times per step
     (one per LLM layer; no remat) and nothing else."""
     import dataclasses
     import gc
@@ -4735,7 +5014,10 @@ def phase_train(torch, seed, cfg=None, dev="cuda", steps=6, save_steps=3, seq=20
     fpt = train_flops_per_token(cfg, seq)
     shutil.rmtree(out_dir, ignore_errors=True)
 
-    def run(tag):
+    def run(tag, keep):
+        """One `Trainer` run; its checkpoint saves at the steps in `keep`
+        are written and timed, the others skipped (the resume reads step
+        `save_steps`'s)."""
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = vlm.init_params(gen, cfg, torch.float32)
         before = _snapshot(params)
@@ -4749,6 +5031,8 @@ def phase_train(torch, seed, cfg=None, dev="cuda", steps=6, save_steps=3, seq=20
         save = trainer.ckpt.save
 
         def timed_save(step, *a, **kw):
+            if step not in keep:
+                return
             ts = time.perf_counter()
             save(step, *a, **kw)
             saves[step] = time.perf_counter() - ts
@@ -4792,11 +5076,8 @@ def phase_train(torch, seed, cfg=None, dev="cuda", steps=6, save_steps=3, seq=20
                                           save_s=saves)
 
     try:
-        ok1, rows1, launches1, info1 = run("train")
-        ckpt = os.path.join(out_dir, "checkpoints")
-        shutil.rmtree(os.path.join(ckpt, f"checkpoint-{steps}"))
-        os.remove(os.path.join(ckpt, f"metadata-{steps}.json"))
-        ok2, rows2, launches2, info2 = run("train resumed")
+        ok1, rows1, launches1, info1 = run("train", keep={save_steps})
+        ok2, rows2, launches2, info2 = run("train resumed", keep=set())
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     resumed = rows2[0]["step"] == save_steps + 1 if rows2 else False
@@ -5904,6 +6185,264 @@ def phase_train_ps3(torch, seed, dev="cuda", steps=2, seq=1024, cfg=None, check_
         card=dev, cfg=small,
         params_fn=lambda d: copy_tree(ps3_train_params(torch, small, seed, dev), d))
     return ok and good, summary, {"train_ps3": launches}
+
+
+# --------------------------------------------------------------------------
+# Training on a mixture read from the port's registry (NVILA-Lite-2B)
+# --------------------------------------------------------------------------
+
+# samples of each kind in the seeded corpus (`write_corpus`)
+CORPUS = dict(pairs=8, sft=4, docs=4, caption_pairs=8, textocr=4, lita=2, frames=4)
+CORPUS_IMAGE = (96, 128, 3)  # every image is resized to the tower's 448² anyway
+CORPUS_MIXTURE = "corpus_interleaved+corpus_pairs+corpus_wds*2+corpus_textocr+corpus_lita"
+TRAIN_DATA_FRAMES = 2  # a LITA video's frames (the config's 8 would fill a row alone)
+# loss_eval through K7 against its plain version, relative (1.95e-6 on the
+# H100; the loss stays near ln V whatever attention does, so the last
+# layer's output is held too, within CONSISTENCY_TOL x max|ref|)
+LOSS_EVAL_TOL = 1e-4
+
+
+def write_corpus(root, seed, sizes=CORPUS, image_shape=CORPUS_IMAGE):
+    """A seeded training corpus under `root`, written with the port's `prep`:
+    image + caption tar shards (`TarShardWriter`), an SFT json turned into
+    shards (`sft_json_to_shards`; its records carry a caption), MMC4-style
+    documents with 2-4 images each, caption pairs, TextOCR records in tar
+    shards (the image and its annotations) and LITA records over frame
+    directories; and its registry, `root/corpus.yaml` (the port's YAML
+    writer), with `data_path` under `${VILA_DATA_ROOT}` or `shards`. Returns
+    (the registry's path, every tar shard written)."""
+    import numpy as np
+    from PIL import Image
+
+    from vila_tpu_torch.data import prep
+    from vila_tpu_torch.utils import io as vio
+
+    rng = np.random.default_rng(seed)
+    media = os.path.join(root, "media")
+    os.makedirs(media, exist_ok=True)
+    words = ("red", "cube", "table", "river", "sign", "open", "cat", "street", "two", "blue")
+
+    def text(n):
+        return " ".join(words[i] for i in rng.integers(0, len(words), n))
+
+    def image(path):
+        Image.fromarray(rng.integers(0, 256, image_shape, dtype=np.uint8)).save(path)
+        return path
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    with prep.TarShardWriter(os.path.join(root, "pairs"), prefix="pairs",
+                             samples_per_shard=4) as w:
+        for i in range(sizes["pairs"]):
+            png = read(image(os.path.join(media, f"pair{i}.png")))
+            w.add(f"pair-{i:05d}", prep.caption_sample(png, text(6), "png"))
+        pair_shards = list(w.shard_paths)
+    sft = [{"id": i, "image": os.path.basename(image(os.path.join(media, f"sft{i}.png"))),
+            "caption": text(8),
+            "conversations": [{"from": "human", "value": "<image>\nDescribe it."},
+                              {"from": "gpt", "value": text(8)}]}
+           for i in range(sizes["sft"])]
+    vio.save(os.path.join(root, "sft.json"), sft)
+    sft_shards = prep.sft_json_to_shards(os.path.join(root, "sft.json"), media,
+                                         os.path.join(root, "sft"), samples_per_shard=2)
+    docs = []
+    for i in range(sizes["docs"]):
+        n_img = int(rng.integers(2, 5))
+        n_sent = n_img + 2
+        docs.append({"texts": [text(5) + "." for _ in range(n_sent)],
+                     "images": [image(os.path.join(media, f"doc{i}_{j}.png"))
+                                for j in range(n_img)],
+                     "matched_idx": sorted(rng.integers(0, n_sent, n_img).tolist())})
+    vio.save(os.path.join(root, "mmc4.json"), docs)
+    vio.save(os.path.join(root, "pairs.json"),
+             [{"image": image(os.path.join(media, f"cap{i}.png")), "caption": text(7)}
+              for i in range(sizes["caption_pairs"])])
+    h, w_img = image_shape[:2]
+    with prep.TarShardWriter(os.path.join(root, "textocr"), prefix="ocr",
+                             samples_per_shard=2) as w:
+        for i in range(sizes["textocr"]):
+            anns = [{"utf8_string": text(1).upper(),
+                     "bbox": [int(rng.integers(0, w_img // 2)), int(rng.integers(0, h // 2)),
+                              20, 10]} for _ in range(3)]
+            w.add(f"ocr-{i:05d}", {"png": read(image(os.path.join(media, f"ocr{i}.png"))),
+                                   "json": json.dumps({"anns": anns, "width": w_img,
+                                                       "height": h})})
+        ocr_shards = list(w.shard_paths)
+    lita = []
+    for i in range(sizes["lita"]):
+        frames = os.path.join(media, f"video{i}")
+        os.makedirs(frames, exist_ok=True)
+        for j in range(sizes["frames"]):
+            image(os.path.join(frames, f"{j:04d}.png"))
+        dur = float(rng.integers(8, 30))
+        cuts = sorted(float(x) for x in rng.uniform(0, dur, 4))
+        lita.append({"video": frames, "duration": dur, "events": [
+            {"start": cuts[0], "end": cuts[1], "caption": text(4)},
+            {"start": cuts[2], "end": cuts[3], "caption": text(4)}]})
+    vio.save(os.path.join(root, "lita.json"), lita)
+    registry = {
+        "corpus_interleaved": {"type": "interleaved", "max_images": 4,
+                               "data_path": "${VILA_DATA_ROOT}/mmc4.json"},
+        "corpus_pairs": {"type": "caption_pairs", "n_samples_per_idx": 2,
+                         "data_path": "${VILA_DATA_ROOT}/pairs.json"},
+        "corpus_wds": {"type": "webdataset", "shard_paths": pair_shards + sft_shards},
+        "corpus_textocr": {"type": "textocr", "shards": ocr_shards},
+        "corpus_lita": {"type": "lita", "data_path": "${VILA_DATA_ROOT}/lita.json"},
+    }
+    path = os.path.join(root, "corpus.yaml")
+    vio.save(path, registry)
+    return path, pair_shards + sft_shards + ocr_shards
+
+
+def phase_train_data(torch, seed, dev="cuda", cfg=None, steps=3, seq=2048, fill=0.85,
+                     sizes=CORPUS):
+    """`Trainer` at full NVILA-Lite-2B width (LLM depth `TRAIN_LAYERS`, the
+    f32 tree of `train_master`) on a mixture read from the port's registry:
+    `write_corpus`, its entries added to the registry from their YAML file,
+    `build_dataset(CORPUS_MIXTURE)`; each tar shard's native index against
+    the Python index (names and bytes); `steps` steps of packed `seq`-token
+    rows (exact K7-K9 launches, finite losses), each batch on the card bit
+    for bit against the same mixture built afresh and collated on the CPU;
+    then `loss_eval.loss` on the trained tree at `seq` (K7 once a layer),
+    within `LOSS_EVAL_TOL` (relative) of the same call under
+    `plain_versions`, and the last layer's output on its batch within
+    `CONSISTENCY_TOL` x max|ref| of the plain versions'."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from vila_tpu_torch.cli.train import STAGE_PRESETS
+    from vila_tpu_torch.data import builder
+    from vila_tpu_torch.data.collate import PackingCollator
+    from vila_tpu_torch.data.tario import IndexedTar
+    from vila_tpu_torch.eval import loss_eval
+    from vila_tpu_torch.models import vlm
+    from vila_tpu_torch.ops import _build
+    from vila_tpu_torch.train.trainer import TrainArgs, Trainer, _batch_iterator
+    from vila_tpu_torch.utils import io as vio
+
+    cfg = cfg or dataclasses.replace(nvila_lite_2b_config(layers=TRAIN_LAYERS),
+                                     num_video_frames=TRAIN_DATA_FRAMES)
+    layers = cfg.llm.num_hidden_layers
+    dev = torch.device(dev)
+    root = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+    env_before = os.environ.get("VILA_DATA_ROOT")
+    entries = {}
+    ok = True
+    try:
+        t0 = time.perf_counter()
+        reg_path, shards = write_corpus(root, seed, sizes)
+        entries = vio.load(reg_path)
+        os.environ["VILA_DATA_ROOT"] = root
+        builder.DATASETS.update(entries)
+        write_s = time.perf_counter() - t0
+        same_index = []
+        for p in shards:
+            nat, py = IndexedTar(p), IndexedTar(p, force_python=True)
+            same_index.append(nat.is_native and [(nat.name(i), nat.read(i)) for i in range(
+                len(nat))] == [(py.name(i), py.read(i)) for i in range(len(py))])
+            nat.close()
+        ok &= all(same_index)
+        tok = ByteTokenizer()
+
+        def mixture():
+            return builder.build_dataset(CORPUS_MIXTURE, tok, cfg)
+
+        probe = mixture()
+        lengths = [len(probe[i]["input_ids"]) for i in range(len(probe))]
+        per_step = max(1, math.ceil(fill * seq / statistics.mean(lengths)))
+        collator = PackingCollator(seq_len=seq, rows=1, pad_token_id=tok.pad_token_id,
+                                   tile_size=cfg.vision.image_size)
+        log(f"[train_data] corpus written and registered in {write_s:.2f} s: "
+            f"{len(shards)} tar shards, native index equal to the Python index on "
+            f"{sum(same_index)} of {len(shards)}; mixture {CORPUS_MIXTURE!r}: "
+            f"{len(probe)} samples, {[len(d) for d in probe.datasets]} a part, lengths "
+            f"{min(lengths)}-{max(lengths)} (mean {statistics.mean(lengths):.1f}); "
+            f"{per_step} samples a {seq}-token row")
+        params = train_master(torch, seed, dev, cfg)
+        args = TrainArgs(output_dir=os.path.join(root, "run"), max_steps=steps,
+                         per_device_batch_size=per_step, seq_len=seq, pack_rows=1,
+                         logging_steps=1, save_steps=steps + 1, seed=seed,
+                         **STAGE_PRESETS["sft"])
+        trainer = Trainer(cfg, params, mixture(), collator, args, device=dev)
+        trainer._save = lambda step: None  # the `train` phase times and checks saves
+        seen = []
+        put = trainer._put
+        trainer._put = lambda batch: seen.append(put(batch)) or seen[-1]
+        _build.reset_launches()
+        t1 = time.perf_counter()
+        hist = trainer.train()["log_history"]
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+        launches = dict(_build.LAUNCHES)
+        want = dict(_no_launches(), **want_flash(steps, steps, layers))
+        ref = _batch_iterator(mixture(), collator, per_step, seed)
+        equal = []
+        for got in seen:
+            host = next(ref)
+            equal.append(sorted(got) == sorted(host) and all(
+                got[k].dtype == torch.as_tensor(host[k]).dtype
+                and np.array_equal(got[k].cpu().numpy(), host[k]) for k in host))
+        fills = [float((b["segment_ids"] > 0).float().mean()) for b in seen]
+        good = (launches == want and len(hist) == steps and all(equal) and len(equal) == steps
+                and _finite(hist, ("loss", "grad_norm")))
+        ok &= good
+        for h, f in zip(hist, fills):
+            log(f"[train_data] step {h['step']}: loss {h['loss']:.4f} grad_norm "
+                f"{h['grad_norm']:.4f}, row fill {100 * f:.1f}%")
+        log(f"[train_data] {steps} steps in {train_s:.2f} s (set-up and the first step's "
+            f"warm-up included); launches {launches} (expected {want}); each batch on the "
+            f"card against the mixture collated afresh on the CPU: {equal} "
+            f"{'OK' if good else 'FAIL'}")
+        _build.reset_launches()
+        t2 = time.perf_counter()
+        loss_k, n_k = loss_eval.loss(trainer.params, cfg, seq, dev)
+        eval_s = time.perf_counter() - t2
+        eval_launches = dict(_build.LAUNCHES)
+        with plain_versions():
+            loss_p, n_p = loss_eval.loss(trainer.params, cfg, seq, dev)
+        rel = _rel_diff(loss_k, loss_p)
+        # the last layer's output on loss_eval's batch, through K7 and its
+        # plain version: the loss alone sits near ln V whatever attention does
+        batch = loss_eval.fixed_batch(cfg, seq, dev)
+        with torch.no_grad():
+            h_k = vlm.forward_batch(trainer.params, cfg, batch, return_hidden=True)
+            with plain_versions():
+                h_p = vlm.forward_batch(trainer.params, cfg, batch, return_hidden=True)
+        gap = float((h_k.float() - h_p.float()).abs().max() / h_p.float().abs().max())
+        want_eval = dict(_no_launches(), flash_fwd=layers)
+        good = (eval_launches == want_eval and n_k == n_p and math.isfinite(loss_k)
+                and rel <= LOSS_EVAL_TOL and gap <= CONSISTENCY_TOL)
+        ok &= good
+        log(f"[train_data] loss_eval on the trained tree at seq {seq}: {loss_k:.6f} over {n_k} "
+            f"tokens in {eval_s:.2f} s, plain versions {loss_p:.6f} (rel {rel:.2e}, limit "
+            f"{LOSS_EVAL_TOL:g}); the last layer's output max|d| / max|ref| against the plain "
+            f"versions {gap:.2e} (limit {CONSISTENCY_TOL:g}); launches {eval_launches} "
+            f"(expected {want_eval}) {'OK' if good else 'FAIL'}")
+        del h_k, h_p
+        del trainer, params, seen
+    finally:
+        for name in entries:
+            builder.DATASETS.pop(name, None)
+        if env_before is None:
+            os.environ.pop("VILA_DATA_ROOT", None)
+        else:
+            os.environ["VILA_DATA_ROOT"] = env_before
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    summary = dict(shards=len(shards), native_index_equal=same_index, samples=len(probe),
+                   samples_per_step=per_step, steps=[dict(h, row_fill=f) for h, f in zip(
+                       hist, fills)], batches_equal_cpu=equal, train_s=train_s,
+                   loss_eval=dict(loss=loss_k, plain=loss_p, rel=rel, hidden_gap=gap,
+                                  n_tokens=n_k,
+                                  seconds=eval_s, launches=eval_launches),
+                   seconds=time.perf_counter() - t0)
+    return ok, summary, {"train_data": launches, "train_data loss_eval": eval_launches}
 
 
 # --------------------------------------------------------------------------
@@ -7024,9 +7563,15 @@ def main(argv=None) -> int:
         good, report["awq"], launches["awq"] = timed("awq", lambda: phase_awq(
             torch, args.seed))
         ok &= good
+    # the eval phase's CLI runs overlap quant_acc (their own processes)
+    eval_started = timed("eval start", start_eval) if "eval" in phases else None
     if "quant_acc" in phases:
-        good, report["quant_acc"], launches["quant_acc"] = timed(
+        good, report["quant_acc"], acc_launches = timed(
             "quant_acc", lambda: phase_quant_acc(torch))
+        launches.update(acc_launches)
+        ok &= good
+    if "eval" in phases:
+        good, report["eval"] = timed("eval", lambda: phase_eval(eval_started))
         ok &= good
     if "profile" in phases:  # not in the default run
         report["profile"] = phase_profile(torch, engine(args.layers, args.seed), args.seed)
@@ -7044,7 +7589,7 @@ def main(argv=None) -> int:
     if "train" in phases:
         # LLM depth 8, not 28: its three checkpoint saves dominate the phase
         good, report["train"], train_launches = timed("train", lambda: phase_train(
-            torch, args.seed, cfg=nvila_lite_2b_config(layers=8)))
+            torch, args.seed, cfg=nvila_lite_2b_config(layers=TRAIN_LAYERS)))
         launches.update(train_launches)
         ok &= good
     if "train_consistency" in phases:
@@ -7073,6 +7618,11 @@ def main(argv=None) -> int:
         good, report["train_ps3"], ps3_train_launches = timed(
             "train_ps3", lambda: phase_train_ps3(torch, args.seed))
         launches.update(ps3_train_launches)
+        ok &= good
+    if "train_data" in phases:
+        good, report["train_data"], data_launches = timed("train_data", lambda: (
+            phase_train_data(torch, args.seed)))
+        launches.update(data_launches)
         ok &= good
     if "tp" in phases:
         good, report["tp"], tp_launches, tp_results = timed("tp", lambda: phase_tp(

@@ -388,3 +388,38 @@ def test_tensor_parallel_modules_are_walked():
     for mod in ("vila_tpu_torch.parallel.tensor_parallel", "vila_tpu_torch.parallel.mesh",
                 "vila_tpu_torch.train.fp8_adamw"):
         assert mod in names
+
+
+# the dataset types, the registries and evaluation: none of them may load
+# JAX, the JAX package or PyYAML (the card's host has no PyYAML), at import
+# or when the registries are read
+DATA_AND_EVAL_MODULES = (
+    "vila_tpu_torch.utils.io", "vila_tpu_torch.utils.yaml_lite", "vila_tpu_torch.data.tario",
+    "vila_tpu_torch.data.prep", "vila_tpu_torch.data.filters",
+    "vila_tpu_torch.data.dataset_impl", "vila_tpu_torch.data.interleaved",
+    "vila_tpu_torch.data.builder", "vila_tpu_torch.eval.vqa", "vila_tpu_torch.eval.smoke",
+    "vila_tpu_torch.eval.loss_eval", "vila_tpu_torch.eval.lmms",
+    "vila_tpu_torch.eval.lmms_tasks", "vila_tpu_torch.eval.lmms_cli",
+    "vila_tpu_torch.cli.eval",
+)
+
+
+def test_data_and_eval_modules_load_no_jax_and_no_yaml():
+    names = _module_names()
+    assert all(name in names for name in DATA_AND_EVAL_MODULES)
+    code = (
+        "import importlib, json, sys\n"
+        f"for name in {DATA_AND_EVAL_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from vila_tpu_torch.data import builder\n"
+        "from vila_tpu_torch.cli.eval import load_registry\n"
+        "assert len(builder.register_datasets()) == 21 and len(builder.register_mixtures()) == 6\n"
+        "assert len(load_registry()) == 96\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "                        if m.split('.')[0] in ('jax', 'jaxlib', 'vila_tpu', 'yaml'))))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -1,17 +1,25 @@
-"""Dataset registry and mixture parsing, as `vila_tpu/data/builder.py`:
-`+` concatenates, mixture names expand recursively, `*N` repeats and
-`@subset` drops the indices listed in `<VILA_SLICE_FOLDER>/<subset>/
-<name>.json`.
+"""Dataset registry and mixture parsing, as `vila_tpu/data/builder.py`.
 
-The registry holds the JAX package's synthetic entries (`dummy`,
-`dummy-image`, mixture `dummy_mix`), written here rather than read from
-its YAML; entries of the other dataset types come with their modules
-(`register_dataset_type` adds a constructor).
+Capability parity: llava/data/builder.py — YAML dataset registry
+(`register_datasets` :36, env `VILA_DATASETS`), mixture expansion
+(`parse_mixture` :58 — `+` concat, recursive mixture names), `*N` repeat and
+`@subset` slicing (:85-151).
+
+Registry entries are YAML dicts read from the port's copies of the JAX
+package's files (`registry/datasets/<name>.yaml`, `registry/mixtures.yaml`)
+with the port's own YAML reader (`utils/yaml_lite.py`); the entry's `type`
+names a constructor in DATASET_TYPES (extensible via
+`register_dataset_type`).
+
+Two faults of the reference's registry are kept as they are: every
+dataset_impl entry of `default.yaml` names its file under `records:`, which
+`_impl`'s constructor does not take (it reads `data_path` or `shards`), and
+`cc3m_wds` gives `shard_glob:`, which `WebDatasetSupervised` does not take
+(it takes `shard_paths`). Both raise `TypeError`, as in the JAX package.
 """
 
 from __future__ import annotations
 
-import json
 import os
 from itertools import chain
 from typing import Any, Callable, Dict, List, Optional
@@ -22,6 +30,18 @@ from vila_tpu_torch.data.dataset import (
     RepeatedDataset,
     SubsetDataset,
 )
+from vila_tpu_torch.utils import io
+
+_REGISTRY_DIR = os.path.join(os.path.dirname(__file__), "registry")
+
+
+def _lazy(name: str) -> Callable:
+    def ctor(**kw):
+        from vila_tpu_torch.data import interleaved
+
+        return getattr(interleaved, name)(**kw)
+
+    return ctor
 
 
 def _dummy_ctor(**kw):
@@ -30,22 +50,71 @@ def _dummy_ctor(**kw):
     return DummyDataset(**kw)
 
 
+def _impl(name: str) -> Callable:
+    """Constructor from the dataset_impl zoo; `data_path` loads the record
+    list, `shards` wires a webdataset adapter instead."""
+
+    def ctor(tokenizer=None, cfg=None, data_path=None, shards=None, **kw):
+        from vila_tpu_torch.data import dataset_impl as zoo
+
+        cls = getattr(zoo, name)
+        if shards is not None:
+            records: Any = zoo.WDSRecordAdapter(shards)
+        else:
+            records = zoo.load_records(data_path)
+        return cls(tokenizer, cfg, records, **kw)
+
+    return ctor
+
+
 DATASET_TYPES: Dict[str, Callable] = {
     "supervised": BaseDataset,
+    # pretraining corpus styles (llava/data/dataset.py:553,770,929)
+    "interleaved": _lazy("InterleavedDataset"),
+    "caption_pairs": _lazy("CaptionPairDataset"),
+    "webdataset": _lazy("WebDatasetSupervised"),
+    # synthetic smoke/debug data (llava/data/dataset_impl/dummy.py)
     "dummy": _dummy_ctor,
+    # dataset_impl zoo (llava/data/dataset_impl/*.py)
+    "coyo_qa": _impl("CoyoQADataset"),
+    "coyo_recap": _impl("CoyoRecapDataset"),
+    "general_img_text": _impl("GeneralImageTextDataset"),
+    "sam": _impl("SAMCaptionDataset"),
+    "textocr": _impl("TextOCRDataset"),
+    "hiertext": _impl("HierTextDataset"),
+    "panda70m": _impl("Panda70MDataset"),
+    "lita": _impl("LITADataset"),
+    "llava_cot": _impl("LLaVACoTDataset"),
 }
 
-DATASETS: Dict[str, Dict[str, Any]] = {
-    "dummy": {"type": "dummy", "num_instances": 64},
-    "dummy-image": {"type": "dummy", "num_instances": 64, "with_images": True},
-}
-MIXTURES: Dict[str, List[str]] = {
-    "dummy_mix": ["dummy", "dummy-image"],
-}
+DATASETS: Dict[str, Any] = {}
+MIXTURES: Dict[str, List[str]] = {}
 
 
 def register_dataset_type(name: str, ctor: Callable) -> None:
     DATASET_TYPES[name] = ctor
+
+
+def register_datasets(name: Optional[str] = None) -> Dict[str, Any]:
+    """Load dataset registry YAMLs (env VILA_DATASETS, comma-separated)."""
+    if name is None:
+        name = os.environ.get("VILA_DATASETS", "default")
+    for one in name.split(","):
+        path = os.path.join(_REGISTRY_DIR, "datasets", f"{one}.yaml")
+        if os.path.exists(path):
+            DATASETS.update(io.load(path) or {})
+    return DATASETS
+
+
+def register_mixtures() -> Dict[str, List[str]]:
+    path = os.path.join(_REGISTRY_DIR, "mixtures.yaml")
+    if os.path.exists(path):
+        MIXTURES.update(io.load(path) or {})
+    return MIXTURES
+
+
+register_datasets()
+register_mixtures()
 
 
 def parse_mixture(mixture: str) -> List[str]:
@@ -89,14 +158,14 @@ def build_dataset(
             for k, v in DATASETS[name].items()
         }
         dtype = meta.pop("type", "supervised")
-        if dtype not in DATASET_TYPES:
-            raise NotImplementedError(f"dataset type {dtype!r} is not ported yet")
-        dataset = DATASET_TYPES[dtype](tokenizer=tokenizer, cfg=cfg, **meta)
+        ctor = DATASET_TYPES[dtype]
+        dataset = ctor(tokenizer=tokenizer, cfg=cfg, **meta)
 
         if subset_choice is not None:
             folder = subset_dir or os.environ.get("VILA_SLICE_FOLDER", "")
-            with open(os.path.join(folder, subset_choice, f"{name}.json")) as f:
-                ignore = set(json.load(f))
+            ignore = set(
+                io.load(os.path.join(folder, subset_choice, f"{name}.json"))
+            )
             indices = sorted(set(range(len(dataset))) - ignore)
             dataset = SubsetDataset(dataset, indices)
         if times > 1:

@@ -18,7 +18,6 @@ plain image, which a dynamic-S2 sample's tokens do not fit (`ROADMAP.md`
 from __future__ import annotations
 
 import copy
-import json
 import os
 import random
 from typing import Any, Dict, List, Optional, Sequence
@@ -28,14 +27,7 @@ import numpy as np
 from vila_tpu_torch.constants import IGNORE_INDEX, MEDIA_TOKENS
 from vila_tpu_torch.data import preprocess
 from vila_tpu_torch.data.tokenizer_utils import preprocess_conversation
-
-
-def load_records(path: str) -> List[Dict[str, Any]]:
-    """A .json list or .jsonl file of records."""
-    with open(path) as f:
-        if path.lower().endswith(".jsonl"):
-            return [json.loads(line) for line in f if line.strip()]
-        return json.load(f)
+from vila_tpu_torch.utils.io import load as io_load
 
 
 def expand_media_with_labels(
@@ -99,7 +91,7 @@ class BaseDataset:
         if instances is not None:
             self.instances = instances
         elif data_path is not None:
-            self.instances = load_records(data_path)
+            self.instances = io_load(data_path)
         else:
             self.instances = []
         self._newline_ids = tuple(
