@@ -47,7 +47,7 @@ Phases:
   consistency  at full width and 4 layers, the kernel decode path's
                per-step logits against one cache-free forward over prefix
                plus generated tokens run through the plain versions on the
-               CPU;
+               card (`plain_versions`);
   batched_consistency  the same for the batched routes: B = 3 (K6) and
                B = 20 (K4/K5);
   small_consistency  every decode route (bs=1 K3, B = 3 K6, B = 20 K4/K5)
@@ -122,18 +122,32 @@ Phases:
                against W8A8, timed); 2 image + prompt requests x 16 tokens
                through the engine over the loaded W4 LLM and W8A8 tower
                (exact K1-K3 launches, TTFT, decode tok/s; the first 8
-               greedy tokens against the argmax of a plain CPU forward);
-               then the quantizer's peak memory on a 28-layer bf16 LLM;
+               greedy tokens against the argmax of a plain forward on the
+               card); then the quantizer's peak memory on a 28-layer bf16 LLM;
+  export       the single-repo HF export at the same width (LLM depth 2): a
+               seeded bf16 tree on the card written with `export_hf_repo`
+               (≈ 8 GB of f32 safetensors under `runs/`, removed at the
+               end), read back bit for bit with the port's reader, its
+               config.json against `entry.build_config`'s; the tree rebuilt
+               through the port's converters (bit for bit), quantized W4 and
+               serving 2 requests x 16 tokens (exact K1-K3 launches) with
+               greedy tokens equal to the source tree's engine; one decode
+               step traced inside `profiling.annotate("decode_step")`, the
+               region in the trace with the card's kernels beneath it; with
+               `train`, the `consolidate` check after it: the train run's
+               step-3 checkpoint through `consolidate_checkpoint`, loaded
+               back by `entry.load_params` on the card bit for bit;
   w8           `quantize_w8` of NVILA-8B's down_proj on the card byte for
                byte against the CPU, `quantized_linear` over the W8 slot
                against the CPU;
   awq          AWQ at NVILA-8B width, 28 layers: seeded bf16 LLM, 32 x 48
                calibration ids, `collect_act_stats`, `apply_awq`,
                `quantize_llm_params` (seconds, peak memory); every fold
-               checked; layer 0's searches again on the CPU; 1 request x
-               32 tokens through K1-K3, each call of the serving path against
-               its plain version on its own inputs, the end-to-end gap and
-               its growth with depth reported;
+               checked; layer 0's searches again on the CPU (in a worker
+               process started at the top of the run, read at its end); 1
+               request x 32 tokens through K1-K3, each call of the serving
+               path against its plain version on its own inputs, the
+               end-to-end gap and its growth with depth reported;
   quant_acc    the committed quant probe through `entry.load` (the port's
                tokenizer reader), pope-mini accuracy for bf16 / W4-RTN /
                W4-AWQ over 200 questions beside `QUANT_ACC_r05.json`; on
@@ -168,13 +182,14 @@ Phases:
                counts, step wall, tokens/s, model-FLOPs share, peak memory;
   train_consistency  one `train_step` at full widths with 2 LLM and 2 SigLIP
                layers at seq 512 on the card (kernels) against the same
-               step on the CPU (plain versions);
+               step through the plain versions on the card (each training
+               mode's 2 + 2-layer check below too);
   train_media  the `train` configuration with dynamic tiles: a video sample
                (4 frames of a frame directory) and a dynamic-tiled image (3
                tiles) through the port's `BaseDataset`, packed in one
                2048-token row, 3 steps (K7-K9 once per layer per step): step
                wall, tokens/s, peak memory; then a 2 + 2-layer step on a
-               3-frame video row at seq 1024, the card against the CPU;
+               3-frame video row at seq 1024 against the plain versions;
   train_fp8    COAT fp8 at the `train` configuration (one seeded f32
                NVILA-Lite-2B tree, drawn once for the training-mode phases
                and copied into each): 3 `train_step`s with every decoder
@@ -186,24 +201,24 @@ Phases:
                and backward: its quantizers' bytes against the CPU's, its
                products against the plain version on the same fp8 bytes,
                timed beside bf16 `torch.matmul`; a 2 + 2-layer step against
-               the CPU per route;
+               the plain versions (`fp8.fp8_mm_plain` for `_scaled_mm`);
   train_lora   LoRA, then DoRA (rank 16, all seven projections) over the
                frozen tree: 3 steps each at seq 2048; B = 0 gives the base
                model's hidden states bit for bit, only the factors move,
                `merge_lora` gives the LoRA forward; a 2 + 2-layer DoRA step
-               against the CPU;
+               against the plain versions;
   train_dpo    DPO, remat: 2 pairs of 1024-token rows, 2 steps of the
                policy against the tree as the frozen reference; log 2 and
                margin 0 at step 0, the margin rises; 2 + 2 layers against
-               the CPU;
+               the plain versions;
   train_rlhf   a reward model (the tree and a value head), 2 pairwise
                steps; `make_experience` against the frozen tree, 2 PPO
                steps (clipfrac 0 and pg_loss -mean(advantage) at the first);
-               2 + 2 layers against the CPU;
+               2 + 2 layers against the plain versions;
   train_ps3    VILA-HD stage 1.5 (the `ps3` phase's tower, Qwen2-7B bf16
                frozen): 2 steps on 2 rows of seq 1024, one 4:3 image each,
                with gt selection maps (LM + selection loss); 2 + 2 layers
-               (tower 2) against the CPU;
+               (tower 2) against the plain versions;
   train_data   `Trainer` at NVILA-Lite-2B width (LLM depth 8) on a mixture
                from the port's registry: a seeded corpus written with the
                port's `prep` (image + caption tar shards, an SFT json turned
@@ -270,6 +285,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import contextlib
 import functools
 import gc
 import json
@@ -339,7 +355,7 @@ E2E_KERNELS = ("w4_gemv", "w4_gemm", "fused_layer")
 # (max_batch, requests, new tokens) of each serve run: K6, then K4/K5
 SERVE_RUNS = ((8, 12, 32), (24, 24, 16))
 DEFAULT_PHASES = ("build,kernels,e2e,serve,consistency,batched_consistency,"
-                  "small_consistency,http,spec,constrained,s2,video,ps3,towers,load,w8,awq,"
+                  "small_consistency,http,spec,constrained,s2,video,ps3,towers,load,export,w8,awq,"
                   "quant_acc,eval,train_kernels,train,train_consistency,train_media,train_fp8,"
                   "train_lora,train_dpo,train_rlhf,train_ps3,train_data,tp,sp_ring,extend,"
                   "long_ctx,niah")
@@ -1877,10 +1893,10 @@ def phase_serve(torch, engine, seed, max_batch, n_requests, new_tokens, max_len=
     return ok, summary, launches
 
 
-def phase_consistency(torch, engine, llm_cpu, seed, steps=8):
+def phase_consistency(torch, engine, seed, steps=8):
     """Kernel decode path (K2 prefill, K3 + K1 decode) against a cache-free
-    forward over prefix + generated tokens through the plain versions
-    (CPU)."""
+    forward over prefix + generated tokens through the plain versions on
+    the card (`plain_versions`)."""
     import numpy as np
 
     from vila_tpu_torch.models import qwen2, vlm
@@ -1908,18 +1924,19 @@ def phase_consistency(torch, engine, llm_cpu, seed, steps=8):
         step_logits.append(logits[0, -1].float())
     got = torch.stack(step_logits).cpu()
 
-    full = torch.cat([embeds.cpu(), qwen2.embed_tokens(
-        llm_cpu, lcfg, torch.tensor([toks]))], dim=1)
+    full = torch.cat([embeds, qwen2.embed_tokens(
+        llm, lcfg, torch.tensor([toks], device=device))], dim=1)
     t0 = time.time()
-    h, _ = qwen2.forward(llm_cpu, lcfg, inputs_embeds=full, return_hidden=True)
-    want = qwen2.compute_logits(llm_cpu, lcfg, h[:, n - 1:])[0].float()
+    with plain_versions():
+        h, _ = qwen2.forward(llm, lcfg, inputs_embeds=full, return_hidden=True)
+        want = qwen2.compute_logits(llm, lcfg, h[:, n - 1:])[0].float().cpu()
     err = (got - want).abs().amax(-1)
     scale = want.abs().amax(-1)
     agree = int((got.argmax(-1) == want.argmax(-1)).sum())
     tol = 5e-2
     ok = bool(torch.isfinite(got).all()) and bool((err <= tol * scale).all())
     log(f"[consistency] {layers} layers, prompt {n} tokens, {steps} decode steps "
-        f"(plain forward {time.time() - t0:.1f} s on the CPU): max |dlogit| per "
+        f"(plain forward {time.time() - t0:.1f} s on the card): max |dlogit| per "
         f"step {[round(float(e), 4) for e in err]}, max |logit| "
         f"{float(scale.max()):.3f}, tolerance {tol} x max|logit|; argmax agrees "
         f"on {agree}/{steps + 1} steps -> {'OK' if ok else 'FAIL'}")
@@ -1927,12 +1944,13 @@ def phase_consistency(torch, engine, llm_cpu, seed, steps=8):
                     tol_rel=tol, argmax_agree=agree, steps=steps + 1)
 
 
-def phase_batched_consistency(torch, engine, llm_cpu, seed, steps=8,
+def phase_batched_consistency(torch, engine, seed, steps=8,
                               batches=((3, ("fused_layer_batched",)),
                                        (20, ("fused_o_gateup", "fused_down_qkv")))):
     """The batched decode routes against the plain cache-free forward of
-    each row on the CPU: B = 3 rows through K6 and B = 20 through K4/K5,
-    each row a text prompt of its own length, prefilled (K2) into a bs=1
+    each row on the card (`plain_versions`): B = 3 rows through K6 and B =
+    20 through K4/K5, each row a text prompt of its own length, prefilled
+    (K2) into a bs=1
     cache and copied into its batch slot by the batcher's own insert, then
     `steps` greedy steps with per-row cursors. All rows of both batches
     run through one packed plain forward (one segment per row)."""
@@ -1981,17 +1999,19 @@ def phase_batched_consistency(torch, engine, llm_cpu, seed, steps=8,
 
     # one packed plain forward over every row: prompt + tokens fed
     lens = [len(r) for r in rows]
-    ids = torch.tensor([[t for r in rows for t in r]])
-    seg = torch.tensor([[i + 1 for i, r in enumerate(rows) for _ in r]])
-    positions = torch.tensor([[p for ln in lens for p in range(ln)]], dtype=torch.int32)
+    ids = torch.tensor([[t for r in rows for t in r]], device=device)
+    seg = torch.tensor([[i + 1 for i, r in enumerate(rows) for _ in r]], device=device)
+    positions = torch.tensor([[p for ln in lens for p in range(ln)]], dtype=torch.int32,
+                             device=device)
     t0 = time.time()
-    h, _ = qwen2.forward(llm_cpu, lcfg, input_ids=ids, positions=positions,
-                         segment_ids=seg, return_hidden=True)
     ends = torch.tensor(lens).cumsum(0)
     # logits after each fed token: positions len - steps .. len - 1 of a row
-    at = torch.cat([torch.arange(e - steps, e) for e in ends.tolist()])
-    want_all = qwen2.compute_logits(llm_cpu, lcfg, h[:, at])[0].float()
-    cpu_s = time.time() - t0
+    at = torch.cat([torch.arange(e - steps, e) for e in ends.tolist()]).to(device)
+    with plain_versions():
+        h, _ = qwen2.forward(llm, lcfg, input_ids=ids, positions=positions,
+                             segment_ids=seg, return_hidden=True)
+        want_all = qwen2.compute_logits(llm, lcfg, h[:, at])[0].float().cpu()
+    plain_s = time.time() - t0
     tol = 5e-2
     summary = {}
     r0 = 0
@@ -2010,7 +2030,7 @@ def phase_batched_consistency(torch, engine, llm_cpu, seed, steps=8,
             f"{tol} x max|logit|; argmax agrees on {agree}/{B * steps} "
             f"-> {'OK' if good else 'FAIL'}")
     log(f"[batched consistency] plain packed forward of {sum(lens)} tokens: "
-        f"{cpu_s:.1f} s on the CPU")
+        f"{plain_s:.1f} s on the card")
     return ok, summary
 
 
@@ -2930,19 +2950,25 @@ def media_config(kind, serving, dev="cuda"):
 class plain_versions:
     """The reference side of a comparison on the card: while active, the
     W4 wrappers compute their plain versions (`quant._w4_gemv_ref`,
-    `_w4_gemm_ref`, `fused_decode._fused_layer_ref`: K1, K2, K3) and the
-    flash forward its own (`flash_fwd_plain`: K7) on the card's tensors,
-    and no kernel may launch. The port's wrappers never do this
-    themselves."""
+    `_w4_gemm_ref`, `fused_decode._fused_layer_ref`: K1, K2, K3), the
+    flash wrappers theirs (`flash_fwd_plain`, `flash_bwd_dq_plain`,
+    `flash_bwd_dkv_plain`: K7, K8, K9) and the fp8 product the f32 product
+    of the same fp8 bytes (`fp8.fp8_mm_plain`, in place of
+    `torch._scaled_mm`) on the card's tensors, and no kernel may launch.
+    The port's wrappers never do this themselves."""
 
     def __enter__(self):
-        from vila_tpu_torch.ops import _build, flash_attention, fused_decode, quant
+        from vila_tpu_torch.ops import _build, flash_attention, fp8, fused_decode, quant
 
-        self.quant, self.fd, self.fa = quant, fused_decode, flash_attention
+        self.quant, self.fd, self.fa, self.fp8 = quant, fused_decode, flash_attention, fp8
         self.saved = (quant.w4_matmul_decode, quant.w4_matmul_prefill, fused_decode.fused_layer,
-                      flash_attention.flash_fwd)
+                      flash_attention.flash_fwd, flash_attention.flash_bwd_dq,
+                      flash_attention.flash_bwd_dkv, fp8._fp8_mm)
         self.before = dict(_build.LAUNCHES)
         flash_attention.flash_fwd = flash_attention.flash_fwd_plain
+        flash_attention.flash_bwd_dq = flash_attention.flash_bwd_dq_plain
+        flash_attention.flash_bwd_dkv = flash_attention.flash_bwd_dkv_plain
+        fp8._fp8_mm = fp8.fp8_mm_plain
         quant.w4_matmul_decode = (lambda x, packed, scales, act_digits=2, layer_index=None:
                                   quant._w4_gemv_ref(x, packed, scales, layer_index,
                                                      act_digits=act_digits))
@@ -2954,8 +2980,9 @@ class plain_versions:
     def __exit__(self, *exc):
         from vila_tpu_torch.ops import _build
 
-        (self.quant.w4_matmul_decode, self.quant.w4_matmul_prefill,
-         self.fd.fused_layer, self.fa.flash_fwd) = self.saved
+        (self.quant.w4_matmul_decode, self.quant.w4_matmul_prefill, self.fd.fused_layer,
+         self.fa.flash_fwd, self.fa.flash_bwd_dq, self.fa.flash_bwd_dkv,
+         self.fp8._fp8_mm) = self.saved
         if exc[0] is None and dict(_build.LAUNCHES) != self.before:
             raise RuntimeError("a kernel launched inside plain_versions")
         return False
@@ -3664,6 +3691,68 @@ def phase_w8(torch, seed, dev="cuda", rows=(1, 24, 320)):
 
 AWQ_CALIB = (32, 48)  # calibration sequences x tokens (scripts/quant_acc.py:92-96)
 AWQ_PAIRS = ("qkv", "o", "gate_up", "down")
+AWQ_KERNELS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+CPU_WORKER_THREADS = 4  # the worker's intra-op threads; the card's process keeps the rest
+CPU_JOB_TIMEOUT_S = 600
+
+
+def _cpu_worker_init():
+    import torch
+
+    # the lowest priority: the worker takes the cores the run leaves idle,
+    # and never slows the host-bound phases beside it (quant_acc, eval)
+    os.nice(19)
+    torch.set_num_threads(CPU_WORKER_THREADS)
+
+
+class CpuWorker:
+    """One spawned CPU process, started at the top of the run, for a CPU
+    reference the card should not wait for: the `awq` phase's layer-0
+    searches (`awq.search_awq_scales` sets its process's f32 matmul
+    precision, so a thread will not do). It holds no CUDA state. A job that
+    raises, or a worker that dies, raises in `Future.result` and fails the
+    run; nothing is caught and skipped."""
+
+    def __init__(self):
+        import concurrent.futures
+        import multiprocessing
+
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"), initializer=_cpu_worker_init)
+        self.pool.submit(_cpu_worker_init)  # start it (its imports) now
+        atexit.register(self.close)
+
+    def submit(self, fn, *args):
+        return self.pool.submit(fn, *args)
+
+    def close(self):
+        procs = list((getattr(self.pool, "_processes", None) or {}).values())
+        self.pool.shutdown(wait=False, cancel_futures=True)
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(5)
+
+
+def awq_cpu_searches(path):
+    """The first layers' AWQ searches on the CPU from the card's kernels and
+    calibration rows. `path` holds the `torch.save` of {"lcfg", "layers":
+    [(kernels, stats)]}; it is removed once read. Returns (per layer
+    {pair: (index of the best, every loss)}, seconds)."""
+    import torch
+
+    from vila_tpu_torch.ops import awq
+
+    try:
+        job = torch.load(path, weights_only=False)
+    finally:
+        os.remove(path)
+    t0 = time.perf_counter()
+    rows = []
+    for one, stats in job["layers"]:
+        sc = awq.layer_scales(one, job["lcfg"], stats, 0)
+        rows.append({p: (int(sc[p][2]), sc[p][3].cpu()) for p in AWQ_PAIRS})
+    return rows, time.perf_counter() - t0
 
 
 def _fold_check(torch, src, folded, stats, sc, cfg, l):
@@ -3703,8 +3792,8 @@ def _fold_check(torch, src, folded, stats, sc, cfg, l):
     return out
 
 
-def phase_awq(torch, seed, dev="cuda", layers=28, check_layers=1, n_requests=1,
-              new_tokens=32, fold_tol=2.0 ** -7, cfg=None):
+def phase_awq(torch, seed, worker, defer, dev="cuda", layers=28, check_layers=1,
+              n_requests=1, new_tokens=32, fold_tol=2.0 ** -7, cfg=None):
     """AWQ at NVILA-8B width on the card (`ops/awq.py`): a seeded bf16 LLM of
     `layers` layers (with the e2e tower and projector, bf16), 32 x 48 seeded
     calibration ids through `collect_act_stats`, `apply_awq` (20-point grid,
@@ -3715,7 +3804,9 @@ def phase_awq(torch, seed, dev="cuda", layers=28, check_layers=1, n_requests=1,
     relative rounding of at most 2^-9, summed with random signs); the
     first `check_layers` layers' searches run again on the CPU from the
     card's calibration rows, each chosen grid index equal to the card's or
-    a tie on the CPU's losses (within 1e-5 relative); then `n_requests`
+    a tie on the CPU's losses (within 1e-5 relative): in `worker` (a
+    `CpuWorker`), judged when the run reads it (`defer(name, check)`: at
+    its end); then `n_requests`
     image + question requests x `new_tokens` greedy tokens on the AWQ W4
     engine through K1-K3 (exact launches), each against the same engine's
     serving path through the plain versions on the card
@@ -3777,30 +3868,38 @@ def phase_awq(torch, seed, dev="cuda", layers=28, check_layers=1, n_requests=1,
     # the first layers' searches again on the CPU, from the card's rows
     cpu = torch.device("cpu")
     src = params["llm"]["layers"]
-    t0 = time.perf_counter()
-    agree = []
-    for l in range(check_layers):
-        one = {n: {"kernel": src[n]["kernel"][l:l + 1].to(cpu)}
-               for n in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
-                         "down_proj")}
-        st = {p: stats[p][l:l + 1].to(cpu) for p in AWQ_PAIRS}
-        sc_cpu = awq.layer_scales(one, lcfg, st, 0)
-        for p in AWQ_PAIRS:
-            i_card, i_cpu = searches[l][p][2], sc_cpu[p][2]
-            losses_cpu, losses_card = sc_cpu[p][3], searches[l][p][3].cpu()
-            tie = abs(float(losses_cpu[i_card] - losses_cpu[i_cpu])) <= 1e-5 * float(
-                losses_cpu[i_cpu])
-            rel = float(((losses_card - losses_cpu).abs() / losses_cpu.abs()).max())
-            agree.append(dict(layer=l, pair=p, card=i_card, cpu=i_cpu, ok=i_card == i_cpu or tie,
-                              losses_max_rel_diff=rel))
-    grid_ok = all(a["ok"] for a in agree)
-    ok &= grid_ok
-    out["grid_vs_cpu"] = agree
-    log(f"[awq] layers 0-{check_layers - 1}'s searches on the CPU ({time.perf_counter() - t0:.1f}"
-        f" s): chosen indices card/CPU " + ", ".join(f"{a['layer']}.{a['pair']} {a['card']}/"
-                                                     f"{a['cpu']}" for a in agree)
-        + f"; largest relative difference of a loss {max(a['losses_max_rel_diff'] for a in agree):.2e}"
-        f" {'OK' if grid_ok else 'FAIL'}")
+    job = dict(lcfg=lcfg, layers=[
+        ({n: {"kernel": src[n]["kernel"][l:l + 1].to(cpu)} for n in AWQ_KERNELS},
+         {p: stats[p][l:l + 1].to(cpu) for p in AWQ_PAIRS}) for l in range(check_layers)])
+    card_side = [{p: (int(searches[l][p][2]), searches[l][p][3].cpu()) for p in AWQ_PAIRS}
+                 for l in range(check_layers)]
+
+    def judge(result):
+        rows, secs = result
+        agree = []
+        for l, (got, want) in enumerate(zip(rows, card_side)):
+            for p in AWQ_PAIRS:
+                (i_cpu, losses_cpu), (i_card, losses_card) = got[p], want[p]
+                tie = abs(float(losses_cpu[i_card] - losses_cpu[i_cpu])) <= 1e-5 * float(
+                    losses_cpu[i_cpu])
+                rel = float(((losses_card - losses_cpu).abs() / losses_cpu.abs()).max())
+                agree.append(dict(layer=l, pair=p, card=i_card, cpu=i_cpu,
+                                  ok=i_card == i_cpu or tie, losses_max_rel_diff=rel))
+        grid_ok = len(agree) == len(AWQ_PAIRS) * check_layers and all(a["ok"] for a in agree)
+        out.update(grid_vs_cpu=agree, grid_cpu_s=secs)
+        log(f"[awq] layers 0-{check_layers - 1}'s searches on the CPU ({secs:.1f} s in the "
+            f"CPU worker): chosen indices card/CPU "
+            + ", ".join(f"{a['layer']}.{a['pair']} {a['card']}/{a['cpu']}" for a in agree)
+            + f"; largest relative difference of a loss "
+            f"{max(a['losses_max_rel_diff'] for a in agree):.2e} {'OK' if grid_ok else 'FAIL'}")
+        return grid_ok
+
+    os.makedirs("runs", exist_ok=True)
+    path = os.path.join("runs", f"awq_cpu_job_{os.getpid()}.pt")
+    torch.save(job, path)
+    del job
+    future = worker.submit(awq_cpu_searches, path)
+    defer("awq cpu searches", lambda: judge(future.result(timeout=CPU_JOB_TIMEOUT_S)))
     del stats, folded, searches
     params["llm"] = None
     gc.collect()
@@ -4457,8 +4556,8 @@ def phase_load(torch, seed, dev="cuda", layers=2, n_requests=2, new_tokens=16,
     plain version, bf16 and W8A8 encode timed); the engine over them serves
     `n_requests` image + prompt requests with exact K1-K3 launches, and one
     request's first `steps` tokens must be the argmax of a cache-free plain
-    forward on the CPU. Last, the quantizer's peak memory on a
-    `full_layers`-deep bf16 LLM. The checkpoint goes under the git-ignored
+    forward on the card (`plain_versions`). Last, the quantizer's peak
+    memory on a `full_layers`-deep bf16 LLM. The checkpoint goes under the git-ignored
     `runs/` and is removed at the end, pass or fail."""
     import dataclasses
     import shutil
@@ -4468,12 +4567,10 @@ def phase_load(torch, seed, dev="cuda", layers=2, n_requests=2, new_tokens=16,
     from vila_tpu_torch.inference.generate import GenerationEngine
     from vila_tpu_torch.models import qwen2, siglip, vlm
     from vila_tpu_torch.ops import quant
-    from vila_tpu_torch.utils.weights import to_torch_tree
 
     import numpy as np
 
     cfg = cfg or nvila_8b_config(layers)
-    cpu = torch.device("cpu")
     out, ok = {}, True
     os.makedirs("runs", exist_ok=True)
     ckpt = tempfile.mkdtemp(prefix="load_ckpt_", dir="runs")
@@ -4584,19 +4681,19 @@ def phase_load(torch, seed, dev="cuda", layers=2, n_requests=2, new_tokens=16,
         images = _images(seed + 7, n_requests + 1)
         inputs = engine.prepare_inputs([images[0], QUESTIONS[0]])
         ids = reqs[0]["ids"][:steps]
-        llm_cpu = to_torch_tree(llm_q, cpu)
-        g = greedy_against_plain(torch, llm_cpu, got_cfg.llm, inputs,
-                                 engine.encode_media(inputs["media"]).cpu(), ids)
+        media = engine.encode_media(inputs["media"])
+        with plain_versions():
+            g = greedy_against_plain(torch, llm_q, got_cfg.llm, inputs, media, ids)
         ok &= g["ok"]
         out.update(greedy_exact=g["exact"], greedy_margins=g["margins"], greedy_tol=g["tol"],
                    greedy_ok=g["ok"], ttft_ms=[r["ttft_ms"] for r in reqs],
                    decode_tok_s=[r["decode_tok_s"] for r in reqs])
         log(f"[load] request 0's first {steps} greedy tokens {ids} against a cache-free "
-            f"plain forward on the CPU ({g['seconds']:.1f} s): its argmax {g['plain']} "
+            f"plain forward on the card ({g['seconds']:.1f} s): its argmax {g['plain']} "
             f"equal on {g['exact']}/{steps} steps; top logit minus the served token's "
             f"{[round(m, 4) for m in g['margins']]} (tolerance 2^-7 max|logit| = "
             f"{g['tol']:.4f}) {'OK' if g['ok'] else 'FAIL'}")
-        del engine, served, llm_q, llm_cpu, vt8, loaded, src, l0, q_cpu
+        del engine, served, llm_q, media, vt8, loaded, src, l0, q_cpu
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -4630,6 +4727,254 @@ def phase_load(torch, seed, dev="cuda", layers=2, n_requests=2, new_tokens=16,
         gc.collect()
         torch.cuda.empty_cache()
     return ok, out, launches
+
+
+EXPORT_KEYS = ("llm_config", "vision_config", "projector_spec", "tokens_per_image")
+
+
+def trace_decode_step(torch, engine, inputs, logdir, name="decode_step"):
+    """One bs=1 decode step of `engine` (K3 a layer, K1 on the lm_head)
+    traced by `utils.profiling.trace` inside `annotate(name)`, after a
+    prefill and one untraced step. Returns the region's host and device
+    spans, the kernels that ran beneath it, and whether the op table names
+    it (`ops.txt`)."""
+    from vila_tpu_torch.inference.generate import GenerationConfig
+    from vila_tpu_torch.utils import profiling
+
+    logits, cache, plen, _ = engine._start(inputs, GenerationConfig(max_new_tokens=4))
+    tok = int(logits[0].argmax())
+    row, cache = engine._decode_one(tok, cache, plen)
+    tok = int(row.argmax())
+    with profiling.trace(logdir):
+        with profiling.annotate(name):
+            engine._decode_one(tok, cache, plen + 1)
+    with open(os.path.join(logdir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    host = [e for e in events if e.get("name") == name and e.get("cat") == "user_annotation"]
+    gpu = [e for e in events if e.get("name") == name and e.get("cat") == "gpu_user_annotation"]
+    kernels = []
+    if host:  # the kernels launched inside the region, by the launches' correlation ids
+        lo, hi = host[0]["ts"], host[0]["ts"] + host[0]["dur"]
+        corr = {e["args"].get("correlation") for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and "args" in e
+                and lo <= e["ts"] <= hi}
+        kernels = [e for e in events if e.get("cat") == "kernel"
+                   and e.get("args", {}).get("correlation") in corr]
+    span = (max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)
+            if kernels else 0.0)
+    with open(os.path.join(logdir, "ops.txt")) as f:
+        in_table = any(line.split() and line.split()[0] == name for line in f)
+    return dict(host_us=host[0]["dur"] if host else 0.0,
+                device_us=gpu[0]["dur"] if gpu else span, gpu_annotation=bool(gpu),
+                kernels=len(kernels), kernel_us=sum(e.get("dur", 0.0) for e in kernels),
+                in_op_table=in_table,
+                by_kernel={k: sum(1 for e in kernels if e["name"] == k)
+                           for k in sorted({e["name"] for e in kernels})})
+
+
+def phase_export(torch, seed, dev="cuda", layers=2, n_requests=2, new_tokens=16, cfg=None):
+    """The single-repo HF export at NVILA-8B width (LLM depth cut to
+    `layers`, as `load`): a seeded bf16 tree on the card written with
+    `export.export_hf_repo` (≈ 8 GB of f32 safetensors under the
+    git-ignored `runs/`, removed at the end), timed; `model.safetensors`
+    read back with the port's reader, every tensor bit for bit equal to the
+    state dict it came from (`hf_remote.export_state_dict`), and
+    config.json's `EXPORT_KEYS` equal to what `entry.build_config` gives
+    for the source config; the tree rebuilt from the export's `llm.*` /
+    `vision_tower.*` / `mm_projector.*` through the port's converters, cast
+    to bf16 (bit for bit the source) and quantized W4 as the loader does;
+    `n_requests` image + prompt requests x `new_tokens` through the engine
+    over it (K2, K3, K1: exact launches) whose greedy tokens must equal the
+    engine's over the source tree; and one decode step traced inside
+    `profiling.annotate("decode_step")`, the region in the trace with the
+    card's kernels beneath it and in the op table."""
+    import shutil
+    import tempfile
+
+    from vila_tpu_torch import entry
+    from vila_tpu_torch.eval.quant_acc import PROBE
+    from vila_tpu_torch.export import hf_remote
+    from vila_tpu_torch.inference.generate import GenerationConfig, GenerationEngine
+    from vila_tpu_torch.ops import quant
+    from vila_tpu_torch.utils import hf_import
+    from vila_tpu_torch.utils.device import host_to_device
+
+    cfg = cfg or nvila_8b_config(layers)
+    dev = torch.device(dev)
+    out, ok = {}, True
+    os.makedirs("runs", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="export_", dir="runs")
+    try:
+        # 1-2. a bf16 tree on the card, exported
+        t0 = time.time()
+        params = synth_bf16_params(torch, cfg, seed + 110, dev)
+        torch.cuda.synchronize()
+        out["synth_s"] = time.time() - t0
+        repo = os.path.join(root, "hf_repo")
+        t0 = time.time()
+        hf_remote.export_hf_repo(params, cfg, entry.load_tokenizer(PROBE), repo)
+        out["export_s"] = time.time() - t0
+        weights_path = os.path.join(repo, hf_remote.WEIGHTS)
+        out["bytes"] = nbytes = os.path.getsize(weights_path)
+        files = sorted(os.listdir(repo))
+        with open(hf_remote.REMOTE_CODE, "rb") as f, \
+                open(os.path.join(repo, "modeling_vila.py"), "rb") as g:
+            code_ok = f.read() == g.read()
+        files_ok = code_ok and {"config.json", "tokenizer.json"} <= set(files)
+        ok &= files_ok
+        log(f"[export] export_hf_repo wrote {nbytes / 1e9:.3f} GB of f32 safetensors in "
+            f"{out['export_s']:.1f} s ({nbytes / 1e9 / out['export_s']:.2f} GB/s, host clock; "
+            f"the bf16 tree synthesised on the card in {out['synth_s']:.1f} s); files {files}; "
+            f"remote code the package's copy {code_ok} {'OK' if files_ok else 'FAIL'}")
+
+        # 3. read back, bit for bit; the config against build_config's
+        want = hf_remote.export_state_dict(params, cfg)
+        t0 = time.time()
+        got = hf_import.read_safetensors(weights_path)
+        out["read_s"] = time.time() - t0
+        bad = [k for k in want if k not in got or got[k].dtype != want[k].dtype
+               or not torch.equal(got[k], want[k])] + [k for k in got if k not in want]
+        out.update(tensors=len(want), tensors_unequal=bad)
+        del want
+        src_dir = os.path.join(root, "source_config")
+        entry.save_config(cfg, src_dir)
+        built = entry.build_config(src_dir, dtype=cfg.llm.dtype, device=dev)
+        with open(os.path.join(repo, "config.json")) as f:
+            written = json.load(f)
+        expect = hf_remote.export_config(built)
+        cfg_bad = [k for k in EXPORT_KEYS if written[k] != expect[k]]
+        out["config_unequal"] = cfg_bad
+        ok &= not bad and not cfg_bad
+        log(f"[export] read back with the port's reader in {out['read_s']:.1f} s "
+            f"({nbytes / 1e9 / out['read_s']:.2f} GB/s): {len(got) - len(bad)}/{len(got)} "
+            f"tensors bit-equal to the state dict they came from; config.json's "
+            f"{', '.join(EXPORT_KEYS)} equal to entry.build_config's for the source config: "
+            f"{not cfg_bad} {'OK' if not bad and not cfg_bad else 'FAIL ' + str((bad[:4], cfg_bad))}")
+
+        # 4. the tree again, through the port's converters
+        def part(prefix):
+            return {k[len(prefix):]: host_to_device(v, dev) for k, v in got.items()
+                    if k.startswith(prefix)}
+
+        t0 = time.time()
+        rebuilt = {"llm": hf_import.convert_llm_state_dict(part("llm."), cfg.llm),
+                   "vision_tower": hf_import.convert_siglip_state_dict(part("vision_tower."),
+                                                                       cfg.vision),
+                   "mm_projector": hf_import.convert_projector_state_dict(part("mm_projector."))}
+        rebuilt = cast_tree(rebuilt, torch.bfloat16)
+        torch.cuda.synchronize()
+        out["rebuild_s"] = time.time() - t0
+        del got
+        src_leaves, new_leaves = dict(_leaves(params)), dict(_leaves(rebuilt))
+        tree_bad = [k for k in src_leaves if k not in new_leaves
+                    or not torch.equal(new_leaves[k], src_leaves[k])]
+        tree_bad += [k for k in new_leaves if k not in src_leaves]
+        ok &= not tree_bad
+        log(f"[export] rebuilt through convert_llm_state_dict / convert_siglip_state_dict / "
+            f"convert_projector_state_dict and cast to bf16 in {out['rebuild_s']:.1f} s: "
+            f"{len(src_leaves) - len(tree_bad)}/{len(src_leaves)} leaves bit-equal to the "
+            f"source tree {'OK' if not tree_bad else 'FAIL ' + str(tree_bad[:4])}")
+        del src_leaves, new_leaves
+
+        # 5. serve the export's W4 engine and the source's; greedy tokens equal
+        def w4_engine(tree):
+            llm = quant.quantize_llm_params(tree["llm"], fuse=True, cfg=cfg.llm)
+            return GenerationEngine(dict(tree, llm=llm), cfg, ByteTokenizer(), device=dev)
+
+        exported = w4_engine(rebuilt)
+        del rebuilt
+        good, reqs, launches = phase_e2e(torch, exported, seed + 111, n_requests, new_tokens,
+                                         tag="export")
+        ok &= good
+        source = w4_engine(params)
+        del params
+        images = _images(seed + 111, n_requests + 1)
+        gcfg = GenerationConfig(max_new_tokens=new_tokens, stop_token_ids=(-1,))
+        source_ids = [source.generate_ids(source.prepare_inputs(
+            [images[i], QUESTIONS[i % len(QUESTIONS)]]), gcfg) for i in range(n_requests)]
+        equal = [r["ids"] == ids for r, ids in zip(reqs, source_ids)]
+        ok &= len(equal) == n_requests and all(equal)
+        out.update(requests=reqs, launches=launches, tokens_equal_source=equal,
+                   ttft_ms=[r["ttft_ms"] for r in reqs],
+                   decode_tok_s=[r["decode_tok_s"] for r in reqs])
+        log(f"[export] {n_requests} requests x {new_tokens} greedy tokens through the "
+            f"exported W4 engine (K2 prefill, K3 decode, K1 qkv and lm_head): equal to the "
+            f"source engine's {equal} {'OK' if all(equal) else 'FAIL'}")
+        del source
+
+        # 7. one decode step inside annotate("decode_step"), traced
+        inputs = exported.prepare_inputs([images[0], QUESTIONS[0]])
+        logdir = os.path.join(OUT_DIR, "export_decode_step")
+        region = trace_decode_step(torch, exported, inputs, logdir)
+        fused = sum(n for k, n in region["by_kernel"].items() if "decode_layer" in k)
+        good = (region["host_us"] > 0 and region["device_us"] > 0 and region["kernel_us"] > 0
+                and region["in_op_table"])
+        ok &= good
+        out["annotate"] = region
+        log(f"[export] one decode step inside annotate('decode_step'), traced: the region "
+            f"{region['host_us']:.0f} us on the host, {region['device_us']:.0f} us on the "
+            f"card, {region['kernels']} kernels beneath it ({region['kernel_us']:.0f} us; "
+            f"{fused} of them K3's), in the op table {region['in_op_table']} "
+            f"{'OK' if good else 'FAIL'}; trace in {logdir}")
+        del exported
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ok, out, launches
+
+
+def phase_consolidate(torch, run_dir, cfg, dev="cuda"):
+    """`weights_tools.consolidate_checkpoint` on a `Trainer` run's newest
+    checkpoint (the `train` phase's step 3, f32 master weights): the
+    component checkpoint it writes (the base model: `cfg`'s config files
+    and the quant probe's tokenizer) loads back through
+    `entry.load_params` on the card, every leaf bit for bit the
+    checkpoint's params; seconds and bytes reported."""
+    import shutil
+    import tempfile
+
+    from vila_tpu_torch import entry
+    from vila_tpu_torch.eval.quant_acc import PROBE
+    from vila_tpu_torch.train.checkpoint import CheckpointManager
+    from vila_tpu_torch.utils import weights_tools
+
+    dev = torch.device(dev)
+    root = tempfile.mkdtemp(prefix="consolidate_", dir="runs")
+    out = {}
+    try:
+        base = os.path.join(root, "base")
+        entry.save_config(cfg, base, entry.load_tokenizer(PROBE))
+        dest = os.path.join(root, "consolidated")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        weights_tools.consolidate_checkpoint(run_dir, base, dest, map_location=dev)
+        out["consolidate_s"] = time.time() - t0
+        out["bytes"] = nbytes = sum(os.path.getsize(os.path.join(d, f))
+                                    for d, _, fs in os.walk(dest) for f in fs
+                                    if f.endswith(".safetensors"))
+        mgr = CheckpointManager(run_dir)
+        step, state = mgr.restore_latest(dev)
+        got_cfg = entry.build_config(dest, dtype="float32", device=dev)
+        t0 = time.time()
+        loaded = entry.load_params(dest, got_cfg, device=dev)
+        out["load_s"] = time.time() - t0
+        want, got = dict(_leaves(state["params"])), dict(_leaves(loaded))
+        bad = [k for k in want if k not in got or got[k].dtype != want[k].dtype
+               or not torch.equal(got[k], want[k])] + [k for k in got if k not in want]
+        out.update(step=step, leaves=len(want), leaves_unequal=bad)
+        ok = step is not None and not bad
+        log(f"[consolidate] step {step}'s checkpoint of the train run consolidated in "
+            f"{out['consolidate_s']:.1f} s ({nbytes / 1e9:.3f} GB of f32 safetensors written); "
+            f"entry.load_params on the card in {out['load_s']:.1f} s: "
+            f"{len(want) - len(bad)}/{len(want)} leaves bit-equal to the checkpoint's params "
+            f"{'OK' if ok else 'FAIL ' + str(bad[:4])}")
+        del state, loaded, want, got
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ok, out
 
 
 def phase_profile(torch, engine, seed, new_tokens=17):
@@ -4985,13 +5330,17 @@ def _snapshot(params):
     }
 
 
+TRAIN_DIR = os.path.join("runs", "chip_smoke_train")
+
+
 def phase_train(torch, seed, cfg=None, dev="cuda", steps=6, save_steps=3, seq=2048,
-                out_dir=os.path.join("runs", "chip_smoke_train")):
+                out_dir=TRAIN_DIR):
     """`Trainer` on the card at full NVILA-Lite-2B width, stage sft: `steps`
     steps with one checkpoint, at `save_steps` (the later saves skipped:
     each took ≈ 17 s at LLM depth 8); then a fresh `Trainer` resumes from
     it and must reproduce the first run's losses. K7-K9 must launch 28 times per step
-    (one per LLM layer; no remat) and nothing else."""
+    (one per LLM layer; no remat) and nothing else. The run's directory
+    stays (`phase_consolidate` reads it); the caller removes it."""
     import dataclasses
     import gc
     import shutil
@@ -5075,11 +5424,8 @@ def phase_train(torch, seed, cfg=None, dev="cuda", steps=6, save_steps=3, seq=20
         return good, rows, launches, dict(peak_bytes=peak, wall_s=wall, init_s=t_init,
                                           save_s=saves)
 
-    try:
-        ok1, rows1, launches1, info1 = run("train", keep={save_steps})
-        ok2, rows2, launches2, info2 = run("train resumed", keep=set())
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
+    ok1, rows1, launches1, info1 = run("train", keep={save_steps})
+    ok2, rows2, launches2, info2 = run("train resumed", keep=set())
     resumed = rows2[0]["step"] == save_steps + 1 if rows2 else False
     rel = [abs(a["loss"] - b["loss"]) / abs(a["loss"])
            for a, b in zip(rows1[save_steps:], rows2)]
@@ -5173,6 +5519,13 @@ def phase_train_profile(torch, seed, cfg=None, dev="cuda", seq=2048, warmup=2):
     return dict(wall_ms=1e3 * wall, traced_ms=1e3 * traced, busy_ms=busy, groups_ms=groups)
 
 
+def cast_tree(tree, dtype):
+    """A nested dict of tensors with every leaf cast to `dtype`."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
 def copy_tree(tree, dev):
     """A copy of a nested dict of tensors on `dev` (a copy even on the
     same device)."""
@@ -5185,14 +5538,15 @@ def phase_train_consistency(torch, seed, cfg=None, card="cuda", seq=512, batch=N
                             name="train_consistency", optimizer="adamw"):
     """One `train_step` (stage sft, constant learning rates so that the
     step moves every tuned tensor) at full widths and reduced depth: on the
-    card through K7-K9, and from the same parameters and batch on the CPU
-    through their plain versions. The batch is the `train` phase's first
-    sample in one row of `seq` unless `batch` (a collated row) is given. Tolerances: loss 1e-2 and grad_norm 5e-2
-    relative (bf16 products rounded by different libraries); the updated
-    tensors: each update is at most lr per element (Adam's first step is
-    lr * g / (|g| + eps)), so the card's and the CPU's may differ by up to
-    2 lr where a gradient near zero changes sign, and at least 90 % of the
-    elements must agree within 0.1 lr. With `optimizer="fp8_adamw"` the
+    card through K7-K9, and from the same parameters and batch on the card
+    through their plain versions (`plain_versions`). The batch is the
+    `train` phase's first sample in one row of `seq` unless `batch` (a
+    collated row) is given. Tolerances: loss 1e-2 and grad_norm 5e-2
+    relative (bf16 attention rounded in another order by the kernels and
+    by the plain versions); the updated tensors: each update is at most lr
+    per element (Adam's first step is lr * g / (|g| + eps)), so the two
+    sides' may differ by up to 2 lr where a gradient near zero changes
+    sign, and at least 90 % of the elements must agree within 0.1 lr. With `optimizer="fp8_adamw"` the
     first step divides fp8 moments, and a small gradient whose E5M2 second
     moment underflows to 0 in its block steps by far more than lr on either
     side: the largest difference is reported, not bounded."""
@@ -5217,25 +5571,26 @@ def phase_train_consistency(torch, seed, cfg=None, card="cuda", seq=512, batch=N
             tree = tree[k]
         return tree
 
-    cpu = torch.device("cpu")
+    cpu, dev = torch.device("cpu"), torch.device(card)
     params_cpu = vlm.init_params(torch.Generator().manual_seed(seed), cfg, torch.float32)
     before = {n: get(params_cpu, p).detach().clone() for n, (p, _) in named.items()}
     out = {}
-    for tag, dev, impl in (("card", torch.device(card), "auto"), ("cpu", cpu, "flash")):
-        params = copy_tree(params_cpu, dev) if tag == "card" else params_cpu
-        opt = topt.make_optimizer(ocfg)
-        _, params, state = make_train_step(cfg, params, opt)
+    for tag, impl in (("card", "auto"), ("plain", "flash")):
         _build.reset_launches()
-        t0 = time.perf_counter()
-        params, state, m = train_step(params, state, batch_to_device(batch, dev), cfg=cfg,
-                                      optimizer=opt, attn_impl=impl)
-        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-        out[tag] = dict(loss=loss, grad_norm=gnorm, s=time.perf_counter() - t0,
-                             launches=dict(_build.LAUNCHES),
-                             delta={n: (get(params, p).detach().to(cpu) - before[n])
-                                    for n, (p, _) in named.items()})
-        del params, state, opt
-    card, host = out["card"], out["cpu"]
+        with plain_versions() if tag == "plain" else contextlib.nullcontext():
+            params = copy_tree(params_cpu, dev)
+            opt = topt.make_optimizer(ocfg)
+            _, params, state = make_train_step(cfg, params, opt)
+            t0 = time.perf_counter()
+            params, state, m = train_step(params, state, batch_to_device(batch, dev), cfg=cfg,
+                                          optimizer=opt, attn_impl=impl)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            out[tag] = dict(loss=loss, grad_norm=gnorm, s=time.perf_counter() - t0,
+                            launches=dict(_build.LAUNCHES),
+                            delta={n: (get(params, p).detach().to(cpu) - before[n])
+                                   for n, (p, _) in named.items()})
+            del params, state, opt
+    card, host = out["card"], out["plain"]
     want = dict(_no_launches(), **{k: layers for k in FLASH_KERNELS})
     ok = card["launches"] == want and all(v == 0 for v in host["launches"].values())
     rel_loss = abs(card["loss"] - host["loss"]) / abs(host["loss"])
@@ -5254,12 +5609,12 @@ def phase_train_consistency(torch, seed, cfg=None, card="cuda", seq=512, batch=N
             f"(lr {lr:g}), {100 * agree:.2f}% within 0.1 lr -> {'OK' if good else 'FAIL'}")
     log(f"[{name}] {layers} LLM + {cfg.vision.num_hidden_layers} SigLIP layers, "
         f"seq {seq}: "
-        f"loss card {card['loss']:.6f} / CPU {host['loss']:.6f} (rel {rel_loss:.2e}, "
+        f"loss kernels {card['loss']:.6f} / plain {host['loss']:.6f} (rel {rel_loss:.2e}, "
         f"limit 1e-2); grad_norm {card['grad_norm']:.5f} / {host['grad_norm']:.5f} "
-        f"(rel {rel_gn:.2e}, limit 5e-2); card launches {card['launches']}; CPU step "
-        f"{host['s']:.1f} s -> {'OK' if ok else 'FAIL'}")
+        f"(rel {rel_gn:.2e}, limit 5e-2); kernel launches {card['launches']}; plain step "
+        f"on the card {host['s']:.1f} s -> {'OK' if ok else 'FAIL'}")
     return ok, dict(loss=(card["loss"], host["loss"]), grad_norm=(card["grad_norm"],
-                    host["grad_norm"]), tensors=tensors, cpu_s=host["s"])
+                    host["grad_norm"]), tensors=tensors, plain_s=host["s"])
 
 
 # frames of the video sample and the dynamic image's size: 4 frames x 257
@@ -5436,9 +5791,10 @@ def _rel_diff(a, b, floor=0.0):
 
 def mode_consistency(torch, seed, name, step, bars, card="cuda", cfg=None, params_fn=None):
     """`step(params, dev)` -> dict of floats, run from one seeded tree on the
-    card (the flash kernels K7-K9) and on the CPU (dense attention, no
-    kernel): each value within its bar, `bars[key] = (relative tolerance,
-    floor)`: |card - cpu| <= tol * max(|cpu|, floor). The tree is a 2 + 2-layer
+    card twice: through the kernels (K7-K9, `torch._scaled_mm`) and through
+    their plain versions (`plain_versions`): each
+    value within its bar, `bars[key] = (relative tolerance, floor)`:
+    |card - plain| <= tol * max(|plain|, floor). The tree is a 2 + 2-layer
     NVILA-Lite-2B draw unless `params_fn(cpu_device)` gives one."""
     from vila_tpu_torch.models import vlm
     from vila_tpu_torch.ops import _build
@@ -5448,29 +5804,32 @@ def mode_consistency(torch, seed, name, step, bars, card="cuda", cfg=None, param
     params_cpu = (params_fn(cpu) if params_fn else
                   vlm.init_params(torch.Generator().manual_seed(seed), cfg, torch.float32))
     out = {}
-    for tag, dev in (("card", torch.device(card)), ("cpu", cpu)):
-        params = copy_tree(params_cpu, dev)
+    dev = torch.device(card)
+    for tag in ("card", "plain"):
         _build.reset_launches()
-        t0 = time.perf_counter()
-        vals = step(params, dev)
-        out[tag] = dict(values={k: float(v) for k, v in vals.items()},
-                        s=time.perf_counter() - t0, launches=dict(_build.LAUNCHES))
-        del params
+        with plain_versions() if tag == "plain" else contextlib.nullcontext():
+            params = copy_tree(params_cpu, dev)
+            t0 = time.perf_counter()
+            vals = step(params, dev)
+            out[tag] = dict(values={k: float(v) for k, v in vals.items()},
+                            s=time.perf_counter() - t0, launches=dict(_build.LAUNCHES))
+            del params
     gc.collect()
-    ok = all(v == 0 for v in out["cpu"]["launches"].values()) and any(
+    ok = all(v == 0 for v in out["plain"]["launches"].values()) and any(
         out["card"]["launches"][k] for k in FLASH_KERNELS)
     rows = {}
     for k, (tol, floor) in bars.items():
-        a, b = out["card"]["values"][k], out["cpu"]["values"][k]
+        a, b = out["card"]["values"][k], out["plain"]["values"][k]
         rel = _rel_diff(a, b, floor)
         good = math.isfinite(a) and rel <= tol
         ok &= good
-        rows[k] = dict(card=a, cpu=b, rel=rel, tol=tol)
-    log(f"[{name}] card against CPU: " + "; ".join(
-        f"{k} {r['card']:.6g} / {r['cpu']:.6g} (rel {r['rel']:.2e}, limit {r['tol']:g})"
-        for k, r in rows.items()) + f"; card launches {out['card']['launches']}; CPU "
-        f"{out['cpu']['s']:.1f} s -> {'OK' if ok else 'FAIL'}")
-    return ok, dict(values=rows, card_launches=out["card"]["launches"], cpu_s=out["cpu"]["s"])
+        rows[k] = dict(card=a, plain=b, rel=rel, tol=tol)
+    log(f"[{name}] kernels against the plain versions on the card: " + "; ".join(
+        f"{k} {r['card']:.6g} / {r['plain']:.6g} (rel {r['rel']:.2e}, limit {r['tol']:g})"
+        for k, r in rows.items()) + f"; kernel launches {out['card']['launches']}; plain "
+        f"{out['plain']['s']:.1f} s -> {'OK' if ok else 'FAIL'}")
+    return ok, dict(values=rows, card_launches=out["card"]["launches"],
+                    plain_s=out["plain"]["s"])
 
 
 def _sft_batch(torch, cfg, seq, dev, n=None):
@@ -7424,6 +7783,9 @@ def main(argv=None) -> int:
     card = nvidia_smi_line()
     log(f"[card] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
+    # CPU references the card does not wait for: started now, read at the end
+    worker = CpuWorker() if "awq" in phases else None
+    deferred = []  # (name, check) pairs, run at the end of the run
     ok = True
     report = {}
     results = {}
@@ -7447,14 +7809,6 @@ def main(argv=None) -> int:
             engines[(layers, seed)] = GenerationEngine(params, cfg, ByteTokenizer(),
                                                        device="cuda")
         return engines[(layers, seed)]
-
-    def llm_cpu():
-        if "cpu" not in engines:
-            from vila_tpu_torch.utils.weights import to_torch_tree
-
-            engines["cpu"] = to_torch_tree(engine(4, args.seed + 1).params["llm"],
-                                           torch.device("cpu"))
-        return engines["cpu"]
 
     phase_s = report["phase_s"] = {}  # each phase's wall (the first user builds an engine)
 
@@ -7501,12 +7855,12 @@ def main(argv=None) -> int:
             ok &= good
     if "consistency" in phases:
         good, report["consistency"] = timed("consistency", lambda: phase_consistency(
-            torch, engine(4, args.seed + 1), llm_cpu(), args.seed))
+            torch, engine(4, args.seed + 1), args.seed))
         ok &= good
     if "batched_consistency" in phases:
         good, report["batched_consistency"] = timed(
             "batched_consistency", lambda: phase_batched_consistency(
-                torch, engine(4, args.seed + 1), llm_cpu(), args.seed))
+                torch, engine(4, args.seed + 1), args.seed))
         ok &= good
     if "small_consistency" in phases:
         good, report["small_consistency"] = timed(
@@ -7559,9 +7913,13 @@ def main(argv=None) -> int:
     if "w8" in phases:
         good, report["w8"] = timed("w8", lambda: phase_w8(torch, args.seed))
         ok &= good
+    if "export" in phases:
+        good, report["export"], launches["export"] = timed("export", lambda: phase_export(
+            torch, args.seed))
+        ok &= good
     if "awq" in phases:
         good, report["awq"], launches["awq"] = timed("awq", lambda: phase_awq(
-            torch, args.seed))
+            torch, args.seed, worker=worker, defer=lambda name, fn: deferred.append((name, fn))))
         ok &= good
     # the eval phase's CLI runs overlap quant_acc (their own processes)
     eval_started = timed("eval start", start_eval) if "eval" in phases else None
@@ -7588,10 +7946,20 @@ def main(argv=None) -> int:
         ok &= good
     if "train" in phases:
         # LLM depth 8, not 28: its three checkpoint saves dominate the phase
-        good, report["train"], train_launches = timed("train", lambda: phase_train(
-            torch, args.seed, cfg=nvila_lite_2b_config(layers=TRAIN_LAYERS)))
-        launches.update(train_launches)
-        ok &= good
+        train_cfg = nvila_lite_2b_config(layers=TRAIN_LAYERS)
+        try:
+            good, report["train"], train_launches = timed("train", lambda: phase_train(
+                torch, args.seed, cfg=train_cfg))
+            launches.update(train_launches)
+            ok &= good
+            if "export" in phases:  # its step-3 checkpoint, consolidated
+                good, report["consolidate"] = timed("consolidate", lambda: phase_consolidate(
+                    torch, os.path.join(TRAIN_DIR, "checkpoints"), train_cfg))
+                ok &= good
+        finally:
+            import shutil
+
+            shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     if "train_consistency" in phases:
         good, report["train_consistency"] = timed(
             "train_consistency", lambda: phase_train_consistency(torch, args.seed))
@@ -7666,6 +8034,10 @@ def main(argv=None) -> int:
         dist.destroy_process_group()
     if "train_profile" in phases:  # not in the default run
         report["train_profile"] = phase_train_profile(torch, args.seed)
+    for name, check in deferred:
+        ok &= timed(name, check)
+    if worker is not None:
+        worker.close()
     report["seconds"] = time.time() - t_all
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_report.json"), "w") as f:

@@ -423,3 +423,38 @@ def test_data_and_eval_modules_load_no_jax_and_no_yaml():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+# the last slice: the export, the weight tools and the two CLIs; the remote
+# code shipped into an export imports `transformers`, so it is data that the
+# walk never reaches (a directory without `__init__.py`)
+EXPORT_AND_TOOLS = ("vila_tpu_torch.export", "vila_tpu_torch.export.hf_remote",
+                    "vila_tpu_torch.utils.weights_tools", "vila_tpu_torch.cli.run",
+                    "vila_tpu_torch.cli.upload")
+# JAX files whose twin lives elsewhere in the port: the remote code
+TWIN_PATHS = {os.path.join("export", "modeling_vila.py"):
+              os.path.join("export", "remote_code", "modeling_vila.py")}
+
+
+def _package_files(root):
+    out = set()
+    for d, _, files in os.walk(root):
+        if "__pycache__" in d or "_build" in d:
+            continue
+        out |= {os.path.relpath(os.path.join(d, f), root) for f in files
+                if f.endswith((".py", ".yaml", ".cpp"))}
+    return out
+
+
+def test_every_jax_module_has_a_twin_in_the_port():
+    jax_files = _package_files(os.path.join(REPO, "vila_tpu"))
+    port_files = _package_files(os.path.join(REPO, "vila_tpu_torch"))
+    assert sorted(f for f in jax_files if TWIN_PATHS.get(f, f) not in port_files) == []
+    import vila_tpu_torch.export.hf_remote as hf_remote
+
+    names = _module_names()
+    assert all(name in names for name in EXPORT_AND_TOOLS)
+    assert not any("remote_code" in name or "modeling_vila" in name for name in names)
+    assert os.path.isfile(hf_remote.REMOTE_CODE)
+    assert not os.path.exists(os.path.join(os.path.dirname(hf_remote.REMOTE_CODE),
+                                           "__init__.py"))

@@ -18,6 +18,14 @@ __version__ = "0.1.0"
 from vila_tpu_torch.media import File, Image, Video  # noqa: F401
 
 
+def save(params, cfg, tokenizer, out_dir: str) -> int:
+    """`entry.save`: params in the component checkpoint layout (llm/,
+    vision_tower/, mm_projector/); returns the weight bytes written."""
+    from vila_tpu_torch.entry import save as _save
+
+    return _save(params, cfg, tokenizer, out_dir)
+
+
 def load(model_path: str, **kwargs):
     """`entry.load`: a checkpoint directory -> a ready `GenerationEngine`
     (on the card unless `device="cpu"`)."""

@@ -292,7 +292,7 @@ def _ln(tree: Dict[str, Any], name: str) -> Dict[str, torch.Tensor]:
     return {f"{name}.weight": _f32(tree["scale"]), f"{name}.bias": _f32(tree["bias"])}
 
 
-def _siglip_layout(vp: Dict[str, Any], vcfg) -> Dict[str, torch.Tensor]:
+def siglip_state_dict(vp: Dict[str, Any], vcfg) -> Dict[str, torch.Tensor]:
     """A SigLIP tree -> a stock `SiglipVisionModel` state dict (f32)."""
     pre = "vision_model."
     return {
@@ -373,7 +373,7 @@ def vision_state_dict(params: Dict[str, Any], cfg: vlm.VLMConfig) -> Dict[str, t
         return _vit_layout(vp, cfg)
     if cfg.vision_tower_type == "ps3":
         return _ps3_layout(vp, cfg)
-    return _siglip_layout(vp, cfg.vision)
+    return siglip_state_dict(vp, cfg.vision)
 
 
 def generic_vit_state_dict(vp: Dict[str, Any], num_layers: int) -> Dict[str, torch.Tensor]:

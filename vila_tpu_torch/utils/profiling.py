@@ -3,9 +3,12 @@
   * `trace(logdir)` — a `torch.profiler` trace (CPU and, on the card,
     CUDA activity) of the enclosed block, written to `logdir` as a Chrome
     trace plus a table of the ops by device time;
+  * `annotate(name)` — a named host-side region (`record_function`): it
+    shows in the trace's timeline, with the card's work beneath it, and
+    as a row of the op table;
   * `device_memory_stats()` — current and peak allocated bytes per card;
   * `MetricsLogger` — a `metrics.jsonl` stream, mirrored to wandb when it
-    imports.
+    imports and starts (a failing `wandb.init` leaves the stream alone).
 """
 
 from __future__ import annotations
@@ -38,6 +41,13 @@ def trace(logdir: str):
         f.write(prof.key_averages().table(sort_by=sort, row_limit=50))
 
 
+def annotate(name: str):
+    """Host-side named region (shows up in the trace timeline)."""
+    from torch.profiler import record_function
+
+    return record_function(name)
+
+
 def device_memory_stats() -> Dict[str, Any]:
     """Per-card allocator stats (parity: GPU memory prints, train.py:887)."""
     out = {}
@@ -67,10 +77,10 @@ class MetricsLogger:
         if project:
             try:
                 import wandb
-            except ImportError:
-                wandb = None
-            if wandb is not None:
+
                 self._wandb = wandb.init(project=project, name=run_name, dir=output_dir)
+            except Exception:
+                self._wandb = None
 
     def log(self, metrics: Dict[str, Any], step: Optional[int] = None):
         rec = dict(metrics)
