@@ -22,6 +22,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 
 from vila_tpu_torch.constants import IGNORE_INDEX
+from vila_tpu_torch.utils import profiling
 
 OOB = 1 << 30  # sentinel media position: dropped by the scatter
 
@@ -160,6 +161,16 @@ class PackingCollator:
     tile_size: int = 448
 
     def __call__(self, examples: Sequence[Dict[str, Any]]) -> Dict[str, np.ndarray]:
+        with profiling.annotate("data.collate") as span:
+            out, tiles = self._pack(examples)
+            if span:
+                seg = out["segment_ids"]
+                span.set(samples=int(seg.max(axis=1).sum()), tokens=int((seg > 0).sum()),
+                         capacity=seg.size, tiles=tiles)
+        return out
+
+    def _pack(self, examples: Sequence[Dict[str, Any]]):
+        """(the packed rows, the number of tiles they carry)."""
         s = _round_up(self.seq_len, self.seq_multiple)
         rows: List[List[Dict[str, Any]]] = [[] for _ in range(self.rows)]
         used = [0] * self.rows
@@ -227,4 +238,4 @@ class PackingCollator:
                 off += n
         if not any(tile_counts):
             del out["pixel_values"], out["media_positions"]
-        return out
+        return out, sum(tile_counts)

@@ -48,6 +48,7 @@ from vila_tpu_torch.inference.constrained import JsonConstrainedSampler
 from vila_tpu_torch.inference.speculative import init_history, spec_chunk
 from vila_tpu_torch.media import Video
 from vila_tpu_torch.models import encoders, qwen2, s2, vlm
+from vila_tpu_torch.utils import profiling
 from vila_tpu_torch.utils.device import host_to_device, resolve_device
 from vila_tpu_torch.utils.imageproc import resize_pil_batch
 from vila_tpu_torch.utils.media_loader import load_video_frames
@@ -397,17 +398,21 @@ class GenerationEngine:
     def _start(self, inputs: Dict[str, Any], gc: GenerationConfig):
         """One request's prefill into a fresh cache sized for
         `gc.max_new_tokens`: (the prompt's last logits (1, V), the cache,
-        the prompt's length, the cache's length)."""
+        the prompt's length, the cache's length). Span: `serve.prefill`
+        (media encoding and the prefill)."""
         prompt_len = int(inputs["input_ids"].shape[0])
         s_pad = _bucket(prompt_len, PROMPT_BUCKETS)
         cache_len = min(self.max_cache_len, _round_up(s_pad + gc.max_new_tokens, 256))
         ids, valid, media_pos = padded_prompt(inputs, s_pad, self.device)
-        ps3_prompt = None
-        if inputs.get("ps3_low") is not None:
-            ps3_prompt = self._ps3_top_down_prompt(inputs)
-        media_embeds = self.encode_media(inputs["media"], ps3_prompt=ps3_prompt)
-        cache = qwen2.init_cache(self.cfg.llm, batch=1, max_len=cache_len, device=self.device)
-        logits, cache = self._prefill(ids, valid, media_embeds, media_pos, cache, prompt_len)
+        with profiling.annotate("serve.prefill", prompt=prompt_len, padded=s_pad, chunks=1):
+            ps3_prompt = None
+            if inputs.get("ps3_low") is not None:
+                ps3_prompt = self._ps3_top_down_prompt(inputs)
+            media_embeds = self.encode_media(inputs["media"], ps3_prompt=ps3_prompt)
+            cache = qwen2.init_cache(self.cfg.llm, batch=1, max_len=cache_len,
+                                     device=self.device)
+            logits, cache = self._prefill(ids, valid, media_embeds, media_pos, cache,
+                                          prompt_len)
         return logits, cache, prompt_len, cache_len
 
     def stream_ids(self, inputs: Dict[str, Any],

@@ -21,6 +21,7 @@ import torch
 
 from vila_tpu_torch.models import projector as projector_lib
 from vila_tpu_torch.models import ps3, qwen2, siglip, vit
+from vila_tpu_torch.utils import profiling
 
 Params = Dict[str, Any]
 
@@ -97,15 +98,19 @@ def init_params(generator: torch.Generator, cfg: VLMConfig,
 def encode_images(params: Params, cfg: VLMConfig, pixel_values: torch.Tensor, tp=None):
     """(N, H, W, 3) pixels -> (N, tokens_per_image, llm_hidden); PS3 towers
     take two pixel scales and encode through `encode_images_ps3`. `tp`: a
-    SigLIP tower's tensor-parallel plan (`siglip.encode_tokens`)."""
+    SigLIP tower's tensor-parallel plan (`siglip.encode_tokens`). Span:
+    `model.vision`, with its tiles."""
     if cfg.vision_tower_type == "ps3":
         raise ValueError("PS3 towers use encode_images_ps3 (two pixel scales)")
     kw = {"tp": tp} if tp is not None else {}
-    feats = vision_module(cfg).forward(
-        params["vision_tower"], cfg.vision, pixel_values,
-        feature_layer=cfg.vision_feature_layer, select=cfg.vision_select, **kw,
-    )
-    return projector_lib.forward(params["mm_projector"], cfg.projector, feats)
+    with profiling.annotate("model.vision") as span:
+        if span:
+            span.set(tiles=int(pixel_values.shape[0]))
+        feats = vision_module(cfg).forward(
+            params["vision_tower"], cfg.vision, pixel_values,
+            feature_layer=cfg.vision_feature_layer, select=cfg.vision_select, **kw,
+        )
+        return projector_lib.forward(params["mm_projector"], cfg.projector, feats)
 
 
 def encode_images_ps3(
@@ -122,17 +127,22 @@ def encode_images_ps3(
 ):
     """PS3's selective encode and the projector (encode_images_ps3,
     llava_arch.py:967). Returns (projected features, selection
-    probabilities, selection maps)."""
+    probabilities, selection maps). Span: `model.vision`, with its tiles
+    (the low-res views)."""
     if pixels_high is not None and not isinstance(pixels_high, (list, tuple)):
         pixels_high = [pixels_high]
-    feats, probs, maps = ps3.forward(
-        params["vision_tower"], cfg.vision, pixels_low, pixels_high,
-        prompt=prompt, num_look_close=num_look_close,
-        gt_selection_maps=gt_selection_maps,
-        smooth_selection_prob=smooth_selection_prob,
-        feature_layer=cfg.vision_feature_layer, tp=tp,
-    )
-    return projector_lib.forward(params["mm_projector"], cfg.projector, feats), probs, maps
+    with profiling.annotate("model.vision") as span:
+        if span:
+            span.set(tiles=int(pixels_low.shape[0]))
+        feats, probs, maps = ps3.forward(
+            params["vision_tower"], cfg.vision, pixels_low, pixels_high,
+            prompt=prompt, num_look_close=num_look_close,
+            gt_selection_maps=gt_selection_maps,
+            smooth_selection_prob=smooth_selection_prob,
+            feature_layer=cfg.vision_feature_layer, tp=tp,
+        )
+        return (projector_lib.forward(params["mm_projector"], cfg.projector, feats), probs,
+                maps)
 
 
 def splice_media(

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import queue
 import threading
 import time
@@ -49,7 +50,10 @@ from vila_tpu_torch.inference.generate import (
     stream_text_deltas,
 )
 from vila_tpu_torch.models import qwen2, vlm
+from vila_tpu_torch.utils import profiling
 from vila_tpu_torch.utils.device import host_to_device
+
+_REQUEST_IDS = itertools.count(1)
 
 
 @dataclasses.dataclass
@@ -66,10 +70,13 @@ class _Slot:
 
 @dataclasses.dataclass
 class _Request:
-    inputs: Dict[str, Any]
+    inputs: Optional[Dict[str, Any]]  # None until `submit` has prepared them
     gen: GenerationConfig
     out: "queue.Queue"
     stop_ids: frozenset
+    id: int = dataclasses.field(default_factory=lambda: next(_REQUEST_IDS))
+    span: Any = profiling.OFF  # serve.request, submit to the end sentinel
+    wait: Any = profiling.OFF  # the queue wait under way
 
 
 class ContinuousBatcher:
@@ -80,7 +87,15 @@ class ContinuousBatcher:
     `serving/server.py` serves through it unchanged. `steps` counts the
     decode steps run so far (each one forward over every slot) and
     `step_seconds` keeps the host wall time of the latest 4096, from the
-    inputs' copy to the device to the read of the sampled tokens."""
+    inputs' copy to the device to the read of the sampled tokens.
+
+    Spans (`utils.profiling`; a request's all carry its id):
+    `serve.request` from `submit` to the end sentinel, holding
+    `serve.prepare_inputs`, `serve.queue_wait` (until the worker takes it),
+    `serve.prefill` (media encoding, the prefill or its chunks and the
+    first token), `serve.ready_wait` (until a slot frees) and
+    `serve.insert`; and `serve.decode_step` for each step, with its
+    active slots, queued requests and the active slots' positions."""
 
     def __init__(
         self,
@@ -133,12 +148,14 @@ class ContinuousBatcher:
         """Copy a bs=1 prefilled cache (same max_len) into batch row `slot`,
         in place, and set the row's cursor on the card and on the host."""
         c = self.cache
-        with self._issue:
-            c["k"][:, slot].copy_(cache1["k"][:, 0])
-            c["v"][:, slot].copy_(cache1["v"][:, 0])
-            c["valid"][slot].copy_(cache1["valid"][0])
-            c["fill"][slot] = int(cache1["fill"])
-        c["fill_host"][slot] = int(cache1["fill"])
+        req = self.slots[slot].request
+        with profiling.annotate("serve.insert", request=req and req.id, slot=slot):
+            with self._issue:
+                c["k"][:, slot].copy_(cache1["k"][:, 0])
+                c["v"][:, slot].copy_(cache1["v"][:, 0])
+                c["valid"][slot].copy_(cache1["valid"][0])
+                c["fill"][slot] = int(cache1["fill"])
+            c["fill_host"][slot] = int(cache1["fill"])
 
     def _step(self, active: np.ndarray) -> List[int]:
         """One decode step over every slot; returns the next token of each
@@ -175,39 +192,44 @@ class ContinuousBatcher:
                 f"prompt ({prompt_len} tokens) exceeds batcher max_len {self.max_len}")
         chunk = self.prefill_chunk
         chunked = chunk and s_pad > chunk and s_pad % chunk == 0
-        with self._issue:
-            ids, valid, media_pos = padded_prompt(inputs, s_pad, dev)
-            media_embeds = eng.encode_media(inputs["media"])
-            cache1 = qwen2.init_cache(cfg.llm, batch=1, max_len=self.max_len, device=dev)
+        with profiling.annotate("serve.prefill", request=req.id, parent=req.span.id,
+                                prompt=prompt_len, padded=s_pad,
+                                chunks=s_pad // chunk if chunked else 1):
+            with self._issue:
+                ids, valid, media_pos = padded_prompt(inputs, s_pad, dev)
+                media_embeds = eng.encode_media(inputs["media"])
+                cache1 = qwen2.init_cache(cfg.llm, batch=1, max_len=self.max_len, device=dev)
+                if chunked:
+                    embeds = qwen2.embed_tokens(eng.params["llm"], cfg.llm, ids)
+                    if media_embeds is not None:
+                        embeds = vlm.splice_media(embeds, media_embeds, media_pos)
+                else:
+                    first_logits, cache1 = eng._prefill(
+                        ids, valid, media_embeds, media_pos, cache1, prompt_len)
             if chunked:
-                embeds = qwen2.embed_tokens(eng.params["llm"], cfg.llm, ids)
-                if media_embeds is not None:
-                    embeds = vlm.splice_media(embeds, media_embeds, media_pos)
-            else:
-                first_logits, cache1 = eng._prefill(
-                    ids, valid, media_embeds, media_pos, cache1, prompt_len)
-        if chunked:
-            for a in range(0, s_pad, chunk):  # decode steps interleave here
-                seg = slice(a, a + chunk)
-                in_seg = max(0, min(prompt_len - 1 - a, chunk - 1))
-                with self._issue:
-                    lg, cache1 = qwen2.forward(
-                        eng.params["llm"], cfg.llm, inputs_embeds=embeds[:, seg],
-                        token_valid=valid[:, seg], cache=cache1,
-                        gather_position=host_to_device([in_seg], dev),
-                    )
-                if a <= prompt_len - 1 < a + chunk:
-                    first_logits = lg[:, 0]  # the chunk with the last real token
-            # the chunks advanced the cursor by the padded length: rewind it
-            # to the real one (pad rows are invalid and decode overwrites them)
-            cache1["fill"] = prompt_len
+                for a in range(0, s_pad, chunk):  # decode steps interleave here
+                    seg = slice(a, a + chunk)
+                    in_seg = max(0, min(prompt_len - 1 - a, chunk - 1))
+                    with self._issue:
+                        lg, cache1 = qwen2.forward(
+                            eng.params["llm"], cfg.llm, inputs_embeds=embeds[:, seg],
+                            token_valid=valid[:, seg], cache=cache1,
+                            gather_position=host_to_device([in_seg], dev),
+                        )
+                    if a <= prompt_len - 1 < a + chunk:
+                        first_logits = lg[:, 0]  # the chunk with the last real token
+                # the chunks advanced the cursor by the padded length: rewind
+                # it to the real one (pad rows are invalid and decode
+                # overwrites them)
+                cache1["fill"] = prompt_len
 
-        with self._issue:
-            tok = sample_token(
-                first_logits.float(), self._gen, True,
-                gc.temperature if gc.do_sample else 0.0, gc.top_p, gc.top_k,
-            )
-        return req, cache1, int(tok[0]), prompt_len
+            with self._issue:
+                tok = sample_token(
+                    first_logits.float(), self._gen, True,
+                    gc.temperature if gc.do_sample else 0.0, gc.top_p, gc.top_k,
+                )
+            first = int(tok[0])
+        return req, cache1, first, prompt_len
 
     # ------------------------------------------------------------------
     # scheduler
@@ -240,6 +262,7 @@ class ContinuousBatcher:
     def _install(self, slot_idx: int, prepared) -> None:
         """Loop-side admission: an in-place row copy, no prefill."""
         req, cache1, tok, prompt_len = prepared
+        req.wait.end()
         gc = req.gen
         slot = self.slots[slot_idx]
         slot.request = req
@@ -255,6 +278,8 @@ class ContinuousBatcher:
 
     @staticmethod
     def _fail(req: _Request, err: BaseException) -> None:
+        req.wait.end()
+        req.span.end(failed=True)
         req.out.put(err)
         req.out.put(None)
 
@@ -265,6 +290,7 @@ class ContinuousBatcher:
                 req = self._pending.get(timeout=0.05)
             except queue.Empty:
                 continue
+            req.wait.end()
             if self._failed is not None:
                 self._fail(req, self._failed)
                 continue
@@ -276,6 +302,7 @@ class ContinuousBatcher:
             if self._failed is not None:
                 self._fail(req, self._failed)
                 continue
+            req.wait = profiling.annotate("serve.ready_wait", request=req.id, parent=req.span.id)
             while not self._stop:  # bounded queue: block, but stay stoppable
                 try:
                     self._ready.put(prepared, timeout=0.1)
@@ -298,6 +325,7 @@ class ContinuousBatcher:
             if slot.remaining <= 0 or slot.position >= self.max_len:
                 finished = True
         if finished:
+            req.span.end(emitted=slot.emitted)
             req.out.put(None)  # end-of-stream sentinel
             slot.request = None
 
@@ -344,7 +372,12 @@ class ContinuousBatcher:
         active = np.zeros((self.max_batch,), np.int64)
         active[active_idx] = 1
         t0 = time.perf_counter()
-        toks = self._step(active)
+        with profiling.annotate("serve.decode_step") as span:
+            if span:
+                span.set(step=self.steps, active=len(active_idx),
+                         queued=self._pending.qsize() + self._ready.qsize(),
+                         rows=[self.slots[i].position for i in active_idx])
+            toks = self._step(active)
         self.step_seconds.append(time.perf_counter() - t0)
         self.tokens[:] = toks
         for i in active_idx:
@@ -370,8 +403,12 @@ class ContinuousBatcher:
                 "constrained decoding is host-guided per request; use the "
                 "serial engine path (stream_ids falls back automatically)")
         stop = frozenset(gc.stop_token_ids or self.engine.stop_token_ids)
-        inputs = self.engine.prepare_inputs(prompt)
-        req = _Request(inputs=inputs, gen=gc, out=queue.Queue(), stop_ids=stop)
+        req = _Request(inputs=None, gen=gc, out=queue.Queue(), stop_ids=stop)
+        req.span = profiling.annotate("serve.request", request=req.id)
+        with profiling.annotate("serve.prepare_inputs", request=req.id, parent=req.span.id):
+            req.inputs = self.engine.prepare_inputs(prompt)
+        req.span.set(prompt_tokens=int(req.inputs["input_ids"].shape[0]))
+        req.wait = profiling.annotate("serve.queue_wait", request=req.id, parent=req.span.id)
         self._pending.put(req)
         self._wake.set()
         return req.out

@@ -51,6 +51,7 @@ from vila_tpu_torch.train.optimizer import (
     global_norm,
     leaves,
 )
+from vila_tpu_torch.utils import profiling
 from vila_tpu_torch.utils.device import host_to_device
 
 
@@ -119,26 +120,39 @@ def apply_gradients(trainable: Any, compute_loss: Callable[[], Tuple[torch.Tenso
     `optax.apply_updates`: `compute_loss()` -> (loss, aux) is
     differentiated with respect to every tensor of `trainable`, and
     `optimizer` steps them in place from their gradients. Returns (loss,
-    aux, the gradients' global norm, opt_state)."""
+    aux, the gradients' global norm, opt_state). Spans: `train.step`
+    (with the loss's `n_tokens` where `aux` has it) over `train.forward`,
+    `train.backward` and `train.update`."""
     ts = leaves(trainable)
-    for t in ts:
-        t.requires_grad_(True)
-        t.grad = None
-    loss, aux = compute_loss()
-    loss.backward()
-    grad_norm = global_norm([t.grad for t in ts])
-    opt_state = optimizer.update(opt_state, trainable)
-    for t in ts:
-        t.grad = None
+    with profiling.annotate("train.step") as step:
+        for t in ts:
+            t.requires_grad_(True)
+            t.grad = None
+        with profiling.annotate("train.forward"):
+            loss, aux = compute_loss()
+        if step and isinstance(aux, dict) and "n_tokens" in aux:
+            step.set(tokens=aux["n_tokens"])
+        with profiling.annotate("train.backward"):
+            loss.backward()
+        with profiling.annotate("train.update"):
+            grad_norm = global_norm([t.grad for t in ts])
+            opt_state = optimizer.update(opt_state, trainable)
+            for t in ts:
+                t.grad = None
     return loss.detach(), aux, grad_norm, opt_state
 
 
 def batch_to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
     """A collated numpy batch as tensors on `device` (asynchronous copies
     on the card); a list value (PS3's views, one array a high scale)
-    becomes a list of tensors."""
-    return {k: ([host_to_device(x, device) for x in v] if isinstance(v, list)
-                else host_to_device(v, device)) for k, v in batch.items()}
+    becomes a list of tensors. Span: `train.to_device`, with its bytes."""
+    with profiling.annotate("train.to_device") as span:
+        out = {k: ([host_to_device(x, device) for x in v] if isinstance(v, list)
+                   else host_to_device(v, device)) for k, v in batch.items()}
+        if span:
+            span.set(bytes=sum(getattr(x, "nbytes", 0) for v in batch.values()
+                               for x in (v if isinstance(v, list) else [v])))
+    return out
 
 
 def make_train_step(cfg, params: Dict[str, Any], optimizer: Optimizer,
@@ -337,7 +351,8 @@ def sharded_train_step(shards, opt_state: OptState, batch, *, cfg, optimizer, di
     """One ZeRO-3 (and tensor-parallel) step on this rank's shards and
     batch shard (`parallel.distributed.host_local_batch`). Returns
     (shards, opt_state, metrics); metrics are global (loss, token count,
-    grad norm, and a PS3 batch's selection loss)."""
+    grad norm, and a PS3 batch's selection loss). Spans as
+    `apply_gradients`', the gradients' reduction inside `train.backward`."""
     import torch.distributed as dist
 
     from vila_tpu_torch.parallel.mesh import FSDP
@@ -345,40 +360,47 @@ def sharded_train_step(shards, opt_state: OptState, batch, *, cfg, optimizer, di
 
     data = mesh.group(FSDP)
     pairs = _pairs(shards, dims)
-    for t, _ in pairs:
-        t.requires_grad_(True)
-        t.grad = None
-    local = frozenset(tp_local_paths(cfg)) if active(tp) else frozenset()
-    params = _materialise(shards, dims, mesh, local)
-    loss, n_local, sel = _loss_parts(params, cfg, batch, ce_chunk_size, attn_impl, sp, tp)
-    n_global = n_local.detach().clone().to(torch.float32)
-    dist.all_reduce(n_global, group=data)
-    part = loss * n_local.to(torch.float32) / n_global.clamp(min=1)
-    sel_part = None
-    if sel is not None:
-        sel_part = sel * _selection_weight(batch, mesh)
-        part = part + token_selection_loss_weight * sel_part
-    part.backward()
-    grads = _fill_grads([t for t, _ in pairs])  # unused leaves: zeros, as JAX
-    rep = [g for g, (_, d) in zip(grads, pairs) if d is None or d.fsdp is None]
-    if rep and mesh.axis_size(FSDP) > 1:  # sum every data rank's contribution
-        flat = torch.cat([g.reshape(-1).float() for g in rep])
-        dist.all_reduce(flat, group=data)
-        for g, f in zip(rep, flat.split([g.numel() for g in rep])):
-            g.copy_(f.view_as(g))
-    grad_norm = sharded_norm([(g, d) for g, (_, d) in zip(grads, pairs)], mesh)
-    if isinstance(optimizer, Optimizer):
-        split_of = {id(t): d for t, d in pairs}
+    with profiling.annotate("train.step") as step:
+        for t, _ in pairs:
+            t.requires_grad_(True)
+            t.grad = None
+        with profiling.annotate("train.forward"):
+            local = frozenset(tp_local_paths(cfg)) if active(tp) else frozenset()
+            params = _materialise(shards, dims, mesh, local)
+            loss, n_local, sel = _loss_parts(params, cfg, batch, ce_chunk_size, attn_impl, sp,
+                                             tp)
+            n_global = n_local.detach().clone().to(torch.float32)
+            dist.all_reduce(n_global, group=data)
+            part = loss * n_local.to(torch.float32) / n_global.clamp(min=1)
+            sel_part = None
+            if sel is not None:
+                sel_part = sel * _selection_weight(batch, mesh)
+                part = part + token_selection_loss_weight * sel_part
+        if step:
+            step.set(tokens=n_global)
+        with profiling.annotate("train.backward"):
+            part.backward()
+            grads = _fill_grads([t for t, _ in pairs])  # unused leaves: zeros, as JAX
+            rep = [g for g, (_, d) in zip(grads, pairs) if d is None or d.fsdp is None]
+            if rep and mesh.axis_size(FSDP) > 1:  # sum every data rank's contribution
+                flat = torch.cat([g.reshape(-1).float() for g in rep])
+                dist.all_reduce(flat, group=data)
+                for g, f in zip(rep, flat.split([g.numel() for g in rep])):
+                    g.copy_(f.view_as(g))
+        with profiling.annotate("train.update"):
+            grad_norm = sharded_norm([(g, d) for g, (_, d) in zip(grads, pairs)], mesh)
+            if isinstance(optimizer, Optimizer):
+                split_of = {id(t): d for t, d in pairs}
 
-        def norm(name, gs):
-            return sharded_norm([(g, split_of[id(t)]) for g, t in zip(gs, leaves(shards[name]))],
-                                mesh)
+                def norm(name, gs):
+                    return sharded_norm([(g, split_of[id(t)])
+                                         for g, t in zip(gs, leaves(shards[name]))], mesh)
 
-        opt_state = optimizer.update(opt_state, shards, norm=norm)
-    else:  # a tree optimizer: no clipping
-        opt_state = optimizer.update(opt_state, shards)
-    for t, _ in pairs:
-        t.grad = None
+                opt_state = optimizer.update(opt_state, shards, norm=norm)
+            else:  # a tree optimizer: no clipping
+                opt_state = optimizer.update(opt_state, shards)
+            for t, _ in pairs:
+                t.grad = None
     total = part.detach().clone()
     dist.all_reduce(total, group=data)
     metrics = {"loss": total, "n_tokens": n_global.to(torch.int64), "grad_norm": grad_norm}
