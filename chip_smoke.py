@@ -344,6 +344,11 @@ KERNELS = {
         route="cuda", source="vila_tpu_torch/csrc/flash_attn_sm90.cu",
         replaces="vila_tpu/ops/flash_attention.py:356 (_bwd_dkv_kernel; pallas_call "
                  "flash_attention.py:465)"),
+    # the port's own: the JAX package leaves the loss to XLA; the role of the
+    # reference's Liger fused cross entropy
+    "ce_rows": dict(
+        route="cuda", source="vila_tpu_torch/csrc/ce_rows_sm90.cu",
+        replaces="none (the port's own LM-head cross-entropy row kernel)"),
 }
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # K1's lm_head work on the batched routes, reported inside its entry:
@@ -765,10 +770,76 @@ def phase_kernels(torch, seed, dev="cuda", dims=DIMS_8B, m_prefill=320, cache=(2
         ok &= good
         ok &= _check_small(torch, quant, fused_decode, results, seed, flush)
         ok &= _check_small(torch, quant, fused_decode, results, seed, flush, group=64)
+        ok &= _check_ce_rows(torch, results, seed, flush)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "kernels.json"), "w") as f:
         json.dump(results, f, indent=1)
     return ok, results
+
+
+# The LM head's row kernel at the sft cell's chunks (NVILA-Lite-2B's vocabulary,
+# 2047 shifted rows in two chunks): (rows, gradient, z_loss, on that main path)
+CE_VOCAB = 152000
+CE_ROWS = ((1024, True, 0.0, True), (1023, True, 0.0, True), (1024, True, 1e-4, False),
+           (1024, False, 0.0, False))
+
+
+def _check_ce_rows(torch, results, seed, flush):
+    """`ce_rows` (`cross_entropy.ce_rows`, one launch of ce_rows_sm90.cu)
+    against `ce_rows_plain` on the card's tensors at `CE_ROWS`: the rows'
+    nll within rtol 1e-6 (atol 1e-5), the probabilities hi + lo + onehot
+    within 3e-5 relative (the few f32 steps of lse that exp(x - lse)
+    carries), ignored rows' gradient 0; each timed beside its plain version
+    and its bound (one read of the scored rows' logits, one write of the
+    bf16 hi / lo gradient). On a generator of its own."""
+    from vila_tpu_torch.constants import IGNORE_INDEX
+    from vila_tpu_torch.ops import cross_entropy as ce
+
+    dev = flush.device
+    gen = torch.Generator(device=dev).manual_seed(seed + 22)
+    ok = True
+    for rows, grad, z, main in CE_ROWS:
+        logits = 4.0 * torch.randn((rows, CE_VOCAB), generator=gen, device=dev)
+        targets = torch.randint(0, CE_VOCAB, (rows,), generator=gen, device=dev)
+        targets[::5] = IGNORE_INDEX
+        fn = lambda: ce.ce_rows(logits, targets, z, grad)  # noqa: E731
+        ref = lambda: ce.ce_rows_plain(logits, targets, z, grad)  # noqa: E731
+        (nll, g2), (want_nll, want_g2) = fn(), ref()
+        nll_gap = float((nll - want_nll).abs().max())
+        good = bool(torch.isfinite(nll).all()) and bool(
+            torch.allclose(nll, want_nll, rtol=1e-6, atol=1e-5))
+        prob_gap = None
+        if grad:
+            keep = targets != IGNORE_INDEX
+            onehot = torch.zeros_like(logits)
+            onehot[keep.nonzero()[:, 0], targets[keep]] = 1.0
+            got = g2[:rows].float() + g2[rows:].float() + onehot
+            want = want_g2[:rows].float() + want_g2[rows:].float() + onehot
+            prob_gap = float(((got - want).abs() / (want.abs() + 1e-30)).max())
+            zero = not g2[:rows][~keep].any() and not g2[rows:][~keep].any()
+            good = good and prob_gap <= 3e-5 and zero
+            del onehot, got, want
+        del nll, g2, want_nll, want_g2
+        ok &= good
+        t = time_ms(torch, fn, 20, flush)
+        t_plain = time_ms(torch, ref, 3, flush)
+        # the kernel reads only the rows it scores (an ignored row's nll is 0)
+        # and writes the gradient of every row
+        valid = int((targets != IGNORE_INDEX).sum())
+        b_ms, b_by = bound(valid * CE_VOCAB * 4 + rows * (8 + 4)
+                           + (2 * rows * CE_VOCAB * 2 if grad else 0), 0, BF16_FLOPS)
+        what = f"{'nll and gradient' if grad else 'nll only'}, z_loss {z:g}"
+        results["ce_rows"].append(dict(
+            shape=f"sft chunk x vocab {CE_VOCAB}, {what}", m=rows, main=main,
+            max_abs_err=nll_gap, prob_gap=prob_gap,
+            tol="nll rtol 1e-6 atol 1e-5; probabilities 3e-5 relative", ok=good, ms=t,
+            plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        log(f"[kernels] ce_rows {rows} x {CE_VOCAB} {what}: nll gap {nll_gap:.3e}"
+            + ("" if prob_gap is None else f", probabilities' gap {prob_gap:.3e}")
+            + f" {'OK' if good else 'FAIL'}  kernel {t:.4f} ms  plain {t_plain:.3f} ms  "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        del logits, targets
+    return ok
 
 
 # The media phases' new shapes: K2 at the prompt buckets of a dynamic-S2
@@ -1642,7 +1713,7 @@ def summarise(results, launches):
         "fused_o_gateup": lambda r: r["m"] == 24,
         "fused_down_qkv": lambda r: r["m"] == 24,
         "fused_layer_batched": lambda r: r["m"] == 8,
-        **{name: (lambda r: r["main"]) for name in FLASH_KERNELS},
+        **{name: (lambda r: r["main"]) for name in FLASH_KERNELS + ("ce_rows",)},
     }
     batched = [dict(work=f"lm_head M={m} ({path})", m=m, path=path,
                     **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -2952,19 +3023,23 @@ class plain_versions:
     W4 wrappers compute their plain versions (`quant._w4_gemv_ref`,
     `_w4_gemm_ref`, `fused_decode._fused_layer_ref`: K1, K2, K3), the
     flash wrappers theirs (`flash_fwd_plain`, `flash_bwd_dq_plain`,
-    `flash_bwd_dkv_plain`: K7, K8, K9) and the fp8 product the f32 product
+    `flash_bwd_dkv_plain`: K7, K8, K9), the LM head's row kernel its own
+    (`cross_entropy.ce_rows_plain`) and the fp8 product the f32 product
     of the same fp8 bytes (`fp8.fp8_mm_plain`, in place of
     `torch._scaled_mm`) on the card's tensors, and no kernel may launch.
     The port's wrappers never do this themselves."""
 
     def __enter__(self):
-        from vila_tpu_torch.ops import _build, flash_attention, fp8, fused_decode, quant
+        from vila_tpu_torch.ops import (_build, cross_entropy, flash_attention, fp8,
+                                        fused_decode, quant)
 
         self.quant, self.fd, self.fa, self.fp8 = quant, fused_decode, flash_attention, fp8
+        self.ce = cross_entropy
         self.saved = (quant.w4_matmul_decode, quant.w4_matmul_prefill, fused_decode.fused_layer,
                       flash_attention.flash_fwd, flash_attention.flash_bwd_dq,
-                      flash_attention.flash_bwd_dkv, fp8._fp8_mm)
+                      flash_attention.flash_bwd_dkv, fp8._fp8_mm, cross_entropy.ce_rows)
         self.before = dict(_build.LAUNCHES)
+        cross_entropy.ce_rows = cross_entropy.ce_rows_plain
         flash_attention.flash_fwd = flash_attention.flash_fwd_plain
         flash_attention.flash_bwd_dq = flash_attention.flash_bwd_dq_plain
         flash_attention.flash_bwd_dkv = flash_attention.flash_bwd_dkv_plain
@@ -2982,7 +3057,7 @@ class plain_versions:
 
         (self.quant.w4_matmul_decode, self.quant.w4_matmul_prefill, self.fd.fused_layer,
          self.fa.flash_fwd, self.fa.flash_bwd_dq, self.fa.flash_bwd_dkv,
-         self.fp8._fp8_mm) = self.saved
+         self.fp8._fp8_mm, self.ce.ce_rows) = self.saved
         if exc[0] is None and dict(_build.LAUNCHES) != self.before:
             raise RuntimeError("a kernel launched inside plain_versions")
         return False
@@ -5412,7 +5487,8 @@ def phase_train(torch, seed, cfg=None, dev="cuda", steps=6, save_steps=3, seq=20
             f"(set-up {t_init:.1f} s; checkpoint saves "
             f"{', '.join(f'{k}: {v:.1f} s' for k, v in saves.items())}); peak allocated "
             f"{peak / 2**30:.2f} GiB; launches {launches}; moved {moved}")
-        want = dict(_no_launches(), **{k: layers * n_steps for k in FLASH_KERNELS})
+        want = dict(_no_launches(), **{k: layers * n_steps for k in FLASH_KERNELS},
+                    **want_ce(n_steps, seq - 1, cfg.llm.vocab_size))
         good = (launches == want and all(moved.values()) and len(rows) == n_steps
                 and all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                         for r in rows))
@@ -5591,7 +5667,8 @@ def phase_train_consistency(torch, seed, cfg=None, card="cuda", seq=512, batch=N
                                    for n, (p, _) in named.items()})
             del params, state, opt
     card, host = out["card"], out["plain"]
-    want = dict(_no_launches(), **{k: layers for k in FLASH_KERNELS})
+    want = dict(_no_launches(), **{k: layers for k in FLASH_KERNELS},
+                **want_ce(1, loss_rows(batch), cfg.llm.vocab_size))
     ok = card["launches"] == want and all(v == 0 for v in host["launches"].values())
     rel_loss = abs(card["loss"] - host["loss"]) / abs(host["loss"])
     rel_gn = abs(card["grad_norm"] - host["grad_norm"]) / abs(host["grad_norm"])
@@ -5718,7 +5795,8 @@ def phase_train_media(torch, seed, cfg=None, dev="cuda", steps=3, seq=2048,
         del params, state, opt
         gc.collect()
         torch.cuda.empty_cache()
-        want = dict(_no_launches(), **{k: layers * steps for k in FLASH_KERNELS})
+        want = dict(_no_launches(), **{k: layers * steps for k in FLASH_KERNELS},
+                    **want_ce(steps, loss_rows(batch), cfg.llm.vocab_size))
         ok = (launches == want and peak < 80e9 and all(
             math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows))
         steady = rows[1:] or rows
@@ -5764,6 +5842,24 @@ def want_flash(forwards, backwards, layers):
     backward passes of `layers` LLM layers (one launch each a layer)."""
     return {"flash_fwd": forwards * layers, "flash_bwd_dq": backwards * layers,
             "flash_bwd_dkv": backwards * layers}
+
+
+def want_ce(losses, rows, vocab, chunk=None):
+    """Launches of the LM head's row kernel (`ce_rows`) for `losses` fused
+    losses (`train.losses.chunked_causal_lm_loss` on a dense bf16 head, no
+    vocabulary split) over `rows` rows each, in chunks of `chunk` rows
+    (`cross_entropy.chunk_rows`' for None). The paths that take the
+    logits instead (`loss_eval`, DPO's and PPO's log-probabilities, the
+    reward model's value head, tp's vocabulary split) launch none."""
+    from vila_tpu_torch.ops.cross_entropy import chunk_rows
+
+    return {"ce_rows": losses * -(-rows // (chunk or chunk_rows(rows, vocab)))}
+
+
+def loss_rows(batch):
+    """The shifted rows of a batch's loss: each row's tokens less one."""
+    n_rows, row_len = batch["input_ids"].shape
+    return n_rows * (row_len - 1)
 
 
 class NormedOptimizer:
@@ -6010,7 +6106,8 @@ def phase_train_fp8(torch, seed, master, dev="cuda", steps=3, seq=2048, cfg=None
                           if isinstance(t, torch.Tensor))
         adamw_bytes = 8 * n_params
         rel0 = _rel_diff(rows[0]["loss"], bf16_loss)
-        want = dict(_no_launches(), **want_flash(steps, steps, layers))
+        want = dict(_no_launches(), **want_flash(steps, steps, layers),
+                    **want_ce(steps, loss_rows(batch), cfg.llm.vocab_size))
         good = (_finite(rows, ("loss", "grad_norm")) and rel0 <= 0.02
                 and launches[tag] == want and state_bytes < 0.3 * adamw_bytes and peak < 80e9)
         ok &= good
@@ -6108,7 +6205,8 @@ def phase_train_lora(torch, seed, master, dev="cuda", steps=3, seq=2048, cfg=Non
             h_merged = vlm.forward_batch(merged, cfg, batch, return_hidden=True)
         merge_same = bool(torch.equal(h_lora, h_merged))
         del merged, h_lora, h_merged
-        want = dict(_no_launches(), **want_flash(steps, steps, layers))
+        want = dict(_no_launches(), **want_flash(steps, steps, layers),
+                    **want_ce(steps, loss_rows(batch), cfg.llm.vocab_size))
         good = (identity and base_same and moved and merge_same and launches[tag] == want
                 and _finite(rows, ("loss", "grad_norm")) and peak < 80e9)
         ok &= good
@@ -6515,7 +6613,8 @@ def phase_train_ps3(torch, seed, dev="cuda", steps=2, seq=1024, cfg=None, check_
     del params, state, opt, llm_before, tower_before
     gc.collect()
     torch.cuda.empty_cache()
-    want = dict(_no_launches(), **want_flash(steps, steps, layers))
+    want = dict(_no_launches(), **want_flash(steps, steps, layers),
+                **want_ce(steps, loss_rows(batch), cfg.llm.vocab_size))
     ok = (_finite(rows, ("loss", "token_selection_loss", "grad_norm")) and frozen and moved
           and launches == want and peak < 80e9)
     fill = float(batch_np["segment_ids"].astype(bool).mean())
@@ -6738,7 +6837,8 @@ def phase_train_data(torch, seed, dev="cuda", cfg=None, steps=3, seq=2048, fill=
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t1
         launches = dict(_build.LAUNCHES)
-        want = dict(_no_launches(), **want_flash(steps, steps, layers))
+        want = dict(_no_launches(), **want_flash(steps, steps, layers),
+                    **want_ce(steps, seq - 1, cfg.llm.vocab_size))
         ref = _batch_iterator(mixture(), collator, per_step, seed)
         equal = []
         for got in seen:
@@ -7150,7 +7250,8 @@ def phase_extend(torch, seed, base=None, dev="cuda", seq=EXTEND_SEQ, steps=EXTEN
     torch.cuda.empty_cache()
     step_s = [b - a for a, b in zip(walls, walls[1:])]
     want = dict(_no_launches(), flash_fwd=2 * steps * layers, flash_bwd_dq=steps * layers,
-                flash_bwd_dkv=steps * layers)
+                flash_bwd_dkv=steps * layers,
+                **want_ce(steps, seq, cfg.vocab_size, chunk=args.ce_chunk_size))
     ok = all(math.isfinite(x) for x in losses) and launches == want
     log(f"[extend] Qwen2-7B bf16, {layers} layers, LoRA rank 16, remat, rope_theta "
         f"{ext_cfg.rope_theta:g}, {steps} steps of {seq} tokens: losses {losses}; step wall "

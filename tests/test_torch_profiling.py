@@ -167,7 +167,7 @@ def test_train_step_spans_inside_a_trace(tmp_path):
         by.setdefault(s.name, []).append(s)
     assert {n: len(v) for n, v in by.items()} == {
         "data.collate": 1, "train.to_device": 1, "train.step": 1, "train.forward": 1,
-        "train.backward": 1, "train.update": 1, "model.vision": 1}
+        "train.backward": 1, "train.update": 1, "model.vision": 1, "train.lm_head": 1}
     (col,), (dev,), (step,) = by["data.collate"], by["train.to_device"], by["train.step"]
     assert col.end <= dev.start and dev.end <= step.start
     seg = batch["segment_ids"]
@@ -181,6 +181,9 @@ def test_train_step_spans_inside_a_trace(tmp_path):
     assert all(a.end <= b.start for a, b in zip(phases, phases[1:]))
     assert by["model.vision"][0].parent == phases[0].id
     assert by["model.vision"][0].attrs == {"tiles": 2}
+    (head,) = by["train.lm_head"]  # the CPU's logits route: its forward alone
+    assert head.parent == phases[0].id and by["model.vision"][0].end <= head.start
+    assert head.attrs == {"route": "logits", "tokens": 63, "chunks": 1}
     with open(tmp_path / "trace.json") as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {"data.collate", "train.step", "train.forward", "train.backward"} <= names

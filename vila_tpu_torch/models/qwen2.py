@@ -705,23 +705,35 @@ def embed_tokens(params: Params, cfg: LLMConfig, input_ids: torch.Tensor, tp=Non
     return emb[ids.long()].to(cfg.compute_dtype)
 
 
+def head_weight(params: Params, cfg: LLMConfig) -> torch.Tensor:
+    """The dense output projection (D, V) in the compute dtype: the tied
+    embedding's transpose or the untied lm_head kernel."""
+    if cfg.tie_word_embeddings:
+        w = params["embed_tokens"]["embedding"].T
+    else:
+        w = params["lm_head"]["kernel"]
+    return w.to(cfg.compute_dtype)
+
+
 def compute_logits(params: Params, cfg: LLMConfig, hidden: torch.Tensor, tp=None):
     """Vocabulary logits in float32 (products in the compute dtype,
-    accumulated in float32); the untied lm_head may be a W4 slot. Under a
-    tp plan that splits the vocabulary, this rank's columns of them
-    (vocab parallel; `hidden` replicated)."""
+    accumulated in float32); the untied lm_head may be a W4 slot. On the
+    card a bf16 head is one tensor-core product with f32 output
+    (`ops.cross_entropy.head_logits`), elsewhere the f32 product of the
+    compute-dtype values. Under a tp plan that splits the vocabulary, this
+    rank's columns of them (vocab parallel; `hidden` replicated)."""
     from vila_tpu_torch.parallel import tensor_parallel as tpl
 
     vp = tpl.vocab_plan(tp, cfg.vocab_size)
     if vp is not None:
         hidden = tpl.copy_to(hidden, vp)
-    if cfg.tie_word_embeddings:
-        w = params["embed_tokens"]["embedding"].T
-    elif "packed" in params["lm_head"]:
+    if not cfg.tie_word_embeddings and "packed" in params["lm_head"]:
         from vila_tpu_torch.ops.quant import quantized_linear
 
         return quantized_linear(hidden, params["lm_head"], cfg.compute_dtype).float()
-    else:
-        w = params["lm_head"]["kernel"]
-    dtype = cfg.compute_dtype
-    return hidden.to(dtype).float() @ w.to(dtype).float()
+    from vila_tpu_torch.ops.cross_entropy import head_logits, tensor_core_head
+
+    w = head_weight(params, cfg)
+    if tensor_core_head(hidden.device, w.dtype, vp):
+        return head_logits(hidden.to(w.dtype), w)
+    return hidden.to(w.dtype).float() @ w.float()

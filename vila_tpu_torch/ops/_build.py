@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("w4_gemv_sm90.cu", "w4_gemv_mma.cu", "w4_gemm_sm90.cu", "decode_layer_sm90.cu",
-           "w4_pair_sm90.cu", "decode_attn.cu", "flash_attn_sm90.cu")
+           "w4_pair_sm90.cu", "decode_attn.cu", "flash_attn_sm90.cu", "ce_rows_sm90.cu")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -38,13 +38,13 @@ _lock = threading.Lock()
 # (`count`) where it launches its kernel on the card (K1 w4_matmul_decode,
 # K2 w4_matmul_prefill, K3 fused_layer, K4 fused_o_gateup, K5
 # fused_down_qkv, K6 fused_layer_batched, K7 flash_fwd, K8 flash_bwd_dq,
-# K9 flash_bwd_dkv; and K2's products alone, bf16_matmul_dots, on no
-# path), and nowhere else. The serving loop and its admission
+# K9 flash_bwd_dkv; the LM head's cross-entropy rows, ce_rows; and K2's
+# products alone, bf16_matmul_dots, on no path), and nowhere else. The serving loop and its admission
 # thread both launch, hence the lock.
 LAUNCHES: Dict[str, int] = {
     "w4_gemv": 0, "w4_gemm": 0, "w4_gemm_dots": 0, "fused_layer": 0,
     "fused_o_gateup": 0, "fused_down_qkv": 0, "fused_layer_batched": 0,
-    "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ce_rows": 0,
 }
 _count_lock = threading.Lock()
 

@@ -15,13 +15,14 @@ on every tp rank.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from vila_tpu_torch.constants import IGNORE_INDEX
+from vila_tpu_torch.utils import profiling
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor, z_loss: float, tp=None):
@@ -67,43 +68,80 @@ def _chunk_nll(hc, tc, llm_params, llm_cfg, z_loss, tp):
     return nll.sum(), valid.sum()
 
 
+def fused_route(device: torch.device, llm_params, llm_cfg, vp=None) -> bool:
+    """Whether the LM head and its loss take the fused route
+    (`ops.cross_entropy.lm_head_nll`): a dense head (the tied embedding or
+    an untied kernel, not a W4 slot) whose products take the tensor cores
+    (`cross_entropy.tensor_core_head`: hidden states on the card, bf16
+    compute, no vocabulary split `vp`, the `vocab_plan`)."""
+    from vila_tpu_torch.ops.cross_entropy import tensor_core_head
+
+    dense = llm_cfg.tie_word_embeddings or "kernel" in llm_params["lm_head"]
+    return dense and tensor_core_head(device, llm_cfg.compute_dtype, vp)
+
+
 def chunked_causal_lm_loss(
     hidden: torch.Tensor,  # (B, S, D) final hidden states (before lm_head)
     llm_params,
     llm_cfg,
     labels: torch.Tensor,  # (B, S) int with IGNORE_INDEX masking
-    chunk_size: int = 1024,
+    chunk_size: Optional[int] = 1024,
     z_loss: float = 0.0,
     shift: bool = True,
     tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Cross entropy over sequence chunks of `chunk_size` tokens: each
-    chunk's vocabulary projection and loss run under
+    """The LM head and its cross entropy from the final hidden states.
+    Where `fused_route` holds, the fused route: chunks of `chunk_size` rows
+    (`cross_entropy.chunk_rows` for None), every product on the tensor
+    cores and no (B*S, V) logits kept. Elsewhere, with a `chunk_size`, each
+    chunk of that many tokens runs its vocabulary projection and loss under
     `torch.utils.checkpoint`, so the backward recomputes that chunk's logits
-    and peak memory holds one chunk's (chunk, V) logits, not (B*S, V).
-    With `tp` (the plan of `qwen2.forward`) each chunk's logits are vocab
-    parallel."""
+    and peak memory holds one chunk's (chunk, V) logits, not (B*S, V); with
+    None, `causal_lm_loss` over the whole logits. With `tp` (the plan of
+    `qwen2.forward`) the logits are vocab parallel. Span `train.lm_head`
+    (tokens, chunks, route "fused" or "logits") over the forward, and over
+    the fused route's backward."""
+    from vila_tpu_torch.models import qwen2
+    from vila_tpu_torch.ops import cross_entropy
     from vila_tpu_torch.parallel.tensor_parallel import vocab_plan
 
     tp = vocab_plan(tp, llm_cfg.vocab_size)
-    b, s, d = hidden.shape
+    d = hidden.shape[-1]
     labels = labels.to(hidden.device)
     if shift:
         h, t = hidden[:, :-1].reshape(-1, d), labels[:, 1:].reshape(-1)
     else:
         h, t = hidden.reshape(-1, d), labels.reshape(-1)
-    pad = (-h.shape[0]) % chunk_size
-    if pad:
-        h = F.pad(h, (0, 0, 0, pad))
-        t = F.pad(t, (0, pad), value=IGNORE_INDEX)
-    total = hidden.new_zeros((), dtype=torch.float32)
-    count = torch.zeros((), dtype=torch.int64, device=hidden.device)
-    for c in range(0, h.shape[0], chunk_size):
-        nll, nv = checkpoint(_chunk_nll, h[c:c + chunk_size], t[c:c + chunk_size],
-                             llm_params, llm_cfg, z_loss, tp, use_reentrant=False)
-        total = total + nll
-        count = count + nv
-    return total / count.clamp(min=1), count
+    fused = fused_route(hidden.device, llm_params, llm_cfg, tp)
+    with profiling.annotate("train.lm_head", route="fused" if fused else "logits",
+                            tokens=h.shape[0]) as span:
+        if fused:
+            chunk = chunk_size or cross_entropy.chunk_rows(h.shape[0], llm_cfg.vocab_size)
+            w = qwen2.head_weight(llm_params, llm_cfg)
+            count = (t != IGNORE_INDEX).sum()
+            loss = cross_entropy.lm_head_nll(h.to(w.dtype), w, t, z_loss, chunk) \
+                / count.clamp(min=1)
+        elif chunk_size is None:
+            chunk = h.shape[0]
+            loss, count = causal_lm_loss(qwen2.compute_logits(llm_params, llm_cfg, hidden, tp=tp),
+                                         labels, z_loss, shift, tp)
+        else:
+            chunk = chunk_size
+            pad = (-h.shape[0]) % chunk_size
+            if pad:
+                h = F.pad(h, (0, 0, 0, pad))
+                t = F.pad(t, (0, pad), value=IGNORE_INDEX)
+            total = hidden.new_zeros((), dtype=torch.float32)
+            count = torch.zeros((), dtype=torch.int64, device=hidden.device)
+            for c in range(0, h.shape[0], chunk_size):
+                nll, nv = checkpoint(_chunk_nll, h[c:c + chunk_size], t[c:c + chunk_size],
+                                     llm_params, llm_cfg, z_loss, tp, use_reentrant=False)
+                total = total + nll
+                count = count + nv
+            loss = total / count.clamp(min=1)
+        if span:
+            span.set(chunks=-(-h.shape[0] // chunk))
+    return loss, count
 
 
 def _chunk_logp(hc, tc, llm_params, llm_cfg, tp=None):

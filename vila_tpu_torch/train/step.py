@@ -39,11 +39,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from vila_tpu_torch.models import vlm
-from vila_tpu_torch.train.losses import (
-    causal_lm_loss,
-    chunked_causal_lm_loss,
-    token_selection_loss,
-)
+from vila_tpu_torch.train.losses import chunked_causal_lm_loss, token_selection_loss
 from vila_tpu_torch.train.optimizer import (
     Optimizer,
     OptState,
@@ -56,25 +52,22 @@ from vila_tpu_torch.utils.device import host_to_device
 
 
 def _loss_parts(params, cfg, batch, ce_chunk_size, attn_impl, sp, tp):
-    """(LM loss, its token count, the PS3 selection loss or None)."""
-    from vila_tpu_torch.parallel.tensor_parallel import vocab_plan
-
+    """(LM loss, its token count, the PS3 selection loss or None). The
+    forward stops at the final hidden states; `chunked_causal_lm_loss`
+    takes the LM head from there (fused on the card, chunked with
+    `ce_chunk_size`, else over the whole logits)."""
     shift = not (sp is not None and sp.active)
     ps3 = cfg.vision_tower_type == "ps3"
     sel_probs = []
     if ps3:
         out, sel_probs = vlm.forward_batch_ps3(params, cfg, batch, attn_impl=attn_impl,
-                                               return_hidden=bool(ce_chunk_size), sp=sp, tp=tp)
+                                               return_hidden=True, sp=sp, tp=tp)
     else:
-        out = vlm.forward_batch(params, cfg, batch, attn_impl=attn_impl,
-                                return_hidden=bool(ce_chunk_size), sp=sp, tp=tp)
-    if ce_chunk_size:
-        loss, n_tokens = chunked_causal_lm_loss(
-            out, params["llm"], cfg.llm, batch["labels"], chunk_size=ce_chunk_size,
-            shift=shift, tp=tp)
-    else:
-        loss, n_tokens = causal_lm_loss(out, batch["labels"], shift=shift,
-                                        tp=vocab_plan(tp, cfg.llm.vocab_size))
+        out = vlm.forward_batch(params, cfg, batch, attn_impl=attn_impl, return_hidden=True,
+                                sp=sp, tp=tp)
+    loss, n_tokens = chunked_causal_lm_loss(out, params["llm"], cfg.llm, batch["labels"],
+                                            chunk_size=ce_chunk_size or None, shift=shift,
+                                            tp=tp)
     sel = None
     if ps3 and sel_probs and batch.get("gt_selection_maps") is not None:
         gt = batch["gt_selection_maps"]
