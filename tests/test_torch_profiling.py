@@ -180,7 +180,7 @@ def test_train_step_spans_inside_a_trace(tmp_path):
     assert step.start <= phases[0].start and phases[-1].end <= step.end
     assert all(a.end <= b.start for a, b in zip(phases, phases[1:]))
     assert by["model.vision"][0].parent == phases[0].id
-    assert by["model.vision"][0].attrs == {"tiles": 2}
+    assert by["model.vision"][0].attrs == {"tiles": 2, "frames": 2}
     (head,) = by["train.lm_head"]  # the CPU's logits route: its forward alone
     assert head.parent == phases[0].id and by["model.vision"][0].end <= head.start
     assert head.attrs == {"route": "logits", "tokens": 63, "chunks": 1}

@@ -490,3 +490,80 @@ def ps3_steps(mesh_axes, cfg, params, batch, optim, steps=2, weight=1.0):
         rows.append((float(m["loss"]), float(m["token_selection_loss"]), float(m["grad_norm"])))
     return rows, _tree(mesh_lib.gather_params(sh, dims, mesh), _np)
 
+
+
+def _media_model(config, seed):
+    """A port_bench configuration's program config (f32) and its seeded
+    weights (`port_bench/weights.py`), on the CPU."""
+    import torch
+
+    from port_bench import program, weights
+
+    cfg = program.vlm_config(config, "float32", config["image_aspect_ratio"])
+    return cfg, weights.vlm_tree(torch, config, seed, torch.device("cpu"), torch.float32)
+
+
+def media_sp(mesh_axes, config, seed, batch, layout):
+    """The VLM loss over this rank's part of a collated batch under an
+    active sp plan (each rank encodes its share of the tiles): (global
+    loss, every leaf's gradient summed over the ranks, the rank's spans
+    `model.vision`, `parallel.media_gather` and `parallel.ring` with their
+    attributes, recorded under `profiling.recording()`)."""
+    import torch
+    import torch.distributed as dist
+
+    from vila_tpu_torch.parallel import distributed
+    from vila_tpu_torch.parallel.sp import SPConfig, layout_batch
+    from vila_tpu_torch.train.optimizer import leaves
+    from vila_tpu_torch.train.step import batch_to_device, loss_fn
+    from vila_tpu_torch.utils import profiling
+
+    mesh = _mesh(**mesh_axes)
+    cfg, params = _media_model(config, seed)
+    for t in leaves(params):
+        t.requires_grad_(True)
+    sp = SPConfig(mesh=mesh, ring_layout=layout)
+    local = distributed.host_local_batch(layout_batch(batch, sp), mesh)
+    seen = len(profiling.recorded())  # spans of the cases before
+    with profiling.recording():
+        loss, metrics = loss_fn(params, cfg, batch_to_device(local, torch.device("cpu")), sp=sp)
+        n = metrics["n_tokens"].to(torch.float32)
+        total = n.clone()
+        dist.all_reduce(total)
+        part = loss * n / total
+        part.backward()
+    spans = [(s.name, s.attrs) for s in profiling.recorded()[seen:]
+             if s.name in ("model.vision", "parallel.media_gather", "parallel.ring")]
+    out = part.detach().clone()
+    dist.all_reduce(out)
+    grads = _tree(params, lambda t: torch.zeros_like(t) if t.grad is None else t.grad)
+    for g in _tree_leaves(grads):
+        dist.all_reduce(g)
+    return float(out), _tree(grads, _np), spans
+
+
+def media_sharded_step(mesh_axes, config, seed, batch, layout):
+    """One ZeRO-3 step of `make_sharded_train_step` under recording: the
+    global loss and the names and attributes of this rank's ZeRO-3
+    spans."""
+    import torch
+
+    from vila_tpu_torch.parallel import distributed
+    from vila_tpu_torch.parallel.sp import SPConfig, layout_batch
+    from vila_tpu_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from vila_tpu_torch.train.step import batch_to_device, make_sharded_train_step
+    from vila_tpu_torch.utils import profiling
+
+    mesh = _mesh(**mesh_axes)
+    cfg, params = _media_model(config, seed)
+    opt = make_optimizer(OptimizerConfig(learning_rate=1e-3, warmup_ratio=0.0, total_steps=10))
+    step, shards, state, _ = make_sharded_train_step(cfg, params, opt, mesh, sp_attention=True,
+                                                     ring_layout=layout)
+    local = distributed.host_local_batch(
+        layout_batch(batch, SPConfig(mesh=mesh, ring_layout=layout)), mesh)
+    seen = len(profiling.recorded())
+    with profiling.recording():
+        _, _, metrics = step(shards, state, batch_to_device(local, torch.device("cpu")))
+    spans = [(s.name, s.attrs) for s in profiling.recorded()[seen:]
+             if s.name.startswith("parallel.zero_")]
+    return float(metrics["loss"]), spans

@@ -442,7 +442,7 @@ def forward(
         elif sp_on:
             from vila_tpu_torch.parallel.sp import sp_attention
 
-            attn = sp_attention(q, k, v, sp, causal=True, segment_ids=segment_ids)
+            attn = sp_attention(q, k, v, sp, causal=True, segment_ids=segment_ids, layer=l)
         else:
             attn = multi_head_attention(
                 q, k, v, causal=True, q_segment_ids=segment_ids,

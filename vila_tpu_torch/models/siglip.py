@@ -6,6 +6,9 @@ vision recipe: int8 weights and dynamic per-token int8 activations,
 The stride == kernel patch convolution is one matmul on pre-patchified
 pixels; `feature_layer=-2` runs the encoder only up to the requested layer.
 Layer parameters are stacked on a leading axis, as in the JAX package.
+With `remat` a training forward recomputes each layer in the backward and
+runs the tiles in groups of `REMAT_TILES`, so that a long video's frames
+keep one layer input each rather than every attention matrix.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from vila_tpu_torch.ops.quant import quantize_w8a8, w8a8_linear
 from vila_tpu_torch.utils.device import host_to_device
 
 Params = Dict[str, Any]
+
+REMAT_TILES = 8  # tiles a recomputed forward encodes at a time
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,8 +180,10 @@ def embed_pixels(params: Params, cfg: SigLIPConfig, pixel_values: torch.Tensor):
 
 
 def encode_tokens(params: Params, cfg: SigLIPConfig, h: torch.Tensor, *,
-                  feature_layer: int = -2, attn_impl: str = "auto", tp=None) -> torch.Tensor:
-    """The encoder trunk over a token sequence, up to `feature_layer`.
+                  feature_layer: int = -2, attn_impl: str = "auto", tp=None,
+                  remat: bool = False) -> torch.Tensor:
+    """The encoder trunk over a token sequence, up to `feature_layer`
+    (`remat`: each layer recomputed in the backward).
     Under a tp plan (`parallel/tensor_parallel.py`) the layer weights are
     this rank's tp chunks (`parallel.mesh.siglip_param_specs`): q, k, v and
     fc1 column parallel (their biases split with them), out_proj and fc2
@@ -206,7 +213,7 @@ def encode_tokens(params: Params, cfg: SigLIPConfig, h: torch.Tensor, *,
     # tensor instead of summing a full-size one per layer
     layers = {name: {k: v.unbind(0) for k, v in slot.items()}
               for name, slot in params["layers"].items()}
-    for l in range(n_run):
+    def layer_fn(h, l):
         lp = {name: {k: v[l] for k, v in slot.items()} for name, slot in layers.items()}
         x = layer_norm(h, lp["layer_norm1"]["scale"], lp["layer_norm1"]["bias"],
                        cfg.layer_norm_eps)
@@ -225,7 +232,17 @@ def encode_tokens(params: Params, cfg: SigLIPConfig, h: torch.Tensor, *,
                        cfg.layer_norm_eps)
         xc = tpl.copy_to(x, tp) if split_i else x
         x = torch.nn.functional.gelu(_linear(xc, lp["fc1"], dtype), approximate="tanh")
-        h = h + row(x, lp["fc2"], split_i)
+        return h + row(x, lp["fc2"], split_i)
+
+    body = layer_fn
+    if remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+
+        def body(h, l):
+            return checkpoint(layer_fn, h, l, use_reentrant=False)
+
+    for l in range(n_run):
+        h = body(h, l)
     if n_run == L:
         h = layer_norm(h, params["post_layernorm"]["scale"],
                        params["post_layernorm"]["bias"], cfg.layer_norm_eps)
@@ -234,11 +251,20 @@ def encode_tokens(params: Params, cfg: SigLIPConfig, h: torch.Tensor, *,
 
 def forward(params: Params, cfg: SigLIPConfig, pixel_values: torch.Tensor, *,
             feature_layer: int = -2, select: str = "cls_patch",
-            attn_impl: str = "auto", tp=None) -> torch.Tensor:
+            attn_impl: str = "auto", tp=None, remat: bool = False) -> torch.Tensor:
     """Run the tower up to `feature_layer` (HF hidden_states indexing) and
-    return the selected patch features (`tp`: `encode_tokens`)."""
+    return the selected patch features (`tp`: `encode_tokens`). With
+    `remat` a forward under autograd recomputes each layer in the backward
+    and encodes `REMAT_TILES` tiles at a time."""
+    n = pixel_values.shape[0]
+    if remat and torch.is_grad_enabled() and n > REMAT_TILES:
+        return torch.cat([forward(params, cfg, pixel_values[i:i + REMAT_TILES],
+                                  feature_layer=feature_layer, select=select,
+                                  attn_impl=attn_impl, tp=tp, remat=True)
+                          for i in range(0, n, REMAT_TILES)])
     h = embed_pixels(params, cfg, pixel_values)
-    h = encode_tokens(params, cfg, h, feature_layer=feature_layer, attn_impl=attn_impl, tp=tp)
+    h = encode_tokens(params, cfg, h, feature_layer=feature_layer, attn_impl=attn_impl, tp=tp,
+                      remat=remat)
     if select == "patch":
         h = h[:, 1:]
     elif select != "cls_patch":

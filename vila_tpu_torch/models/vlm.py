@@ -95,17 +95,24 @@ def init_params(generator: torch.Generator, cfg: VLMConfig,
     }
 
 
-def encode_images(params: Params, cfg: VLMConfig, pixel_values: torch.Tensor, tp=None):
+def encode_images(params: Params, cfg: VLMConfig, pixel_values: torch.Tensor, tp=None,
+                  frames: Optional[int] = None, remat: bool = False):
     """(N, H, W, 3) pixels -> (N, tokens_per_image, llm_hidden); PS3 towers
     take two pixel scales and encode through `encode_images_ps3`. `tp`: a
     SigLIP tower's tensor-parallel plan (`siglip.encode_tokens`). Span:
-    `model.vision`, with its tiles."""
+    `model.vision`, with its tiles and the `frames` among them that are
+    real (all of them unless given: a rank's share of a sequence-parallel
+    batch is padded with blank tiles). `remat` (a SigLIP tower's): each
+    layer recomputed in the backward (`siglip.forward`)."""
     if cfg.vision_tower_type == "ps3":
         raise ValueError("PS3 towers use encode_images_ps3 (two pixel scales)")
     kw = {"tp": tp} if tp is not None else {}
+    if remat:
+        kw["remat"] = True
     with profiling.annotate("model.vision") as span:
         if span:
-            span.set(tiles=int(pixel_values.shape[0]))
+            n = int(pixel_values.shape[0])
+            span.set(tiles=n, frames=n if frames is None else frames)
         feats = vision_module(cfg).forward(
             params["vision_tower"], cfg.vision, pixel_values,
             feature_layer=cfg.vision_feature_layer, select=cfg.vision_select, **kw,
@@ -191,6 +198,23 @@ def forward(
     )
 
 
+def _encode_share(params: Params, cfg: VLMConfig, pixels: torch.Tensor, sp, tp):
+    """(N, tokens_per_image, llm_hidden) features of N tiles of which this
+    rank encodes its share (`parallel.sp.frame_share`) and gathers the
+    rest from the sequence group (`parallel.sp.gather_media`); the tower is
+    recomputed in the backward where the LLM is."""
+    from vila_tpu_torch.parallel import sp as sp_lib
+
+    n = pixels.shape[0]
+    start, stop, per = sp_lib.frame_share(n, sp)
+    share = pixels[start:stop]
+    if stop - start < per:  # blank tiles fill the share; no position takes them
+        share = torch.cat([share, share.new_zeros((per - (stop - start),) + share.shape[1:])])
+    feats = encode_images(params, cfg, share, tp=tp, frames=stop - start,
+                          remat=bool(cfg.llm.remat))
+    return sp_lib.gather_media(feats, sp, stop - start)[:n]
+
+
 def _splice_batch(embeds: torch.Tensor, feats: torch.Tensor, batch) -> torch.Tensor:
     """Per-row features (B, M, D) into their row-local media positions."""
     b, s = embeds.shape[:2]
@@ -215,7 +239,9 @@ def forward_batch(params: Params, cfg: VLMConfig, batch: Dict[str, torch.Tensor]
     tokens_per_image. `attn_impl` picks the LLM's attention route. With
     `sp` (an active `parallel.sp.SPConfig`) the batch is this rank's shard
     (`parallel.distributed.host_local_batch`): its media positions local
-    to its sequence slice, the LLM's attention sequence parallel. With `tp`
+    to its sequence slice, the LLM's attention sequence parallel, and the
+    rows' tiles encoded an even share a rank of the sequence group, their
+    features gathered over it (`_encode_share`). With `tp`
     (an active `parallel.tensor_parallel.TPConfig`) the LLM's and a SigLIP
     tower's weights are this rank's tp chunks and the logits its
     vocabulary columns (`qwen2.forward`); the projector's and any other
@@ -229,8 +255,12 @@ def forward_batch(params: Params, cfg: VLMConfig, batch: Dict[str, torch.Tensor]
     embeds = qwen2.embed_tokens(params["llm"], cfg.llm, input_ids, tp=tp)
     pixels = batch.get("pixel_values")
     if pixels is not None:
-        feats = encode_images(params, cfg, pixels.reshape((-1,) + pixels.shape[2:]),
-                              tp=tp if cfg.vision_tower_type == "siglip" else None)
+        tiles = pixels.reshape((-1,) + pixels.shape[2:])
+        tower_tp = tp if cfg.vision_tower_type == "siglip" else None
+        if sp is not None and sp.active:
+            feats = _encode_share(params, cfg, tiles, sp, tower_tp)
+        else:
+            feats = encode_images(params, cfg, tiles, tp=tower_tp)
         embeds = _splice_batch(embeds, feats.reshape(b, -1, feats.shape[-1]), batch)
     out, _ = qwen2.forward(
         params["llm"], cfg.llm, inputs_embeds=embeds,

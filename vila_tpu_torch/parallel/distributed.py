@@ -15,6 +15,7 @@ JAX package's `batch_specs` put on its device (`mesh.Mesh.dp_slice`,
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Dict, Optional
 
@@ -28,13 +29,16 @@ def init_distributed(
     world_size: Optional[int] = None,
     rank: Optional[int] = None,
     backend: Optional[str] = None,
+    timeout: Optional[float] = None,
 ) -> int:
     """Initialise the default process group (idempotent). Returns this
     process's rank.
 
     With no arguments, reads torchrun's environment; without it (no
     `WORLD_SIZE`), a single process needs no group and 0 is returned.
-    `backend` defaults to "nccl" when CUDA is available, else "gloo"."""
+    `backend` defaults to "nccl" when CUDA is available, else "gloo".
+    `timeout` (seconds) bounds each collective's wait (torch's default
+    otherwise)."""
     if dist.is_initialized():
         return dist.get_rank()
     if init_method is None and world_size is None and "WORLD_SIZE" not in os.environ:
@@ -47,6 +51,7 @@ def init_distributed(
         backend=backend, init_method=init_method or "env://",
         world_size=-1 if world_size is None else world_size,
         rank=-1 if rank is None else rank,
+        **({} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}),
     )
     return dist.get_rank()
 

@@ -30,6 +30,10 @@ when `impl` resolves to "flash" (bf16, head dim 128, tensors on the card);
 "xla" is the JAX package's f32 reference, the route it takes off a TPU. On
 CPU tensors "flash" runs the kernels' plain versions. Step selection
 (diag / earlier / later / skip) is host control flow on the ranks' indices.
+
+Spans: `parallel.ring` over each ring call's forward and its backward,
+with the decoder layer (`layer=`), the layout, the rotations and the bytes
+this rank sent.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import torch
 import torch.distributed as dist
 
 from vila_tpu_torch.parallel.mesh import gather_tensor
+from vila_tpu_torch.utils import profiling
 
 _NEG_INF = -1e30
 
@@ -328,58 +333,81 @@ def _ring_fwd(q, k, v, q_seg, kv_seg, group, causal, impl, layout):
     return out, lse
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 class _Ring(torch.autograd.Function):
     """The ring's forward and its O(S_local) backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_seg, kv_seg, group, causal, impl, layout):
-        out, lse = _ring_fwd(q, k, v, q_seg, kv_seg, group, causal, impl, layout)
-        out = out.to(q.dtype)
+    def forward(ctx, q, k, v, q_seg, kv_seg, group, causal, impl, layout, layer=None):
+        n = dist.get_world_size(group)
+        with profiling.annotate("parallel.ring", layer=layer, layout=layout, direction="forward",
+                                rotations=n - 1) as span:
+            out, lse = _ring_fwd(q, k, v, q_seg, kv_seg, group, causal, impl, layout)
+            out = out.to(q.dtype)
+            if span:
+                span.set(bytes=(n - 1) * _nbytes(k, v, kv_seg))
         ctx.save_for_backward(q, k, v, q_seg, kv_seg, out, lse)
-        ctx.args = (group, causal, impl, layout)
+        ctx.args = (group, causal, impl, layout, layer)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, q_seg, kv_seg, out, lse = ctx.saved_tensors
-        group, causal, impl, layout = ctx.args
-        n, my = dist.get_world_size(group), dist.get_rank(group)
-        do = do.to(q.dtype).contiguous()
-        # delta = rowsum(dO * O) over the head dim, (B, Hq, S_local)
-        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-        dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
-        dv = torch.zeros_like(dk)
-        k_cur, v_cur, seg_cur = k, v, kv_seg
-        for step in range(n):
-            dq_p, dk_p, dv_p = _ring_step_bwd(q, k_cur, v_cur, do, lse, delta, q_seg, seg_cur,
-                                              src=(my - step) % n, my=my, causal=causal,
-                                              impl=impl, layout=layout)
-            dq += dq_p
-            dk, dv = dk + dk_p, dv + dv_p
-            # dK/dV travel with their K/V shard; after the last step they are
-            # one hop from the shard's owner
-            if step < n - 1:
-                k_cur, v_cur, seg_cur, dk, dv = _rotate((k_cur, v_cur, seg_cur, dk, dv), group)
-            else:
-                dk, dv = _rotate((dk, dv), group)
-        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None,
-                None)
+        saved = ctx.saved_tensors  # read once: a recomputed forward's unpack only once
+        group, causal, impl, layout, layer = ctx.args
+        n = dist.get_world_size(group)
+        with profiling.annotate("parallel.ring", layer=layer, layout=layout, direction="backward",
+                                rotations=n) as span:
+            grads = _ring_bwd(do, *saved, group, causal, impl, layout)
+            if span:
+                k, v, kv_seg = saved[1], saved[2], saved[4]
+                acc = 2 * k.numel() * 4  # dK and dV travel in f32
+                span.set(bytes=(n - 1) * (_nbytes(k, v, kv_seg) + acc) + acc)
+        return grads + (None,) * 7
+
+
+def _ring_bwd(do, q, k, v, q_seg, kv_seg, out, lse, group, causal, impl, layout):
+    """(dq, dk, dv) of the ring: K/V rotate again with their accumulators."""
+    n, my = dist.get_world_size(group), dist.get_rank(group)
+    do = do.to(q.dtype).contiguous()
+    # delta = rowsum(dO * O) over the head dim, (B, Hq, S_local)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    k_cur, v_cur, seg_cur = k, v, kv_seg
+    for step in range(n):
+        dq_p, dk_p, dv_p = _ring_step_bwd(q, k_cur, v_cur, do, lse, delta, q_seg, seg_cur,
+                                          src=(my - step) % n, my=my, causal=causal,
+                                          impl=impl, layout=layout)
+        dq += dq_p
+        dk, dv = dk + dk_p, dv + dv_p
+        # dK/dV travel with their K/V shard; after the last step they are
+        # one hop from the shard's owner
+        if step < n - 1:
+            k_cur, v_cur, seg_cur, dk, dv = _rotate((k_cur, v_cur, seg_cur, dk, dv), group)
+        else:
+            dk, dv = _rotate((dk, dv), group)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, group, *,
                          causal: bool = True, q_segment_ids: Optional[torch.Tensor] = None,
                          kv_segment_ids: Optional[torch.Tensor] = None, impl: str = "auto",
-                         layout: str = "contiguous") -> torch.Tensor:
+                         layout: str = "contiguous", layer: Optional[int] = None) -> torch.Tensor:
     """Exact attention over a sequence sharded over `group`;
     differentiable. q (B, S_local, Hq, D), k / v (B, S_local, Hkv, D),
-    segment ids (B, S_local) int32."""
+    segment ids (B, S_local) int32; `layer` names the decoder layer in the
+    spans."""
     if layout not in ("contiguous", "zigzag"):
         raise ValueError(f"unknown ring layout: {layout}")
     if layout == "zigzag" and q.shape[1] % 2 != 0:
         raise ValueError("zigzag layout needs an even local sequence length")
     impl = _resolve_impl(impl, q)
-    return _Ring.apply(q, k, v, q_segment_ids, kv_segment_ids, group, causal, impl, layout)
+    return _Ring.apply(q, k, v, q_segment_ids, kv_segment_ids, group, causal, impl, layout,
+                       layer)
 
 
 def expand_kv_heads(k: torch.Tensor, v: torch.Tensor, target_heads: int):
@@ -465,11 +493,12 @@ def ulysses_attention(q, k, v, group, *, causal: bool = True, q_segment_ids=None
 
 def hybrid_attention(q, k, v, ulysses_group, ring_group, *, causal: bool = True,
                      q_segment_ids=None, kv_segment_ids=None, impl: str = "auto",
-                     ring_layout: str = "contiguous") -> torch.Tensor:
+                     ring_layout: str = "contiguous", layer: Optional[int] = None) -> torch.Tensor:
     """MM-SP 2D attention (HybridAttention, hybrid_attn.py:93-190):
     Ulysses inside, the ring outside. Differentiable."""
     qg, kg, vg, q_seg, kv_seg = _ulysses_in(q, k, v, q_segment_ids, kv_segment_ids,
                                             ulysses_group)
     out = ring_flash_attention(qg, kg, vg, ring_group, causal=causal, q_segment_ids=q_seg,
-                               kv_segment_ids=kv_seg, impl=impl, layout=ring_layout)
+                               kv_segment_ids=kv_seg, impl=impl, layout=ring_layout,
+                               layer=layer)
     return _AllToAll.apply(out, ulysses_group, False)

@@ -17,12 +17,20 @@ ring)` before slicing (`zigzag_batch`), so that ring rank r holds global
 chunks (r, 2·ring-1-r) (ring/zigzag_ring_flash_attn_varlen.py:31-63);
 labels are shifted before the permutation, and the loss then takes them
 unshifted.
+
+Media under an active plan (`frame_share`, `gather_media`): each rank of
+the sequence group encodes an even share of its rows' tiles (video
+frames), and the projected features are all-gathered over the group, so
+that every rank splices the features whose positions fall in its slice;
+the gather's backward reduce-scatters, handing each rank the gradient of
+its own tiles (the reference's per-rank image split and re-shard,
+`repack_multimodal_data`, llava_arch.py:557-742).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +41,7 @@ from vila_tpu_torch.parallel.ring_attention import (
     ulysses_attention,
     zigzag_order,
 )
+from vila_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,12 +88,13 @@ class SPConfig:
 
 def sp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sp: SPConfig, *,
                  causal: bool = True, segment_ids: Optional[torch.Tensor] = None,
-                 scale: Optional[float] = None) -> torch.Tensor:
+                 scale: Optional[float] = None, layer: Optional[int] = None) -> torch.Tensor:
     """Sequence-parallel attention over this rank's shard: q (B, S_local,
     Hq_local, D), k / v (B, S_local, Hkv_local, D), segment ids (B,
     S_local); the local heads are the rank's tp chunk or every head (see
     the module's docstring). Differentiable: the ring carries its own
-    backward, the all-to-alls are their own inverses."""
+    backward, the all-to-alls are their own inverses. `layer` names the
+    decoder layer in the ring's spans."""
     if scale is not None and abs(scale - q.shape[-1] ** -0.5) > 1e-12:
         raise ValueError("sp_attention takes the default scale only")
     n_u, n_r = sp.ulysses_degree, sp.ring_degree
@@ -99,10 +109,72 @@ def sp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sp: SPConfig
     mesh = sp.mesh
     if n_u > 1 and n_r > 1:
         return hybrid_attention(q, k, v, mesh.group(sp.ulysses_axis), mesh.group(sp.ring_axis),
-                                ring_layout=layout, **kw)
+                                ring_layout=layout, layer=layer, **kw)
     if n_u > 1:
         return ulysses_attention(q, k, v, mesh.group(sp.ulysses_axis), **kw)
-    return ring_flash_attention(q, k, v, mesh.group(sp.ring_axis), layout=layout, **kw)
+    return ring_flash_attention(q, k, v, mesh.group(sp.ring_axis), layout=layout, layer=layer,
+                                **kw)
+
+
+# --------------------------------------------------------------------------
+# Media split over the sequence group
+# --------------------------------------------------------------------------
+
+
+def frame_share(n_tiles: int, sp: SPConfig) -> Tuple[int, int, int]:
+    """(start, stop, per) of this rank's tiles among `n_tiles`: an even
+    share of `per` = ceil(n_tiles / degree) a rank in the sequence group's
+    order, the last ranks' shares cut short (padded with blank tiles to
+    `per`, whose features no position takes)."""
+    import torch.distributed as dist
+
+    from vila_tpu_torch.parallel.mesh import SEQ
+
+    n = sp.degree
+    per = -(-n_tiles // n)
+    i = dist.get_rank(sp.mesh.group(SEQ))
+    start = min(i * per, n_tiles)
+    return start, min(start + per, n_tiles), per
+
+
+class _GatherMedia(torch.autograd.Function):
+    """Every rank's features concatenated in the group's order; backward:
+    the gradient reduce-scattered (summed) back into this rank's part."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        n = dist.get_world_size(group)
+        out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        n = dist.get_world_size(ctx.group)
+        out = torch.empty((g.shape[0] // n,) + tuple(g.shape[1:]), dtype=g.dtype,
+                          device=g.device)
+        dist.reduce_scatter_tensor(out, g.contiguous(), op=dist.ReduceOp.SUM, group=ctx.group)
+        return out, None
+
+
+def gather_media(feats: torch.Tensor, sp: SPConfig, held: int) -> torch.Tensor:
+    """(degree * per, ...) features of every rank's tile share from this
+    rank's (per, ...), `held` of them real; differentiable. Span:
+    `parallel.media_gather`, with the tiles held and gathered."""
+    from vila_tpu_torch.parallel.mesh import SEQ
+
+    with profiling.annotate("parallel.media_gather") as span:
+        out = _GatherMedia.apply(feats, sp.mesh.group(SEQ))
+        if span:
+            span.set(frames_held=held, frames_gathered=int(out.shape[0]),
+                     bytes=int(out.numel() * out.element_size()))
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -165,14 +165,20 @@ def make_train_step(cfg, params: Dict[str, Any], optimizer: Optimizer,
 
 class _GatherShard(torch.autograd.Function):
     """The whole tensor from every rank's chunk along `dim`; backward: the
-    gradient reduce-scattered (summed) back into the chunk."""
+    gradient reduce-scattered (summed) back into the chunk. Spans:
+    `parallel.zero_gather` and `parallel.zero_scatter`, with the bytes of
+    the whole tensor."""
 
     @staticmethod
     def forward(ctx, shard, dim, group):
         from vila_tpu_torch.parallel.mesh import gather_tensor
 
         ctx.args = (dim, group)
-        return gather_tensor(shard, dim, group)
+        with profiling.annotate("parallel.zero_gather") as span:
+            out = gather_tensor(shard, dim, group)
+            if span:
+                span.set(bytes=out.numel() * out.element_size())
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -182,10 +188,13 @@ class _GatherShard(torch.autograd.Function):
         n = dist.get_world_size(group)
         if n == 1:
             return g, None, None
-        chunks = torch.cat(g.chunk(n, dim), 0).contiguous()  # rank r's part r-th
-        out = torch.empty((chunks.shape[0] // n,) + tuple(chunks.shape[1:]), dtype=g.dtype,
-                          device=g.device)
-        dist.reduce_scatter_tensor(out, chunks, op=dist.ReduceOp.SUM, group=group)
+        with profiling.annotate("parallel.zero_scatter") as span:
+            chunks = torch.cat(g.chunk(n, dim), 0).contiguous()  # rank r's part r-th
+            out = torch.empty((chunks.shape[0] // n,) + tuple(chunks.shape[1:]), dtype=g.dtype,
+                              device=g.device)
+            dist.reduce_scatter_tensor(out, chunks, op=dist.ReduceOp.SUM, group=group)
+            if span:
+                span.set(bytes=chunks.numel() * chunks.element_size())
         return out, None, None
 
 
